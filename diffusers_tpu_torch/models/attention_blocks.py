@@ -1,8 +1,10 @@
-"""Transformer building blocks: FeedForward (GEGLU) and BasicTransformerBlock.
+"""Transformer building blocks: FeedForward (GELU, GEGLU) and
+BasicTransformerBlock.
 
-Port of the SDXL-path classes of `diffusers_tpu/models/attention_blocks.py`
-(`GEGLU` `:48`, `FeedForward` `:103`, `BasicTransformerBlock` `:141`, the
-layer_norm variant). Submodule names (norm1/attn1/norm2/attn2/norm3/
+Port of the SDXL- and Flux-path classes of
+`diffusers_tpu/models/attention_blocks.py` (`GELUProj` `:35`, `GEGLU` `:48`,
+`FeedForward` `:103` with its ``gelu``, ``gelu-approximate`` and ``geglu``
+routes, `BasicTransformerBlock` `:141`, the layer_norm variant). Submodule names (norm1/attn1/norm2/attn2/norm3/
 ff.net.0.proj/ff.net.2) match the reference state-dict keys.
 """
 
@@ -16,6 +18,18 @@ from torch import nn
 
 from ..ops.module import LayerNorm, Linear
 from .attention import Attention
+
+
+class GELUProj(nn.Module):
+    """Linear + GELU (exact, or the tanh approximation)."""
+
+    def __init__(self, dim_in: int, dim_out: int, approximate: str = "none", bias: bool = True):
+        super().__init__()
+        self.proj = Linear(dim_in, dim_out, use_bias=bias)
+        self.approximate = approximate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(self.proj(x), approximate="tanh" if self.approximate == "tanh" else "none")
 
 
 class GEGLU(nn.Module):
@@ -41,12 +55,17 @@ class FeedForward(nn.Module):
         bias: bool = True,
     ):
         super().__init__()
-        if activation_fn != "geglu":
-            raise NotImplementedError(f"activation_fn {activation_fn!r} is not ported yet")
         inner_dim = inner_dim if inner_dim is not None else int(dim * mult)
         dim_out = dim_out if dim_out is not None else dim
+        if activation_fn == "geglu":
+            act = GEGLU(dim, inner_dim, bias=bias)
+        elif activation_fn in ("gelu", "gelu-approximate"):
+            act = GELUProj(dim, inner_dim, approximate="tanh" if activation_fn == "gelu-approximate" else "none",
+                           bias=bias)
+        else:
+            raise NotImplementedError(f"activation_fn {activation_fn!r} is not ported yet")
         # net.0 = act, net.1 = dropout slot (no-op), net.2 = out linear
-        self.net = nn.ModuleList([GEGLU(dim, inner_dim, bias=bias), nn.Identity(), Linear(inner_dim, dim_out, use_bias=bias)])
+        self.net = nn.ModuleList([act, nn.Identity(), Linear(inner_dim, dim_out, use_bias=bias)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net[2](self.net[0](x))

@@ -1,16 +1,21 @@
-"""Timestep and text-time embeddings.
+"""Timestep, text-time, pooled-text and rotary position embeddings.
 
-Port of the SDXL-path classes of `diffusers_tpu/models/embeddings.py`
+Port of the SDXL- and Flux-path classes of `diffusers_tpu/models/embeddings.py`
 (`get_timestep_embedding` `:21`, `Timesteps` `:45`, `TimestepEmbedding` `:66`,
-`AttentionPooling` `:200`, `TextTimeEmbedding` `:242`). The sinusoidal table
-math runs in float32 regardless of parameter dtype.
+`apply_rotary_emb` `:175`, `AttentionPooling` `:200`, `TextTimeEmbedding`
+`:242`, `PixArtAlphaTextProjection` `:260`, `CombinedTimestepTextProjEmbeddings`
+`:282`, `CombinedTimestepGuidanceTextProjEmbeddings` `:298`,
+`get_1d_rotary_pos_embed_np` `:318`, `FluxPosEmbed` `:353`). The sinusoidal
+table math runs in float32 regardless of parameter dtype; the RoPE tables are
+computed on the host in float64, as in JAX (and the reference).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -140,3 +145,115 @@ class TextTimeEmbedding(nn.Module):
         hidden_states = self.pool(hidden_states)
         hidden_states = self.proj(hidden_states)
         return self.norm2(hidden_states)
+
+
+def apply_rotary_emb(x: torch.Tensor, freqs_cos: torch.Tensor, freqs_sin: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved pairs of x ([B, S, H, D] with freqs [S, D], or any
+    x whose trailing axes the freqs broadcast against). bf16 inputs rotate in
+    bf16, as in JAX (the result feeds the bf16 attention kernel); f32 stays
+    f32."""
+    dt = torch.float32 if x.dtype == torch.float32 else x.dtype
+    x_f = x.to(dt)
+    x1, x2 = x_f.reshape(*x.shape[:-1], -1, 2).unbind(-1)
+    x_rot = torch.stack([-x2, x1], dim=-1).reshape(x.shape)
+    if x.ndim == 4 and freqs_cos.ndim == 2:  # x: [B, S, H, D], freqs: [S, D]
+        freqs_cos, freqs_sin = freqs_cos[None, :, None, :], freqs_sin[None, :, None, :]
+    else:
+        while freqs_cos.ndim < x.ndim:
+            freqs_cos, freqs_sin = freqs_cos[None], freqs_sin[None]
+    out = x_f * freqs_cos.to(dt) + x_rot * freqs_sin.to(dt)
+    return out.to(x.dtype)
+
+
+class PixArtAlphaTextProjection(nn.Module):
+    """Pooled-text MLP projection: linear_1 -> activation -> linear_2."""
+
+    def __init__(self, in_features: int, hidden_size: int, out_features: Optional[int] = None,
+                 act_fn: str = "gelu_tanh"):
+        super().__init__()
+        if act_fn not in ("gelu_tanh", "silu", "silu_fp32"):
+            raise ValueError(f"unknown activation {act_fn}")
+        self.linear_1 = Linear(in_features, hidden_size, use_bias=True)
+        self.act_fn = act_fn
+        self.linear_2 = Linear(hidden_size, out_features or hidden_size, use_bias=True)
+
+    def forward(self, caption: torch.Tensor) -> torch.Tensor:
+        x = self.linear_1(caption)
+        if self.act_fn == "gelu_tanh":
+            x = F.gelu(x, approximate="tanh")
+        elif self.act_fn == "silu":
+            x = F.silu(x)
+        else:
+            x = F.silu(x.float()).to(x.dtype)
+        return self.linear_2(x)
+
+
+class CombinedTimestepTextProjEmbeddings(nn.Module):
+    """Timestep-sinusoid MLP + pooled-text MLP, summed (the SD3/Flux temb)."""
+
+    def __init__(self, embedding_dim: int, pooled_projection_dim: int):
+        super().__init__()
+        self.time_proj = Timesteps(num_channels=256, flip_sin_to_cos=True, downscale_freq_shift=0)
+        self.timestep_embedder = TimestepEmbedding(in_channels=256, time_embed_dim=embedding_dim)
+        self.text_embedder = PixArtAlphaTextProjection(pooled_projection_dim, embedding_dim, act_fn="silu")
+
+    def forward(self, timestep: torch.Tensor, pooled_projection: torch.Tensor) -> torch.Tensor:
+        t_emb = self.timestep_embedder(self.time_proj(timestep).to(pooled_projection.dtype))
+        return t_emb + self.text_embedder(pooled_projection)
+
+
+class CombinedTimestepGuidanceTextProjEmbeddings(nn.Module):
+    """The guidance-distilled (Flux-dev) variant: + a guidance embedding."""
+
+    def __init__(self, embedding_dim: int, pooled_projection_dim: int):
+        super().__init__()
+        self.time_proj = Timesteps(num_channels=256, flip_sin_to_cos=True, downscale_freq_shift=0)
+        self.timestep_embedder = TimestepEmbedding(in_channels=256, time_embed_dim=embedding_dim)
+        self.guidance_embedder = TimestepEmbedding(in_channels=256, time_embed_dim=embedding_dim)
+        self.text_embedder = PixArtAlphaTextProjection(pooled_projection_dim, embedding_dim, act_fn="silu")
+
+    def forward(self, timestep: torch.Tensor, guidance: torch.Tensor, pooled_projection: torch.Tensor) -> torch.Tensor:
+        t_emb = self.timestep_embedder(self.time_proj(timestep).to(pooled_projection.dtype))
+        g_emb = self.guidance_embedder(self.time_proj(guidance).to(pooled_projection.dtype))
+        return t_emb + g_emb + self.text_embedder(pooled_projection)
+
+
+def get_1d_rotary_pos_embed_np(
+    dim: int,
+    pos: np.ndarray,
+    theta: float = 10000.0,
+    repeat_interleave_real: bool = True,
+    freqs_dtype=np.float64,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side (numpy, float64) 1D RoPE table, cast to float32: cos and sin
+    [S, dim], each frequency repeated for its pair."""
+    assert dim % 2 == 0
+    freqs = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=freqs_dtype) / dim))
+    freqs = np.outer(np.asarray(pos, dtype=freqs_dtype), freqs)  # [S, D/2]
+    if repeat_interleave_real:
+        cos = np.repeat(np.cos(freqs), 2, axis=1).astype(np.float32)
+        sin = np.repeat(np.sin(freqs), 2, axis=1).astype(np.float32)
+    else:
+        cos = np.concatenate([np.cos(freqs), np.cos(freqs)], axis=-1).astype(np.float32)
+        sin = np.concatenate([np.sin(freqs), np.sin(freqs)], axis=-1).astype(np.float32)
+    return cos, sin
+
+
+class FluxPosEmbed(nn.Module):
+    """Multi-axis RoPE over packed (text + image) position ids [S, n_axes]:
+    one float64 host table per axis, concatenated. Returns float32 (cos, sin)
+    [S, sum(axes_dim)] on the ids' device (the CPU for numpy ids)."""
+
+    def __init__(self, theta: int, axes_dim: Sequence[int]):
+        super().__init__()
+        self.theta = theta
+        self.axes_dim = list(axes_dim)
+
+    def forward(self, ids: Union[np.ndarray, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        device = ids.device if isinstance(ids, torch.Tensor) else torch.device("cpu")
+        ids = ids.detach().cpu().numpy() if isinstance(ids, torch.Tensor) else np.asarray(ids)
+        tables = [get_1d_rotary_pos_embed_np(self.axes_dim[i], ids[:, i], theta=self.theta)
+                  for i in range(ids.shape[-1])]
+        cos = np.concatenate([c for c, _ in tables], axis=-1)
+        sin = np.concatenate([s for _, s in tables], axis=-1)
+        return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)

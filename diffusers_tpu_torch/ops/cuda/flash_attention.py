@@ -6,10 +6,10 @@ Port of the forward half of `diffusers_tpu/ops/pallas/flash_attention_bwd.py`
 with its design note (what bounds it on an H100 and what the design does about
 it), is `diffusers_tpu_torch/csrc/flash_attention_fwd.cu`.
 
-Build and binding: `nvcc -gencode arch=compute_90a,code=sm_90a` compiles the
-source into a shared library with a plain C interface under the repository's
-`build/` directory on first use, keyed by a hash of the source and flags;
-`ctypes` loads it with `argtypes` declared for every argument. The kernel
+Build and binding (`_build.py`): `nvcc -gencode arch=compute_90a,code=sm_90a`
+compiles the source into a shared library with a plain C interface under the
+repository's `build/` directory on first use, keyed by a hash of the source
+and flags; `ctypes` loads it with `argtypes` declared for every argument. The kernel
 launches on PyTorch's current stream and allocates nothing; the wrapper
 allocates the outputs and raises on a non-zero `cudaError_t`.
 
@@ -23,24 +23,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional
 
 import torch
+
+from . import _build
 
 NEG_INF = -1e30  # the JAX kernel's masked logit: finite, so no inf - inf
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "flash_attention_fwd.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _build.CSRC / "flash_attention_fwd.cu"
 
 
 def flash_attention_plain(
@@ -74,35 +68,11 @@ def flash_attention_plain(
     return out
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    candidates = [shutil.which("nvcc")]
-    if CUDA_HOME:
-        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
-    for path in candidates:
-        if path and os.path.isfile(path):
-            return path
-    raise RuntimeError("nvcc not found: the flash-attention kernel builds from source with the CUDA toolkit")
-
-
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (first use, or after the source changed) and load the kernel's
     shared library. A compile error raises with nvcc's output."""
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"libflash_attention_fwd-{digest}.so"
-    if not lib_path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr[-8000:]}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = _build.load(SOURCE)
     fn = lib.flash_attention_fwd
     fn.argtypes = (
         [ctypes.c_void_p] * 6  # q, k, v, mask, out, lse
@@ -112,13 +82,6 @@ def load_library() -> ctypes.CDLL:
     )
     fn.restype = ctypes.c_int
     return lib
-
-
-def build_log() -> str:
-    """nvcc's output (with `-Xptxas -v`: registers, shared memory, spills) for
-    the current source, once `load_library` has built it."""
-    logs = sorted(_BUILD_DIR.glob("libflash_attention_fwd-*.log"), key=lambda p: p.stat().st_mtime)
-    return logs[-1].read_text() if logs else ""
 
 
 def kernel_supports(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor) -> bool:
@@ -196,3 +159,21 @@ def flash_attention_full(
 
 
 flash_attention_full.launches = 0
+
+
+def flash_attention(
+    query: torch.Tensor,  # [B, Sq, H, D]
+    key: torch.Tensor,  # [B, Sk, H, D]
+    value: torch.Tensor,
+    scale: Optional[float] = None,
+    is_causal: bool = False,
+) -> torch.Tensor:
+    """Forward-only flash attention (BSHD), the counterpart of
+    `diffusers_tpu/ops/pallas/flash_attention.py:125` (TPU kernel
+    `_flash_kernel`, K6). K1's kernel computes the same function, so a CUDA
+    tensor launches it (counted in `flash_attention_full.launches`) and a CPU
+    tensor takes its plain version. Causal is top-left aligned (``row >=
+    col``), as `_flash_kernel`; JAX sends the lengths its kernel does not
+    tile to its native backend, whose causal mask is bottom-right aligned, so
+    the two differ for causal with Sq != Sk."""
+    return flash_attention_full(query, key, value, scale=scale, is_causal=is_causal)

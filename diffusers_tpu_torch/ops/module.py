@@ -1,7 +1,8 @@
 """Leaf layers as torch modules in torch layouts.
 
-Port of `diffusers_tpu/ops/module.py` (`Linear`, `Conv2d`, `GroupNorm`
-`:476-510`, `LayerNorm`, `Embedding`, `get_activation`). The JAX package keeps
+Port of `diffusers_tpu/ops/module.py` (`Linear` with its w8a8 branch
+`:145-150`, `Conv2d`, `GroupNorm` `:476-510`, `LayerNorm`, `RMSNorm`
+`:542-567`, `Embedding`, `get_activation`). The JAX package keeps
 parameters in an external pytree in TPU layouts (``kernel`` [in, out], HWIO,
 ``scale``); here they live on the modules under torch's names and layouts
 (``weight`` [out, in], OIHW), so `state_dict()` keys equal upstream diffusers'
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .cuda.w8a8_matmul import w8a8_matmul
 from .triton.group_norm import group_norm
 
 
@@ -27,6 +29,36 @@ class Linear(nn.Linear):
 
     def __init__(self, in_features: int, out_features: int, use_bias: bool = True):
         super().__init__(in_features, out_features, bias=use_bias)
+
+
+class W8A8Linear(nn.Module):
+    """The w8a8 branch of `Linear` (JAX params ``kernel`` int8 [in, out] +
+    ``kernel_scale_w8a8``): an int8 ``weight`` [out, in] with a per-out-channel
+    f32 ``weight_scale`` buffer, and x quantized per row at run time. CUDA
+    tensors run kernel K5 (`ops/cuda/w8a8_matmul.py`); CPU tensors its plain
+    version. A dtype cast of the module (``.to(torch.bfloat16)``) casts the
+    bias and leaves the int8 weight and the f32 scale as they are."""
+
+    def __init__(self, in_features: int, out_features: int, use_bias: bool = True):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features, dtype=torch.int8), requires_grad=False)
+        self.register_buffer("weight_scale", torch.ones(out_features, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return w8a8_matmul(x, self.weight, self.weight_scale, self.bias)
+
+    def _apply(self, fn, recurse=True):
+        scale = self.weight_scale
+        super()._apply(fn, recurse)
+        if self.weight_scale.dtype != torch.float32:  # a dtype cast: keep the f32 epilogue scale exact
+            self.weight_scale = scale.to(device=self.weight_scale.device)
+        return self
+
+    def extra_repr(self) -> str:
+        return f"in_features={self.in_features}, out_features={self.out_features}, bias={self.bias is not None}"
 
 
 class Conv2d(nn.Conv2d):
@@ -68,6 +100,32 @@ class LayerNorm(nn.LayerNorm):
         if use_bias and not use_scale:
             raise ValueError("LayerNorm with a bias but no scale has no torch counterpart")
         super().__init__(dim, eps=eps, elementwise_affine=use_scale, bias=use_bias)
+
+
+class RMSNorm(nn.Module):
+    """x * rsqrt(mean(x^2) + eps) * weight (+ bias) over the last axis, in f32,
+    cast back to x's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, use_scale: bool = True, use_bias: bool = False):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim)) if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+
+    def reset_parameters(self) -> None:
+        if self.weight is not None:
+            nn.init.ones_(self.weight)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)
+        if self.weight is not None:
+            xf = xf * self.weight.float()
+        if self.bias is not None:
+            xf = xf + self.bias.float()
+        return xf.to(x.dtype)
 
 
 class Embedding(nn.Embedding):

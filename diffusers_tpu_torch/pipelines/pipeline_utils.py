@@ -3,13 +3,16 @@
 Port of the container part of `diffusers_tpu/pipelines/pipeline_utils.py`
 (`register_modules`, config, `components`). JAX pipelines hold
 ``(module, params)`` pairs; here a weight-bearing component is one
-`nn.Module`, and `.to(device, dtype)` moves them all. `from_pretrained`,
+`nn.Module`, and `.to(device, dtype)` moves them all. A pipeline runs on the
+card unless its caller asks for the CPU: every pipeline takes ``device``
+(default ``"cuda"``) and moves its components there when it is built, and it
+raises there if no CUDA device is visible. `from_pretrained`,
 `save_pretrained`, LoRA and the cache hooks wait.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -42,6 +45,16 @@ class DiffusionPipeline(ConfigMixin):
     @property
     def components(self) -> Dict[str, Any]:
         return {k: getattr(self, k) for k in self.config.keys() if not k.startswith("_")}
+
+    def _place(self, device: Union[str, torch.device]) -> None:
+        """Move the components to `device` at construction; a CUDA device
+        with no card visible raises (pass ``device="cpu"`` to run on the CPU)."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{type(self).__name__}: no CUDA device is visible; pass device='cpu' to run this pipeline on the CPU"
+            )
+        self.to(device=device)
 
     def to(self, device: Optional[torch.device] = None, dtype: Optional[torch.dtype] = None):
         """Move every `nn.Module` component to `device` and/or `dtype`."""

@@ -6,7 +6,8 @@ from encoder 2, micro-conditioning time_ids, CFG as batch 2. Where JAX
 compiles prep + denoise + decode into one jitted `lax.scan`, the port runs an
 eager Python loop over the timesteps.
 
-Latents run in the UNet's dtype: noise is drawn in float32 (from
+The pipeline is built on ``device`` (default ``"cuda"``; see
+`DiffusionPipeline._place`). Latents run in the UNet's dtype: noise is drawn in float32 (from
 `generator`), cast to the UNet's dtype, and the scheduler casts every step's
 `prev_sample` back to it. Callbacks, IP-Adapter, the FasterCache/TaylorSeer
 caches and `from_pretrained` wait.
@@ -41,6 +42,7 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
         unet,
         scheduler,
         force_zeros_for_empty_prompt: bool = True,
+        device: Union[str, torch.device] = "cuda",
     ):
         super().__init__()
         self.register_modules(
@@ -55,6 +57,7 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
         self.register_to_config(force_zeros_for_empty_prompt=force_zeros_for_empty_prompt)
         self.vae_scale_factor = 2 ** (len(self.vae.config.block_out_channels) - 1) if vae is not None else 8
         self.default_sample_size = self.unet.config.sample_size
+        self._place(device)
 
     # ---------------------------------------------------------------- text
     @torch.no_grad()

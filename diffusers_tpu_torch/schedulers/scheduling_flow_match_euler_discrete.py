@@ -1,0 +1,168 @@
+"""Flow-matching Euler sampler (rectified flow; the Flux/SD3 scheduler).
+
+Port of `diffusers_tpu/schedulers/scheduling_flow_match_euler_discrete.py`:
+static shift, dynamic (mu) time shifting, the shift-terminal stretch, and the
+Euler step ``x <- x + (sigma_next - sigma) v``. The sigma and timestep tables
+are built in numpy on the host exactly as in JAX (float32 with float64
+inputs) and kept as float32 host tensors; only `step` runs in torch, in
+float32, casting `prev_sample` to the model output's dtype. The Karras /
+exponential / beta ladders, stochastic sampling, per-token timesteps and
+`scale_noise` wait for the pipelines that use them.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..configuration_utils import ConfigMixin, register_to_config
+from ..utils import BaseOutput
+from .scheduling_utils import SchedulerMixin, index_for_timestep
+
+
+@dataclass
+class FlowMatchEulerDiscreteSchedulerState:
+    timesteps: torch.Tensor  # float32 [S], host
+    sigmas: torch.Tensor  # float32 [S+1], host
+    init_noise_sigma: float = 1.0
+    num_inference_steps: Optional[int] = None
+
+
+@dataclass
+class FlowMatchEulerDiscreteSchedulerOutput(BaseOutput):
+    prev_sample: torch.Tensor
+    state: Optional[FlowMatchEulerDiscreteSchedulerState] = None
+
+
+class FlowMatchEulerDiscreteScheduler(SchedulerMixin, ConfigMixin):
+    """Euler sampler for rectified-flow models."""
+
+    _compatibles = []
+    order = 1
+
+    @register_to_config
+    def __init__(
+        self,
+        num_train_timesteps: int = 1000,
+        shift: float = 1.0,
+        use_dynamic_shifting: bool = False,
+        base_shift: Optional[float] = 0.5,
+        max_shift: Optional[float] = 1.15,
+        base_image_seq_len: int = 256,
+        max_image_seq_len: int = 4096,
+        invert_sigmas: bool = False,
+        shift_terminal: Optional[float] = None,
+        use_karras_sigmas: bool = False,
+        use_exponential_sigmas: bool = False,
+        use_beta_sigmas: bool = False,
+        time_shift_type: str = "exponential",
+        stochastic_sampling: bool = False,
+    ):
+        if use_karras_sigmas or use_exponential_sigmas or use_beta_sigmas:
+            raise NotImplementedError("Karras/exponential/beta sigma ladders are not ported yet")
+        if stochastic_sampling:
+            raise NotImplementedError("stochastic sampling is not ported yet")
+        if time_shift_type not in ("exponential", "linear"):
+            raise ValueError("`time_shift_type` must be 'exponential' or 'linear'.")
+        timesteps = np.linspace(1, num_train_timesteps, num_train_timesteps, dtype=np.float32)[::-1].copy()
+        sigmas = timesteps / num_train_timesteps
+        if not use_dynamic_shifting:
+            sigmas = shift * sigmas / (1 + (shift - 1) * sigmas)
+        self.sigma_min = float(sigmas[-1])
+        self.sigma_max = float(sigmas[0])
+
+    def time_shift(self, mu: float, sigma: float, t: np.ndarray) -> np.ndarray:
+        if self.config.time_shift_type == "exponential":
+            return math.exp(mu) / (math.exp(mu) + (1 / t - 1) ** sigma)
+        return mu / (mu + (1 / t - 1) ** sigma)
+
+    def stretch_shift_to_terminal(self, t: np.ndarray) -> np.ndarray:
+        one_minus_z = 1 - t
+        scale_factor = one_minus_z[-1] / (1 - self.config.shift_terminal)
+        return 1 - (one_minus_z / scale_factor)
+
+    def set_timesteps(
+        self,
+        num_inference_steps: Optional[int] = None,
+        sigmas: Optional[List[float]] = None,
+        mu: Optional[float] = None,
+        timesteps: Optional[List[float]] = None,
+    ) -> FlowMatchEulerDiscreteSchedulerState:
+        if self.config.use_dynamic_shifting and mu is None:
+            raise ValueError("`mu` must be passed when `use_dynamic_shifting` is True")
+        if sigmas is not None and timesteps is not None and len(sigmas) != len(timesteps):
+            raise ValueError("`sigmas` and `timesteps` should have the same length")
+        if num_inference_steps is None:
+            num_inference_steps = len(sigmas) if sigmas is not None else len(timesteps)
+
+        if sigmas is None:
+            if timesteps is None:
+                n = self.config.num_train_timesteps
+                timesteps = np.linspace(self.sigma_max * n, self.sigma_min * n, num_inference_steps)
+            else:
+                timesteps = np.array(timesteps).astype(np.float32)
+            sigmas = timesteps / self.config.num_train_timesteps
+        else:
+            sigmas = np.array(sigmas).astype(np.float32)
+            num_inference_steps = len(sigmas)
+
+        if self.config.use_dynamic_shifting:
+            sigmas = self.time_shift(mu, 1.0, sigmas)
+        else:
+            sigmas = self.config.shift * sigmas / (1 + (self.config.shift - 1) * sigmas)
+        if self.config.shift_terminal:
+            sigmas = self.stretch_shift_to_terminal(sigmas)
+
+        sigmas = np.asarray(sigmas, dtype=np.float32)
+        timesteps = sigmas * self.config.num_train_timesteps
+        if self.config.invert_sigmas:
+            sigmas = 1.0 - sigmas
+            timesteps = sigmas * self.config.num_train_timesteps
+            sigmas = np.concatenate([sigmas, [1.0]]).astype(np.float32)
+        else:
+            sigmas = np.concatenate([sigmas, [0.0]]).astype(np.float32)
+
+        return FlowMatchEulerDiscreteSchedulerState(
+            timesteps=torch.from_numpy(np.asarray(timesteps, dtype=np.float32)),
+            sigmas=torch.from_numpy(sigmas),
+            init_noise_sigma=1.0,
+            num_inference_steps=num_inference_steps,
+        )
+
+    def scale_model_input(self, state, sample: torch.Tensor, timestep=None) -> torch.Tensor:
+        return sample
+
+    def step(
+        self,
+        state: FlowMatchEulerDiscreteSchedulerState,
+        model_output: torch.Tensor,
+        timestep,
+        sample: torch.Tensor,
+        return_dict: bool = True,
+    ):
+        idx = index_for_timestep(state.timesteps, timestep)
+        dt = float(state.sigmas[idx + 1] - state.sigmas[idx])  # f32 difference, as in JAX
+        prev_sample = (sample.float() + dt * model_output.float()).to(model_output.dtype)
+        if not return_dict:
+            return (prev_sample,)
+        return FlowMatchEulerDiscreteSchedulerOutput(prev_sample=prev_sample, state=state)
+
+    def __len__(self):
+        return self.config.num_train_timesteps
+
+
+def calculate_shift(
+    image_seq_len: int,
+    base_seq_len: int = 256,
+    max_seq_len: int = 4096,
+    base_shift: float = 0.5,
+    max_shift: float = 1.15,
+) -> float:
+    """Resolution-dependent mu for dynamic time shifting."""
+    m = (max_shift - base_shift) / (max_seq_len - base_seq_len)
+    b = base_shift - m * base_seq_len
+    return image_seq_len * m + b

@@ -8,17 +8,27 @@ they skip, deciding at run time in the `cuda` fixture. On the card:
 Tolerances are stated per test. Attention is held element by element to
 `chip_smoke.attention_bounds` (the output's rounding plus P's rounding to the
 input dtype before P.v); GroupNorm to one ulp at the reference's largest
-magnitude.
+magnitude; the w8a8 matmul to one bf16 ulp per element (its int32 sums are
+exact on both sides, so it is in fact bit-equal) and its row quantization to
+bit equality.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import attention_bounds
+from chip_smoke import FLUX_W8A8_SHAPES, attention_bounds, bf16_ulp
 from diffusers_tpu_torch.ops.attention import _auto_backend, dispatch_attention_fn
-from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full, flash_attention_plain
+from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_attention_full, flash_attention_plain
+from diffusers_tpu_torch.ops.cuda.w8a8_matmul import (
+    quantize_rows,
+    quantize_rows_plain,
+    w8a8_matmul,
+    w8a8_matmul_2d,
+    w8a8_matmul_2d_plain,
+)
 from diffusers_tpu_torch.ops.triton.group_norm import group_norm, group_norm_plain
+from diffusers_tpu_torch.quantizers import quantize_kernel_int8
 
 pytestmark = pytest.mark.gpu
 
@@ -140,3 +150,69 @@ def test_small_pipeline_on_card_matches_cpu(cuda):
 
     chip_smoke.check_small_reference("cuda")
     assert np.isfinite(chip_smoke.RESULTS["small_reference"]["max_abs_err"])
+
+
+def test_flash_attention_k6_runs_k1(cuda):
+    """The forward-only `flash_attention` (K6's counterpart) launches K1."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (_randn(gen, (1, 512, 2, 128), torch.bfloat16, cuda) for _ in range(3))
+    before = flash_attention_full.launches
+    out = flash_attention(q, k, v, scale=0.2, is_causal=True)
+    assert flash_attention_full.launches == before + 1
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), scale=0.2, is_causal=True)
+    pv = flash_attention_plain(q.float(), k.float(), v.float().abs(), scale=0.2, is_causal=True)
+    assert bool(((out.float() - ref).abs() <= (2.0**-8 + 2.0**-14) * (ref.abs() + pv)).all())
+
+
+@pytest.mark.parametrize("m,k,n", [s[:3] for s in FLUX_W8A8_SHAPES] + [(37, 256, 384), (130, 128, 128)])
+def test_w8a8_kernels_match_plain_at_flux_shapes(cuda, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = _randn(gen, (m, k), torch.bfloat16, cuda, scale=2.0)
+    qw, ws = quantize_kernel_int8(_randn(gen, (n, k), torch.float32, cuda) / k**0.5)
+    bias = _randn(gen, (n,), torch.bfloat16, cuda, scale=0.1)
+    before = (quantize_rows.launches, w8a8_matmul_2d.launches)
+    qx, xs = quantize_rows(x)
+    qx_p, xs_p = quantize_rows_plain(x)
+    assert torch.equal(qx, qx_p) and torch.equal(xs, xs_p)
+    y = w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias)
+    ref = w8a8_matmul_2d_plain(qx, qw, xs, ws, torch.bfloat16, bias)
+    torch.cuda.synchronize()
+    assert (quantize_rows.launches, w8a8_matmul_2d.launches) == (before[0] + 1, before[1] + 1)
+    assert y.dtype == torch.bfloat16 and y.shape == (m, n)
+    assert bool(((y.float() - ref.float()).abs() <= bf16_ulp(ref)).all())
+    # control: one 64-wide K tile left out breaks the limit
+    skipped = w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias, _skip_k_tile=(k // 64) // 2)
+    assert not bool(((skipped.float() - ref.float()).abs() <= bf16_ulp(ref)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_w8a8_matmul_other_dtypes_and_batched(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = _randn(gen, (2, 19, 384), dtype, cuda)
+    qw, ws = quantize_kernel_int8(_randn(gen, (256, 384), torch.float32, cuda))
+    bias = _randn(gen, (256,), dtype, cuda)
+    y = w8a8_matmul(x, qw, ws, bias)
+    qx, xs = quantize_rows_plain(x.reshape(-1, 384))
+    ref = w8a8_matmul_2d_plain(qx, qw, xs, ws, dtype, bias).reshape(2, 19, 256)
+    assert y.dtype == dtype and y.shape == (2, 19, 256)
+    torch.testing.assert_close(y, ref, rtol=0, atol=0)
+
+
+def test_w8a8_kernels_refuse_what_they_do_not_take(cuda):
+    qw = torch.zeros(256, 384, dtype=torch.int8, device=cuda)
+    ws = torch.ones(256, device=cuda)
+    qx = torch.zeros(4, 384, dtype=torch.int8, device=cuda)
+    xs = torch.ones(4, 1, device=cuda)
+    with pytest.raises(ValueError, match="sm_90a"):
+        w8a8_matmul_2d(qx, qw, xs, ws.half(), torch.bfloat16)  # f16 scale
+    with pytest.raises(ValueError, match="sm_90a"):
+        w8a8_matmul_2d(qx[:, :200], qw[:, :200], xs, ws, torch.bfloat16)  # K not a multiple of 128
+    with pytest.raises(ValueError, match="sm_90a"):
+        quantize_rows(torch.zeros(4, 256, device=cuda)[:, :128])  # rows not contiguous
+
+
+def test_small_flux_pipeline_on_card_matches_cpu(cuda):
+    import chip_smoke
+
+    chip_smoke.check_small_flux_reference("cuda")
+    assert np.isfinite(chip_smoke.RESULTS["small_flux_reference"]["max_abs_err"])

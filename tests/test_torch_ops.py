@@ -233,9 +233,13 @@ def test_dispatch_on_cpu_picks_native_and_matches_jax_native(case):
 
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "import diffusers_tpu_torch\n"
-        "import diffusers_tpu_torch.pipelines.stable_diffusion_xl.pipeline_stable_diffusion_xl\n"
+        "names = [m.name for m in pkgutil.walk_packages(diffusers_tpu_torch.__path__, 'diffusers_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'diffusers_tpu_torch.pipelines.flux.pipeline_flux' in names, names\n"
+        "assert 'diffusers_tpu_torch.ops.cuda.w8a8_matmul' in names, names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'diffusers_tpu')]\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"

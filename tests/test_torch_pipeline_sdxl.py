@@ -100,7 +100,7 @@ def _pipelines():
     )
     tpipe = StableDiffusionXLPipeline(
         tokenizer=CRCTokenizer(), tokenizer_2=CRCTokenizer(), scheduler=EulerDiscreteScheduler(**EULER),
-        **torch_parts,
+        device="cpu", **torch_parts,
     )
     return jpipe, tpipe
 

@@ -100,3 +100,51 @@ def test_scheduler_config_save_and_load(tmp_path):
     loaded = EulerDiscreteScheduler.from_config(EulerDiscreteScheduler.load_config(tmp_path))
     assert loaded.config.timestep_spacing == "leading" and loaded.config.steps_offset == 1
     np.testing.assert_array_equal(loaded.set_timesteps(STEPS).sigmas.numpy(), sched.set_timesteps(STEPS).sigmas.numpy())
+
+
+# ------------------------------------------------------- flow-match Euler
+
+from diffusers_tpu.schedulers.scheduling_flow_match_euler_discrete import (  # noqa: E402
+    FlowMatchEulerDiscreteScheduler as JaxFlowMatch,
+)
+from diffusers_tpu.schedulers.scheduling_flow_match_euler_discrete import calculate_shift as jax_calculate_shift  # noqa: E402
+from diffusers_tpu_torch.schedulers import FlowMatchEulerDiscreteScheduler  # noqa: E402
+from diffusers_tpu_torch.schedulers.scheduling_flow_match_euler_discrete import calculate_shift  # noqa: E402
+
+FLUX_FLOW_MATCH = dict(use_dynamic_shifting=True, base_shift=0.5, max_shift=1.15, shift=3.0)
+
+
+@pytest.mark.parametrize(
+    "cfg,image_seq_len",
+    [
+        (FLUX_FLOW_MATCH, 4096),  # Flux.1-dev at 1024 px (bench.py:294-296)
+        (FLUX_FLOW_MATCH, 16),
+        (dict(shift=3.0), None),  # SD3-style static shift
+        (dict(shift=1.0, shift_terminal=0.1), None),
+        (dict(shift=3.0, invert_sigmas=True), None),
+    ],
+    ids=["flux-dev-1024", "flux-dev-tiny", "static-shift", "shift-terminal", "inverted"],
+)
+def test_flow_match_full_loop_matches_jax(cfg, image_seq_len):
+    """Tables with the pipeline's mu (exact: the same numpy code) and a
+    28-step loop on the same model outputs (float32 step, `1e-6`)."""
+    steps = 28
+    jsched, tsched = JaxFlowMatch(**cfg), FlowMatchEulerDiscreteScheduler(**cfg)
+    if image_seq_len is not None:
+        mu = calculate_shift(image_seq_len)
+        assert mu == jax_calculate_shift(image_seq_len)
+        sigmas = list(np.linspace(1.0, 1.0 / steps, steps))
+        jstate, tstate = jsched.set_timesteps(sigmas=sigmas, mu=mu), tsched.set_timesteps(sigmas=sigmas, mu=mu)
+    else:
+        jstate, tstate = jsched.set_timesteps(steps), tsched.set_timesteps(steps)
+    np.testing.assert_array_equal(tstate.timesteps.numpy(), np.asarray(jstate.timesteps))
+    np.testing.assert_array_equal(tstate.sigmas.numpy(), np.asarray(jstate.sigmas))
+
+    rng = np.random.RandomState(0)
+    sample = rng.randn(1, 16, 64).astype(np.float32)
+    jsample, tsample = jnp.asarray(sample), torch.from_numpy(sample)
+    for i, t in enumerate(tstate.timesteps):
+        out = rng.randn(1, 16, 64).astype(np.float32)
+        jsample = jsched.step(jstate, jnp.asarray(out), jstate.timesteps[i], jsample).prev_sample
+        tsample = tsched.step(tstate, torch.from_numpy(out), t, tsample).prev_sample
+        np.testing.assert_allclose(tsample.numpy(), np.asarray(jsample), rtol=1e-6, atol=1e-6, err_msg=f"step {i}")

@@ -1,21 +1,24 @@
-"""Where the port's SDXL main path spends device time, on one CUDA card.
+"""Where the port's main paths (SDXL, Flux.1-dev) spend device time, on one
+CUDA card.
 
-    python3 tools/profile_sdxl.py [--out DIR]
+    python3 tools/profile_sdxl.py [--model sdxl|flux] [--out DIR]
 
-Builds the full-width SDXL pipeline of `chip_smoke.py` (random bf16 weights
-from a seed, made on the card), warms it up with one 1024 px request, then:
+Builds the full-width pipeline of `chip_smoke.py` (random weights from a
+seed, made on the card: SDXL bf16; Flux.1-dev with the w8a8 transformer),
+warms it up with one 1024 px request, then:
 
-  * times one UNet forward at b=2 (one CFG step) with CUDA events, profiler
-    off (mean of 10);
-  * traces one UNet forward with `torch.profiler` (CPU + CUDA activities) and
-    sums device time by kernel group;
-  * times one request (30 steps, CFG 5.0) on the host clock, profiler off,
-    then traces one.
+  * times one denoiser forward (the SDXL UNet at b=2, one CFG step; the Flux
+    transformer at the request's shapes) with CUDA events, profiler off (mean
+    of 10, or 3 for Flux);
+  * traces one such forward with `torch.profiler` (CPU + CUDA activities)
+    and sums device time by kernel group;
+  * times one request (SDXL: 30 steps, CFG 5.0; Flux: 28 steps, guidance
+    3.5) on the host clock, profiler off, then traces one.
 
 Device idle share of a forward = 1 - (union of its device intervals) / (its
 unprofiled CUDA-event time): the profiler slows the host, not the kernels.
 Prints one table per trace; with `--out DIR` also writes
-`DIR/profile_sdxl.json`. Exits non-zero when no CUDA device is visible or
+`DIR/profile_<model>.json`. Exits non-zero when no CUDA device is visible or
 when the trace holds no device activity.
 """
 
@@ -34,6 +37,8 @@ import chip_smoke  # noqa: E402  (the repository root is on the path from here)
 # kernel-name substrings per group, checked in order (cuDNN's implicit-GEMM
 # convolutions carry "gemm" in their names, so convolutions come first)
 GROUPS = (
+    ("K5 w8a8_matmul", ("w8a8_gemm_kernel",)),
+    ("K5 quantize_rows", ("quantize_rows_kernel",)),
     ("K1 flash_attention_fwd", ("flash_fwd_kernel",)),
     ("K4 group_norm", ("group_norm_kernel",)),
     ("convolution (cuDNN)", ("cudnn", "conv", "fprop", "nchwToNhwc", "nhwcToNchw")),
@@ -94,18 +99,49 @@ def print_summary(title: str, s: dict) -> None:
         chip_smoke.log(f"[profile]   {ms:9.2f} ms  {name[:110]}")
 
 
+def _sdxl(torch):
+    """The SDXL pipeline, its request, and one UNet forward at b=2."""
+    pipe = chip_smoke._build_pipeline(chip_smoke.SDXL_UNET, chip_smoke.SDXL_VAE, chip_smoke.CLIP_L,
+                                      chip_smoke.CLIP_BIGG, "cuda", torch.bfloat16)
+    request = dict(prompt=chip_smoke.PROMPTS[0], height=chip_smoke.RESOLUTION, width=chip_smoke.RESOLUTION,
+                   num_inference_steps=chip_smoke.STEPS, guidance_scale=chip_smoke.GUIDANCE, output_type="np")
+    dev = torch.device("cuda")
+    sample = torch.randn(2, 4, 128, 128, device=dev, dtype=torch.bfloat16)
+    ehs = torch.randn(2, 77, 2048, device=dev, dtype=torch.bfloat16)
+    cond = {"text_embeds": torch.randn(2, 1280, device=dev, dtype=torch.bfloat16),
+            "time_ids": torch.tensor([[1024, 1024, 0, 0, 1024, 1024]] * 2, device=dev, dtype=torch.float32)}
+    t = torch.tensor(500.0, device=dev)
+    return pipe, request, lambda: pipe.unet(sample, t, ehs, added_cond_kwargs=cond), "UNet forward b=2", 10
+
+
+def _flux(torch):
+    """The Flux.1-dev pipeline (w8a8 transformer), its request, and one
+    transformer forward with the arguments of the request's last step."""
+    pipe = chip_smoke._build_flux_pipeline(chip_smoke.FLUX_DEV, chip_smoke.W8A8_MIN_WEIGHT_SIZE,
+                                           chip_smoke.FLUX_VAE, chip_smoke.CLIP_L, chip_smoke.T5_XXL, "cuda",
+                                           torch.bfloat16)
+    request = dict(prompt=chip_smoke.FLUX_PROMPT, height=chip_smoke.RESOLUTION, width=chip_smoke.RESOLUTION,
+                   num_inference_steps=chip_smoke.FLUX_STEPS, guidance_scale=chip_smoke.FLUX_GUIDANCE,
+                   max_sequence_length=chip_smoke.FLUX_MAX_SEQUENCE_LENGTH, output_type="np")
+    seen = {}
+    hook = pipe.transformer.register_forward_pre_hook(
+        lambda mod, args, kwargs: seen.update(args=args, kwargs=kwargs), with_kwargs=True)
+    pipe(**dict(request, num_inference_steps=1), generator=torch.Generator(device="cuda").manual_seed(0))
+    hook.remove()
+    return (pipe, request, lambda: pipe.transformer(*seen["args"], **seen["kwargs"]),
+            "Flux transformer forward (4096 image + 512 text tokens, w8a8)", 3)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--out", type=Path, default=None, help="directory for profile_sdxl.json")
+    parser.add_argument("--model", choices=("sdxl", "flux"), default="sdxl")
+    parser.add_argument("--out", type=Path, default=None, help="directory for profile_<model>.json")
     args = parser.parse_args()
     smi = chip_smoke.setup()
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    pipe = chip_smoke._build_pipeline(chip_smoke.SDXL_UNET, chip_smoke.SDXL_VAE, chip_smoke.CLIP_L,
-                                      chip_smoke.CLIP_BIGG, "cuda", torch.bfloat16)
-    request = dict(prompt=chip_smoke.PROMPTS[0], height=chip_smoke.RESOLUTION, width=chip_smoke.RESOLUTION,
-                   num_inference_steps=chip_smoke.STEPS, guidance_scale=chip_smoke.GUIDANCE, output_type="np")
+    pipe, request, forward, forward_title, forward_iters = (_flux if args.model == "flux" else _sdxl)(torch)
 
     def run_request():
         pipe(**request, generator=torch.Generator(device="cuda").manual_seed(chip_smoke.SEED))
@@ -113,22 +149,13 @@ def main() -> int:
 
     run_request()  # warm-up: cuDNN/cuBLAS heuristics, Triton compile, kernel build
 
-    dev = torch.device("cuda")
-    sample = torch.randn(2, 4, 128, 128, device=dev, dtype=torch.bfloat16)
-    ehs = torch.randn(2, 77, 2048, device=dev, dtype=torch.bfloat16)
-    cond = {"text_embeds": torch.randn(2, 1280, device=dev, dtype=torch.bfloat16),
-            "time_ids": torch.tensor([[1024, 1024, 0, 0, 1024, 1024]] * 2, device=dev, dtype=torch.float32)}
-    t = torch.tensor(500.0, device=dev)
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.no_grad():
-        def unet():
-            return pipe.unet(sample, t, ehs, added_cond_kwargs=cond)
-
-        unet_ms = chip_smoke.time_ms(unet, iters=10)
+        forward_ms = chip_smoke.time_ms(forward, iters=forward_iters)
         with profile(activities=activities) as prof:
-            unet()
+            forward()
             torch.cuda.synchronize()
-    unet_summary = device_summary(prof, unet_ms)
+    forward_summary = device_summary(prof, forward_ms)
 
     t0 = time.perf_counter()
     run_request()
@@ -138,12 +165,13 @@ def main() -> int:
     request_summary = device_summary(prof, request_ms)
 
     chip_smoke.log(f"[profile] {smi}")
-    print_summary("UNet forward b=2, 1024 px, bf16", unet_summary)
-    print_summary(f"one request ({chip_smoke.STEPS} steps, CFG {chip_smoke.GUIDANCE}, 1024 px)", request_summary)
+    print_summary(f"{forward_title}, 1024 px, bf16", forward_summary)
+    print_summary(f"one request ({request['num_inference_steps']} steps, guidance {request['guidance_scale']}, "
+                  f"1024 px)", request_summary)
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
-        (args.out / "profile_sdxl.json").write_text(json.dumps(
-            {"card": smi, "unet_b2": unet_summary, "request": request_summary}, indent=2))
+        (args.out / f"profile_{args.model}.json").write_text(json.dumps(
+            {"card": smi, "model": args.model, "forward": forward_summary, "request": request_summary}, indent=2))
     return 0
 
 
