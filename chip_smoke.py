@@ -2,18 +2,22 @@
 H100: builds the port's hand-written kernels from this checkout, holds each
 against its plain PyTorch version at the shapes of the main paths, checks the
 port on the card against the port on the CPU at a small size, then drives the
-two main paths through the public pipelines, with random weights made from a
-seed on the card:
+three main paths through their public entry points, with random weights made
+from a seed on the card:
 
   * SDXL: one full-width 1024 px text-to-image request (30 Euler steps, CFG
     5.0, bf16) through `StableDiffusionXLPipeline.__call__` (kernels K1, K4);
   * Flux.1-dev: one full-width 1024 px request (28 flow-match steps, guidance
     3.5; the transformer w8a8, T5-XXL, CLIP-L and the VAE bf16) through
     `FluxPipeline.__call__` (kernels K5 with its row quantization, K1 at
-    head_dim 128, K4),
+    head_dim 128, K4);
+  * training: `train_text_to_image.main` on the SDXL UNet at its published
+    widths, 1024 px, batch 1, TRAIN_STEPS steps (f32 weights and AdamW, bf16
+    autocast; kernels K1 forward, K2 and K3 backward, K4), then a sharded
+    safetensors checkpoint,
 
-and shows, from launch counts reset just before each path and read just
-after, that each path ran through its kernels.
+and shows, from launch counts reset just before each path (each training
+step) and read just after, that each path ran through its kernels.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -24,8 +28,9 @@ output are the per-kernel JSON summary, the card's `nvidia-smi` name and
 power limit, then
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-Precision: the pipelines run in bf16. float32 references run in full float32:
-this script sets `torch.backends.cuda.matmul.allow_tf32 = False` and
+Precision: the pipelines run in bf16, the training step under bf16 autocast
+with f32 weights. float32 references run in full float32: this script sets
+`torch.backends.cuda.matmul.allow_tf32 = False` and
 `torch.backends.cudnn.allow_tf32 = False`.
 """
 
@@ -33,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -112,6 +118,23 @@ FLUX_W8A8_SHAPES = (
 )
 FLUX_W8A8_PER_STEP = 19 * 14 + 38 * 6 + 6  # = 500, as the table above sums
 FLUX_ATTENTIONS_PER_STEP = 19 + 38
+
+# the attention shapes of one SDXL UNet train step at 1024 px, batch 1 (label, q shape, kv length,
+# options, launches per step): 10 transformer blocks at 64 x 64 latents (4096 tokens, 10 heads),
+# 60 at 32 x 32 (1024 tokens, 20 heads), each with a self and a 77-token cross attention
+SDXL_TRAIN_ATTENTION = (
+    ("self 4096 (UNet level 2)", (1, 4096, 10, 64), 4096, {}, 10),
+    ("cross 4096 x 77 (UNet level 2)", (1, 4096, 10, 64), 77, {}, 10),
+    ("self 1024 (UNet level 3)", (1, 1024, 20, 64), 1024, {}, 60),
+    ("cross 1024 x 77 (UNet level 3)", (1, 1024, 20, 64), 77, {}, 60),
+)
+SDXL_TRAIN_ATTENTIONS_PER_STEP = 140
+BWD_EXTRA_CASES = (
+    ("Flux joint 4608 d=128", (1, 4608, 24, 128), 4608, {"timed": True}, 0),
+    ("causal 1000 (ragged)", (1, 1000, 4, 64), 1000, {"is_causal": True}, 0),
+    ("additive mask 300 x 333, d=128", (2, 300, 2, 128), 333, {"mask": True}, 0),
+)
+TRAIN_STEPS = 5
 
 # small SDXL-shaped pipeline for the card-vs-CPU check: head_dim 64 so the
 # UNet and the VAE mid-block attention both take the flash kernel on the card
@@ -218,6 +241,56 @@ def attention_bounds(q, k, v, attn_mask=None, is_causal=False):
     return ref, bound, bound + u * ref.abs()
 
 
+def attention_bwd_bounds(q, k, v, out, lse, grad_out, attn_mask=None, is_causal=False):
+    """Per-element limits for the backward kernels' (dq, dk, dv), from the data.
+
+    On the same inputs (q, k, v, out, lse, dO) the kernels differ from the
+    plain version in f32 in three ways: they round P to the input dtype before
+    P^T dO and dS to it before dS^T q and dS k (unit roundoff u: 2^-8 for
+    bf16, 2^-11 for fp16); they sum in another order and take `__expf`, which
+    moves p and dP = dO v^T by at most 2^-14 of p and of sum_d |dO||v|; and
+    they round each output once (u |ref32|). So, element by element,
+
+      |dv - ref| <= (u + 2^-14) (p^T |dO|) + u |ref|
+      |dk - ref| <= (u + 2^-14) (|dS|^T |q|) + 2^-14 scale ((p * (|dO| |v|^T))^T |q|) + u |ref|
+      |dq - ref| <= (u + 2^-14) (|dS| |k|) + 2^-14 scale ((p * (|dO| |v|^T)) |k|) + u |ref|
+
+    [for fp16, whose subnormal rounding is absolute: + 2^-25 times the sum
+    of |dO|, |q| or |k| for P and dS, and + 2^-25 for each output's own
+    rounding]. The plain version in the input dtype rounds ref32 once more
+    (another u |ref32| [+ 2^-25]).
+
+    Returns (refs32, bounds vs ref32, bounds vs the plain version in the input
+    dtype), each a (dq, dk, dv) tuple."""
+    import torch
+
+    from diffusers_tpu_torch.ops.cuda.flash_attention import _logits, flash_attention_bwd_plain
+
+    u = 2.0**-8 if q.dtype == torch.bfloat16 else 2.0**-11
+    eps = 2.0**-14
+    scale = 1.0 / q.shape[-1] ** 0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, grad_out))
+    refs = flash_attention_bwd_plain(qf, kf, vf, attn_mask, out.float(), lse, dof, scale, is_causal)
+    p = torch.exp(_logits(qf, kf, attn_mask, scale, is_causal) - lse[..., None])
+    delta = (dof * out.float()).sum(-1).transpose(1, 2)
+    ds_abs = (p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta[..., None]) * scale).abs()
+    dp_err = p * torch.einsum("bqhd,bkhd->bhqk", dof.abs(), vf.abs()) * scale
+    bound_dv = (u + eps) * torch.einsum("bhqk,bqhd->bkhd", p, dof.abs())
+    del p
+    bound_dk = ((u + eps) * torch.einsum("bhqk,bqhd->bkhd", ds_abs, qf.abs())
+                + eps * torch.einsum("bhqk,bqhd->bkhd", dp_err, qf.abs()))
+    bound_dq = ((u + eps) * torch.einsum("bhqk,bkhd->bqhd", ds_abs, kf.abs())
+                + eps * torch.einsum("bhqk,bkhd->bqhd", dp_err, kf.abs()))
+    del ds_abs, dp_err
+    if q.dtype == torch.float16:
+        bound_dq = bound_dq + 2.0**-25 * kf.abs().sum(dim=1, keepdim=True)
+        bound_dk = bound_dk + 2.0**-25 * qf.abs().sum(dim=1, keepdim=True)
+        bound_dv = bound_dv + 2.0**-25 * dof.abs().sum(dim=1, keepdim=True)
+    out_ulp = 2.0**-25 if q.dtype == torch.float16 else 0.0  # an output's subnormal rounding
+    bounds = tuple(b + u * r.abs() + out_ulp for b, r in zip((bound_dq, bound_dk, bound_dv), refs))
+    return refs, bounds, tuple(b + u * r.abs() + out_ulp for b, r in zip(bounds, refs))
+
+
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
     """The least time the card could take: (ms, "bytes" or "operations")."""
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
@@ -250,11 +323,16 @@ def time_pair(kernel_fn, plain_fn, iters: int, plain_iters: int = None):
 
 def launch_counters():
     """Every kernel wrapper's launch counter, by kernel name."""
-    from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
+    from diffusers_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dq,
+        flash_attention_full,
+    )
     from diffusers_tpu_torch.ops.cuda.w8a8_matmul import quantize_rows, w8a8_matmul_2d
     from diffusers_tpu_torch.ops.triton.group_norm import group_norm
 
-    return {"flash_attention_fwd": flash_attention_full, "group_norm": group_norm,
+    return {"flash_attention_fwd": flash_attention_full, "flash_attention_bwd_dkdv": flash_attention_bwd_dkdv,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq, "group_norm": group_norm,
             "w8a8_matmul": w8a8_matmul_2d, "w8a8_quantize_rows": quantize_rows}
 
 
@@ -298,19 +376,19 @@ def build_kernels():
     source, all at once."""
     from diffusers_tpu_torch.ops.cuda import _build, flash_attention, w8a8_matmul
 
-    modules = (flash_attention, w8a8_matmul)
+    sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE, w8a8_matmul.SOURCE)
     t0 = time.perf_counter()
-    _build.build_all([m.SOURCE for m in modules])
-    for m in modules:
-        m.load_library()
+    _build.build_all(sources)
+    for load in (flash_attention.load_library, flash_attention.load_bwd_library, w8a8_matmul.load_library):
+        load()
     seconds = time.perf_counter() - t0
     RESULTS["build"] = {"seconds": seconds}
-    log(f"[build] {', '.join(m.SOURCE.name for m in modules)} -> sm_90a in {seconds:.1f} s (in parallel)")
-    for m in modules:
-        ptxas = [line.strip() for line in _build.build_log(m.SOURCE).splitlines() if "registers" in line or "spill" in line]
-        RESULTS["build"][m.SOURCE.name] = ptxas
+    log(f"[build] {', '.join(src.name for src in sources)} -> sm_90a in {seconds:.1f} s (in parallel)")
+    for src in sources:
+        ptxas = [line.strip() for line in _build.build_log(src).splitlines() if "registers" in line or "spill" in line]
+        RESULTS["build"][src.name] = ptxas
         for line in ptxas:
-            log(f"[build]   {m.SOURCE.name}: {line}")
+            log(f"[build]   {src.name}: {line}")
 
 
 def check_kernels():
@@ -572,6 +650,126 @@ def check_w8a8():
     }
 
 
+def check_flash_bwd():
+    """Phase 5: K2 (dK/dV) and K3 (dQ) against their plain version,
+    `flash_attention_bwd_plain`, at the SDXL training shapes (1024 px, batch
+    1: self attention over 4096 and 1024 tokens, cross attention over 77),
+    at Flux's (1, 4608, 24, 128) for head_dim 128, and on a causal and a
+    masked case; each element within `attention_bwd_bounds`. Controls: grads
+    of inputs with one 64-key tile of k/v zeroed must break the bound. Times
+    of each kernel, of the plain version, of the bound and of the library
+    call (the backward of `F.scaled_dot_product_attention`: its forward and
+    backward, minus its forward), summed over one SDXL train step's launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusers_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+        flash_attention_full,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
+
+    cases, step = [], {k: 0.0 for k in ("dkdv_ms", "dq_ms", "plain_ms", "library_ms", "dkdv_bound_ms",
+                                         "dq_bound_ms")}
+    max_err = {"flash_attention_bwd_dkdv": 0.0, "flash_attention_bwd_dq": 0.0}
+    for label, qshape, sk, opt, per_step in SDXL_TRAIN_ATTENTION + BWD_EXTRA_CASES:
+        b, sq, h, d = qshape
+        q, k, v = randn(b, sq, h, d, scale=2.0), randn(b, sk, h, d), randn(b, sk, h, d)
+        mask = None
+        if opt.get("mask"):
+            mask = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=dev) < 0.3, -1e4, 0.0)
+        causal = opt.get("is_causal", False)
+        out, lse = flash_attention_full(q, k, v, attn_mask=mask, is_causal=causal, return_lse=True)
+        grad_out = randn(b, sq, h, d)
+        grads = flash_attention_bwd(q, k, v, mask, out, lse, grad_out, is_causal=causal)
+        torch.cuda.synchronize()
+        refs, bounds32, bounds16 = attention_bwd_bounds(q, k, v, out, lse, grad_out, attn_mask=mask,
+                                                        is_causal=causal)
+        plain = flash_attention_bwd_plain(q, k, v, mask, out, lse, grad_out, 1.0 / d**0.5, causal)
+        row = {"kernel": "flash_attention_bwd", "case": label, "q": list(qshape), "sk": sk}
+        ok = True
+        for name, g, ref, p16, b32, b16 in zip(("dq", "dk", "dv"), grads, refs, plain, bounds32, bounds16):
+            diff32, diff16 = (g.float() - ref).abs(), (g.float() - p16.float()).abs()
+            share32 = float(torch.where(diff32 == 0, 0.0, diff32 / b32).max())
+            share16 = float(torch.where(diff16 == 0, 0.0, diff16 / b16).max())
+            row[name] = {"max_abs_err_vs_f32": float(diff32.max()), "max_abs_err_vs_plain_same_dtype":
+                         float(diff16.max()), "max_share_of_bound_vs_f32": share32,
+                         "max_share_of_bound_vs_plain_same_dtype": share16}
+            ok = ok and share32 <= 1.0 and share16 <= 1.0 and bool(torch.isfinite(g).all())
+            kernel = "flash_attention_bwd_dq" if name == "dq" else "flash_attention_bwd_dkdv"
+            max_err[kernel] = max(max_err[kernel], float(diff32.max()))
+        shares = {n: round(row[n]["max_share_of_bound_vs_f32"], 3) for n in ("dq", "dk", "dv")}
+        log(f"[K2/K3] {label}: share of the per-element bound vs f32 {shares}")
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd disagrees with its plain version on {label}: {row}")
+        if per_step or opt.get("timed"):
+            # controls: grads of inputs with one 64-key kv tile zeroed must break the bound
+            t0 = (sk // 2) // 64 * 64
+            k0, v0 = k.clone(), v.clone()
+            k0[:, t0:t0 + 64] = 0
+            v0[:, t0:t0 + 64] = 0
+            broken = flash_attention_bwd(q, k0, v0, mask, out, lse, grad_out, is_causal=causal)
+            controls = {n: float(((g.float() - ref).abs() / b32).max())
+                        for n, g, ref, b32 in zip(("dq", "dk", "dv"), broken, refs, bounds32)}
+            row["controls_share_of_bound"] = controls
+            log(f"[K2/K3]   control (kv tile zeroed), share of the bound (must exceed 1): {controls}")
+            if min(controls.values()) <= 1.0:
+                raise AssertionError(f"the flash_attention_bwd bound does not reject a zeroed kv tile on {label}")
+            delta = (grad_out.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            args = (q, k, v, mask, lse, delta, grad_out, 1 / d**0.5, causal)
+            dkdv_ms, dq_ms = time_pair(lambda: flash_attention_bwd_dkdv(*args), lambda: flash_attention_bwd_dq(*args),
+                                       iters=20)
+            plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, mask, out, lse, grad_out, 1 / d**0.5,
+                                                                 causal), iters=3)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            go = grad_out.transpose(1, 2)
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(qt, kt, vt)
+                torch.autograd.grad(o, (qt, kt, vt), go)
+
+            with torch.no_grad():
+                sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=20)
+            library_ms = time_ms(sdpa_fwd_bwd, iters=20) - sdpa_fwd_ms
+            io = 2 * (q.numel() + k.numel() + v.numel() + grad_out.numel()) + 2 * 4 * b * h * sq
+            flops = 2.0 * b * h * sq * sk * d
+            dkdv_bound, dkdv_by = bound_ms(io + 2 * (k.numel() + v.numel()), 4 * flops, PEAK_BF16_FLOPS)
+            dq_bound, dq_by = bound_ms(io + 2 * q.numel(), 3 * flops, PEAK_BF16_FLOPS)
+            row.update(dkdv_ms=dkdv_ms, dq_ms=dq_ms, plain_ms=plain_ms, library_ms=library_ms,
+                       dkdv_bound_ms=dkdv_bound, dkdv_bound_by=dkdv_by, dq_bound_ms=dq_bound, dq_bound_by=dq_by,
+                       launches_per_train_step=per_step, dkdv_tflops=4 * flops / dkdv_ms / 1e9,
+                       dq_tflops=3 * flops / dq_ms / 1e9)
+            log(f"[K2/K3]   K2 {dkdv_ms:.3f} ms ({row['dkdv_tflops']:.1f} TFLOP/s, bound {dkdv_bound:.3f} "
+                f"{dkdv_by}), K3 {dq_ms:.3f} ms ({row['dq_tflops']:.1f} TFLOP/s, bound {dq_bound:.3f} {dq_by}), "
+                f"plain {plain_ms:.3f} ms, SDPA backward {library_ms:.3f} ms (x{per_step} per train step)")
+            for key in step:
+                step[key] += per_step * row[key]
+        cases.append(row)
+        del refs, bounds32, bounds16, plain
+        torch.cuda.empty_cache()
+    RESULTS["flash_bwd_cases"] = cases
+    RESULTS["flash_bwd_per_train_step"] = step
+    log(f"[K2/K3] one SDXL train step (140 launches each): K2 {step['dkdv_ms']:.2f} ms (bound "
+        f"{step['dkdv_bound_ms']:.2f}), K3 {step['dq_ms']:.2f} ms (bound {step['dq_bound_ms']:.2f}), plain "
+        f"{step['plain_ms']:.1f} ms, SDPA backward {step['library_ms']:.2f} ms")
+    return {
+        "flash_attention_bwd_dkdv": (max_err["flash_attention_bwd_dkdv"], {
+            "ms": step["dkdv_ms"], "plain_ms": step["plain_ms"], "library_ms": step["library_ms"],
+            "bound_ms": step["dkdv_bound_ms"], "bound_by": "operations"}),
+        "flash_attention_bwd_dq": (max_err["flash_attention_bwd_dq"], {
+            "ms": step["dq_ms"], "plain_ms": step["plain_ms"], "library_ms": step["library_ms"],
+            "bound_ms": step["dq_bound_ms"], "bound_by": "operations"}),
+    }
+
+
 def _build_pipeline(unet_cfg, vae_cfg, clip1_cfg, clip2_cfg, device, dtype):
     import torch
 
@@ -632,7 +830,7 @@ def _build_flux_pipeline(transformer_cfg, min_weight_size, vae_cfg, clip_cfg, t5
 
 
 def check_small_reference(device: str = "cuda"):
-    """Phase 5: the port on the card (bf16, kernels) against the port on the
+    """Phase 6: the port on the card (bf16, kernels) against the port on the
     CPU (f32, plain versions; held to JAX by the CPU tests) on one small
     SDXL-shaped pipeline with the same weights and latents."""
     import numpy as np
@@ -659,7 +857,7 @@ def check_small_reference(device: str = "cuda"):
 
 
 def check_small_flux_reference(device: str = "cuda"):
-    """Phase 6: the same for a small Flux-shaped pipeline: w8a8 transformer
+    """Phase 7: the same for a small Flux-shaped pipeline: w8a8 transformer
     (K5), head_dim 128 (K1), VAE GroupNorms (K4) on the card in bf16, against
     the plain versions on the CPU in f32, with the same weights (the same int8
     transformer weights) and latents."""
@@ -689,12 +887,147 @@ def check_small_flux_reference(device: str = "cuda"):
         f"mean {RESULTS['small_flux_reference']['mean_abs_err']:.3e} (tol {tol}); launches {launches}")
     if not (out.shape == ref.shape and np.isfinite(out).all() and err <= tol):
         raise AssertionError("the Flux port on the card disagrees with the port on the CPU")
-    if min(launches.values()) <= 0:
+    forward_kernels = ("flash_attention_fwd", "group_norm", "w8a8_matmul", "w8a8_quantize_rows")
+    if min(launches[name] for name in forward_kernels) <= 0:
         raise AssertionError(f"the small Flux pipeline on the card missed a kernel: {launches}")
 
 
+def _small_train_unet(device):
+    """SMALL_UNET in f32 from SEED, and one batch for it (text embeds [2, 77,
+    64], SDXL's added conditions)."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
+
+    torch.manual_seed(SEED)
+    unet = UNet2DConditionModel(**SMALL_UNET).to(device)
+    rng = np.random.RandomState(SEED)
+    batch = {"latents": rng.randn(2, 4, 16, 16), "embeds": rng.randn(2, 77, 64), "noise": rng.randn(2, 4, 16, 16),
+             "timesteps": rng.randint(0, 1000, (2,)), "text_embeds": rng.randn(2, 32),
+             "time_ids": np.array([[128, 128, 0, 0, 128, 128]] * 2)}
+    batch = {k: torch.from_numpy(v.astype(np.int64 if k == "timesteps" else np.float32)).to(device)
+             for k, v in batch.items()}
+    return unet, batch
+
+
+def check_small_training(device: str = "cuda"):
+    """Phase 8: one train step's loss and gradients on the card (bf16
+    autocast: K1, K2, K3 at head_dim 64, K4) against the CPU (f32, the plain
+    versions) from the same weights and batch, through the trainer's loss
+    (`train_text_to_image.make_loss_fn`)."""
+    import torch
+
+    from diffusers_tpu_torch.schedulers import DDPMScheduler
+    from diffusers_tpu_torch.training.train_text_to_image import make_loss_fn
+
+    scheduler = DDPMScheduler()
+    loss_fn = make_loss_fn(scheduler, scheduler.set_timesteps())
+    grads = {}
+    for dev in ("cpu", device):
+        unet, batch = _small_train_unet(dev)
+        reset_launches()
+        loss = loss_fn(unet, batch)
+        loss.backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        launches = read_launches()
+        missing = [n for n, p in unet.named_parameters() if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        if missing:
+            raise AssertionError(f"{len(missing)} parameters without a finite gradient on {dev}, e.g. {missing[:5]}")
+        grads[dev] = (float(loss.detach()), torch.cat([p.grad.float().flatten().cpu() for p in unet.parameters()]), launches)
+    (loss_cpu, g_cpu, _), (loss_gpu, g_gpu, launches) = grads["cpu"], grads[device]
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    cosine = float(torch.nn.functional.cosine_similarity(g_gpu.double(), g_cpu.double(), dim=0))
+    # bf16 autocast (8 significant bits) through the UNet's forward and backward
+    # against f32: 2% on the loss and a gradient cosine of at least 0.995
+    loss_tol, cos_tol = 0.02, 0.995
+    RESULTS["small_training"] = {"loss_cpu": loss_cpu, "loss_card": loss_gpu, "loss_rel_diff": rel,
+                                 "grad_cosine": cosine, "loss_tol": loss_tol, "cosine_tol": cos_tol,
+                                 "launches": launches}
+    log(f"[train-ref] small UNet train step, card bf16 autocast vs CPU f32: loss {loss_gpu:.5f} vs {loss_cpu:.5f} "
+        f"(rel {rel:.2e}, tol {loss_tol}), grad cosine {cosine:.6f} (tol {cos_tol}); launches {launches}")
+    if not (rel <= loss_tol and cosine >= cos_tol):
+        raise AssertionError("the training step on the card disagrees with the CPU")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq", "group_norm"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the small training step on the card did not launch {name}: {launches}")
+
+
+def run_training(smi: str):
+    """Phase 11: the full-width training path: `train_text_to_image.main`
+    with the SDXL UNet at its published widths, 1024 px, batch 1, EMA off,
+    for TRAIN_STEPS steps (f32 weights and AdamW, bf16 autocast), then its
+    checkpoint. Launch counts are read after each step; every trainable
+    parameter must have a finite gradient after the first backward."""
+    import os
+    import tempfile
+
+    import torch
+
+    from diffusers_tpu_torch.ops.module import GroupNorm
+    from diffusers_tpu_torch.training import train_text_to_image
+
+    per_step, seen = [], {}
+
+    def callback(step, unet, loss):
+        per_step.append(read_launches())
+        reset_launches()
+        if step == 0:
+            params = [(n, p) for n, p in unet.named_parameters() if p.requires_grad]
+            finite = torch.stack([torch.isfinite(p.grad).all() if p.grad is not None
+                                  else torch.tensor(False, device=p.device) for _, p in params])
+            bad = [n for (n, _), ok in zip(params, finite.tolist()) if not ok]
+            seen.update(trainable=len(params), without_finite_grad=bad,
+                        group_norms=sum(isinstance(m, GroupNorm) for m in unet.modules()))
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        reset_launches()
+        t0 = time.perf_counter()
+        result = train_text_to_image.main(
+            ["--unet", "sdxl", "--resolution", str(RESOLUTION), "--batch_size", "1", "--max_train_steps",
+             str(TRAIN_STEPS), "--lr_warmup_steps", "1", "--seed", str(SEED), "--output_dir", out_dir,
+             "--checkpointing_steps", str(10 * TRAIN_STEPS)], callback=callback)
+        seconds = time.perf_counter() - t0
+        saved = sorted(os.listdir(os.path.join(out_dir, "unet")))
+        saved_gb = sum(os.path.getsize(os.path.join(out_dir, "unet", f)) for f in saved) / 1e9
+
+    expected = {"flash_attention_fwd": SDXL_TRAIN_ATTENTIONS_PER_STEP,
+                "flash_attention_bwd_dkdv": SDXL_TRAIN_ATTENTIONS_PER_STEP,
+                "flash_attention_bwd_dq": SDXL_TRAIN_ATTENTIONS_PER_STEP,
+                "group_norm": seen["group_norms"], "w8a8_matmul": 0, "w8a8_quantize_rows": 0}
+    step_ms = result["step_ms"]
+    log(f"[train] SDXL UNet ({result['parameters'] / 1e9:.3f} B parameters, f32 + AdamW, bf16 autocast), 1024 px, "
+        f"batch 1: {TRAIN_STEPS} steps in {seconds:.1f} s with the build and the checkpoint")
+    for i, (ms, counts, loss) in enumerate(zip(step_ms, per_step, result["losses"])):
+        log(f"[train] step {i}: {ms:.1f} ms (CUDA events), loss {loss:.5f}, launches {counts}")
+    log(f"[train] {smi}: median {result['median_step_ms']:.1f} ms per step (steps 1-{TRAIN_STEPS - 1}), peak memory "
+        f"{result['peak_memory_gb']:.1f} GB; {seen['trainable']} trainable parameters, "
+        f"{len(seen['without_finite_grad'])} without a finite gradient after the first backward; "
+        f"checkpoint {saved} ({saved_gb:.2f} GB)")
+    RESULTS["training"] = {
+        "card": smi, "unet": "sdxl", "resolution": RESOLUTION, "batch_size": 1, "steps": TRAIN_STEPS,
+        "step_ms": step_ms, "median_step_ms": result["median_step_ms"], "peak_memory_gb": result["peak_memory_gb"],
+        "losses": result["losses"], "parameters": result["parameters"], "launches_per_step": per_step,
+        "expected_launches_per_step": expected, "trainable_parameters": seen["trainable"],
+        "without_finite_grad": seen["without_finite_grad"], "checkpoint_files": saved,
+        "checkpoint_gb": saved_gb, "seconds": seconds,
+    }
+    if seen["without_finite_grad"]:
+        raise AssertionError(f"{len(seen['without_finite_grad'])} trainable parameters have no finite gradient "
+                             f"after the first backward, e.g. {seen['without_finite_grad'][:5]}")
+    if not all(map(math.isfinite, result["losses"])):
+        raise AssertionError(f"non-finite training loss: {result['losses']}")
+    for i, counts in enumerate(per_step):
+        if counts != expected:
+            raise AssertionError(f"step {i} launched {counts}, expected {expected}")
+    if "diffusion_pytorch_model.safetensors.index.json" not in saved or len(saved) < 3:
+        raise AssertionError(f"the checkpoint was not written as sharded safetensors: {saved}")
+    return {name: sum(c[name] for c in per_step) for name in expected}
+
+
 def run_pipeline(smi: str):
-    """Phase 7: one full-width SDXL 1024 px request through the kernels."""
+    """Phase 9: one full-width SDXL 1024 px request through the kernels."""
     import numpy as np
     import torch
 
@@ -753,7 +1086,7 @@ def run_pipeline(smi: str):
 
 
 def run_flux_pipeline(smi: str):
-    """Phase 8: one full-width Flux.1-dev 1024 px request (28 steps, guidance
+    """Phase 10: one full-width Flux.1-dev 1024 px request (28 steps, guidance
     3.5) through `FluxPipeline.__call__`: the w8a8 transformer on K5, its
     attention on K1 at head_dim 128, the VAE's GroupNorms on K4."""
     import numpy as np
@@ -845,22 +1178,38 @@ def main() -> int:
     args = parser.parse_args()
     t_start = time.perf_counter()
     smi = setup()
+    import gc
+
     import torch
 
     build_kernels()
     summary = check_kernels()
     summary.update(check_w8a8())
+    summary.update(check_flash_bwd())
     check_small_reference()
     check_small_flux_reference()
+    check_small_training()
     sdxl = run_pipeline(smi)
     torch.cuda.empty_cache()
     flux = run_flux_pipeline(smi)
-    RESULTS["launches_by_path"] = {"sdxl": sdxl, "flux": flux}
+    gc.collect()
+    torch.cuda.empty_cache()
+    training = run_training(smi)
+    paths = {"sdxl": sdxl, "flux": flux, "training": training}
+    RESULTS["launches_by_path"] = paths
 
     meta = {
         "flash_attention_fwd": ("cuda", "diffusers_tpu_torch/csrc/flash_attention_fwd.cu",
                                 "diffusers_tpu/ops/pallas/flash_attention_bwd.py:141",
                                 "q/k/v (1, 4608, 24, 128) bf16: Flux joint attention"),
+        "flash_attention_bwd_dkdv": ("cuda", "diffusers_tpu_torch/csrc/flash_attention_bwd.cu",
+                                     "diffusers_tpu/ops/pallas/flash_attention_bwd.py:257",
+                                     "one SDXL train step (1024 px, b=1): the sum over its 140 launches at their "
+                                     "4 shapes; library: the SDPA backward (dq, dk, dv together)"),
+        "flash_attention_bwd_dq": ("cuda", "diffusers_tpu_torch/csrc/flash_attention_bwd.cu",
+                                   "diffusers_tpu/ops/pallas/flash_attention_bwd.py:285",
+                                   "one SDXL train step (1024 px, b=1): the sum over its 140 launches at their "
+                                   "4 shapes; library: the SDPA backward (dq, dk, dv together)"),
         "group_norm": ("triton", "diffusers_tpu_torch/ops/triton/group_norm.py",
                        "diffusers_tpu/ops/pallas/group_norm.py:150", "(2, 320, 128, 128) bf16 + SiLU"),
         "w8a8_matmul": ("cuda", "diffusers_tpu_torch/csrc/w8a8_matmul.cu",
@@ -874,7 +1223,7 @@ def main() -> int:
     for name, (route, source, replaces, shape) in meta.items():
         err, t = summary[name]
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": sdxl[name] + flux[name], "max_abs_err": err, "ms": t["ms"],
+                        "launches": sum(path[name] for path in paths.values()), "max_abs_err": err, "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"], "shape": shape})
     RESULTS["kernels"] = kernels

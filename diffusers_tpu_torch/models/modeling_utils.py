@@ -1,14 +1,24 @@
-"""Model base class and the weight bridge from the JAX package.
+"""Model base class, checkpoint writing, and the weight bridge from the JAX
+package.
 
 Port of the layout rules of `diffusers_tpu/models/modeling_utils.py`
 (`_leaf_convert_to_torch` `:86-99`), extended to the w8a8 Linear branch
-(int8 ``kernel`` + ``kernel_scale_w8a8``) and RMSNorm's ``scale``. `from_pretrained` / `save_pretrained`
-wait until checkpoint files are in the repository.
+(int8 ``kernel`` + ``kernel_scale_w8a8``) and RMSNorm's ``scale``, and of
+`ModelMixin.save_pretrained` (`:526-560`): `config.json` plus
+`diffusion_pytorch_model.safetensors`, sharded with its `.index.json` above
+`max_shard_size`. The safetensors files are written with the standard library
+and numpy (an 8-byte little-endian header length, the JSON header, then each
+tensor's raw little-endian bytes), one tensor at a time, so a model on the
+card never has a second full copy on the host. `from_pretrained` waits until
+checkpoint files are in the repository.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+import json
+import os
+import struct
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -17,6 +27,46 @@ from torch import nn
 from ..ops.module import RMSNorm, W8A8Linear
 
 CONFIG_NAME = "config.json"
+SAFETENSORS_WEIGHTS_NAME = "diffusion_pytorch_model.safetensors"
+SAFETENSORS_INDEX_NAME = "diffusion_pytorch_model.safetensors.index.json"
+_SAFETENSORS_DTYPES = {
+    torch.float64: "F64", torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+    torch.int64: "I64", torch.int32: "I32", torch.int16: "I16", torch.int8: "I8", torch.uint8: "U8",
+    torch.bool: "BOOL",
+}
+
+
+def _parse_size(size: Union[int, str]) -> int:
+    if isinstance(size, str):
+        units = {"KB": 10**3, "MB": 10**6, "GB": 10**9}
+        suffix = size[-2:].upper()
+        return int(float(size[:-2]) * units[suffix]) if suffix in units else int(size)
+    return int(size)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def save_safetensors(tensors: Dict[str, torch.Tensor], path: Union[str, os.PathLike]) -> None:
+    """Write `tensors` (any device) as one safetensors file."""
+    header: Dict[str, Any] = {}
+    offset = 0
+    for name, t in tensors.items():
+        header[name] = {"dtype": _SAFETENSORS_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + _nbytes(t)]}
+        offset += _nbytes(t)
+    header["__metadata__"] = {"format": "pt"}
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)  # the data starts 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            t = t.detach().to("cpu").contiguous()
+            if t.dtype == torch.bfloat16:  # numpy has no bf16: its bits as int16
+                t = t.view(torch.int16)
+            f.write(t.numpy().tobytes())  # native order: little-endian on x86-64 and aarch64, as the format needs
 
 
 class ModelMixin(nn.Module):
@@ -31,6 +81,42 @@ class ModelMixin(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return next(self.parameters()).dtype
+
+    def save_pretrained(self, save_directory: Union[str, os.PathLike], max_shard_size: Union[int, str] = "10GB"):
+        """Write `config.json` and the state dict as safetensors; above
+        `max_shard_size` it shards, in key order, into
+        `diffusion_pytorch_model-0000i-of-0000n.safetensors` plus
+        `diffusion_pytorch_model.safetensors.index.json`, as the JAX
+        package does."""
+        os.makedirs(save_directory, exist_ok=True)
+        self.save_config(save_directory)
+        state_dict = self.state_dict()
+        max_bytes = _parse_size(max_shard_size)
+        total = sum(_nbytes(t) for t in state_dict.values())
+        if total <= max_bytes:
+            save_safetensors(state_dict, os.path.join(save_directory, SAFETENSORS_WEIGHTS_NAME))
+            return
+
+        # greedy split preserving key order
+        shards, current, current_bytes = [], {}, 0
+        for k, t in state_dict.items():
+            if current and current_bytes + _nbytes(t) > max_bytes:
+                shards.append(current)
+                current, current_bytes = {}, 0
+            current[k] = t
+            current_bytes += _nbytes(t)
+        if current:
+            shards.append(current)
+
+        stem, ext = SAFETENSORS_WEIGHTS_NAME.rsplit(".", 1)
+        weight_map = {}
+        for i, shard in enumerate(shards, start=1):
+            fname = f"{stem}-{i:05d}-of-{len(shards):05d}.{ext}"
+            save_safetensors(shard, os.path.join(save_directory, fname))
+            weight_map.update(dict.fromkeys(shard, fname))
+        index = {"metadata": {"total_size": total}, "weight_map": weight_map}
+        with open(os.path.join(save_directory, SAFETENSORS_INDEX_NAME), "w") as f:
+            json.dump(index, f, indent=2, sort_keys=True)
 
 
 def _leaf_to_torch(module: nn.Module, name: str, array: np.ndarray):

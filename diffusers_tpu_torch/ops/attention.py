@@ -5,8 +5,10 @@ Port of `diffusers_tpu/ops/attention.py` (registry `:33-61`,
 
   * ``native`` — plain torch math: f32 logits and softmax, the numerics
                  reference of `_native_attention`.
-  * ``flash``  — the hand-written sm_90a flash-attention forward kernel
-                 (`ops/cuda/flash_attention.py`, source `csrc/`).
+  * ``flash``  — the hand-written sm_90a flash-attention kernels
+                 (`ops/cuda/flash_attention.py`, sources `csrc/`): K1
+                 forward, and under autograd K2/K3 backward through
+                 `FlashAttentionFunction`.
 
 The sequence-parallel ``ring``/``ulysses`` backends wait for the parallelism
 port.
@@ -85,7 +87,8 @@ def _native_attention(
 
 @register_attention_backend("flash")
 def _flash_attention(query, key, value, attn_mask=None, scale=None, is_causal=False):
-    """The sm_90a flash-attention kernel (plain version for CPU tensors)."""
+    """The sm_90a flash-attention kernels, differentiable (plain versions
+    for CPU tensors)."""
     return flash_attention_full(query, key, value, attn_mask=attn_mask, scale=scale, is_causal=is_causal)
 
 

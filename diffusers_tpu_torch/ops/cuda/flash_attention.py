@@ -1,22 +1,27 @@
-"""Flash-attention forward: CUDA kernel K1, its plain version, and the wrapper
-that picks between them by device.
+"""Flash attention: CUDA kernels K1 (forward), K2 (dK/dV) and K3 (dQ), their
+plain versions, the autograd Function that joins them, and the wrapper that
+picks between them by device.
 
-Port of the forward half of `diffusers_tpu/ops/pallas/flash_attention_bwd.py`
-(`flash_attention_full`, `_flash_fwd_bhsd`, `_fwd_kernel`). The kernel source,
-with its design note (what bounds it on an H100 and what the design does about
-it), is `diffusers_tpu_torch/csrc/flash_attention_fwd.cu`.
+Port of `diffusers_tpu/ops/pallas/flash_attention_bwd.py`: the forward
+(`flash_attention_full`, `_flash_fwd_bhsd`, `_fwd_kernel`), the backward
+(`_flash_bwd_bhsd`, `_bwd_dkdv_kernel`, `_bwd_dq_kernel`) and the custom VJP
+that joins them (`flash_attention_vjp`, `_vjp_fwd`, `_vjp_bwd`, `:354-401`),
+which becomes `FlashAttentionFunction`. The kernel sources, with their design
+notes (what bounds them on an H100 and what the design does about it), are
+`diffusers_tpu_torch/csrc/flash_attention_fwd.cu` and
+`diffusers_tpu_torch/csrc/flash_attention_bwd.cu`.
 
 Build and binding (`_build.py`): `nvcc -gencode arch=compute_90a,code=sm_90a`
-compiles the source into a shared library with a plain C interface under the
+compiles each source into a shared library with a plain C interface under the
 repository's `build/` directory on first use, keyed by a hash of the source
-and flags; `ctypes` loads it with `argtypes` declared for every argument. The kernel
-launches on PyTorch's current stream and allocates nothing; the wrapper
-allocates the outputs and raises on a non-zero `cudaError_t`.
+and flags; `ctypes` loads it with `argtypes` declared for every argument. The
+kernels launch on PyTorch's current stream and allocate nothing; the wrappers
+allocate the outputs and raise on a non-zero `cudaError_t`.
 
 Tensor convention: q/k/v are [batch, seq, heads, head_dim] (BSHD), as in the
-JAX package. The kernel reads BSHD through strides; none of the JAX wrapper's
-TPU-only constraints (`_fit_block`, the `% 128` lengths of `_supported`,
-lane-replicated LSE, `FLASH_SOFTMAX_BF16`) carry over.
+JAX package. The kernels read and write BSHD through strides; none of the JAX
+wrapper's TPU-only constraints (`_fit_block`, the `% 128` lengths of
+`_supported`, lane-replicated LSE and delta, `FLASH_SOFTMAX_BF16`) carry over.
 """
 
 from __future__ import annotations
@@ -35,6 +40,29 @@ HEAD_DIMS = (64, 128)
 DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 
 SOURCE = _build.CSRC / "flash_attention_fwd.cu"
+BWD_SOURCE = _build.CSRC / "flash_attention_bwd.cu"
+
+
+def _additive_mask(attn_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A bool keep-mask becomes 0 / NEG_INF; a float mask becomes f32."""
+    if attn_mask is None:
+        return None
+    if attn_mask.dtype == torch.bool:
+        attn_mask = torch.where(attn_mask, 0.0, NEG_INF)
+    return attn_mask.float()
+
+
+def _logits(query, key, attn_mask, scale, is_causal):
+    """f32 logits ``scale q k^T + mask`` [B, H, Sq, Sk], top-left causal."""
+    sq, sk = query.shape[1], key.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", query.float(), key.float()) * scale
+    if attn_mask is not None:
+        s = s + _additive_mask(attn_mask)
+    if is_causal:
+        row = torch.arange(sq, device=query.device)[:, None]
+        col = torch.arange(sk, device=query.device)[None, :]
+        s = torch.where(row >= col, s, NEG_INF)
+    return s
 
 
 def flash_attention_plain(
@@ -46,32 +74,48 @@ def flash_attention_plain(
     is_causal: bool = False,
     return_lse: bool = False,
 ):
-    """Plain PyTorch version of the kernel: f32 logits, additive mask (a bool
-    mask becomes 0 / NEG_INF), top-left-aligned causal mask (``row >= col``,
-    as `_fwd_kernel`), f32 softmax, output in the input dtype; optional f32
-    LSE ``[B, H, Sq]``."""
-    b, sq, h, d = query.shape
-    sk = key.shape[1]
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    s = torch.einsum("bqhd,bkhd->bhqk", query.float(), key.float()) * scale
-    if attn_mask is not None:
-        if attn_mask.dtype == torch.bool:
-            attn_mask = torch.where(attn_mask, 0.0, NEG_INF)
-        s = s + attn_mask.float()
-    if is_causal:
-        row = torch.arange(sq, device=query.device)[:, None]
-        col = torch.arange(sk, device=query.device)[None, :]
-        s = torch.where(row >= col, s, NEG_INF)
+    """Plain PyTorch version of K1: f32 logits, additive mask (a bool mask
+    becomes 0 / NEG_INF), top-left-aligned causal mask (``row >= col``, as
+    `_fwd_kernel`), f32 softmax, output in the input dtype; optional f32 LSE
+    ``[B, H, Sq]``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(query.shape[-1])
+    s = _logits(query, key, attn_mask, scale, is_causal)
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), value.float()).to(query.dtype)
     if return_lse:
         return out, torch.logsumexp(s, dim=-1)
     return out
 
 
+def flash_attention_bwd_plain(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    attn_mask: Optional[torch.Tensor],
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    grad_out: torch.Tensor,
+    scale: Optional[float] = None,
+    is_causal: bool = False,
+):
+    """Plain PyTorch version of K2 and K3, in the f32 math of the Pallas
+    kernels: ``p = exp(s - lse)``, ``dv = p^T dO``, ``ds = p (dO v^T - delta)
+    scale`` with ``delta = rowsum(dO * O)``, ``dk = ds^T q``, ``dq = ds k``.
+    Returns (dq, dk, dv) in the inputs' dtypes."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(query.shape[-1])
+    p = torch.exp(_logits(query, key, attn_mask, scale, is_causal) - lse.float()[..., None])
+    do = grad_out.float()
+    delta = (do * out.float()).sum(-1).transpose(1, 2)  # [B, H, Sq]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, value.float()) - delta[..., None]) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, query.float())
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, key.float())
+    return dq.to(query.dtype), dk.to(key.dtype), dv.to(value.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build (first use, or after the source changed) and load the kernel's
-    shared library. A compile error raises with nvcc's output."""
+    """Build (first use, or after the source changed) and load K1's shared
+    library. A compile error raises with nvcc's output."""
     lib = _build.load(SOURCE)
     fn = lib.flash_attention_fwd
     fn.argtypes = (
@@ -84,9 +128,25 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def load_bwd_library() -> ctypes.CDLL:
+    """Build and load the shared library of K2 and K3."""
+    lib = _build.load(BWD_SOURCE)
+    for name, n_out in (("flash_attention_bwd_dkdv", 2), ("flash_attention_bwd_dq", 1)):
+        fn = getattr(lib, name)
+        fn.argtypes = (
+            [ctypes.c_void_p] * (7 + n_out)  # q, k, v, dO, mask, lse, delta, outputs
+            + [ctypes.c_int] * 6  # batch, heads, seq_q, seq_k, head_dim, dtype
+            + [ctypes.c_longlong] * (3 * (4 + n_out) + 4)  # q/k/v/dO/outputs (b, s, h), mask (b, h, q, k)
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, causal, stream
+        )
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def kernel_supports(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor) -> bool:
-    """Whether the CUDA kernel takes these q/k/v (device, dtype, head_dim,
-    layout). `flash_attention_full` raises on CUDA tensors it does not take."""
+    """Whether the CUDA kernels take these q/k/v (device, dtype, head_dim,
+    layout). `flash_attention_full` raises on CUDA tensors they do not take."""
     if not (query.is_cuda and key.is_cuda and value.is_cuda):
         return False
     if query.dtype not in DTYPES or key.dtype != query.dtype or value.dtype != query.dtype:
@@ -99,11 +159,161 @@ def kernel_supports(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor)
         return False
     if torch.cuda.get_device_capability(query.device) != (9, 0):
         return False
-    for t in (query, key, value):
-        # 16-byte vector loads of head_dim rows
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            return False
-    return True
+    return all(_rows_aligned(t) for t in (query, key, value))
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    # 16-byte vector loads of head_dim rows
+    return t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
+
+
+def _check_supported(name: str, query, key, value) -> None:
+    if not kernel_supports(query, key, value):
+        raise ValueError(
+            f"{name}: the sm_90a kernels take bf16/fp16 CUDA q/k/v [B,S,H,D] with head_dim in "
+            f"{HEAD_DIMS}, unit head_dim stride and 16-byte-aligned rows; got q {tuple(query.shape)} "
+            f"{query.dtype} on {query.device}, k {tuple(key.shape)}, v {tuple(value.shape)}"
+        )
+
+
+def _mask_arg(attn_mask: Optional[torch.Tensor], query: torch.Tensor, key: torch.Tensor):
+    """(pointer, (b, h, q, k) strides, tensor) of the additive f32 mask,
+    broadcast to ``[B, H, Sq, Sk]`` without a copy; the caller holds the
+    tensor until the launch is queued. (None, zeros, None) without a mask."""
+    if attn_mask is None:
+        return None, (0, 0, 0, 0), None
+    b, sq, h, _ = query.shape
+    mask = _additive_mask(attn_mask).to(query.device).expand(b, h, sq, key.shape[1])
+    return mask.data_ptr(), mask.stride(), mask
+
+
+def _flash_fwd_cuda(query, key, value, attn_mask, scale, is_causal, return_lse):
+    """Launch K1 (counted in `flash_attention_full.launches`)."""
+    _check_supported("flash_attention_full", query, key, value)
+    b, sq, h, d = query.shape
+    mask_ptr, mask_strides, _mask = _mask_arg(attn_mask, query, key)
+    out = torch.empty_like(query, memory_format=torch.contiguous_format)
+    lse = torch.empty((b, h, sq), device=query.device, dtype=torch.float32) if return_lse else None
+
+    fn = load_library().flash_attention_fwd
+    with torch.cuda.device(query.device):
+        err = fn(
+            query.data_ptr(), key.data_ptr(), value.data_ptr(), mask_ptr, out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            b, h, sq, key.shape[1], d, DTYPES[query.dtype],
+            *query.stride()[:3], *key.stride()[:3], *value.stride()[:3], *out.stride()[:3],
+            *mask_strides,
+            float(scale), int(bool(is_causal)), torch.cuda.current_stream(query.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed with cudaError_t {err}")
+    flash_attention_full.launches += 1
+    return out, lse
+
+
+def _bwd_args(query, key, value, attn_mask, lse, delta, grad_out):
+    """Checks shared by K2 and K3; returns dO with kernel-ready rows and the mask argument."""
+    _check_supported("flash_attention_bwd", query, key, value)
+    grad_out = grad_out.to(query.dtype)
+    if grad_out.shape != query.shape or not _rows_aligned(grad_out):
+        grad_out = grad_out.expand(query.shape).contiguous()
+    b, sq, h, _ = query.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_contiguous() or t.device != query.device:
+            raise ValueError(f"flash_attention_bwd: {name} must be a contiguous f32 [{b}, {h}, {sq}] tensor "
+                             f"on {query.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    return grad_out, _mask_arg(attn_mask, query, key)
+
+
+def flash_attention_bwd_dkdv(query, key, value, attn_mask, lse, delta, grad_out, scale, is_causal):
+    """Launch K2 on CUDA tensors: (dk, dv) in BSHD, the inputs' dtype. `lse`
+    and `delta` are contiguous f32 ``[B, H, Sq]``. Raises on what the kernel
+    does not take."""
+    grad_out, (mask_ptr, mask_strides, _mask) = _bwd_args(query, key, value, attn_mask, lse, delta, grad_out)
+    b, sq, h, d = query.shape
+    dk = torch.empty_like(key, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(value, memory_format=torch.contiguous_format)
+    with torch.cuda.device(query.device):
+        err = load_bwd_library().flash_attention_bwd_dkdv(
+            query.data_ptr(), key.data_ptr(), value.data_ptr(), grad_out.data_ptr(), mask_ptr,
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, sq, key.shape[1], d, DTYPES[query.dtype],
+            *query.stride()[:3], *key.stride()[:3], *value.stride()[:3], *grad_out.stride()[:3],
+            *dk.stride()[:3], *dv.stride()[:3], *mask_strides,
+            float(scale), int(bool(is_causal)), torch.cuda.current_stream(query.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_dkdv launch failed with cudaError_t {err}")
+    flash_attention_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkdv.launches = 0
+
+
+def flash_attention_bwd_dq(query, key, value, attn_mask, lse, delta, grad_out, scale, is_causal):
+    """Launch K3 on CUDA tensors: dq in BSHD, the inputs' dtype."""
+    grad_out, (mask_ptr, mask_strides, _mask) = _bwd_args(query, key, value, attn_mask, lse, delta, grad_out)
+    b, sq, h, d = query.shape
+    dq = torch.empty_like(query, memory_format=torch.contiguous_format)
+    with torch.cuda.device(query.device):
+        err = load_bwd_library().flash_attention_bwd_dq(
+            query.data_ptr(), key.data_ptr(), value.data_ptr(), grad_out.data_ptr(), mask_ptr,
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, h, sq, key.shape[1], d, DTYPES[query.dtype],
+            *query.stride()[:3], *key.stride()[:3], *value.stride()[:3], *grad_out.stride()[:3],
+            *dq.stride()[:3], *mask_strides,
+            float(scale), int(bool(is_causal)), torch.cuda.current_stream(query.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_dq launch failed with cudaError_t {err}")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd(query, key, value, attn_mask, out, lse, grad_out, scale=None, is_causal=False):
+    """The attention backward (BSHD): (dq, dk, dv). A CPU tensor takes
+    `flash_attention_bwd_plain`; a CUDA tensor launches K2 and K3, or raises.
+    ``delta = rowsum(dO * O)`` is a PyTorch op in f32, as in JAX (`:249`)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(query.shape[-1])
+    if query.device.type == "cpu":
+        return flash_attention_bwd_plain(query, key, value, attn_mask, out, lse, grad_out, scale, is_causal)
+    delta = (grad_out.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = flash_attention_bwd_dkdv(query, key, value, attn_mask, lse, delta, grad_out, scale, is_causal)
+    dq = flash_attention_bwd_dq(query, key, value, attn_mask, lse, delta, grad_out, scale, is_causal)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Differentiable flash attention, the counterpart of JAX's
+    `flash_attention_vjp`: the forward keeps the f32 LSE (K1 on the card,
+    `flash_attention_plain` on the CPU) and saves q, k, v, the mask, out and
+    the LSE; the backward is `flash_attention_bwd` (K2 and K3 on the card).
+    Returns (out, lse); the LSE carries no gradient. Under `torch.autocast`
+    it runs in the dtype its inputs arrive in."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, query, key, value, attn_mask, scale, is_causal):
+        mask = _additive_mask(attn_mask)
+        if query.device.type == "cpu":
+            out, lse = flash_attention_plain(query, key, value, mask, scale, is_causal, return_lse=True)
+        else:
+            out, lse = _flash_fwd_cuda(query, key, value, mask, scale, is_causal, return_lse=True)
+        ctx.save_for_backward(query, key, value, mask, out, lse)
+        ctx.scale, ctx.is_causal = scale, is_causal
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad_out, grad_lse):
+        query, key, value, mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(query, key, value, mask, out, lse, grad_out, ctx.scale, ctx.is_causal)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_full(
@@ -115,46 +325,25 @@ def flash_attention_full(
     is_causal: bool = False,
     return_lse: bool = False,
 ):
-    """Flash-attention forward (BSHD). A CPU tensor takes
-    `flash_attention_plain`; a CUDA tensor launches the kernel, or raises on
-    what the kernel does not take (see `kernel_supports`).
+    """Flash attention (BSHD), differentiable in q, k and v.
+
+    With grad mode on and an input that requires grad, the call goes through
+    `FlashAttentionFunction` (K1 with the LSE, then K2 and K3 in the
+    backward). Otherwise it is the forward alone, with no LSE write unless
+    `return_lse`: a CPU tensor takes `flash_attention_plain`; a CUDA tensor
+    launches K1, or raises on what the kernel does not take (see
+    `kernel_supports`).
 
     `attn_mask`: additive float bias or bool keep-mask, broadcastable to
     ``[B, H, Sq, Sk]``. Returns the output, and the f32 LSE ``[B, H, Sq]``
     when `return_lse`."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(query.shape[-1])
+    if torch.is_grad_enabled() and (query.requires_grad or key.requires_grad or value.requires_grad):
+        out, lse = FlashAttentionFunction.apply(query, key, value, attn_mask, scale, is_causal)
+        return (out, lse) if return_lse else out
     if query.device.type == "cpu":
         return flash_attention_plain(query, key, value, attn_mask, scale, is_causal, return_lse)
-    if not kernel_supports(query, key, value):
-        raise ValueError(
-            f"flash_attention_full: the sm_90a kernel takes bf16/fp16 CUDA q/k/v [B,S,H,D] with head_dim in "
-            f"{HEAD_DIMS}, unit head_dim stride and 16-byte-aligned rows; got q {tuple(query.shape)} "
-            f"{query.dtype} on {query.device}, k {tuple(key.shape)}, v {tuple(value.shape)}"
-        )
-    b, sq, h, d = query.shape
-    sk = key.shape[1]
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    mask_ptr, mask_strides = None, (0, 0, 0, 0)
-    if attn_mask is not None:
-        if attn_mask.dtype == torch.bool:
-            attn_mask = torch.where(attn_mask, 0.0, NEG_INF)
-        attn_mask = attn_mask.to(device=query.device, dtype=torch.float32).expand(b, h, sq, sk)
-        mask_ptr, mask_strides = attn_mask.data_ptr(), attn_mask.stride()
-    out = torch.empty_like(query, memory_format=torch.contiguous_format)
-    lse = torch.empty((b, h, sq), device=query.device, dtype=torch.float32) if return_lse else None
-
-    fn = load_library().flash_attention_fwd
-    with torch.cuda.device(query.device):
-        err = fn(
-            query.data_ptr(), key.data_ptr(), value.data_ptr(), mask_ptr, out.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            b, h, sq, sk, d, DTYPES[query.dtype],
-            *query.stride()[:3], *key.stride()[:3], *value.stride()[:3], *out.stride()[:3],
-            *mask_strides,
-            float(scale), int(bool(is_causal)), torch.cuda.current_stream(query.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed with cudaError_t {err}")
-    flash_attention_full.launches += 1
+    out, lse = _flash_fwd_cuda(query, key, value, attn_mask, scale, is_causal, return_lse)
     return (out, lse) if return_lse else out
 
 

@@ -177,12 +177,22 @@ def w8a8_matmul(
 ) -> torch.Tensor:
     """Dynamic-activation int8 matmul: ``y = dequant(quant(x) @ qw.T) + bias``
     in x's dtype. K or N not a multiple of 128: ``x @ (qw * w_scale).T +
-    bias`` in x's dtype (JAX's rule for shapes that do not tile)."""
+    bias`` in x's dtype (JAX's rule for shapes that do not tile).
+
+    The int8 path has no gradient, as JAX's Pallas call has no VJP: with grad
+    mode on and x or the bias requiring grad it raises, on every device, rather
+    than return an output cut off from autograd. Run it under
+    `torch.no_grad()`."""
     *lead, k = x.shape
     n = qw.shape[0]
     if k % ALIGN or n % ALIGN:
         y = x @ (qw.to(x.dtype) * w_scale.to(x.dtype)[:, None]).T
         return y if bias is None else y + bias.to(y.dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or (bias is not None and bias.requires_grad)):
+        raise RuntimeError(
+            "w8a8_matmul: the int8 path (K5) is inference-only and has no gradient; call it under "
+            "torch.no_grad() or with inputs that do not require grad"
+        )
     qx, x_scale = quantize_rows(x.reshape(-1, k).contiguous())
     y = w8a8_matmul_2d(qx, qw, x_scale, w_scale, x.dtype, bias)
     return y.reshape(*lead, n)

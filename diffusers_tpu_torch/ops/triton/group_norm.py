@@ -22,6 +22,11 @@ across lanes) disappears. Pass 1 accumulates the sum and sum of squares of
 ``E[d^2] - E[d]^2`` from cancelling when the mean is large against the
 spread); pass 2 normalizes, applies the affine and SiLU, and stores.
 
+Gradient: `GroupNormFunction` keeps K4 as the forward and differentiates
+in PyTorch ops on the saved input (`group_norm_bwd`), as JAX's training path
+has XLA differentiate its GroupNorm: `group_norm_silu` has no custom VJP. A
+backward kernel is a later PR's work.
+
 Known limit (a later PR's work): one program per (b, g) runs only ``B * G``
 programs, e.g. 64 for the UNet's ``(2, 320, 128, 128)`` map and 32 for the
 VAE's ``(1, 128, 1024, 1024)`` map, so most of the 132 SMs idle; a split
@@ -121,20 +126,42 @@ def _kernel():
     return group_norm_kernel
 
 
-def group_norm(
+def group_norm_bwd(
     x: torch.Tensor,
-    weight: Optional[torch.Tensor],
-    bias: Optional[torch.Tensor],
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    grad_out: torch.Tensor,
     num_groups: int,
     eps: float = 1e-5,
     apply_silu: bool = False,
-) -> torch.Tensor:
-    """GroupNorm(+SiLU) over a contiguous ``[B, C, *spatial]`` tensor.
+):
+    """The GroupNorm(+SiLU) gradient in PyTorch ops, on the saved input:
+    recompute the f32 statistics, then (dx, dweight, dbias) in the dtypes of
+    x, weight and bias. The JAX package has no backward kernel for
+    `_gn_kernel` either: its training path has XLA differentiate its
+    GroupNorm."""
+    b, c = x.shape[:2]
+    shape = (1, c) + (1,) * (x.ndim - 2)
+    xf = x.float().reshape(b, num_groups, -1)
+    mean = xf.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((xf - mean).square().mean(dim=-1, keepdim=True) + eps)
+    xhat = ((xf - mean) * rstd).reshape(x.shape)
+    g = grad_out.float()
+    if apply_silu:
+        y = xhat * weight.float().reshape(shape) + bias.float().reshape(shape)
+        sig = torch.sigmoid(y)
+        g = g * sig * (1 + y * (1 - sig))
+    reduce_dims = [0] + list(range(2, x.ndim))
+    dweight = (g * xhat).sum(dim=reduce_dims)
+    dbias = g.sum(dim=reduce_dims)
+    gx = (g * weight.float().reshape(shape)).reshape(b, num_groups, -1)
+    xhat = xhat.reshape(b, num_groups, -1)
+    dx = rstd * (gx - gx.mean(dim=-1, keepdim=True) - xhat * (gx * xhat).mean(dim=-1, keepdim=True))
+    return dx.reshape(x.shape).to(x.dtype), dweight.to(weight.dtype), dbias.to(bias.dtype)
 
-    A CPU tensor takes `group_norm_plain`. A CUDA tensor launches the Triton
-    kernel, or raises on what the kernel does not take."""
-    if x.device.type == "cpu":
-        return group_norm_plain(x, weight, bias, num_groups, eps, apply_silu)
+
+def _group_norm_cuda(x, weight, bias, num_groups, eps, apply_silu):
+    """Launch K4 (counted in `group_norm.launches`)."""
     if x.device.type != "cuda":
         raise ValueError(f"group_norm: unsupported device {x.device}")
     if x.ndim < 2 or x.shape[1] % num_groups != 0:
@@ -147,8 +174,6 @@ def group_norm(
     hw = x[0, 0].numel()
     if c // num_groups * hw >= 2**31:
         raise ValueError(f"group_norm: a group of {tuple(x.shape)} exceeds 2^31 elements")
-    weight = torch.ones(c, device=x.device, dtype=x.dtype) if weight is None else weight
-    bias = torch.zeros(c, device=x.device, dtype=x.dtype) if bias is None else bias
     for name, p in (("weight", weight), ("bias", bias)):
         if p.shape != (c,) or p.device != x.device or not p.is_contiguous():
             raise ValueError(f"group_norm: {name} must be a contiguous [{c}] tensor on {x.device}")
@@ -161,6 +186,57 @@ def group_norm(
         )
     group_norm.launches += 1
     return y
+
+
+class GroupNormFunction(torch.autograd.Function):
+    """Differentiable GroupNorm(+SiLU): the forward is K4 on the card
+    (`group_norm_plain` on the CPU) and saves x, weight and bias; the backward
+    is `group_norm_bwd`, PyTorch ops on the saved input."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, weight, bias, num_groups, eps, apply_silu):
+        if x.device.type == "cpu":
+            y = group_norm_plain(x, weight, bias, num_groups, eps, apply_silu)
+        else:
+            y = _group_norm_cuda(x, weight, bias, num_groups, eps, apply_silu)
+        ctx.save_for_backward(x, weight, bias)
+        ctx.num_groups, ctx.eps, ctx.apply_silu = num_groups, eps, apply_silu
+        return y
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad_out):
+        x, weight, bias = ctx.saved_tensors
+        dx, dweight, dbias = group_norm_bwd(x, weight, bias, grad_out, ctx.num_groups, ctx.eps, ctx.apply_silu)
+        return dx, dweight, dbias, None, None, None
+
+
+def group_norm(
+    x: torch.Tensor,
+    weight: Optional[torch.Tensor],
+    bias: Optional[torch.Tensor],
+    num_groups: int,
+    eps: float = 1e-5,
+    apply_silu: bool = False,
+) -> torch.Tensor:
+    """GroupNorm(+SiLU) over a contiguous ``[B, C, *spatial]`` tensor,
+    differentiable in x, weight and bias.
+
+    With grad mode on and an input that requires grad, the call goes through
+    `GroupNormFunction`. Otherwise a CPU tensor takes `group_norm_plain` and a
+    CUDA tensor launches the Triton kernel, or raises on what the kernel does
+    not take."""
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, weight, bias))
+    if not needs_grad and x.device.type == "cpu":
+        return group_norm_plain(x, weight, bias, num_groups, eps, apply_silu)
+    c = x.shape[1]
+    weight = torch.ones(c, device=x.device, dtype=x.dtype) if weight is None else weight
+    bias = torch.zeros(c, device=x.device, dtype=x.dtype) if bias is None else bias
+    if needs_grad:
+        return GroupNormFunction.apply(x, weight, bias, num_groups, eps, apply_silu)
+    return _group_norm_cuda(x, weight, bias, num_groups, eps, apply_silu)
 
 
 group_norm.launches = 0

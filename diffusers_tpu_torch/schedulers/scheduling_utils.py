@@ -130,6 +130,33 @@ def make_beta_schedule(
     raise NotImplementedError(f"beta_schedule '{beta_schedule}' is not implemented")
 
 
+def make_spaced_timesteps(
+    num_inference_steps: int,
+    num_train_timesteps: int,
+    timestep_spacing: str,
+    steps_offset: int = 0,
+) -> np.ndarray:
+    """'linspace' / 'leading' / 'trailing' timestep selection, Table 2 of
+    https://huggingface.co/papers/2305.08891, as the JAX package's."""
+    if timestep_spacing == "linspace":
+        return np.linspace(0, num_train_timesteps - 1, num_inference_steps).round()[::-1].copy().astype(np.int64)
+    if timestep_spacing == "leading":
+        step_ratio = num_train_timesteps // num_inference_steps
+        timesteps = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1].copy().astype(np.int64)
+        return timesteps + steps_offset
+    if timestep_spacing == "trailing":
+        step_ratio = num_train_timesteps / num_inference_steps
+        timesteps = np.round(np.arange(num_train_timesteps, 0, -step_ratio)).astype(np.int64)
+        return timesteps - 1
+    raise ValueError(f"timestep_spacing '{timestep_spacing}' must be 'linspace', 'leading' or 'trailing'")
+
+
+def broadcast_to_left(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Append trailing singleton dims so a per-batch scalar broadcasts over a
+    sample of rank `ndim`."""
+    return x.reshape(x.shape + (1,) * (ndim - x.ndim))
+
+
 def index_for_timestep(timesteps: torch.Tensor, timestep) -> int:
     """Position of `timestep` in the (descending) inference schedule. The
     schedule lives on the host, so this never waits for the device."""

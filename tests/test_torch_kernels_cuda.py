@@ -10,16 +10,25 @@ Tolerances are stated per test. Attention is held element by element to
 input dtype before P.v); GroupNorm to one ulp at the reference's largest
 magnitude; the w8a8 matmul to one bf16 ulp per element (its int32 sums are
 exact on both sides, so it is in fact bit-equal) and its row quantization to
-bit equality.
+bit equality. The attention backward (K2, K3) is held element by element to
+`chip_smoke.attention_bwd_bounds` (P and dS rounded to the input dtype before
+their products, f32 sums in another order, the outputs' rounding).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FLUX_W8A8_SHAPES, attention_bounds, bf16_ulp
+from chip_smoke import FLUX_W8A8_SHAPES, attention_bounds, attention_bwd_bounds, bf16_ulp
 from diffusers_tpu_torch.ops.attention import _auto_backend, dispatch_attention_fn
-from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_attention_full, flash_attention_plain
+from diffusers_tpu_torch.ops.cuda.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_dkdv,
+    flash_attention_bwd_dq,
+    flash_attention_full,
+    flash_attention_plain,
+)
 from diffusers_tpu_torch.ops.cuda.w8a8_matmul import (
     quantize_rows,
     quantize_rows_plain,
@@ -27,7 +36,7 @@ from diffusers_tpu_torch.ops.cuda.w8a8_matmul import (
     w8a8_matmul_2d,
     w8a8_matmul_2d_plain,
 )
-from diffusers_tpu_torch.ops.triton.group_norm import group_norm, group_norm_plain
+from diffusers_tpu_torch.ops.triton.group_norm import group_norm, group_norm_bwd, group_norm_plain
 from diffusers_tpu_torch.quantizers import quantize_kernel_int8
 
 pytestmark = pytest.mark.gpu
@@ -216,3 +225,132 @@ def test_small_flux_pipeline_on_card_matches_cpu(cuda):
 
     chip_smoke.check_small_flux_reference("cuda")
     assert np.isfinite(chip_smoke.RESULTS["small_flux_reference"]["max_abs_err"])
+
+
+def _bwd_inputs(gen, b, sq, sk, h, d, causal, masked, dtype, device):
+    q = _randn(gen, (b, sq, h, d), dtype, device, scale=2.0)
+    k = _randn(gen, (b, sk, h, d), dtype, device)
+    v = _randn(gen, (b, sk, h, d), dtype, device)
+    mask = None
+    if masked:
+        mask = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=device) < 0.3, -1e4, 0.0)
+    out, lse = flash_attention_full(q, k, v, attn_mask=mask, is_causal=causal, return_lse=True)
+    grad_out = _randn(gen, (b, sq, h, d), dtype, device)
+    return q, k, v, mask, out, lse, grad_out
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,h,d,causal,masked,dtype",
+    [
+        (1, 1024, 1024, 4, 64, False, False, torch.bfloat16),
+        (2, 512, 77, 4, 64, False, False, torch.bfloat16),  # SDXL's ragged cross attention
+        (1, 300, 300, 2, 64, True, False, torch.bfloat16),
+        (1, 130, 300, 2, 64, True, False, torch.bfloat16),  # causal, Sq < Sk: top-left aligned
+        (2, 300, 130, 2, 128, True, True, torch.bfloat16),  # causal + mask, Sq > Sk
+        (1, 200, 333, 2, 128, False, True, torch.bfloat16),
+        (1, 500, 700, 3, 128, False, False, torch.float16),
+        (3, 1, 5, 1, 64, False, False, torch.float16),
+    ],
+)
+def test_flash_bwd_kernels_match_plain(cuda, b, sq, sk, h, d, causal, masked, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, mask, out, lse, grad_out = _bwd_inputs(gen, b, sq, sk, h, d, causal, masked, dtype, cuda)
+    before = (flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
+    grads = flash_attention_bwd(q, k, v, mask, out, lse, grad_out, is_causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    refs, bounds, _ = attention_bwd_bounds(q, k, v, out, lse, grad_out, attn_mask=mask, is_causal=causal)
+    for name, g, ref, bound in zip(("dq", "dk", "dv"), grads, refs, bounds):
+        assert g.dtype == dtype and g.shape == ref.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert bool(((g.float() - ref).abs() <= bound).all()), name
+
+
+def test_flash_bwd_bound_rejects_a_zeroed_kv_tile(cuda):
+    """Control: grads of inputs with one 64-key tile of k/v zeroed break the bound."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, _, out, lse, grad_out = _bwd_inputs(gen, 1, 1024, 1024, 4, 64, False, False, torch.bfloat16, cuda)
+    refs, bounds, _ = attention_bwd_bounds(q, k, v, out, lse, grad_out)
+    k0, v0 = k.clone(), v.clone()
+    k0[:, 512:576] = 0
+    v0[:, 512:576] = 0
+    broken = flash_attention_bwd(q, k0, v0, None, out, lse, grad_out)
+    for g, r, bd in zip(broken, refs, bounds):
+        assert not bool(((g.float() - r).abs() <= bd).all())
+
+
+def test_flash_attention_keeps_the_autograd_graph(cuda):
+    """K1 on inputs that require grad returns an output with a grad_fn, and
+    its backward launches K2 and K3 with the kernels' own grads."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (_randn(gen, (1, 256, 2, 64), torch.bfloat16, cuda).requires_grad_() for _ in range(3))
+    grad_out = _randn(gen, (1, 256, 2, 64), torch.bfloat16, cuda)
+    before = (flash_attention_full.launches, flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
+    out = flash_attention_full(q, k, v)
+    assert out.requires_grad and out.grad_fn is not None
+    out.backward(grad_out)
+    after = (flash_attention_full.launches, flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
+    assert after == tuple(n + 1 for n in before)
+    with torch.no_grad():
+        ref_out, lse = flash_attention_full(q, k, v, return_lse=True)
+        ref = flash_attention_bwd(q, k, v, None, ref_out, lse, grad_out)
+    for g, r in zip((q.grad, k.grad, v.grad), ref):
+        assert torch.equal(g, r)
+
+
+def test_flash_attention_under_autocast_runs_k1_k2_k3(cuda):
+    """f32 projections under bf16 autocast hand bf16 q/k/v to the kernels;
+    every f32 weight gets a finite gradient."""
+    torch.manual_seed(0)
+    proj = torch.nn.Linear(128, 3 * 128, device=cuda)
+    x = torch.randn(2, 77, 128, device=cuda)
+    before = (flash_attention_full.launches, flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        q, k, v = proj(x).reshape(2, 77, 3, 2, 64).unbind(dim=2)
+        out = dispatch_attention_fn(q, k, v)
+    assert out.dtype == torch.bfloat16
+    out.float().square().mean().backward()
+    after = (flash_attention_full.launches, flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
+    assert after == tuple(n + 1 for n in before)
+    assert proj.weight.grad is not None and bool(torch.isfinite(proj.weight.grad).all())
+    assert float(proj.weight.grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_keeps_the_autograd_graph(cuda, silu):
+    """K4 on inputs that require grad returns an output with a grad_fn; its
+    grads are `group_norm_bwd`'s and agree with autograd through the plain
+    version in f32 (tolerance: the bf16 rounding of y and dx, one ulp of the
+    largest magnitude)."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x = (_randn(gen, (2, 64, 16, 16), torch.bfloat16, cuda, scale=1.5) + 1.0).requires_grad_()
+    w = (_randn(gen, (64,), torch.float32, cuda, scale=0.1) + 1).requires_grad_()
+    b = _randn(gen, (64,), torch.float32, cuda, scale=0.1).requires_grad_()
+    gy = _randn(gen, (2, 64, 16, 16), torch.bfloat16, cuda)
+    before = group_norm.launches
+    y = group_norm(x, w, b, 32, 1e-6, apply_silu=silu)
+    assert group_norm.launches == before + 1
+    assert y.requires_grad and y.grad_fn is not None
+    grads = torch.autograd.grad(y, (x, w, b), gy)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    expected = group_norm_bwd(x.detach(), w.detach(), b.detach(), gy, 32, 1e-6, silu)
+    for g, e in zip(grads, expected):
+        assert torch.equal(g, e)
+    xf = x.detach().float().requires_grad_()
+    refs = torch.autograd.grad(group_norm_plain(xf, w, b, 32, 1e-6, apply_silu=silu), (xf, w, b), gy.float())
+    for g, r in zip(grads, refs):
+        assert float((g.float() - r).abs().max()) <= 2.0**-7 * max(1.0, float(r.abs().max())), (g.shape, silu)
+
+
+def test_w8a8_matmul_raises_under_grad(cuda):
+    """K5 has no gradient: under grad mode with x or the bias requiring grad
+    it raises instead of returning a detached output."""
+    qw, ws = quantize_kernel_int8(torch.randn(256, 384, device=cuda))
+    x = torch.randn(4, 384, device=cuda, dtype=torch.bfloat16)
+    bias = torch.zeros(256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        w8a8_matmul(x.requires_grad_(), qw, ws)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        w8a8_matmul(x.detach(), qw, ws, bias.requires_grad_())
+    with torch.no_grad():
+        assert w8a8_matmul(x, qw, ws, bias).shape == (4, 256)

@@ -1,7 +1,7 @@
-"""Where the port's main paths (SDXL, Flux.1-dev) spend device time, on one
-CUDA card.
+"""Where the port's main paths (SDXL, Flux.1-dev, SDXL-UNet training) spend
+device time, on one CUDA card.
 
-    python3 tools/profile_sdxl.py [--model sdxl|flux] [--out DIR]
+    python3 tools/profile_sdxl.py [--model sdxl|flux|train] [--out DIR]
 
 Builds the full-width pipeline of `chip_smoke.py` (random weights from a
 seed, made on the card: SDXL bf16; Flux.1-dev with the w8a8 transformer),
@@ -14,6 +14,11 @@ warms it up with one 1024 px request, then:
     and sums device time by kernel group;
   * times one request (SDXL: 30 steps, CFG 5.0; Flux: 28 steps, guidance
     3.5) on the host clock, profiler off, then traces one.
+
+With `--model train` it builds the SDXL UNet of `train_text_to_image` (f32
+weights, AdamW, bf16 autocast), runs two warm-up steps on one synthetic
+1024 px batch of 1, times the forward (loss), the backward and the optimizer
+step of three steps with CUDA events, profiler off, then traces one step.
 
 Device idle share of a forward = 1 - (union of its device intervals) / (its
 unprofiled CUDA-event time): the profiler slows the host, not the kernels.
@@ -40,6 +45,9 @@ GROUPS = (
     ("K5 w8a8_matmul", ("w8a8_gemm_kernel",)),
     ("K5 quantize_rows", ("quantize_rows_kernel",)),
     ("K1 flash_attention_fwd", ("flash_fwd_kernel",)),
+    ("K2 flash_attention_bwd_dkdv", ("flash_bwd_dkdv_kernel",)),
+    ("K3 flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("optimizer (multi_tensor_apply)", ("multi_tensor_apply",)),
     ("K4 group_norm", ("group_norm_kernel",)),
     ("convolution (cuDNN)", ("cudnn", "conv", "fprop", "nchwToNhwc", "nhwcToNchw")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cublas", "cutlass")),
@@ -59,7 +67,10 @@ def device_summary(prof, wall_ms: float) -> dict:
     and the ten costliest kernels; idle share against `wall_ms`."""
     import torch
 
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device kernels and copies; user annotations mirrored on the device timeline
+    # (`Optimizer.step#AdamW.step`) span other activities and are left out
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     if not events:
         raise RuntimeError("the trace holds no device activity")
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -132,14 +143,73 @@ def _flux(torch):
             "Flux transformer forward (4096 image + 512 text tokens, w8a8)", 3)
 
 
+def profile_train(torch, smi: str, out) -> int:
+    """One SDXL-UNet train step at 1024 px, batch 1: phase times and a trace."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusers_tpu_torch.schedulers import DDPMScheduler
+    from diffusers_tpu_torch.training import train_text_to_image as t2i
+
+    dev = torch.device("cuda")
+    unet = t2i.build_unet("sdxl", chip_smoke.RESOLUTION, chip_smoke.SEED, dev)
+    unet.train()
+    scheduler = DDPMScheduler()
+    loss_fn = t2i.make_loss_fn(scheduler, scheduler.set_timesteps())
+    optimizer = torch.optim.AdamW(unet.parameters(), lr=1e-5, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             t2i.synthetic_batch(np.random.RandomState(chip_smoke.SEED), "sdxl", 1, chip_smoke.RESOLUTION).items()}
+
+    def step(marks=None):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(unet, batch)
+        if marks is not None:
+            marks[1].record()
+        loss.backward()
+        if marks is not None:
+            marks[2].record()
+        optimizer.step()
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    phases = {"forward_ms": [], "backward_ms": [], "optimizer_ms": [], "step_ms": []}
+    for _ in range(3):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        marks[0].record()
+        step(marks)
+        marks[3].record()
+        torch.cuda.synchronize()
+        for key, (a, b) in zip(phases, ((0, 1), (1, 2), (2, 3), (0, 3))):
+            phases[key].append(marks[a].elapsed_time(marks[b]))
+    means = {k: sum(v) / len(v) for k, v in phases.items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    summary = device_summary(prof, means["step_ms"])
+    chip_smoke.log(f"[profile] {smi}")
+    chip_smoke.log(f"[profile] SDXL-UNet train step, 1024 px, batch 1 (mean of 3, CUDA events): forward + loss "
+                   f"{means['forward_ms']:.1f} ms, backward {means['backward_ms']:.1f} ms, AdamW "
+                   f"{means['optimizer_ms']:.1f} ms, step {means['step_ms']:.1f} ms")
+    print_summary("one SDXL-UNet train step (f32 weights, bf16 autocast, AdamW)", summary)
+    if out is not None:
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "profile_train.json").write_text(json.dumps(
+            {"card": smi, "model": "train", "phases_ms": phases, "step": summary}, indent=2))
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", choices=("sdxl", "flux"), default="sdxl")
+    parser.add_argument("--model", choices=("sdxl", "flux", "train"), default="sdxl")
     parser.add_argument("--out", type=Path, default=None, help="directory for profile_<model>.json")
     args = parser.parse_args()
     smi = chip_smoke.setup()
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    if args.model == "train":
+        return profile_train(torch, smi, args.out)
 
     pipe, request, forward, forward_title, forward_iters = (_flux if args.model == "flux" else _sdxl)(torch)
 
