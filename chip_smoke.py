@@ -225,7 +225,7 @@ def attention_bounds(q, k, v, attn_mask=None, is_causal=False):
     |out - ref32| <= u (|ref32| + sum_k p|v|) [+ 2^-25 sum_k |v| for fp16],
     where ref32 is the plain version in f32; the plain version in the input
     dtype rounds ref32 once more (another u |ref32|). 2^-14 (|ref32| +
-    sum_k p|v|) covers f32 sums in another order and `__expf`.
+    sum_k p|v|) covers f32 sums in another order and the approximate exp2.
 
     Returns (ref32, bound vs ref32, bound vs the plain version in the input dtype)."""
     import torch
@@ -311,6 +311,44 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: `iters` calls captured in a CUDA graph and
+    replayed once on CUDA events, so no host time enters (for a small kernel,
+    `time_ms` measures the host's launch rate instead)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 100) -> float:
+    """Host time of one call (microseconds): the enqueue alone, the device's
+    work left to finish after the clock stops. For a kernel wrapper it holds
+    the checks, the tensor-map encoding and the launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e6
+
+
 def time_pair(kernel_fn, plain_fn, iters: int, plain_iters: int = None):
     """Times in turns (plain, kernel, kernel, plain); returns (kernel_ms, plain_ms) means."""
     plain_iters = plain_iters or iters
@@ -371,9 +409,33 @@ def setup():
     return smi
 
 
+def ptxas_summary(log: str):
+    """Per kernel function of an nvcc `-Xptxas -v` log: (name, registers,
+    spill stores, spill loads), names demangled where `c++filt` exists."""
+    import re
+    import shutil
+
+    rows, name = [], None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = m.group(1)
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            rows.append([name, int(m.group(1)), *spills])
+            name = None
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows), capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        for r, n in zip(rows, names):
+            r[0] = n.replace("(anonymous namespace)::", "").split("(")[0]
+    return [tuple(r) for r in rows]
+
+
 def build_kernels():
     """Phase 2: build the CUDA C++ kernels with nvcc (sm_90a), one nvcc per
-    source, all at once."""
+    source, all at once; each kernel's registers and spills (ptxas) and the
+    dynamic shared memory of K1's and K5's launches."""
     from diffusers_tpu_torch.ops.cuda import _build, flash_attention, w8a8_matmul
 
     sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE, w8a8_matmul.SOURCE)
@@ -385,10 +447,17 @@ def build_kernels():
     RESULTS["build"] = {"seconds": seconds}
     log(f"[build] {', '.join(src.name for src in sources)} -> sm_90a in {seconds:.1f} s (in parallel)")
     for src in sources:
-        ptxas = [line.strip() for line in _build.build_log(src).splitlines() if "registers" in line or "spill" in line]
-        RESULTS["build"][src.name] = ptxas
-        for line in ptxas:
-            log(f"[build]   {src.name}: {line}")
+        rows = ptxas_summary(_build.build_log(src))
+        RESULTS["build"][src.name] = [{"function": n, "registers": r, "spill_stores": ss, "spill_loads": sl}
+                                      for n, r, ss, sl in rows]
+        for n, r, ss, sl in rows:
+            log(f"[build]   {src.name}: {n}: {r} registers, spill stores {ss} B, spill loads {sl} B")
+    smem = {f"flash_attention_fwd d={d}": flash_attention.load_library().flash_attention_fwd_smem_bytes(d)
+            for d in flash_attention.HEAD_DIMS}
+    smem.update({f"w8a8_matmul tile {bm}x{bn}": w8a8_matmul.load_library().w8a8_matmul_smem_bytes(bm, bn)
+                 for bm, bn in w8a8_matmul.TILES})
+    RESULTS["build"]["dynamic_smem_bytes"] = smem
+    log(f"[build]   dynamic shared memory per block (bytes): {smem}")
 
 
 def check_kernels():
@@ -451,23 +520,32 @@ def check_kernels():
             flops = 4.0 * b * h * sq * sk * d
             bms, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + q.numel()), flops, PEAK_BF16_FLOPS)
             row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
-                       tflops=flops / ms / 1e9)
+                       tflops=flops / ms / 1e9, share_of_time_bound=bms / ms,
+                       device_ms=graph_ms(lambda: flash_attention_full(q, k, v)),
+                       library_device_ms=graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                       host_us_per_call=host_us(lambda: flash_attention_full(q, k, v)))
             k1_times[label] = row
         log(f"[K1] {label}: err vs f32 {err32:.3e}, vs plain {err16:.3e}; share of the per-element bound "
             f"{used32:.3f} / {used16:.3f}"
-            + (f", kernel {row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s), plain {row['plain_ms']:.3f} ms, "
-               f"SDPA {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms" if timed else ""))
+            + (f", kernel {row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s, {100 * row['share_of_time_bound']:.1f}% "
+               f"of its bound), plain {row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.4f} ms, bound "
+               f"{row['bound_ms']:.4f} ms; device time (CUDA graph) {row['device_ms']:.4f} ms, SDPA "
+               f"{row['library_device_ms']:.4f} ms; host {row['host_us_per_call']:.1f} us a call" if timed else ""))
         if not (used32 <= 1.0 and used16 <= 1.0 and torch.isfinite(out).all()):
             raise AssertionError(f"flash_attention_fwd disagrees with its plain version on {label}")
         if timed:
             # controls: outputs of a partly wrong kernel must break the bound
-            t0 = (sk // 2) // 64 * 64  # one 64-key kv tile of the kernel
+            t0 = (sk // 2) // 64 * 64  # 64 keys from the middle
             keep = torch.cat([torch.arange(t0, device=dev), torch.arange(min(t0 + 64, sk), sk, device=dev)])
             dropped = flash_attention_full(q, k[:, keep], v[:, keep])
             misscaled = out.clone()
             misscaled[:, ::64] *= 1 + 2.0**-5  # every 64th query row 3% off
             controls = {"kv_tile_dropped": float(((dropped.float() - ref32).abs() / bound32).max()),
                         "rows_misscaled": float(((misscaled.float() - ref32).abs() / bound32).max())}
+            last = (sk - 1) // 128 * 128  # the kernel's last 128-key kv tile starts here
+            if last > 0:
+                no_last = flash_attention_full(q, k[:, :last], v[:, :last])
+                controls["last_kv_tile_dropped"] = float(((no_last.float() - ref32).abs() / bound32).max())
             row["controls_share_of_bound"] = controls
             log(f"[K1]   controls, share of the bound (must exceed 1): {controls}")
             if min(controls.values()) <= 1.0:
@@ -480,7 +558,7 @@ def check_kernels():
     _, lse = flash_attention_full(q, k, v, return_lse=True)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / 8.0
     lse_err = float((lse - torch.logsumexp(logits, dim=-1)).abs().max())
-    lse_tol = 1e-3  # f32 online softmax with __expf against exact f32 logsumexp
+    lse_tol = 1e-3  # f32 online softmax with an approximate exp2 against exact f32 logsumexp
     cases.append({"kernel": "flash_attention_fwd", "case": "lse 256", "max_abs_err_vs_f32": lse_err, "tol": lse_tol})
     log(f"[K1] lse 256: err vs torch.logsumexp {lse_err:.3e} (tol {lse_tol:.0e})")
     if not lse_err <= lse_tol:
@@ -560,6 +638,8 @@ def check_w8a8():
     import torch
 
     from diffusers_tpu_torch.ops.cuda.w8a8_matmul import (
+        TILES,
+        pick_tile,
         quantize_rows,
         quantize_rows_plain,
         w8a8_matmul_2d,
@@ -571,7 +651,7 @@ def check_w8a8():
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     cases = []
     step = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bf16_matmul_ms", "bound_ms",
-                             "q_ms", "q_plain_ms", "q_bound_ms")}
+                             "q_ms", "q_plain_ms", "q_bound_ms", "device_ms", "library_device_ms")}
     max_err = 0.0
     for m, k, n, per_step in FLUX_W8A8_SHAPES:
         x = (torch.randn(m, k, generator=gen, device=dev) * 2).to(torch.bfloat16)
@@ -593,13 +673,24 @@ def check_w8a8():
         ulp = bf16_ulp(ref)
         used = float((diff / ulp).max())
         err = float(diff.max())
-        # control: the kernel without one 64-wide K tile must break the limit
+        # control: the kernel without one 64-wide K slice must break the limit
         skipped = w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias, _skip_k_tile=(k // 64) // 2)
         control = float(((skipped.float() - ref.float()).abs() / ulp).max())
 
         ms, plain_ms = time_pair(lambda: w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias),
                                  lambda: w8a8_matmul_2d_plain(qx, qw, xs, ws, torch.bfloat16, bias),
                                  iters=20, plain_iters=2)
+        # every tile K5 can take: bit-equal, and its time (the picker's evidence)
+        tile_ms = {}
+        for tile in TILES:
+            if n % tile[1] == 0:
+                yt = w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias, _tile=tile)
+                if not torch.equal(yt, ref):
+                    raise AssertionError(f"w8a8 tile {tile} is not bit-equal at M {m} K {k} N {n}")
+                tile_ms["x".join(map(str, tile))] = time_ms(
+                    lambda: w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias, _tile=tile), iters=20)
+        call_us = host_us(lambda: w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias))
+        device_ms = graph_ms(lambda: w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias))
         q_ms, q_plain_ms = time_pair(lambda: quantize_rows(x), lambda: quantize_rows_plain(x), iters=20)
         # nearest library calls: cuBLAS int8 (`torch._int_mm`, which takes M > 16: M padded to 32)
         # with the same epilogue, and a bf16 matmul of the dequantized weight
@@ -608,8 +699,8 @@ def check_w8a8():
         qx_pad[:m] = qx
         xs_pad = torch.ones(mp, 1, device=dev)
         xs_pad[:m] = xs
-        library_ms = time_ms(
-            lambda: (torch._int_mm(qx_pad, qw.t()).float() * xs_pad * ws).to(torch.bfloat16) + bias, iters=20)
+        int_mm = lambda: (torch._int_mm(qx_pad, qw.t()).float() * xs_pad * ws).to(torch.bfloat16) + bias  # noqa: E731
+        library_ms, library_device_ms = time_ms(int_mm, iters=20), graph_ms(int_mm)
         w_bf16 = (qw.float() * ws[:, None]).to(torch.bfloat16)
         bf16_ms = time_ms(lambda: torch.nn.functional.linear(x, w_bf16, bias), iters=20)
         bms, by = bound_ms(m * k + n * k + 4 * (m + n) + 2 * n + 2 * m * n, 2.0 * m * n * k, PEAK_INT8_OPS)
@@ -619,11 +710,16 @@ def check_w8a8():
                "quantize_rows_bit_equal": q_equal, "max_abs_err_vs_plain": err, "max_ulps_vs_plain": used,
                "control_skipped_k_tile_max_ulps": control, "ms": ms, "plain_ms": plain_ms,
                "int_mm_epilogue_ms": library_ms, "bf16_matmul_ms": bf16_ms, "bound_ms": bms, "bound_by": by,
-               "tops": 2.0 * m * n * k / ms / 1e9, "quantize_ms": q_ms, "quantize_plain_ms": q_plain_ms,
-               "quantize_bound_ms": q_bms}
+               "tops": 2.0 * m * n * k / ms / 1e9, "share_of_time_bound": bms / ms, "tile": pick_tile(m, n),
+               "tile_ms": tile_ms, "host_us_per_call": call_us, "device_ms": device_ms,
+               "int_mm_epilogue_device_ms": library_device_ms, "quantize_ms": q_ms,
+               "quantize_plain_ms": q_plain_ms, "quantize_bound_ms": q_bms}
         cases.append(row)
         log(f"[K5] M {m} K {k} N {n} (x{per_step}/step): qx bit-equal {q_equal}; err {err:.3e} ({used:.2f} ulp, "
-            f"control {control:.1f} ulp); kernel {ms:.4f} ms ({row['tops']:.0f} TOPS), plain {plain_ms:.3f}, "
+            f"control {control:.1f} ulp); kernel {ms:.4f} ms ({row['tops']:.0f} TOPS, "
+            f"{100 * row['share_of_time_bound']:.1f}% of its bound; tile {row['tile']}; every tile {tile_ms}; host "
+            f"{call_us:.1f} us a call; device time (CUDA graph) {device_ms:.4f}, _int_mm+epilogue {library_device_ms:.4f}), "
+            f"plain {plain_ms:.3f}, "
             f"_int_mm+epilogue {library_ms:.4f}, bf16 matmul {bf16_ms:.4f}, bound {bms:.4f} ({by}); "
             f"quantize {q_ms:.4f} ms (plain {q_plain_ms:.4f}, bound {q_bms:.4f})")
         if not (q_equal and used <= 1.0 and torch.isfinite(y).all()):
@@ -633,14 +729,16 @@ def check_w8a8():
         max_err = max(max_err, err)
         for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
                            ("bf16_matmul_ms", bf16_ms), ("bound_ms", bms), ("q_ms", q_ms),
-                           ("q_plain_ms", q_plain_ms), ("q_bound_ms", q_bms)):
+                           ("q_plain_ms", q_plain_ms), ("q_bound_ms", q_bms), ("device_ms", device_ms),
+                           ("library_device_ms", library_device_ms)):
             step[key] += per_step * value
     assert sum(s[3] for s in FLUX_W8A8_SHAPES) == FLUX_W8A8_PER_STEP
     RESULTS["w8a8_cases"] = cases
     RESULTS["w8a8_per_denoise_step"] = step
     log(f"[K5] one Flux.1-dev denoise step ({FLUX_W8A8_PER_STEP} launches): kernel {step['ms']:.2f} ms, plain "
         f"{step['plain_ms']:.1f} ms, _int_mm+epilogue {step['library_ms']:.2f} ms, bf16 matmul "
-        f"{step['bf16_matmul_ms']:.2f} ms, bound {step['bound_ms']:.2f} ms; quantize_rows {step['q_ms']:.2f} ms "
+        f"{step['bf16_matmul_ms']:.2f} ms, bound {step['bound_ms']:.2f} ms; device time (CUDA graphs) kernel "
+        f"{step['device_ms']:.2f} ms, _int_mm+epilogue {step['library_device_ms']:.2f} ms; quantize_rows {step['q_ms']:.2f} ms "
         f"(bound {step['q_bound_ms']:.2f} ms)")
     return {
         "w8a8_matmul": (max_err, {"ms": step["ms"], "plain_ms": step["plain_ms"], "library_ms": step["library_ms"],

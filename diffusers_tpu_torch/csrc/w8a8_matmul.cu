@@ -20,37 +20,37 @@
 // and embedder linears) the int8 weight bytes (N*K at 3.35 TB/s). The
 // quantization pass is bytes only (read x once, write qx once).
 //
-// What the design does about it:
-//  * The weight stays in torch's [N, K] layout, which is exactly the `.col`
-//    B operand of `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`: both
-//    operands are K-major, so every A and B fragment is one 32-bit shared
-//    memory load of four consecutive k.
-//  * One block of 8 warps owns a 128 x 128 output tile; each warp a 64 x 32
-//    sub-tile (4 x 4 mma tiles, 64 int32 accumulators a thread). A loop over
-//    K in 64-byte tiles replaces the sequential Pallas grid axis; A and B
-//    tiles stream through two shared-memory stages with 16-byte `cp.async`,
-//    so the next tile's copy overlaps the current tile's mma. Smem rows are
-//    padded to 80 bytes, which makes the fragment loads conflict-free.
+// What the design does about the GEMM:
+//  * Both operands are K-major, the only layout int8 `wgmma` takes: qx is
+//    [M, K] and the weight stays in torch's [N, K].
+//  * A persistent grid (one block per SM, two for the 64-row tile) walks
+//    over the BM x BN output tiles, BM = 64 NC: warpgroup 0 is the
+//    producer, whose one thread issues TMA loads of 128-byte-deep K tiles of
+//    qx and qw (128-byte swizzle) into a ring of 4 stages signalled by
+//    `mbarrier`s, running on into the next output tile while the consumers
+//    finish this one's epilogue; NC consumer warpgroups (64 rows each) run
+//    `wgmma` m64nBNk32 s8 -> s32 on the tiles that have arrived, with one
+//    group of wgmmas in flight while the next stage is waited for. A loop
+//    over K replaces the sequential Pallas grid axis.
+//  * The tile shape comes from (M, N) (`pick_tile` in
+//    ops/cuda/w8a8_matmul.py): 128 x 256 (two consumers, 232 registers each
+//    by `setmaxnreg`), 128 x 128, or 64 x 128 (one consumer, two blocks an
+//    SM), whichever leaves the least work on the busiest SM.
+//  * Rows past M arrive as zeros from TMA and are not stored, so M = 1 (the
+//    AdaLN and embedder linears, bound by the weight's bytes) runs through the
+//    same kernel without JAX's pad to 32 rows.
 //  * The int32 accumulators never leave registers: the f32 epilogue (scales,
 //    cast, bias) runs in the kernel and writes the output once.
-//  * Ragged M is masked in the kernel (zero-filled A rows, no stores), so the
-//    M = 1 linears run without JAX's pad to 32 rows.
-//  * Quantization is one block per row: the row is read twice (absmax, then
-//    quantize and store int8), the second time from L1/L2.
-// `ldmatrix`, a deeper copy pipeline (TMA) and `wgmma` are later PRs' work.
+//
+// The row quantization is one block per row: the row is read twice (absmax,
+// then quantize and store int8), the second time from L1/L2.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockM = 128;
-constexpr int kBlockN = 128;
-constexpr int kBlockK = 64;            // bytes of K per smem tile
-constexpr int kLds = kBlockK + 16;     // padded smem row (bytes): conflict-free fragment loads
-constexpr int kThreads = 256;          // 8 warps: 2 along M x 4 along N
+using namespace hopper;
+
 constexpr int kQuantThreads = 256;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -110,137 +110,181 @@ __global__ void __launch_bounds__(kQuantThreads) quantize_rows_kernel(
 
 // -------------------------------------------------------------------- gemm
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+constexpr int kBlockK = 128;  // bytes of K per stage: one 128-byte swizzle row
+constexpr int kStages = 4;
 
-__device__ __forceinline__ uint32_t lds32(const int8_t* p) { return *reinterpret_cast<const uint32_t*>(p); }
+struct GemmParams {
+  CUtensorMap a_map;  // qx [M, K]: (K, M), box (128, BM)
+  CUtensorMap b_map;  // qw [N, K]: (K, N), box (128, BN)
+  const float* x_scale;
+  const float* w_scale;
+  const void* bias;
+  void* out;
+  int M, N, K, skip_k_tile;
+  int tiles_m, tiles;  // output tiles along M, and in all
+};
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+template <int NC, int BN>
+struct GemmLayout {
+  static constexpr int kBM = 64 * NC;
+  static constexpr int kABytes = kBM * kBlockK;
+  static constexpr int kStageBytes = (kBM + BN) * kBlockK;
+  static constexpr int kBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;  // + alignment slack
+  static constexpr int kThreads = 128 * (NC + 1);
+};
 
-template <typename T>
-__device__ __forceinline__ void store_pair(T* out, float v0, float v1, const T* bias, int col) {
-  T y0 = from_float<T>(v0), y1 = from_float<T>(v1);
-  if (bias != nullptr) {
-    y0 = from_float<T>(__fadd_rn(to_float(y0), to_float(bias[col])));
-    y1 = from_float<T>(__fadd_rn(to_float(y1), to_float(bias[col + 1])));
+template <int BN>
+__device__ __forceinline__ void mma_k32(int (&acc)[BN / 2], uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (BN == 128) {
+    wgmma_ss_m64n128k32_s8(acc, desc_a, desc_b);
+  } else {
+    wgmma_ss_m64n256k32_s8(acc, desc_a, desc_b);
   }
-  out[0] = y0;
-  out[1] = y1;
 }
 
-// qx [M, K] and qw [N, K] row-major int8; K % 64 == 0 and N % 128 == 0 (the
-// wrapper's rule takes K, N % 128 == 0); out [M, N] row-major.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) w8a8_gemm_kernel(
-    const int8_t* __restrict__ qx, const int8_t* __restrict__ qw, const float* __restrict__ x_scale,
-    const float* __restrict__ w_scale, const T* __restrict__ bias, T* __restrict__ out,
-    int M, int N, int K, int skip_k_tile) {
-  __shared__ __align__(16) int8_t smem_a[2][kBlockM * kLds];
-  __shared__ __align__(16) int8_t smem_b[2][kBlockN * kLds];
+// A persistent grid walks over the (BM = 64 NC) x BN output tiles, M
+// fastest (neighbouring blocks share a weight slice in L2): warpgroup 0 is
+// the producer (one thread issues the TMA loads; its ring of stages runs on
+// across tiles, so the next tile's loads overlap this one's epilogue),
+// warpgroups 1..NC the consumers, 64 rows each. qx [M, K] and qw [N, K]
+// row-major int8, K % 128 == 0, N % BN == 0; out [M, N] row-major.
+template <typename T, int NC, int BN>
+__global__ void __launch_bounds__(GemmLayout<NC, BN>::kThreads, NC == 1 ? 2 : 1)
+    w8a8_gemm_kernel(const __grid_constant__ GemmParams p) {
+  using L = GemmLayout<NC, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * L::kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int k_tiles = p.K / kBlockK;
 
-  const int m0 = blockIdx.y * kBlockM;
-  const int n0 = blockIdx.x * kBlockN;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // warp sub-tile: rows wm*64.., cols wn*32..
-  const int g = lane >> 2, t = lane & 3;    // mma fragment group / thread-in-group
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  auto load_tile = [&](int kt, int stage) {
-    const int k0 = kt * kBlockK;
-    // 128 rows x 64 bytes = 512 chunks of 16 bytes per operand; 2 per thread
-#pragma unroll
-    for (int c = tid; c < kBlockM * kBlockK / 16; c += kThreads) {
-      const int r = c >> 2, col = (c & 3) * 16;
-      const int gm = m0 + r;
-      const int8_t* src_a = qx + static_cast<size_t>(gm < M ? gm : M - 1) * K + k0 + col;
-      cp_async16(&smem_a[stage][r * kLds + col], src_a, gm < M ? 16 : 0);  // rows past M read as zeros
-      const int8_t* src_b = qw + static_cast<size_t>(n0 + r) * K + k0 + col;
-      cp_async16(&smem_b[stage][r * kLds + col], src_b, 16);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC * 128);
     }
-  };
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  const int k_tiles = K / kBlockK;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < k_tiles) load_tile(kt + 1, stage ^ 1);
-    cp_async_commit();  // possibly empty: keeps "all but the newest group" = tile kt
-    cp_async_wait_one();
-    __syncthreads();
-    if (kt != skip_k_tile) {  // skip_k_tile >= 0 only in the control run of chip_smoke.py
-      const int8_t* a = smem_a[stage];
-      const int8_t* b = smem_b[stage];
-#pragma unroll
-      for (int kk = 0; kk < kBlockK; kk += 32) {
-        uint32_t af[4][4], bf[4][2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int8_t* p = a + (wm * 64 + i * 16 + g) * kLds + kk + t * 4;
-          af[i][0] = lds32(p);
-          af[i][1] = lds32(p + 8 * kLds);
-          af[i][2] = lds32(p + 16);
-          af[i][3] = lds32(p + 8 * kLds + 16);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    if constexpr (NC == 2) setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // k tiles loaded so far
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const int m0 = (tile % p.tiles_m) * L::kBM;
+        const int n0 = (tile / p.tiles_m) * BN;
+        for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+          const int stage = it % kStages;
+          if (it >= kStages) mbar_wait(&empty[stage], ((it / kStages) - 1) & 1);
+          uint8_t* a_tile = smem + stage * L::kStageBytes;
+          mbar_expect_tx(&full[stage], L::kStageBytes);
+          tma_load_2d(a_tile, &p.a_map, &full[stage], kt * kBlockK, m0);
+          tma_load_2d(a_tile + L::kABytes, &p.b_map, &full[stage], kt * kBlockK, n0);
         }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int8_t* p = b + (wn * 32 + j * 8 + g) * kLds + kk + t * 4;
-          bf[j][0] = lds32(p);
-          bf[j][1] = lds32(p + 16);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bf[j]);
       }
     }
-    __syncthreads();
-  }
+  } else {
+    // --------------------------------------------------------- consumers
+    if constexpr (NC == 2) setmaxnreg_inc<232>();
+    const int c = wg - 1;  // rows 64 c .. 64 c + 63 of the tile
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    T* out = static_cast<T*>(p.out);
+    const T* bias = static_cast<const T*>(p.bias);
+    int it = 0;  // k tiles consumed so far
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const int m0 = (tile % p.tiles_m) * L::kBM;
+      const int n0 = (tile / p.tiles_m) * BN;
+      int acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
 
-  // epilogue: f32(acc) * x_scale[m] * w_scale[n], cast, + bias
+      for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+        const int stage = it % kStages;
+        mbar_wait(&full[stage], (it / kStages) & 1);
+        const uint32_t a_addr = smem_addr(smem + stage * L::kStageBytes) + c * 64 * kBlockK;
+        const uint32_t b_addr = smem_addr(smem + stage * L::kStageBytes + L::kABytes);
+        wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+        for (int kk = 0; kk < kBlockK / 32; ++kk) {  // 32-byte k steps inside the swizzle row
+          if (2 * kt + kk / 2 != p.skip_k_tile) {     // >= 0 only in the control run of chip_smoke.py
+            mma_k32<BN>(acc, smem_desc(a_addr + 32 * kk, 16, 1024), smem_desc(b_addr + 32 * kk, 16, 1024));
+          }
+        }
+        wgmma_commit();
+        // one group in flight: the previous k tile's wgmmas are done, so its stage is free
+        wgmma_wait<1>();
+        if (kt > 0) mbar_arrive(&empty[(it - 1) % kStages]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[(it - 1) % kStages]);
+
+      // epilogue: f32(acc) * x_scale[m] * w_scale[n], cast, + bias.
+      // acc[4 j + 2 h + e]: row 16 warp + g + 8 h, column 8 j + 2 t + e. The
+      // scales and bias of 8 column groups are loaded before any of their
+      // stores, so their latencies overlap.
+      const int row0 = m0 + c * 64 + warp * 16 + g;
+      const float sx0 = row0 < p.M ? p.x_scale[row0] : 0.f;
+      const float sx1 = row0 + 8 < p.M ? p.x_scale[row0 + 8] : 0.f;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 64 + i * 16 + g + h * 8;
-      if (row >= M) continue;
-      const float sx = x_scale[row];
+      for (int j0 = 0; j0 < BN / 8; j0 += 8) {
+        float ws[16], bs[16];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + wn * 32 + j * 8 + t * 2;
-        const float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h]), sx), w_scale[col]);
-        const float v1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h + 1]), sx), w_scale[col + 1]);
-        store_pair<T>(out + static_cast<size_t>(row) * N + col, v0, v1, bias, col);
+        for (int j = 0; j < 8; ++j) {
+          const int col = n0 + 8 * (j0 + j) + 2 * t;
+          ws[2 * j] = p.w_scale[col];
+          ws[2 * j + 1] = p.w_scale[col + 1];
+          bs[2 * j] = bias != nullptr ? to_float(bias[col]) : 0.f;
+          bs[2 * j + 1] = bias != nullptr ? to_float(bias[col + 1]) : 0.f;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          if (row >= p.M) continue;
+          const float sx = h ? sx1 : sx0;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = n0 + 8 * (j0 + j) + 2 * t;
+            const int a = 4 * (j0 + j) + 2 * h;
+            T y0 = from_float<T>(__fmul_rn(__fmul_rn(__int2float_rn(acc[a]), sx), ws[2 * j]));
+            T y1 = from_float<T>(__fmul_rn(__fmul_rn(__int2float_rn(acc[a + 1]), sx), ws[2 * j + 1]));
+            if (bias != nullptr) {  // the bias is added in the output type, after the cast
+              y0 = from_float<T>(__fadd_rn(to_float(y0), bs[2 * j]));
+              y1 = from_float<T>(__fadd_rn(to_float(y1), bs[2 * j + 1]));
+            }
+            T* dst = out + static_cast<size_t>(row) * p.N + col;
+            dst[0] = y0;
+            dst[1] = y1;
+          }
+        }
       }
     }
   }
 }
 
-template <typename T>
-cudaError_t launch_gemm(const void* qx, const void* qw, const float* xs, const float* ws, const void* bias,
-                        void* out, int M, int N, int K, int skip_k_tile, cudaStream_t stream) {
-  const dim3 grid(N / kBlockN, (M + kBlockM - 1) / kBlockM);
-  w8a8_gemm_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const int8_t*>(qx), static_cast<const int8_t*>(qw), xs, ws, static_cast<const T*>(bias),
-      static_cast<T*>(out), M, N, K, skip_k_tile);
+template <typename T, int NC, int BN>
+cudaError_t launch_gemm(const GemmParams& p, cudaStream_t stream) {
+  using L = GemmLayout<NC, BN>;
+  auto kernel = w8a8_gemm_kernel<T, NC, BN>;
+  static uint64_t configured = 0;  // devices on which the shared-memory limit is raised
+  cudaError_t err = raise_smem_limit(kernel, L::kBytes, &configured);
+  if (err != cudaSuccess) return err;
+  kernel<<<min(p.tiles, sm_count() * (NC == 1 ? 2 : 1)), L::kThreads, L::kBytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// the tile shapes `pick_tile` (ops/cuda/w8a8_matmul.py) chooses from
+template <typename T>
+cudaError_t launch_tile(const GemmParams& p, int block_m, int block_n, cudaStream_t stream) {
+  if (block_m == 128 && block_n == 256) return launch_gemm<T, 2, 256>(p, stream);
+  if (block_m == 128 && block_n == 128) return launch_gemm<T, 2, 128>(p, stream);
+  if (block_m == 64 && block_n == 128) return launch_gemm<T, 1, 128>(p, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -269,19 +313,41 @@ extern "C" int w8a8_quantize_rows(const void* x, void* qx, float* x_scale, int M
 }
 
 // qx [M, K] int8, qw [N, K] int8, x_scale [M] f32, w_scale [N] f32, bias [N] or
-// null -> out [M, N]. K % 128 == 0, N % 128 == 0. skip_k_tile: -1, or the index
-// of one 64-wide K tile to leave out (a deliberately wrong result, for controls).
+// null -> out [M, N]. K % 128 == 0, N % block_n == 0; (block_m, block_n) one
+// of (128, 256), (128, 128), (64, 128). skip_k_tile: -1, or the index of one
+// 64-wide K slice to leave out (a deliberately wrong result, for controls).
 extern "C" int w8a8_matmul(const void* qx, const void* qw, const float* x_scale, const float* w_scale,
-                           const void* bias, void* out, int M, int N, int K, int dtype, int skip_k_tile,
-                           void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 128 != 0 || N % 128 != 0 || (M + kBlockM - 1) / kBlockM > 65535) {
+                           const void* bias, void* out, int M, int N, int K, int dtype, int block_m, int block_n,
+                           int skip_k_tile, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % kBlockK != 0 || block_n <= 0 || N % block_n != 0 || block_m <= 0 ||
+      (long long)((M + block_m - 1) / block_m) * (N / block_n) > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  GemmParams p;
+  const uint64_t a_dims[2] = {(uint64_t)K, (uint64_t)M}, b_dims[2] = {(uint64_t)K, (uint64_t)N};
+  const uint64_t stride[1] = {(uint64_t)K};
+  const uint32_t a_box[2] = {kBlockK, (uint32_t)block_m}, b_box[2] = {kBlockK, (uint32_t)block_n};
+  if (!encode_tensor_map(&p.a_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, qx, a_dims, stride, a_box) ||
+      !encode_tensor_map(&p.b_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, qw, b_dims, stride, b_box)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.x_scale = x_scale; p.w_scale = w_scale; p.bias = bias; p.out = out;
+  p.M = M; p.N = N; p.K = K; p.skip_k_tile = skip_k_tile;
+  p.tiles_m = (M + block_m - 1) / block_m;
+  p.tiles = p.tiles_m * (N / block_n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch_gemm<__nv_bfloat16>(qx, qw, x_scale, w_scale, bias, out, M, N, K, skip_k_tile, s));
-    case 1: return static_cast<int>(launch_gemm<__half>(qx, qw, x_scale, w_scale, bias, out, M, N, K, skip_k_tile, s));
-    case 2: return static_cast<int>(launch_gemm<float>(qx, qw, x_scale, w_scale, bias, out, M, N, K, skip_k_tile, s));
+    case 0: return static_cast<int>(launch_tile<__nv_bfloat16>(p, block_m, block_n, s));
+    case 1: return static_cast<int>(launch_tile<__half>(p, block_m, block_n, s));
+    case 2: return static_cast<int>(launch_tile<float>(p, block_m, block_n, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Dynamic shared memory of a launch with tile (block_m, block_n) (bytes), or -1.
+extern "C" int w8a8_matmul_smem_bytes(int block_m, int block_n) {
+  if (block_m == 128 && block_n == 256) return GemmLayout<2, 256>::kBytes;
+  if (block_m == 128 && block_n == 128) return GemmLayout<2, 128>::kBytes;
+  if (block_m == 64 && block_n == 128) return GemmLayout<1, 128>::kBytes;
+  return -1;
 }

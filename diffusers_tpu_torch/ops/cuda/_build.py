@@ -3,20 +3,26 @@
 Each source under `diffusers_tpu_torch/csrc/` has a plain C interface. `nvcc
 -gencode arch=compute_90a,code=sm_90a` compiles it into a shared library under
 the repository's `build/` directory on first use, keyed by a hash of the
-source and flags; `ctypes` loads it and the kernel's module declares the
-`argtypes` of every entry point. `build_all` starts one nvcc per source at
-once and waits for all of them.
+source, the shared headers (`csrc/*.cuh`) and the flags; `ctypes` loads it
+and the kernel's module declares the `argtypes` of every entry point.
+`build_all` starts one nvcc per source at once and waits for all of them.
+The libraries link only against the CUDA runtime: the driver's
+`cuTensorMapEncodeTiled`, which TMA needs, is reached through
+`cudaGetDriverEntryPoint` (`csrc/hopper.cuh`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Iterable, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -37,7 +43,11 @@ def _nvcc() -> str:
 
 
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library built from `src`, named by a hash of the source, every
+    shared header it may include and the flags, so that a change to any of
+    them rebuilds."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
@@ -83,3 +93,14 @@ def build_log(src: Path) -> str:
     shared memory, spills), once it has been built in this checkout."""
     log = library_path(src).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def is_hopper(device_index: int) -> bool:
+    """Whether the CUDA device is sm_90 (the kernels' only target)."""
+    return torch.cuda.get_device_capability(device_index) == (9, 0)
+
+
+def stream_of(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on `device`, for a launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -125,6 +125,8 @@ def load_library() -> ctypes.CDLL:
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, causal, stream
     )
     fn.restype = ctypes.c_int
+    lib.flash_attention_fwd_smem_bytes.argtypes = [ctypes.c_int]  # head_dim
+    lib.flash_attention_fwd_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -157,14 +159,15 @@ def kernel_supports(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor)
         return False
     if query.shape[0] > 65535 or query.shape[2] > 65535 or query.shape[1] == 0 or key.shape[1] == 0:
         return False
-    if torch.cuda.get_device_capability(query.device) != (9, 0):
+    if not _build.is_hopper(query.device.index):
         return False
     return all(_rows_aligned(t) for t in (query, key, value))
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
-    # 16-byte vector loads of head_dim rows
-    return t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
+    # K1's TMA and K2/K3's 16-byte loads: unit head_dim stride, 16-byte-aligned base and strides
+    st = t.stride()
+    return st[3] == 1 and not (st[0] % 8 or st[1] % 8 or st[2] % 8) and t.data_ptr() % 16 == 0
 
 
 def _check_supported(name: str, query, key, value) -> None:
@@ -187,10 +190,23 @@ def _mask_arg(attn_mask: Optional[torch.Tensor], query: torch.Tensor, key: torch
     return mask.data_ptr(), mask.stride(), mask
 
 
+def _tma_operand(t: torch.Tensor):
+    """(tensor, (b, s, h) strides) as K1's tensor maps take them: every
+    stride a non-zero multiple of 16 bytes. A dimension of size 1 takes its
+    contiguous stride (its coordinate is always 0); a broadcast dimension
+    (stride 0 over more than one element) is materialized."""
+    st, (b, s, h, d) = t.stride(), t.shape
+    if (st[0] == 0 and b > 1) or (st[1] == 0 and s > 1) or (st[2] == 0 and h > 1):
+        t = t.contiguous()
+        st = t.stride()
+    return t, (st[0] if b > 1 else s * h * d, st[1] if s > 1 else h * d, st[2] if h > 1 else d)
+
+
 def _flash_fwd_cuda(query, key, value, attn_mask, scale, is_causal, return_lse):
     """Launch K1 (counted in `flash_attention_full.launches`)."""
     _check_supported("flash_attention_full", query, key, value)
     b, sq, h, d = query.shape
+    (query, q_strides), (key, k_strides), (value, v_strides) = map(_tma_operand, (query, key, value))
     mask_ptr, mask_strides, _mask = _mask_arg(attn_mask, query, key)
     out = torch.empty_like(query, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, sq), device=query.device, dtype=torch.float32) if return_lse else None
@@ -201,9 +217,8 @@ def _flash_fwd_cuda(query, key, value, attn_mask, scale, is_causal, return_lse):
             query.data_ptr(), key.data_ptr(), value.data_ptr(), mask_ptr, out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             b, h, sq, key.shape[1], d, DTYPES[query.dtype],
-            *query.stride()[:3], *key.stride()[:3], *value.stride()[:3], *out.stride()[:3],
-            *mask_strides,
-            float(scale), int(bool(is_causal)), torch.cuda.current_stream(query.device).cuda_stream,
+            *q_strides, *k_strides, *v_strides, *out.stride()[:3], *mask_strides,
+            float(scale), int(bool(is_causal)), _build.stream_of(query.device),
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed with cudaError_t {err}")
@@ -240,7 +255,7 @@ def flash_attention_bwd_dkdv(query, key, value, attn_mask, lse, delta, grad_out,
             b, h, sq, key.shape[1], d, DTYPES[query.dtype],
             *query.stride()[:3], *key.stride()[:3], *value.stride()[:3], *grad_out.stride()[:3],
             *dk.stride()[:3], *dv.stride()[:3], *mask_strides,
-            float(scale), int(bool(is_causal)), torch.cuda.current_stream(query.device).cuda_stream,
+            float(scale), int(bool(is_causal)), _build.stream_of(query.device),
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dkdv launch failed with cudaError_t {err}")
@@ -263,7 +278,7 @@ def flash_attention_bwd_dq(query, key, value, attn_mask, lse, delta, grad_out, s
             b, h, sq, key.shape[1], d, DTYPES[query.dtype],
             *query.stride()[:3], *key.stride()[:3], *value.stride()[:3], *grad_out.stride()[:3],
             *dq.stride()[:3], *mask_strides,
-            float(scale), int(bool(is_causal)), torch.cuda.current_stream(query.device).cuda_stream,
+            float(scale), int(bool(is_causal)), _build.stream_of(query.device),
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dq launch failed with cudaError_t {err}")

@@ -66,6 +66,11 @@ def _randn(gen, shape, dtype, device, scale=1.0):
         (1, 200, 333, 2, 128, False, True, torch.bfloat16),
         (1, 500, 700, 3, 128, False, False, torch.float16),
         (3, 1, 5, 1, 64, False, False, torch.float16),
+        (1, 4097, 77, 2, 64, False, False, torch.bfloat16),  # Sq past a 128-row tile; TMA's zero fill
+        (2, 300, 1, 2, 128, False, False, torch.bfloat16),  # Sk = 1
+        (1, 300, 77, 2, 64, False, False, torch.float16),
+        (1, 256, 256, 2, 128, True, False, torch.float16),
+        (2, 300, 200, 3, 64, False, True, torch.float16),  # broadcast mask, fp16
     ],
 )
 def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, d, causal, masked, dtype):
@@ -85,7 +90,19 @@ def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, d, causal, masked, dtype
     ref, bound, _ = attention_bounds(q, k, v, attn_mask=mask, is_causal=causal)
     assert out.dtype == dtype and out.shape == q.shape
     assert bool(((out.float() - ref).abs() <= bound).all())
-    assert float((lse - ref_lse).abs().max()) <= 1e-3  # f32 online softmax (__expf) vs exact f32
+    assert float((lse - ref_lse).abs().max()) <= 1e-3  # f32 online softmax (exp2) vs exact f32
+
+
+def test_flash_kernel_lse_at_flux_shape(cuda):
+    """The LSE at Flux's joint attention (1, 4608, 24, 128): natural log, after
+    the final rescale, against torch.logsumexp of the f32 logits (f32 online
+    softmax in base 2 against exact f32: 1e-3)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (_randn(gen, (1, 4608, 24, 128), torch.bfloat16, cuda, scale=s) for s in (2.0, 1.0, 1.0))
+    _, lse = flash_attention_full(q, k, v, return_lse=True)
+    for h0 in range(0, 24, 6):  # the logits a few heads at a time
+        logits = torch.einsum("bqhd,bkhd->bhqk", q[:, :, h0:h0 + 6].float(), k[:, :, h0:h0 + 6].float()) / 128**0.5
+        assert float((lse[:, h0:h0 + 6] - torch.logsumexp(logits, dim=-1)).abs().max()) <= 1e-3
 
 
 def test_flash_kernel_reads_strided_bshd(cuda):
@@ -101,7 +118,7 @@ def test_flash_kernel_reads_strided_bshd(cuda):
 
 @pytest.mark.parametrize("sq,sk", [(1024, 1024), (512, 77)])
 def test_flash_bound_rejects_a_dropped_kv_tile(cuda, sq, sk):
-    """Control: the kernel run without one 64-key tile breaks the bound."""
+    """Control: the kernel run without 64 of the keys breaks the bound."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     q = _randn(gen, (2, sq, 4, 64), torch.bfloat16, cuda, scale=2.0)
     k = _randn(gen, (2, sk, 4, 64), torch.bfloat16, cuda)
@@ -189,9 +206,23 @@ def test_w8a8_kernels_match_plain_at_flux_shapes(cuda, m, k, n):
     assert (quantize_rows.launches, w8a8_matmul_2d.launches) == (before[0] + 1, before[1] + 1)
     assert y.dtype == torch.bfloat16 and y.shape == (m, n)
     assert bool(((y.float() - ref.float()).abs() <= bf16_ulp(ref)).all())
-    # control: one 64-wide K tile left out breaks the limit
+    # control: one 64-wide K slice left out breaks the limit
     skipped = w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias, _skip_k_tile=(k // 64) // 2)
     assert not bool(((skipped.float() - ref.float()).abs() <= bf16_ulp(ref)).all())
+
+
+@pytest.mark.parametrize("tile", [(128, 256), (128, 128), (64, 128)])
+@pytest.mark.parametrize("m", [1, 17, 77, 4097])
+def test_w8a8_kernel_is_bit_equal_for_every_tile(cuda, m, tile):
+    """Every tile `pick_tile` can return, at ragged M (TMA's zero-filled rows
+    are not stored): bit-equal to the plain version (exact int32 sums)."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    k, n = 768, 512
+    qx, xs = quantize_rows_plain(_randn(gen, (m, k), torch.bfloat16, cuda, scale=2.0))
+    qw, ws = quantize_kernel_int8(_randn(gen, (n, k), torch.float32, cuda))
+    bias = _randn(gen, (n,), torch.bfloat16, cuda, scale=0.1)
+    y = w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias, _tile=tile)
+    assert torch.equal(y, w8a8_matmul_2d_plain(qx, qw, xs, ws, torch.bfloat16, bias))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
