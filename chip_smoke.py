@@ -118,6 +118,9 @@ FLUX_W8A8_SHAPES = (
 )
 FLUX_W8A8_PER_STEP = 19 * 14 + 38 * 6 + 6  # = 500, as the table above sums
 FLUX_ATTENTIONS_PER_STEP = 19 + 38
+# (M, N) at which the card tests hold K5 to its plain version: ragged M (TMA's
+# zero-filled rows), and between them every tile `pick_tile` can return
+W8A8_TILE_CASES = ((1, 512), (17, 512), (77, 512), (4097, 512), (4097, 3072))
 
 # the attention shapes of one SDXL UNet train step at 1024 px, batch 1 (label, q shape, kv length,
 # options, launches per step): 10 transformer blocks at 64 x 64 latents (4096 tokens, 10 heads),
@@ -454,7 +457,7 @@ def build_kernels():
             log(f"[build]   {src.name}: {n}: {r} registers, spill stores {ss} B, spill loads {sl} B")
     smem = {f"flash_attention_fwd d={d}": flash_attention.load_library().flash_attention_fwd_smem_bytes(d)
             for d in flash_attention.HEAD_DIMS}
-    smem.update({f"w8a8_matmul tile {bm}x{bn}": w8a8_matmul.load_library().w8a8_matmul_smem_bytes(bm, bn)
+    smem.update({f"w8a8_matmul tile {bm}x{bn}": w8a8_matmul.load_library().w8a8_matmul_smem_bytes(bn)
                  for bm, bn in w8a8_matmul.TILES})
     RESULTS["build"]["dynamic_smem_bytes"] = smem
     log(f"[build]   dynamic shared memory per block (bytes): {smem}")
@@ -487,6 +490,8 @@ def check_kernels():
         ("causal 300 (ragged)", (1, 300, 2, 64), 300, {"is_causal": True}, False),
         ("additive mask 200 x 333, d=128", (1, 200, 2, 128), 333, {"mask": True}, False),
         ("fp16 d=128 500 x 700", (1, 500, 3, 128), 700, {"dtype": torch.float16}, False),
+        ("mask -inf over the first 160 keys of every other row, d=128", (2, 300, 2, 128), 333, {"mask": "hide"},
+         False),
     ]
     k1_errs, k1_times = [], {}
     for label, qshape, sk, opt, timed in attn_cases:
@@ -496,7 +501,10 @@ def check_kernels():
         k = randn(b, sk, h, d, dtype=dtype)
         v = randn(b, sk, h, d, dtype=dtype)
         mask = None
-        if opt.get("mask"):
+        if opt.get("mask") == "hide":  # more than one 128-key kv tile hidden: no inf - inf in the kernel
+            mask = torch.zeros((b, 1, sq, sk), device=dev)
+            mask[:, :, ::2, :160] = float("-inf")
+        elif opt.get("mask"):
             mask = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=dev) < 0.3, -1e4, 0.0)
         causal = opt.get("is_causal", False)
         out = flash_attention_full(q, k, v, attn_mask=mask, is_causal=causal)
@@ -637,8 +645,8 @@ def check_w8a8():
     denoise step's launches."""
     import torch
 
+    from diffusers_tpu_torch.ops.cuda._build import sm_count
     from diffusers_tpu_torch.ops.cuda.w8a8_matmul import (
-        TILES,
         pick_tile,
         quantize_rows,
         quantize_rows_plain,
@@ -680,15 +688,6 @@ def check_w8a8():
         ms, plain_ms = time_pair(lambda: w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias),
                                  lambda: w8a8_matmul_2d_plain(qx, qw, xs, ws, torch.bfloat16, bias),
                                  iters=20, plain_iters=2)
-        # every tile K5 can take: bit-equal, and its time (the picker's evidence)
-        tile_ms = {}
-        for tile in TILES:
-            if n % tile[1] == 0:
-                yt = w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias, _tile=tile)
-                if not torch.equal(yt, ref):
-                    raise AssertionError(f"w8a8 tile {tile} is not bit-equal at M {m} K {k} N {n}")
-                tile_ms["x".join(map(str, tile))] = time_ms(
-                    lambda: w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias, _tile=tile), iters=20)
         call_us = host_us(lambda: w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias))
         device_ms = graph_ms(lambda: w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias))
         q_ms, q_plain_ms = time_pair(lambda: quantize_rows(x), lambda: quantize_rows_plain(x), iters=20)
@@ -710,14 +709,14 @@ def check_w8a8():
                "quantize_rows_bit_equal": q_equal, "max_abs_err_vs_plain": err, "max_ulps_vs_plain": used,
                "control_skipped_k_tile_max_ulps": control, "ms": ms, "plain_ms": plain_ms,
                "int_mm_epilogue_ms": library_ms, "bf16_matmul_ms": bf16_ms, "bound_ms": bms, "bound_by": by,
-               "tops": 2.0 * m * n * k / ms / 1e9, "share_of_time_bound": bms / ms, "tile": pick_tile(m, n),
-               "tile_ms": tile_ms, "host_us_per_call": call_us, "device_ms": device_ms,
+               "tops": 2.0 * m * n * k / ms / 1e9, "share_of_time_bound": bms / ms,
+               "tile": pick_tile(m, n, sm_count(dev.index or 0)), "host_us_per_call": call_us, "device_ms": device_ms,
                "int_mm_epilogue_device_ms": library_device_ms, "quantize_ms": q_ms,
                "quantize_plain_ms": q_plain_ms, "quantize_bound_ms": q_bms}
         cases.append(row)
         log(f"[K5] M {m} K {k} N {n} (x{per_step}/step): qx bit-equal {q_equal}; err {err:.3e} ({used:.2f} ulp, "
             f"control {control:.1f} ulp); kernel {ms:.4f} ms ({row['tops']:.0f} TOPS, "
-            f"{100 * row['share_of_time_bound']:.1f}% of its bound; tile {row['tile']}; every tile {tile_ms}; host "
+            f"{100 * row['share_of_time_bound']:.1f}% of its bound; tile {row['tile']}; host "
             f"{call_us:.1f} us a call; device time (CUDA graph) {device_ms:.4f}, _int_mm+epilogue {library_device_ms:.4f}), "
             f"plain {plain_ms:.3f}, "
             f"_int_mm+epilogue {library_ms:.4f}, bf16 matmul {bf16_ms:.4f}, bound {bms:.4f} ({by}); "
@@ -776,7 +775,7 @@ def check_flash_bwd():
         return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
 
     cases, step = [], {k: 0.0 for k in ("dkdv_ms", "dq_ms", "plain_ms", "library_ms", "dkdv_bound_ms",
-                                         "dq_bound_ms")}
+                                         "dq_bound_ms", "dkdv_device_ms", "dq_device_ms", "library_device_ms")}
     max_err = {"flash_attention_bwd_dkdv": 0.0, "flash_attention_bwd_dq": 0.0}
     for label, qshape, sk, opt, per_step in SDXL_TRAIN_ATTENTION + BWD_EXTRA_CASES:
         b, sq, h, d = qshape
@@ -836,7 +835,12 @@ def check_flash_bwd():
 
             with torch.no_grad():
                 sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=20)
+                sdpa_fwd_device_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
             library_ms = time_ms(sdpa_fwd_bwd, iters=20) - sdpa_fwd_ms
+            # the same comparison in device time (CUDA graphs: no host or autograd dispatch)
+            library_device_ms = graph_ms(sdpa_fwd_bwd) - sdpa_fwd_device_ms
+            dkdv_device_ms = graph_ms(lambda: flash_attention_bwd_dkdv(*args))
+            dq_device_ms = graph_ms(lambda: flash_attention_bwd_dq(*args))
             io = 2 * (q.numel() + k.numel() + v.numel() + grad_out.numel()) + 2 * 4 * b * h * sq
             flops = 2.0 * b * h * sq * sk * d
             dkdv_bound, dkdv_by = bound_ms(io + 2 * (k.numel() + v.numel()), 4 * flops, PEAK_BF16_FLOPS)
@@ -844,10 +848,13 @@ def check_flash_bwd():
             row.update(dkdv_ms=dkdv_ms, dq_ms=dq_ms, plain_ms=plain_ms, library_ms=library_ms,
                        dkdv_bound_ms=dkdv_bound, dkdv_bound_by=dkdv_by, dq_bound_ms=dq_bound, dq_bound_by=dq_by,
                        launches_per_train_step=per_step, dkdv_tflops=4 * flops / dkdv_ms / 1e9,
-                       dq_tflops=3 * flops / dq_ms / 1e9)
+                       dq_tflops=3 * flops / dq_ms / 1e9, dkdv_device_ms=dkdv_device_ms,
+                       dq_device_ms=dq_device_ms, library_device_ms=library_device_ms)
             log(f"[K2/K3]   K2 {dkdv_ms:.3f} ms ({row['dkdv_tflops']:.1f} TFLOP/s, bound {dkdv_bound:.3f} "
                 f"{dkdv_by}), K3 {dq_ms:.3f} ms ({row['dq_tflops']:.1f} TFLOP/s, bound {dq_bound:.3f} {dq_by}), "
-                f"plain {plain_ms:.3f} ms, SDPA backward {library_ms:.3f} ms (x{per_step} per train step)")
+                f"plain {plain_ms:.3f} ms, SDPA backward {library_ms:.3f} ms (x{per_step} per train step); device "
+                f"time (CUDA graphs) K2 {dkdv_device_ms:.4f} + K3 {dq_device_ms:.4f} ms, SDPA backward "
+                f"{library_device_ms:.4f} ms")
             for key in step:
                 step[key] += per_step * row[key]
         cases.append(row)
@@ -857,7 +864,9 @@ def check_flash_bwd():
     RESULTS["flash_bwd_per_train_step"] = step
     log(f"[K2/K3] one SDXL train step (140 launches each): K2 {step['dkdv_ms']:.2f} ms (bound "
         f"{step['dkdv_bound_ms']:.2f}), K3 {step['dq_ms']:.2f} ms (bound {step['dq_bound_ms']:.2f}), plain "
-        f"{step['plain_ms']:.1f} ms, SDPA backward {step['library_ms']:.2f} ms")
+        f"{step['plain_ms']:.1f} ms, SDPA backward {step['library_ms']:.2f} ms; device time (CUDA graphs) K2 "
+        f"{step['dkdv_device_ms']:.2f} + K3 {step['dq_device_ms']:.2f} ms, SDPA backward "
+        f"{step['library_device_ms']:.2f} ms")
     return {
         "flash_attention_bwd_dkdv": (max_err["flash_attention_bwd_dkdv"], {
             "ms": step["dkdv_ms"], "plain_ms": step["plain_ms"], "library_ms": step["library_ms"],

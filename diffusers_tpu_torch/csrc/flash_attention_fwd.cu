@@ -193,7 +193,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
       float o[D / 2];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-      float m_a = -kInf, m_b = -kInf;  // running max per row, log2 units
+      // running max per row, log2 units. It starts at the JAX kernel's finite
+      // masked logit, so a row whose first kv tiles an additive mask of -inf
+      // (or finfo.min, which overflows to -inf in log2 units) hides entirely
+      // takes corr = exp2(0) and p = 0 there, never exp2(-inf - -inf)
+      float m_a = kNegInf * kLog2e, m_b = kNegInf * kLog2e;
       float l_a = 0.f, l_b = 0.f;      // running sum per row (this thread's columns)
 
       mbar_wait(q_full, n & 1);
@@ -254,7 +258,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
         mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
         mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
         mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-        const float mn_a = fmaxf(m_a, mx_a);  // finite: every tile holds a real key
+        const float mn_a = fmaxf(m_a, mx_a);  // finite: m_a starts finite
         const float mn_b = fmaxf(m_b, mx_b);
         const float corr_a = ex2(m_a - mn_a);
         const float corr_b = ex2(m_b - mn_b);

@@ -23,19 +23,18 @@
 // What the design does about the GEMM:
 //  * Both operands are K-major, the only layout int8 `wgmma` takes: qx is
 //    [M, K] and the weight stays in torch's [N, K].
-//  * A persistent grid (one block per SM, two for the 64-row tile) walks
-//    over the BM x BN output tiles, BM = 64 NC: warpgroup 0 is the
-//    producer, whose one thread issues TMA loads of 128-byte-deep K tiles of
-//    qx and qw (128-byte swizzle) into a ring of 4 stages signalled by
-//    `mbarrier`s, running on into the next output tile while the consumers
-//    finish this one's epilogue; NC consumer warpgroups (64 rows each) run
-//    `wgmma` m64nBNk32 s8 -> s32 on the tiles that have arrived, with one
-//    group of wgmmas in flight while the next stage is waited for. A loop
-//    over K replaces the sequential Pallas grid axis.
-//  * The tile shape comes from (M, N) (`pick_tile` in
-//    ops/cuda/w8a8_matmul.py): 128 x 256 (two consumers, 232 registers each
-//    by `setmaxnreg`), 128 x 128, or 64 x 128 (one consumer, two blocks an
-//    SM), whichever leaves the least work on the busiest SM.
+//  * A persistent grid (one block per SM) walks over the 128 x BN output
+//    tiles: warpgroup 0 is the producer, whose one thread issues TMA loads
+//    of 128-byte-deep K tiles of qx and qw (128-byte swizzle) into a ring of
+//    4 stages signalled by `mbarrier`s, running on into the next output tile
+//    while the consumers finish this one's epilogue; two consumer warpgroups
+//    (64 rows each, 232 registers each by `setmaxnreg`) run `wgmma`
+//    m64nBNk32 s8 -> s32 on the tiles that have arrived, with one group of
+//    wgmmas in flight while the next stage is waited for. A loop over K
+//    replaces the sequential Pallas grid axis.
+//  * BN comes from (M, N) (`pick_tile` in ops/cuda/w8a8_matmul.py): 256 or
+//    128, whichever leaves the least work on the busiest SM; M <= 64 takes
+//    128, which puts the most SMs on streaming the weight.
 //  * Rows past M arrive as zeros from TMA and are not stored, so M = 1 (the
 //    AdaLN and embedder linears, bound by the weight's bytes) runs through the
 //    same kernel without JAX's pad to 32 rows.
@@ -110,11 +109,13 @@ __global__ void __launch_bounds__(kQuantThreads) quantize_rows_kernel(
 
 // -------------------------------------------------------------------- gemm
 
+constexpr int kBlockM = 128;  // rows of an output tile: two consumer warpgroups of 64
 constexpr int kBlockK = 128;  // bytes of K per stage: one 128-byte swizzle row
 constexpr int kStages = 4;
+constexpr int kGemmThreads = 384;  // producer warpgroup + two consumer warpgroups
 
 struct GemmParams {
-  CUtensorMap a_map;  // qx [M, K]: (K, M), box (128, BM)
+  CUtensorMap a_map;  // qx [M, K]: (K, M), box (128, 128)
   CUtensorMap b_map;  // qw [N, K]: (K, N), box (128, BN)
   const float* x_scale;
   const float* w_scale;
@@ -124,13 +125,11 @@ struct GemmParams {
   int tiles_m, tiles;  // output tiles along M, and in all
 };
 
-template <int NC, int BN>
+template <int BN>
 struct GemmLayout {
-  static constexpr int kBM = 64 * NC;
-  static constexpr int kABytes = kBM * kBlockK;
-  static constexpr int kStageBytes = (kBM + BN) * kBlockK;
+  static constexpr int kABytes = kBlockM * kBlockK;
+  static constexpr int kStageBytes = (kBlockM + BN) * kBlockK;
   static constexpr int kBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;  // + alignment slack
-  static constexpr int kThreads = 128 * (NC + 1);
 };
 
 template <int BN>
@@ -142,16 +141,15 @@ __device__ __forceinline__ void mma_k32(int (&acc)[BN / 2], uint64_t desc_a, uin
   }
 }
 
-// A persistent grid walks over the (BM = 64 NC) x BN output tiles, M
-// fastest (neighbouring blocks share a weight slice in L2): warpgroup 0 is
-// the producer (one thread issues the TMA loads; its ring of stages runs on
+// A persistent grid walks over the 128 x BN output tiles, M fastest
+// (neighbouring blocks share a weight slice in L2): warpgroup 0 is the
+// producer (one thread issues the TMA loads; its ring of stages runs on
 // across tiles, so the next tile's loads overlap this one's epilogue),
-// warpgroups 1..NC the consumers, 64 rows each. qx [M, K] and qw [N, K]
+// warpgroups 1 and 2 the consumers, 64 rows each. qx [M, K] and qw [N, K]
 // row-major int8, K % 128 == 0, N % BN == 0; out [M, N] row-major.
-template <typename T, int NC, int BN>
-__global__ void __launch_bounds__(GemmLayout<NC, BN>::kThreads, NC == 1 ? 2 : 1)
-    w8a8_gemm_kernel(const __grid_constant__ GemmParams p) {
-  using L = GemmLayout<NC, BN>;
+template <typename T, int BN>
+__global__ void __launch_bounds__(kGemmThreads, 1) w8a8_gemm_kernel(const __grid_constant__ GemmParams p) {
+  using L = GemmLayout<BN>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * L::kStageBytes);
@@ -161,7 +159,7 @@ __global__ void __launch_bounds__(GemmLayout<NC, BN>::kThreads, NC == 1 ? 2 : 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], NC * 128);
+      mbar_init(&empty[s], kGemmThreads - 128);
     }
     fence_barrier_init();
   }
@@ -170,11 +168,11 @@ __global__ void __launch_bounds__(GemmLayout<NC, BN>::kThreads, NC == 1 ? 2 : 1)
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // ---------------------------------------------------------- producer
-    if constexpr (NC == 2) setmaxnreg_dec<40>();
+    setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
       int it = 0;  // k tiles loaded so far
       for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-        const int m0 = (tile % p.tiles_m) * L::kBM;
+        const int m0 = (tile % p.tiles_m) * kBlockM;
         const int n0 = (tile / p.tiles_m) * BN;
         for (int kt = 0; kt < k_tiles; ++kt, ++it) {
           const int stage = it % kStages;
@@ -188,7 +186,7 @@ __global__ void __launch_bounds__(GemmLayout<NC, BN>::kThreads, NC == 1 ? 2 : 1)
     }
   } else {
     // --------------------------------------------------------- consumers
-    if constexpr (NC == 2) setmaxnreg_inc<232>();
+    setmaxnreg_inc<232>();
     const int c = wg - 1;  // rows 64 c .. 64 c + 63 of the tile
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32;
@@ -197,7 +195,7 @@ __global__ void __launch_bounds__(GemmLayout<NC, BN>::kThreads, NC == 1 ? 2 : 1)
     const T* bias = static_cast<const T*>(p.bias);
     int it = 0;  // k tiles consumed so far
     for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-      const int m0 = (tile % p.tiles_m) * L::kBM;
+      const int m0 = (tile % p.tiles_m) * kBlockM;
       const int n0 = (tile / p.tiles_m) * BN;
       int acc[BN / 2];
 #pragma unroll
@@ -267,23 +265,21 @@ __global__ void __launch_bounds__(GemmLayout<NC, BN>::kThreads, NC == 1 ? 2 : 1)
   }
 }
 
-template <typename T, int NC, int BN>
+template <typename T, int BN>
 cudaError_t launch_gemm(const GemmParams& p, cudaStream_t stream) {
-  using L = GemmLayout<NC, BN>;
-  auto kernel = w8a8_gemm_kernel<T, NC, BN>;
+  auto kernel = w8a8_gemm_kernel<T, BN>;
   static uint64_t configured = 0;  // devices on which the shared-memory limit is raised
-  cudaError_t err = raise_smem_limit(kernel, L::kBytes, &configured);
+  cudaError_t err = raise_smem_limit(kernel, GemmLayout<BN>::kBytes, &configured);
   if (err != cudaSuccess) return err;
-  kernel<<<min(p.tiles, sm_count() * (NC == 1 ? 2 : 1)), L::kThreads, L::kBytes, stream>>>(p);
+  kernel<<<min(p.tiles, sm_count()), kGemmThreads, GemmLayout<BN>::kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-// the tile shapes `pick_tile` (ops/cuda/w8a8_matmul.py) chooses from
+// the tile widths `pick_tile` (ops/cuda/w8a8_matmul.py) chooses from
 template <typename T>
-cudaError_t launch_tile(const GemmParams& p, int block_m, int block_n, cudaStream_t stream) {
-  if (block_m == 128 && block_n == 256) return launch_gemm<T, 2, 256>(p, stream);
-  if (block_m == 128 && block_n == 128) return launch_gemm<T, 2, 128>(p, stream);
-  if (block_m == 64 && block_n == 128) return launch_gemm<T, 1, 128>(p, stream);
+cudaError_t launch_tile(const GemmParams& p, int block_n, cudaStream_t stream) {
+  if (block_n == 256) return launch_gemm<T, 256>(p, stream);
+  if (block_n == 128) return launch_gemm<T, 128>(p, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -313,41 +309,40 @@ extern "C" int w8a8_quantize_rows(const void* x, void* qx, float* x_scale, int M
 }
 
 // qx [M, K] int8, qw [N, K] int8, x_scale [M] f32, w_scale [N] f32, bias [N] or
-// null -> out [M, N]. K % 128 == 0, N % block_n == 0; (block_m, block_n) one
-// of (128, 256), (128, 128), (64, 128). skip_k_tile: -1, or the index of one
-// 64-wide K slice to leave out (a deliberately wrong result, for controls).
+// null -> out [M, N]. K % 128 == 0, N % block_n == 0; output tiles of 128 x
+// block_n, block_n 256 or 128. skip_k_tile: -1, or the index of one 64-wide K
+// slice to leave out (a deliberately wrong result, for controls).
 extern "C" int w8a8_matmul(const void* qx, const void* qw, const float* x_scale, const float* w_scale,
-                           const void* bias, void* out, int M, int N, int K, int dtype, int block_m, int block_n,
+                           const void* bias, void* out, int M, int N, int K, int dtype, int block_n,
                            int skip_k_tile, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % kBlockK != 0 || block_n <= 0 || N % block_n != 0 || block_m <= 0 ||
-      (long long)((M + block_m - 1) / block_m) * (N / block_n) > 0x7fffffff) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % kBlockK != 0 || block_n <= 0 || N % block_n != 0 ||
+      (long long)((M + kBlockM - 1) / kBlockM) * (N / block_n) > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   GemmParams p;
   const uint64_t a_dims[2] = {(uint64_t)K, (uint64_t)M}, b_dims[2] = {(uint64_t)K, (uint64_t)N};
   const uint64_t stride[1] = {(uint64_t)K};
-  const uint32_t a_box[2] = {kBlockK, (uint32_t)block_m}, b_box[2] = {kBlockK, (uint32_t)block_n};
+  const uint32_t a_box[2] = {kBlockK, kBlockM}, b_box[2] = {kBlockK, (uint32_t)block_n};
   if (!encode_tensor_map(&p.a_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, qx, a_dims, stride, a_box) ||
       !encode_tensor_map(&p.b_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, qw, b_dims, stride, b_box)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.x_scale = x_scale; p.w_scale = w_scale; p.bias = bias; p.out = out;
   p.M = M; p.N = N; p.K = K; p.skip_k_tile = skip_k_tile;
-  p.tiles_m = (M + block_m - 1) / block_m;
+  p.tiles_m = (M + kBlockM - 1) / kBlockM;
   p.tiles = p.tiles_m * (N / block_n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch_tile<__nv_bfloat16>(p, block_m, block_n, s));
-    case 1: return static_cast<int>(launch_tile<__half>(p, block_m, block_n, s));
-    case 2: return static_cast<int>(launch_tile<float>(p, block_m, block_n, s));
+    case 0: return static_cast<int>(launch_tile<__nv_bfloat16>(p, block_n, s));
+    case 1: return static_cast<int>(launch_tile<__half>(p, block_n, s));
+    case 2: return static_cast<int>(launch_tile<float>(p, block_n, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Dynamic shared memory of a launch with tile (block_m, block_n) (bytes), or -1.
-extern "C" int w8a8_matmul_smem_bytes(int block_m, int block_n) {
-  if (block_m == 128 && block_n == 256) return GemmLayout<2, 256>::kBytes;
-  if (block_m == 128 && block_n == 128) return GemmLayout<2, 128>::kBytes;
-  if (block_m == 64 && block_n == 128) return GemmLayout<1, 128>::kBytes;
+// Dynamic shared memory of a launch with tiles of 128 x block_n (bytes), or -1.
+extern "C" int w8a8_matmul_smem_bytes(int block_n) {
+  if (block_n == 256) return GemmLayout<256>::kBytes;
+  if (block_n == 128) return GemmLayout<128>::kBytes;
   return -1;
 }

@@ -101,6 +101,13 @@ def is_hopper(device_index: int) -> bool:
     return torch.cuda.get_device_capability(device_index) == (9, 0)
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of the CUDA device: the grid of a persistent
+    kernel, which the kernel also reads at launch."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def stream_of(device: torch.device) -> int:
     """The raw handle of PyTorch's current stream on `device`, for a launch."""
     return torch._C._cuda_getCurrentRawStream(device.index)

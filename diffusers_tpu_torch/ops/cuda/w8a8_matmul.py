@@ -30,12 +30,11 @@ from . import _build
 SOURCE = _build.CSRC / "w8a8_matmul.cu"
 DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 ALIGN = 128  # K and N multiples of this take the int8 path
-SMS = 132  # streaming multiprocessors of an H100 SXM
-# K5's tile shapes (BM, BN) and the rate, relative to the largest, at which an
-# SM works through output elements of each (smaller tiles reload more operand
-# bytes per operation; rates measured on an H100 at Flux's K = 12288 and 15360
-# shapes, PERF.md); `pick_tile` weighs the busiest SM's work by it
-TILES = {(128, 256): 1.0, (128, 128): 0.8, (64, 128): 0.6}
+# K5's tile shapes (BM, BN) and the rate, relative to the larger, at which an
+# SM works through output elements of each (the smaller tile reloads more
+# operand bytes per operation; rates measured on an H100 at Flux's K = 12288
+# and 15360 shapes, PERF.md); `pick_tile` weighs the busiest SM's work by it
+TILES = {(128, 256): 1.0, (128, 128): 0.8}
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,11 +50,11 @@ def load_library() -> ctypes.CDLL:
     lib.w8a8_quantize_rows.restype = ctypes.c_int
     lib.w8a8_matmul.argtypes = (
         [ctypes.c_void_p] * 6  # qx, qw, x_scale, w_scale, bias, out
-        + [ctypes.c_int] * 7  # M, N, K, dtype, block_m, block_n, skip_k_tile
+        + [ctypes.c_int] * 6  # M, N, K, dtype, block_n, skip_k_tile
         + [ctypes.c_void_p]  # stream
     )
     lib.w8a8_matmul.restype = ctypes.c_int
-    lib.w8a8_matmul_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]  # block_m, block_n
+    lib.w8a8_matmul_smem_bytes.argtypes = [ctypes.c_int]  # block_n
     lib.w8a8_matmul_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -132,19 +131,21 @@ def w8a8_matmul_2d_plain(
     return y if bias is None else y + bias.to(out_dtype)
 
 
-def pick_tile(m: int, n: int) -> Tuple[int, int]:
-    """K5's output tile (BM, BN) for an [m, n] output (n a multiple of 128).
-    M <= 64 is bound by the weight's bytes: the smallest tile puts the most
-    SMs on streaming it. Otherwise the tile whose busiest SM has the least
-    work, ``ceil(tiles / SMS) * BM * BN / rate``; ties go to the larger tile."""
+def pick_tile(m: int, n: int, sms: int) -> Tuple[int, int]:
+    """K5's output tile (BM, BN) for an [m, n] output (n a multiple of 128)
+    on a card with `sms` streaming multiprocessors (K5's persistent grid has
+    one block per SM). M <= 64 is bound by the weight's bytes: the narrower
+    tile puts the most SMs on streaming it. Otherwise the tile whose busiest
+    SM has the least work, ``ceil(tiles / sms) * BM * BN / rate``; ties go to
+    the larger tile."""
     if m <= 64:
-        return 64, 128
+        return 128, 128
     best, best_cost = None, None
     for (bm, bn), rate in TILES.items():
         if n % bn:
             continue
         tiles = -(-m // bm) * (n // bn)
-        cost = -(-tiles // SMS) * bm * bn / rate
+        cost = -(-tiles // sms) * bm * bn / rate
         if best_cost is None or cost < best_cost:
             best, best_cost = (bm, bn), cost
     return best
@@ -158,14 +159,12 @@ def w8a8_matmul_2d(
     out_dtype: torch.dtype,
     bias: Optional[torch.Tensor] = None,
     _skip_k_tile: int = -1,
-    _tile: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """The int8 x int8 -> int32 matmul with the f32 epilogue (and the bias)
     fused. CPU tensors take `w8a8_matmul_2d_plain`; CUDA tensors launch K5
     with the tile `pick_tile` chooses, or raise on what it does not take.
     `_skip_k_tile` leaves one 64-wide K slice out of the sum: a deliberately
-    wrong result for `chip_smoke.py`'s control. `_tile` overrides the tile
-    (one of `TILES`), for the card tests and timings of every tile."""
+    wrong result for `chip_smoke.py`'s control."""
     if qx.device.type == "cpu":
         return w8a8_matmul_2d_plain(qx, qw, x_scale, w_scale, out_dtype, bias)
     m, k = qx.shape
@@ -182,15 +181,13 @@ def w8a8_matmul_2d(
         bias = bias.to(out_dtype).contiguous()
     _check_card("w8a8_matmul_2d", [qx, qw, x_scale, w_scale] + ([bias] if bias is not None else []),
                 "qx, qw, scales and bias")
-    bm, bn = _tile or pick_tile(m, n)
-    if (bm, bn) not in TILES or n % bn:
-        raise ValueError(f"w8a8_matmul_2d: tile {(bm, bn)} is not one of {tuple(TILES)} dividing N = {n}")
+    _, bn = pick_tile(m, n, _build.sm_count(qx.device.index))
     out = torch.empty((m, n), device=qx.device, dtype=out_dtype)
     with torch.cuda.device(qx.device):
         err = load_library().w8a8_matmul(
             qx.data_ptr(), qw.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            m, n, k, DTYPES[out_dtype], bm, bn, int(_skip_k_tile), _build.stream_of(qx.device),
+            m, n, k, DTYPES[out_dtype], bn, int(_skip_k_tile), _build.stream_of(qx.device),
         )
     if err != 0:
         raise RuntimeError(f"w8a8_matmul launch failed with cudaError_t {err}")

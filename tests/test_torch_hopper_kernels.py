@@ -13,7 +13,8 @@ against exp2). A control shows the bound rejects a kernel that drops the
 last, ragged kv tile.
 
 K5's tile picker (`pick_tile`) must return, for each Flux.1-dev w8a8 shape,
-one of the kernel's tiles whose BN divides N.
+one of the kernel's tiles whose BN divides N, and the card tests' shapes must
+reach every tile.
 """
 
 import math
@@ -23,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FLUX_W8A8_SHAPES, attention_bounds
+from chip_smoke import FLUX_W8A8_SHAPES, W8A8_TILE_CASES, attention_bounds
 from diffusers_tpu.ops.pallas.flash_attention_bwd import _flash_fwd_bhsd
 from diffusers_tpu_torch.ops.cuda.flash_attention import NEG_INF, flash_attention_plain
 from diffusers_tpu_torch.ops.cuda.w8a8_matmul import TILES, pick_tile
@@ -32,21 +33,29 @@ torch.set_num_threads(1)
 
 LOG2E = 1.4426950408889634
 BLOCK_N = 128
+H100_SXM_SMS, H100_PCIE_SMS = 132, 114  # streaming multiprocessors
 
 
-def _emulated_k1(q, k, v, scale, is_causal=False, drop_last_tile=False):
-    """K1's arithmetic on BSHD q/k/v: (out in the input dtype, f32 LSE [B, H, Sq])."""
+def _emulated_k1(q, k, v, scale, is_causal=False, mask=None, drop_last_tile=False):
+    """K1's arithmetic on BSHD q/k/v (and an additive f32 mask broadcastable
+    to [B, H, Sq, Sk]): (out in the input dtype, f32 LSE [B, H, Sq])."""
     dt = q.dtype
     sq, sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scale32 = torch.tensor(scale, dtype=torch.float32)
-    if is_causal:  # the causal instance scales, masks, then converts to log2 units
-        row = torch.arange(sq)[:, None]
-        col = torch.arange(sk)[None, :]
-        x = torch.where(row >= col, s * scale32, NEG_INF) * torch.tensor(LOG2E, dtype=torch.float32)
+    log2e = torch.tensor(LOG2E, dtype=torch.float32)
+    if is_causal or mask is not None:  # these instances scale, mask, then convert to log2 units
+        x = s * scale32
+        if mask is not None:
+            x = x + mask
+        if is_causal:
+            row = torch.arange(sq)[:, None]
+            col = torch.arange(sk)[None, :]
+            x = torch.where(row >= col, x, NEG_INF)
+        x = x * log2e
     else:
-        x = s * (scale32 * torch.tensor(LOG2E, dtype=torch.float32))
-    m = torch.full(x.shape[:-1], -math.inf)
+        x = s * (scale32 * log2e)
+    m = torch.full(x.shape[:-1], float(torch.tensor(NEG_INF, dtype=torch.float32) * log2e))
     l = torch.zeros(x.shape[:-1])
     o = torch.zeros(*x.shape[:-1], q.shape[-1])
     n_tiles = -(-sk // BLOCK_N) - int(drop_last_tile)
@@ -104,6 +113,28 @@ def test_k1_emulation_holds_at_ragged_lengths(sk):
     assert bool(((out.float() - ref).abs() <= bound).all())
 
 
+@pytest.mark.parametrize("hidden", [-math.inf, torch.finfo(torch.float32).min], ids=["-inf", "finfo.min"])
+def test_k1_emulation_holds_when_a_mask_hides_the_first_kv_tile(hidden):
+    """An additive mask that hides the first 160 keys (more than one 128-key
+    tile) of every other row: the running max starts at the finite masked
+    logit, so the hidden tile adds nothing and the output stays finite, within
+    the bound and equal to JAX's kernel (interpret mode) within it."""
+    q, k, v = _inputs(3, 1, 256, 256, 2, 64, torch.bfloat16)
+    mask = torch.zeros(1, 1, 256, 256)
+    mask[:, :, ::2, :160] = hidden
+    out, lse = _emulated_k1(q, k, v, 0.125, mask=mask)
+    ref, bound, _ = attention_bounds(q, k, v, attn_mask=mask)
+    assert bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(lse).all())
+    assert bool(((out.float() - ref).abs() <= bound).all())
+
+    bhsd = [jnp.asarray(t.float().numpy().transpose(0, 2, 1, 3), dtype=jnp.bfloat16) for t in (q, k, v)]
+    j_mask = jnp.asarray(mask.expand(1, 2, 256, 256).numpy())
+    j_out, _ = _flash_fwd_bhsd(*bhsd, j_mask, scale=0.125, is_causal=False, block_q=128, block_k=128,
+                               interpret=True, need_lse=True)
+    j_out = torch.from_numpy(np.asarray(j_out, dtype=np.float32).transpose(0, 2, 1, 3))
+    assert bool(((j_out - ref).abs() <= bound).all())
+
+
 def test_k1_bound_rejects_a_dropped_last_kv_tile():
     q, k, v = _inputs(2, 1, 128, 300, 2, 64, torch.bfloat16)
     ref, bound, _ = attention_bounds(q, k, v)
@@ -113,9 +144,16 @@ def test_k1_bound_rejects_a_dropped_last_kv_tile():
 
 @pytest.mark.parametrize("m,k,n", [s[:3] for s in FLUX_W8A8_SHAPES])
 def test_k5_tile_picker_covers_the_flux_shapes(m, k, n):
-    bm, bn = pick_tile(m, n)
+    bm, bn = pick_tile(m, n, H100_SXM_SMS)
     assert (bm, bn) in TILES and n % bn == 0
     tiles = -(-m // bm) * (n // bn)
     assert tiles * bm >= m * (n // bn) and -(-m // bm) <= 65535
-    if m <= 64:  # weight-bound: the narrowest tile streams the weight on the most SMs
-        assert (bm, bn) == (64, 128)
+    if m <= 64:  # weight-bound: the narrower tile streams the weight on the most SMs
+        assert (bm, bn) == (128, 128)
+
+
+@pytest.mark.parametrize("sms", [H100_SXM_SMS, H100_PCIE_SMS], ids=["sxm", "pcie"])
+def test_k5_tile_cases_reach_every_tile(sms):
+    """The card tests' shapes (`W8A8_TILE_CASES`) hold every tile K5 can take
+    to its plain version, on either H100."""
+    assert {pick_tile(m, n, sms) for m, n in W8A8_TILE_CASES} == set(TILES)

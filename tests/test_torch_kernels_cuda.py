@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FLUX_W8A8_SHAPES, attention_bounds, attention_bwd_bounds, bf16_ulp
+from chip_smoke import FLUX_W8A8_SHAPES, W8A8_TILE_CASES, attention_bounds, attention_bwd_bounds, bf16_ulp
 from diffusers_tpu_torch.ops.attention import _auto_backend, dispatch_attention_fn
 from diffusers_tpu_torch.ops.cuda.flash_attention import (
     flash_attention,
@@ -71,6 +71,10 @@ def _randn(gen, shape, dtype, device, scale=1.0):
         (1, 300, 77, 2, 64, False, False, torch.float16),
         (1, 256, 256, 2, 128, True, False, torch.float16),
         (2, 300, 200, 3, 64, False, True, torch.float16),  # broadcast mask, fp16
+        # a float mask of -inf or finfo.min (the port's masked value) over the first 160 keys of every
+        # other row: a whole 128-key kv tile hidden, which must give no inf - inf
+        (2, 300, 333, 2, 64, False, "-inf", torch.bfloat16),
+        (2, 300, 333, 2, 128, False, "finfo.min", torch.float16),
     ],
 )
 def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, d, causal, masked, dtype):
@@ -79,7 +83,10 @@ def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, d, causal, masked, dtype
     k = _randn(gen, (b, sk, h, d), dtype, cuda)
     v = _randn(gen, (b, sk, h, d), dtype, cuda)
     mask = None
-    if masked:
+    if masked in ("-inf", "finfo.min"):
+        mask = torch.zeros((b, 1, sq, sk), device=cuda)
+        mask[:, :, ::2, :160] = float("-inf") if masked == "-inf" else torch.finfo(torch.float32).min
+    elif masked:
         mask = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=cuda) < 0.3, -1e4, 0.0)
     before = flash_attention_full.launches
     out, lse = flash_attention_full(q, k, v, attn_mask=mask, is_causal=causal, return_lse=True)
@@ -211,17 +218,18 @@ def test_w8a8_kernels_match_plain_at_flux_shapes(cuda, m, k, n):
     assert not bool(((skipped.float() - ref.float()).abs() <= bf16_ulp(ref)).all())
 
 
-@pytest.mark.parametrize("tile", [(128, 256), (128, 128), (64, 128)])
-@pytest.mark.parametrize("m", [1, 17, 77, 4097])
-def test_w8a8_kernel_is_bit_equal_for_every_tile(cuda, m, tile):
-    """Every tile `pick_tile` can return, at ragged M (TMA's zero-filled rows
-    are not stored): bit-equal to the plain version (exact int32 sums)."""
+@pytest.mark.parametrize("m,n", W8A8_TILE_CASES)
+def test_w8a8_kernel_is_bit_equal_for_every_tile(cuda, m, n):
+    """Ragged M (TMA's zero-filled rows are not stored), at shapes that
+    between them reach every tile `pick_tile` can return (checked on the CPU
+    by `test_k5_tile_cases_reach_every_tile`): bit-equal to the plain version
+    (exact int32 sums)."""
     gen = torch.Generator(device=cuda).manual_seed(12)
-    k, n = 768, 512
+    k = 768
     qx, xs = quantize_rows_plain(_randn(gen, (m, k), torch.bfloat16, cuda, scale=2.0))
     qw, ws = quantize_kernel_int8(_randn(gen, (n, k), torch.float32, cuda))
     bias = _randn(gen, (n,), torch.bfloat16, cuda, scale=0.1)
-    y = w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias, _tile=tile)
+    y = w8a8_matmul_2d(qx, qw, xs, ws, torch.bfloat16, bias)
     assert torch.equal(y, w8a8_matmul_2d_plain(qx, qw, xs, ws, torch.bfloat16, bias))
 
 
