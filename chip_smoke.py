@@ -136,6 +136,28 @@ BWD_EXTRA_CASES = (
     ("Flux joint 4608 d=128", (1, 4608, 24, 128), 4608, {"timed": True}, 0),
     ("causal 1000 (ragged)", (1, 1000, 4, 64), 1000, {"is_causal": True}, 0),
     ("additive mask 300 x 333, d=128", (2, 300, 2, 128), 333, {"mask": True}, 0),
+    # a float mask of -inf or finfo.min over the first 160 keys of every other row: a whole 128-key
+    # kv tile hidden, which must give finite grads
+    ("mask -inf over the first 160 keys of every other row", (2, 300, 2, 64), 333, {"mask": "-inf"}, 0),
+    ("mask finfo.min over the first 160 keys of every other row, d=128, fp16", (2, 300, 2, 128), 333,
+     {"mask": "finfo.min", "dtype": "fp16"}, 0),
+)
+# (b, sq, sk, h, d, causal, mask, dtype) at which the card tests hold K2/K3 to their plain version;
+# between them both K2 paths (`pick_split` > 1 and == 1) on an H100 SXM or PCIe
+FLASH_BWD_CARD_CASES = (
+    (1, 1024, 1024, 4, 64, False, False, "bf16"),
+    (2, 512, 77, 4, 64, False, False, "bf16"),  # SDXL's ragged cross attention
+    (1, 300, 300, 2, 64, True, False, "bf16"),
+    (1, 130, 300, 2, 64, True, False, "bf16"),  # causal, Sq < Sk: top-left aligned
+    (2, 300, 130, 2, 128, True, True, "bf16"),  # causal + mask, Sq > Sk
+    (1, 200, 333, 2, 128, False, True, "bf16"),
+    (1, 500, 700, 3, 128, False, False, "fp16"),
+    (3, 1, 5, 1, 64, False, False, "fp16"),
+    (1, 4096, 77, 10, 64, False, False, "bf16"),  # the train step's cross attentions (split)
+    (1, 1024, 77, 20, 64, False, False, "bf16"),
+    (1, 1024, 1024, 20, 64, False, False, "bf16"),  # the train step's level-3 self attention (not split)
+    (2, 300, 333, 2, 64, False, "-inf", "bf16"),  # a hidden first kv tile
+    (2, 300, 333, 2, 128, False, "finfo.min", "fp16"),
 )
 TRAIN_STEPS = 5
 
@@ -438,7 +460,7 @@ def ptxas_summary(log: str):
 def build_kernels():
     """Phase 2: build the CUDA C++ kernels with nvcc (sm_90a), one nvcc per
     source, all at once; each kernel's registers and spills (ptxas) and the
-    dynamic shared memory of K1's and K5's launches."""
+    dynamic shared memory of K1's, K2's, K3's and K5's launches."""
     from diffusers_tpu_torch.ops.cuda import _build, flash_attention, w8a8_matmul
 
     sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE, w8a8_matmul.SOURCE)
@@ -457,6 +479,8 @@ def build_kernels():
             log(f"[build]   {src.name}: {n}: {r} registers, spill stores {ss} B, spill loads {sl} B")
     smem = {f"flash_attention_fwd d={d}": flash_attention.load_library().flash_attention_fwd_smem_bytes(d)
             for d in flash_attention.HEAD_DIMS}
+    smem.update({f"flash_attention_bwd {name} d={d}": flash_attention.load_bwd_library().flash_attention_bwd_smem_bytes(
+        d, kernel) for d in flash_attention.HEAD_DIMS for name, kernel in (("dkdv", 0), ("dq", 1))})
     smem.update({f"w8a8_matmul tile {bm}x{bn}": w8a8_matmul.load_library().w8a8_matmul_smem_bytes(bn)
                  for bm, bn in w8a8_matmul.TILES})
     RESULTS["build"]["dynamic_smem_bytes"] = smem
@@ -747,29 +771,54 @@ def check_w8a8():
     }
 
 
+def _bwd_instance(dtype, d, masked, causal):
+    """K2's and K3's ptxas rows (registers, spills) and dynamic shared memory
+    for the kernel instances that a case launches."""
+    import torch
+
+    from diffusers_tpu_torch.ops.cuda.flash_attention import load_bwd_library
+
+    ty = "__nv_bfloat16" if dtype == torch.bfloat16 else "__half"
+    flags = f"{str(bool(masked)).lower()}, {str(bool(causal)).lower()}"
+    rows = {r["function"]: r for r in RESULTS.get("build", {}).get("flash_attention_bwd.cu", [])}
+    lib = load_bwd_library()
+    return {name: dict(rows.get(f"void flash_bwd_{name}_kernel<{ty}, {d}, {flags}>", {}),
+                       dynamic_smem_bytes=lib.flash_attention_bwd_smem_bytes(d, kernel))
+            for name, kernel in (("dkdv", 0), ("dq", 1))}
+
+
 def check_flash_bwd():
     """Phase 5: K2 (dK/dV) and K3 (dQ) against their plain version,
     `flash_attention_bwd_plain`, at the SDXL training shapes (1024 px, batch
-    1: self attention over 4096 and 1024 tokens, cross attention over 77),
-    at Flux's (1, 4608, 24, 128) for head_dim 128, and on a causal and a
-    masked case; each element within `attention_bwd_bounds`. Controls: grads
-    of inputs with one 64-key tile of k/v zeroed must break the bound. Times
-    of each kernel, of the plain version, of the bound and of the library
-    call (the backward of `F.scaled_dot_product_attention`: its forward and
-    backward, minus its forward), summed over one SDXL train step's launches."""
+    1: self attention over 4096 and 1024 tokens, cross attention over 77,
+    where K2 splits its query sweep), at Flux's (1, 4608, 24, 128) for
+    head_dim 128, on a causal and a masked case, and with a mask of -inf or
+    finfo.min over a row's first kv tile; each element within
+    `attention_bwd_bounds`, and two launches bit-identical. Controls: grads of
+    inputs with one 64-key tile of k/v zeroed must break the bound. For each
+    case: the split `pick_split` chose and the instances' ptxas registers,
+    spills and shared memory; for the timed ones each kernel's time on
+    events and in device time (a CUDA graph), TFLOP/s and share of its
+    bound, host time a call, and the times of the plain version, of the bound
+    and of the library call (the backward of `F.scaled_dot_product_attention`:
+    its forward and backward, minus its forward), summed over one SDXL train
+    step's launches."""
     import torch
     import torch.nn.functional as F
 
+    from diffusers_tpu_torch.ops.cuda._build import sm_count
     from diffusers_tpu_torch.ops.cuda.flash_attention import (
         flash_attention_bwd,
         flash_attention_bwd_dkdv,
         flash_attention_bwd_dq,
         flash_attention_bwd_plain,
         flash_attention_full,
+        pick_split,
     )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    sms = sm_count(dev.index or 0)
 
     def randn(*shape, dtype=torch.bfloat16, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
@@ -779,20 +828,31 @@ def check_flash_bwd():
     max_err = {"flash_attention_bwd_dkdv": 0.0, "flash_attention_bwd_dq": 0.0}
     for label, qshape, sk, opt, per_step in SDXL_TRAIN_ATTENTION + BWD_EXTRA_CASES:
         b, sq, h, d = qshape
-        q, k, v = randn(b, sq, h, d, scale=2.0), randn(b, sk, h, d), randn(b, sk, h, d)
+        dtype = torch.float16 if opt.get("dtype") == "fp16" else torch.bfloat16
+        q, k, v = randn(b, sq, h, d, dtype=dtype, scale=2.0), randn(b, sk, h, d, dtype=dtype), randn(b, sk, h, d,
+                                                                                                     dtype=dtype)
         mask = None
-        if opt.get("mask"):
+        if opt.get("mask") in ("-inf", "finfo.min"):  # a whole first 128-key kv tile hidden in every other row
+            mask = torch.zeros((b, 1, sq, sk), device=dev)
+            mask[:, :, ::2, :160] = float("-inf") if opt["mask"] == "-inf" else torch.finfo(torch.float32).min
+        elif opt.get("mask"):
             mask = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=dev) < 0.3, -1e4, 0.0)
         causal = opt.get("is_causal", False)
         out, lse = flash_attention_full(q, k, v, attn_mask=mask, is_causal=causal, return_lse=True)
-        grad_out = randn(b, sq, h, d)
+        grad_out = randn(b, sq, h, d, dtype=dtype)
         grads = flash_attention_bwd(q, k, v, mask, out, lse, grad_out, is_causal=causal)
+        again = flash_attention_bwd(q, k, v, mask, out, lse, grad_out, is_causal=causal)
         torch.cuda.synchronize()
+        identical = all(torch.equal(a, g) for a, g in zip(again, grads))
+        del again
         refs, bounds32, bounds16 = attention_bwd_bounds(q, k, v, out, lse, grad_out, attn_mask=mask,
                                                         is_causal=causal)
         plain = flash_attention_bwd_plain(q, k, v, mask, out, lse, grad_out, 1.0 / d**0.5, causal)
-        row = {"kernel": "flash_attention_bwd", "case": label, "q": list(qshape), "sk": sk}
-        ok = True
+        split = pick_split(b, h, sq, sk, sms)
+        instance = _bwd_instance(dtype, d, mask is not None, causal)
+        row = {"kernel": "flash_attention_bwd", "case": label, "q": list(qshape), "sk": sk, "dtype": str(dtype),
+               "split": split, "bit_identical_across_launches": identical, "instances": instance}
+        ok = identical
         for name, g, ref, p16, b32, b16 in zip(("dq", "dk", "dv"), grads, refs, plain, bounds32, bounds16):
             diff32, diff16 = (g.float() - ref).abs(), (g.float() - p16.float()).abs()
             share32 = float(torch.where(diff32 == 0, 0.0, diff32 / b32).max())
@@ -804,7 +864,10 @@ def check_flash_bwd():
             kernel = "flash_attention_bwd_dq" if name == "dq" else "flash_attention_bwd_dkdv"
             max_err[kernel] = max(max_err[kernel], float(diff32.max()))
         shares = {n: round(row[n]["max_share_of_bound_vs_f32"], 3) for n in ("dq", "dk", "dv")}
-        log(f"[K2/K3] {label}: share of the per-element bound vs f32 {shares}")
+        ptxas = {n: (f"{r.get('registers')} registers, spills {r.get('spill_stores')}/{r.get('spill_loads')} B, "
+                     f"smem {r['dynamic_smem_bytes']} B") for n, r in instance.items()}
+        log(f"[K2/K3] {label}: share of the per-element bound vs f32 {shares}; K2 split {split}; bit-identical "
+            f"across two launches {identical}; instances {ptxas}")
         if not ok:
             raise AssertionError(f"flash_attention_bwd disagrees with its plain version on {label}: {row}")
         if per_step or opt.get("timed"):
@@ -820,7 +883,7 @@ def check_flash_bwd():
             log(f"[K2/K3]   control (kv tile zeroed), share of the bound (must exceed 1): {controls}")
             if min(controls.values()) <= 1.0:
                 raise AssertionError(f"the flash_attention_bwd bound does not reject a zeroed kv tile on {label}")
-            delta = (grad_out.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            delta = (grad_out.float() * out).sum(-1).transpose(1, 2)  # as flash_attention_bwd computes it
             args = (q, k, v, mask, lse, delta, grad_out, 1 / d**0.5, causal)
             dkdv_ms, dq_ms = time_pair(lambda: flash_attention_bwd_dkdv(*args), lambda: flash_attention_bwd_dq(*args),
                                        iters=20)
@@ -841,6 +904,11 @@ def check_flash_bwd():
             library_device_ms = graph_ms(sdpa_fwd_bwd) - sdpa_fwd_device_ms
             dkdv_device_ms = graph_ms(lambda: flash_attention_bwd_dkdv(*args))
             dq_device_ms = graph_ms(lambda: flash_attention_bwd_dq(*args))
+            host = {"dkdv_host_us": host_us(lambda: flash_attention_bwd_dkdv(*args)),
+                    "dq_host_us": host_us(lambda: flash_attention_bwd_dq(*args)),
+                    "bwd_host_us": host_us(lambda: flash_attention_bwd(q, k, v, mask, out, lse, grad_out,
+                                                                       is_causal=causal)),
+                    "delta_host_us": host_us(lambda: (grad_out.float() * out).sum(-1).transpose(1, 2))}
             io = 2 * (q.numel() + k.numel() + v.numel() + grad_out.numel()) + 2 * 4 * b * h * sq
             flops = 2.0 * b * h * sq * sk * d
             dkdv_bound, dkdv_by = bound_ms(io + 2 * (k.numel() + v.numel()), 4 * flops, PEAK_BF16_FLOPS)
@@ -849,12 +917,20 @@ def check_flash_bwd():
                        dkdv_bound_ms=dkdv_bound, dkdv_bound_by=dkdv_by, dq_bound_ms=dq_bound, dq_bound_by=dq_by,
                        launches_per_train_step=per_step, dkdv_tflops=4 * flops / dkdv_ms / 1e9,
                        dq_tflops=3 * flops / dq_ms / 1e9, dkdv_device_ms=dkdv_device_ms,
-                       dq_device_ms=dq_device_ms, library_device_ms=library_device_ms)
+                       dq_device_ms=dq_device_ms, library_device_ms=library_device_ms,
+                       dkdv_device_tflops=4 * flops / dkdv_device_ms / 1e9,
+                       dq_device_tflops=3 * flops / dq_device_ms / 1e9,
+                       dkdv_device_share_of_bound=dkdv_bound / dkdv_device_ms,
+                       dq_device_share_of_bound=dq_bound / dq_device_ms, **host)
             log(f"[K2/K3]   K2 {dkdv_ms:.3f} ms ({row['dkdv_tflops']:.1f} TFLOP/s, bound {dkdv_bound:.3f} "
                 f"{dkdv_by}), K3 {dq_ms:.3f} ms ({row['dq_tflops']:.1f} TFLOP/s, bound {dq_bound:.3f} {dq_by}), "
                 f"plain {plain_ms:.3f} ms, SDPA backward {library_ms:.3f} ms (x{per_step} per train step); device "
-                f"time (CUDA graphs) K2 {dkdv_device_ms:.4f} + K3 {dq_device_ms:.4f} ms, SDPA backward "
-                f"{library_device_ms:.4f} ms")
+                f"time (CUDA graphs) K2 {dkdv_device_ms:.4f} ms ({row['dkdv_device_tflops']:.1f} TFLOP/s, "
+                f"{100 * row['dkdv_device_share_of_bound']:.1f}% of its bound) + K3 {dq_device_ms:.4f} ms "
+                f"({row['dq_device_tflops']:.1f} TFLOP/s, {100 * row['dq_device_share_of_bound']:.1f}%), SDPA "
+                f"backward {library_device_ms:.4f} ms; host a call: K2 {host['dkdv_host_us']:.1f} us, K3 "
+                f"{host['dq_host_us']:.1f} us, both (flash_attention_bwd, with delta) {host['bwd_host_us']:.1f} us, "
+                f"delta alone {host['delta_host_us']:.1f} us")
             for key in step:
                 step[key] += per_step * row[key]
         cases.append(row)

@@ -220,6 +220,19 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t des
 #undef HOPPER_SS_M64N128K16
 }
 
+// D[64 x 64] (f32) (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory.
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+#define HOPPER_SS_M64N64K16(TY)                                                                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                             \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" HOPPER_REGS32 "}, %32, %33, " \
+               "p, 1, 1, 0, 0;\n}\n"                                                                     \
+               : HOPPER_ACC32("+f", d, 0)                                                                \
+               : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+  HOPPER_BY_TYPE(T, HOPPER_SS_M64N64K16)
+#undef HOPPER_SS_M64N64K16
+}
+
 // D[64 x 64] (f32) += A[64 x 16] . B[16 x 64], A in registers (the m16n8k16 A
 // fragment of each warp's 16 rows), B MN-major (transposed) in shared memory.
 template <typename T>

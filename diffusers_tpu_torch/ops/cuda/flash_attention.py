@@ -41,6 +41,8 @@ DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 
 SOURCE = _build.CSRC / "flash_attention_fwd.cu"
 BWD_SOURCE = _build.CSRC / "flash_attention_bwd.cu"
+BWD_KV_TILE = 128  # keys per K2 work item
+BWD_SPLIT_BLOCK = 128  # K2's query splits are ranges of blocks of this many queries
 
 
 def _additive_mask(attn_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -132,17 +134,20 @@ def load_library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def load_bwd_library() -> ctypes.CDLL:
-    """Build and load the shared library of K2 and K3."""
+    """Build and load the shared library of K2 and K3 (one entry point that
+    launches either or both from one set of tensor maps)."""
     lib = _build.load(BWD_SOURCE)
-    for name, n_out in (("flash_attention_bwd_dkdv", 2), ("flash_attention_bwd_dq", 1)):
-        fn = getattr(lib, name)
-        fn.argtypes = (
-            [ctypes.c_void_p] * (7 + n_out)  # q, k, v, dO, mask, lse, delta, outputs
-            + [ctypes.c_int] * 6  # batch, heads, seq_q, seq_k, head_dim, dtype
-            + [ctypes.c_longlong] * (3 * (4 + n_out) + 4)  # q/k/v/dO/outputs (b, s, h), mask (b, h, q, k)
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, causal, stream
-        )
-        fn.restype = ctypes.c_int
+    fn = lib.flash_attention_bwd
+    fn.argtypes = (
+        [ctypes.c_void_p] * 11  # q, k, v, dO, mask, lse, delta, dq, dk, dv, workspace
+        + [ctypes.c_int] * 6  # batch, heads, seq_q, seq_k, head_dim, dtype
+        + [ctypes.c_longlong] * 19  # q/k/v/dO (b, s, h), delta (b, h, q), mask (b, h, q, k) strides
+        # scale, causal, splits, which, stream
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]  # head_dim, kernel (0 K2, 1 K3)
+    lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -165,7 +170,7 @@ def kernel_supports(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor)
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
-    # K1's TMA and K2/K3's 16-byte loads: unit head_dim stride, 16-byte-aligned base and strides
+    # the kernels' TMA loads: unit head_dim stride, 16-byte-aligned base and strides
     st = t.stride()
     return st[3] == 1 and not (st[0] % 8 or st[1] % 8 or st[2] % 8) and t.data_ptr() % 16 == 0
 
@@ -191,7 +196,7 @@ def _mask_arg(attn_mask: Optional[torch.Tensor], query: torch.Tensor, key: torch
 
 
 def _tma_operand(t: torch.Tensor):
-    """(tensor, (b, s, h) strides) as K1's tensor maps take them: every
+    """(tensor, (b, s, h) strides) as the kernels' tensor maps take them: every
     stride a non-zero multiple of 16 bytes. A dimension of size 1 takes its
     contiguous stride (its coordinate is always 0); a broadcast dimension
     (stride 0 over more than one element) is materialized."""
@@ -226,40 +231,75 @@ def _flash_fwd_cuda(query, key, value, attn_mask, scale, is_causal, return_lse):
     return out, lse
 
 
-def _bwd_args(query, key, value, attn_mask, lse, delta, grad_out):
-    """Checks shared by K2 and K3; returns dO with kernel-ready rows and the mask argument."""
+def pick_split(batch: int, heads: int, seq_q: int, seq_k: int, sms: int) -> int:
+    """How many parts K2 cuts each work item's query sweep into, on a card
+    with `sms` streaming multiprocessors. K2's work items are (128-key kv
+    tile, head, batch); where they fill at most half the card (SDXL's 77-key
+    cross attention: 10 or 20 items), each item's sweep over the
+    ``ceil(seq_q / 128)`` query blocks is cut into even ranges, as many as
+    fit the card in one wave, each range at least one block. The parts write
+    f32 partials that a second pass sums in split order."""
+    items = -(-seq_k // BWD_KV_TILE) * heads * batch
+    blocks = -(-seq_q // BWD_SPLIT_BLOCK)
+    if 2 * items > sms:
+        return 1
+    per = -(-blocks // min(blocks, sms // items))
+    return -(-blocks // per)
+
+
+def _bwd_launch(which: int, query, key, value, attn_mask, lse, delta, grad_out, scale, is_causal):
+    """Launch K2 (`which` bit 0: dk, dv) and/or K3 (bit 1: dq) on CUDA tensors
+    through one C call, which encodes the four tensor maps once for both;
+    counts each kernel launched. Returns (dq or None, dk or None, dv or None)
+    in BSHD, the inputs' dtype. Raises on what the kernels do not take."""
     _check_supported("flash_attention_bwd", query, key, value)
+    device = query.device
     grad_out = grad_out.to(query.dtype)
     if grad_out.shape != query.shape or not _rows_aligned(grad_out):
         grad_out = grad_out.expand(query.shape).contiguous()
-    b, sq, h, _ = query.shape
+    b, sq, h, d = query.shape
+    sk = key.shape[1]
     for name, t in (("lse", lse), ("delta", delta)):
-        if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_contiguous() or t.device != query.device:
-            raise ValueError(f"flash_attention_bwd: {name} must be a contiguous f32 [{b}, {h}, {sq}] tensor "
-                             f"on {query.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
-    return grad_out, _mask_arg(attn_mask, query, key)
+        if (t.shape != (b, h, sq) or t.dtype != torch.float32 or t.device != device
+                or (t is lse and not t.is_contiguous())):
+            raise ValueError(f"flash_attention_bwd: {name} must be an f32 [{b}, {h}, {sq}] tensor on {device} "
+                             f"(lse contiguous), got {tuple(t.shape)} {t.dtype} on {t.device}")
+    (query, q_strides), (key, k_strides), (value, v_strides), (grad_out, do_strides) = map(
+        _tma_operand, (query, key, value, grad_out))
+    mask_ptr, mask_strides, _mask = _mask_arg(attn_mask, query, key)
+    dq = torch.empty_like(query, memory_format=torch.contiguous_format) if which & 2 else None
+    dk = dv = workspace = None
+    splits = 1
+    if which & 1:
+        dk = torch.empty_like(key, memory_format=torch.contiguous_format)
+        dv = torch.empty_like(value, memory_format=torch.contiguous_format)
+        splits = pick_split(b, h, sq, sk, _build.sm_count(device.index))
+        if splits > 1:
+            workspace = torch.empty((2, splits, b, sk, h, d), device=device, dtype=torch.float32)
+    with torch.cuda.device(device):
+        err = load_bwd_library().flash_attention_bwd(
+            query.data_ptr(), key.data_ptr(), value.data_ptr(), grad_out.data_ptr(), mask_ptr,
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr() if dq is not None else None,
+            dk.data_ptr() if dk is not None else None, dv.data_ptr() if dv is not None else None,
+            workspace.data_ptr() if workspace is not None else None,
+            b, h, sq, sk, d, DTYPES[query.dtype], *q_strides, *k_strides, *v_strides, *do_strides, *delta.stride(),
+            *mask_strides, float(scale), int(bool(is_causal)), splits, which, _build.stream_of(device),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch (which {which}: 1 K2, 2 K3) failed with cudaError_t {err}")
+    if which & 1:
+        flash_attention_bwd_dkdv.launches += 1
+    if which & 2:
+        flash_attention_bwd_dq.launches += 1
+    return dq, dk, dv
 
 
 def flash_attention_bwd_dkdv(query, key, value, attn_mask, lse, delta, grad_out, scale, is_causal):
-    """Launch K2 on CUDA tensors: (dk, dv) in BSHD, the inputs' dtype. `lse`
-    and `delta` are contiguous f32 ``[B, H, Sq]``. Raises on what the kernel
-    does not take."""
-    grad_out, (mask_ptr, mask_strides, _mask) = _bwd_args(query, key, value, attn_mask, lse, delta, grad_out)
-    b, sq, h, d = query.shape
-    dk = torch.empty_like(key, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(value, memory_format=torch.contiguous_format)
-    with torch.cuda.device(query.device):
-        err = load_bwd_library().flash_attention_bwd_dkdv(
-            query.data_ptr(), key.data_ptr(), value.data_ptr(), grad_out.data_ptr(), mask_ptr,
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, sq, key.shape[1], d, DTYPES[query.dtype],
-            *query.stride()[:3], *key.stride()[:3], *value.stride()[:3], *grad_out.stride()[:3],
-            *dk.stride()[:3], *dv.stride()[:3], *mask_strides,
-            float(scale), int(bool(is_causal)), _build.stream_of(query.device),
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_dkdv launch failed with cudaError_t {err}")
-    flash_attention_bwd_dkdv.launches += 1
+    """Launch K2 on CUDA tensors: (dk, dv) in BSHD, the inputs' dtype, the
+    query sweep split as `pick_split` says. `lse` and `delta` are f32
+    ``[B, H, Sq]``, `lse` contiguous (`delta` is read through its strides).
+    Raises on what the kernel does not take."""
+    _, dk, dv = _bwd_launch(1, query, key, value, attn_mask, lse, delta, grad_out, scale, is_causal)
     return dk, dv
 
 
@@ -268,22 +308,7 @@ flash_attention_bwd_dkdv.launches = 0
 
 def flash_attention_bwd_dq(query, key, value, attn_mask, lse, delta, grad_out, scale, is_causal):
     """Launch K3 on CUDA tensors: dq in BSHD, the inputs' dtype."""
-    grad_out, (mask_ptr, mask_strides, _mask) = _bwd_args(query, key, value, attn_mask, lse, delta, grad_out)
-    b, sq, h, d = query.shape
-    dq = torch.empty_like(query, memory_format=torch.contiguous_format)
-    with torch.cuda.device(query.device):
-        err = load_bwd_library().flash_attention_bwd_dq(
-            query.data_ptr(), key.data_ptr(), value.data_ptr(), grad_out.data_ptr(), mask_ptr,
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, h, sq, key.shape[1], d, DTYPES[query.dtype],
-            *query.stride()[:3], *key.stride()[:3], *value.stride()[:3], *grad_out.stride()[:3],
-            *dq.stride()[:3], *mask_strides,
-            float(scale), int(bool(is_causal)), _build.stream_of(query.device),
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_dq launch failed with cudaError_t {err}")
-    flash_attention_bwd_dq.launches += 1
-    return dq
+    return _bwd_launch(2, query, key, value, attn_mask, lse, delta, grad_out, scale, is_causal)[0]
 
 
 flash_attention_bwd_dq.launches = 0
@@ -291,15 +316,16 @@ flash_attention_bwd_dq.launches = 0
 
 def flash_attention_bwd(query, key, value, attn_mask, out, lse, grad_out, scale=None, is_causal=False):
     """The attention backward (BSHD): (dq, dk, dv). A CPU tensor takes
-    `flash_attention_bwd_plain`; a CUDA tensor launches K2 and K3, or raises.
-    ``delta = rowsum(dO * O)`` is a PyTorch op in f32, as in JAX (`:249`)."""
+    `flash_attention_bwd_plain`; a CUDA tensor launches K2 and K3 (one C
+    call, counted in both wrappers' counters), or raises. ``delta =
+    rowsum(dO * O)`` is a PyTorch op in f32, as in JAX (`:249`): f32
+    products (``out`` is upcast inside the multiply), summed over head_dim,
+    handed to the kernels as a [B, H, Sq] view of its [B, Sq, H] result."""
     scale = scale if scale is not None else 1.0 / math.sqrt(query.shape[-1])
     if query.device.type == "cpu":
         return flash_attention_bwd_plain(query, key, value, attn_mask, out, lse, grad_out, scale, is_causal)
-    delta = (grad_out.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dk, dv = flash_attention_bwd_dkdv(query, key, value, attn_mask, lse, delta, grad_out, scale, is_causal)
-    dq = flash_attention_bwd_dq(query, key, value, attn_mask, lse, delta, grad_out, scale, is_causal)
-    return dq, dk, dv
+    delta = (grad_out.float() * out).sum(-1).transpose(1, 2)
+    return _bwd_launch(3, query, key, value, attn_mask, lse, delta, grad_out, scale, is_causal)
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -21,7 +21,6 @@ from diffusers_tpu.ops.attention import _native_attention as jax_native_attentio
 from diffusers_tpu.ops.pallas.flash_attention_bwd import _flash_bwd_bhsd, _flash_fwd_bhsd
 from diffusers_tpu.ops.pallas.flash_attention_bwd import flash_attention_full as jax_flash_attention_full
 from diffusers_tpu_torch.ops.cuda.flash_attention import (
-    _logits,
     flash_attention_bwd_plain,
     flash_attention_full,
     flash_attention_plain,
@@ -136,11 +135,15 @@ def test_forward_only_path_keeps_no_graph_and_no_lse():
 
 def _emulated_kernel_grads(q, k, v, out, lse, grad_out):
     """K2/K3's arithmetic on the CPU: f32 sums of products of the inputs, P
-    and dS rounded to the input dtype before their products, the outputs
-    rounded once."""
+    in base 2 with the scale folded into log2(e) (``exp2(s scale log2(e) -
+    lse log2(e))``), P and dS rounded to the input dtype before their
+    products, the outputs rounded once. (Sq <= 128 here: K2 takes no query
+    split; `tests/test_torch_hopper_bwd.py` emulates the split.)"""
     dt, scale = q.dtype, q.shape[-1] ** -0.5
     qf, kf, vf, dof = (t.float() for t in (q, k, v, grad_out))
-    p = torch.exp(_logits(qf, kf, None, scale, False) - lse[..., None])
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    p = torch.exp2(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (torch.tensor(scale, dtype=torch.float32) * log2e)
+                   - (lse * log2e)[..., None])
     delta = (dof * out.float()).sum(-1).transpose(1, 2)
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta[..., None]) * scale
     p, ds = p.to(dt).float(), ds.to(dt).float()

@@ -19,7 +19,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FLUX_W8A8_SHAPES, W8A8_TILE_CASES, attention_bounds, attention_bwd_bounds, bf16_ulp
+from chip_smoke import (
+    FLASH_BWD_CARD_CASES,
+    FLUX_W8A8_SHAPES,
+    W8A8_TILE_CASES,
+    attention_bounds,
+    attention_bwd_bounds,
+    bf16_ulp,
+)
 from diffusers_tpu_torch.ops.attention import _auto_backend, dispatch_attention_fn
 from diffusers_tpu_torch.ops.cuda.flash_attention import (
     flash_attention,
@@ -28,7 +35,9 @@ from diffusers_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd_dq,
     flash_attention_full,
     flash_attention_plain,
+    pick_split,
 )
+from diffusers_tpu_torch.ops.cuda._build import sm_count
 from diffusers_tpu_torch.ops.cuda.w8a8_matmul import (
     quantize_rows,
     quantize_rows_plain,
@@ -271,27 +280,25 @@ def _bwd_inputs(gen, b, sq, sk, h, d, causal, masked, dtype, device):
     k = _randn(gen, (b, sk, h, d), dtype, device)
     v = _randn(gen, (b, sk, h, d), dtype, device)
     mask = None
-    if masked:
+    if masked in ("-inf", "finfo.min"):  # a whole first 128-key kv tile hidden in every other row
+        mask = torch.zeros((b, 1, sq, sk), device=device)
+        mask[:, :, ::2, :160] = float("-inf") if masked == "-inf" else torch.finfo(torch.float32).min
+    elif masked:
         mask = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=device) < 0.3, -1e4, 0.0)
     out, lse = flash_attention_full(q, k, v, attn_mask=mask, is_causal=causal, return_lse=True)
     grad_out = _randn(gen, (b, sq, h, d), dtype, device)
     return q, k, v, mask, out, lse, grad_out
 
 
-@pytest.mark.parametrize(
-    "b,sq,sk,h,d,causal,masked,dtype",
-    [
-        (1, 1024, 1024, 4, 64, False, False, torch.bfloat16),
-        (2, 512, 77, 4, 64, False, False, torch.bfloat16),  # SDXL's ragged cross attention
-        (1, 300, 300, 2, 64, True, False, torch.bfloat16),
-        (1, 130, 300, 2, 64, True, False, torch.bfloat16),  # causal, Sq < Sk: top-left aligned
-        (2, 300, 130, 2, 128, True, True, torch.bfloat16),  # causal + mask, Sq > Sk
-        (1, 200, 333, 2, 128, False, True, torch.bfloat16),
-        (1, 500, 700, 3, 128, False, False, torch.float16),
-        (3, 1, 5, 1, 64, False, False, torch.float16),
-    ],
-)
+_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,causal,masked,dtype", FLASH_BWD_CARD_CASES)
 def test_flash_bwd_kernels_match_plain(cuda, b, sq, sk, h, d, causal, masked, dtype):
+    """K2 (split where `pick_split` says so, `test_card_cases_reach_both_k2_paths`)
+    and K3 within `attention_bwd_bounds`, finite, at SDXL's cross-attention
+    shapes and with a mask of -inf or finfo.min over a row's first kv tile."""
+    dtype = _DTYPES[dtype]
     gen = torch.Generator(device=cuda).manual_seed(7)
     q, k, v, mask, out, lse, grad_out = _bwd_inputs(gen, b, sq, sk, h, d, causal, masked, dtype, cuda)
     before = (flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
@@ -303,6 +310,23 @@ def test_flash_bwd_kernels_match_plain(cuda, b, sq, sk, h, d, causal, masked, dt
         assert g.dtype == dtype and g.shape == ref.shape, name
         assert bool(torch.isfinite(g).all()), name
         assert bool(((g.float() - ref).abs() <= bound).all()), name
+
+
+@pytest.mark.parametrize("sk", [77, 1024], ids=["split", "whole"])
+def test_flash_bwd_kernels_are_deterministic(cuda, sk):
+    """Two launches give bit-identical dq, dk and dv, on K2's split path (the
+    partials summed in split order) and off it; the separate wrappers give
+    the same bits as the joint launch."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v, mask, out, lse, grad_out = _bwd_inputs(gen, 1, 1024, sk, 20, 64, False, False, torch.bfloat16, cuda)
+    assert (pick_split(1, 20, 1024, sk, sm_count(cuda.index or 0)) > 1) == (sk == 77)
+    first = flash_attention_bwd(q, k, v, None, out, lse, grad_out)
+    second = flash_attention_bwd(q, k, v, None, out, lse, grad_out)
+    delta = (grad_out.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, None, lse, delta, grad_out, 1 / 8, False)
+    apart = (flash_attention_bwd_dq(*args), *flash_attention_bwd_dkdv(*args))
+    for a, b, c in zip(first, second, apart):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_flash_bwd_bound_rejects_a_zeroed_kv_tile(cuda):

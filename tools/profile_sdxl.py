@@ -45,7 +45,7 @@ GROUPS = (
     ("K5 w8a8_matmul", ("w8a8_gemm_kernel",)),
     ("K5 quantize_rows", ("quantize_rows_kernel",)),
     ("K1 flash_attention_fwd", ("flash_fwd_kernel",)),
-    ("K2 flash_attention_bwd_dkdv", ("flash_bwd_dkdv_kernel",)),
+    ("K2 flash_attention_bwd_dkdv", ("flash_bwd_dkdv_kernel", "flash_bwd_dkdv_reduce_kernel")),
     ("K3 flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("optimizer (multi_tensor_apply)", ("multi_tensor_apply",)),
     ("K4 group_norm", ("group_norm_kernel",)),
