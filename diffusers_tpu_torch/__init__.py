@@ -5,7 +5,7 @@ file layout and class names, speaks PyTorch's idiom (`nn.Module`s with
 upstream diffusers' state-dict names, NCHW activations, an explicit `device`,
 `torch.Generator` randomness, eager Python denoise loops), and replaces each
 Pallas TPU kernel on its path with a kernel written by hand for NVIDIA Hopper
-(`csrc/` for CUDA C++, `ops/triton/` for Triton).
+(CUDA C++ under `csrc/`, bound from `ops/cuda/`).
 
 Importing this package never imports `jax` or `diffusers_tpu`, and builds no
 kernel: kernels compile on first launch on a CUDA tensor.

@@ -60,6 +60,12 @@
 //    past Sq (q = dO = 0, lse = delta = 0) contribute nothing. Causal: K2 starts at the first q block
 //    that reaches the item's keys, K3 stops at the last kv tile its rows
 //    reach. The masked instances read the f32 mask through its four strides.
+//    They subtract the LSE in natural-log units before the conversion to
+//    log2 units, p = exp2((s scale + mask - lse) log2(e)), as the plain
+//    version's exp(s - lse): a row that an additive finfo.min hides entirely
+//    has lse = -inf and finite logits, so its p is +inf there as in the
+//    plain version and JAX's kernels (in log2 units the logit would overflow
+//    to -inf first and give -inf - -inf = NaN).
 
 #include "hopper.cuh"
 
@@ -245,8 +251,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const __grid_
       const int row_b = row_a + 8;
       const long long bh = (long long)batch * p.heads + head;
       // zero-filled rows past Sq: lse = delta = 0 keeps their (unstored) dQ finite
-      const float lse_a = row_a < p.seq_q ? p.lse[bh * p.seq_q + row_a] * kLog2e : 0.f;
-      const float lse_b = row_b < p.seq_q ? p.lse[bh * p.seq_q + row_b] * kLog2e : 0.f;
+      // (natural log in the masked instances, else times log2(e))
+      constexpr float kLseUnit = kMask ? 1.f : kLog2e;
+      const float lse_a = row_a < p.seq_q ? p.lse[bh * p.seq_q + row_a] * kLseUnit : 0.f;
+      const float lse_b = row_b < p.seq_q ? p.lse[bh * p.seq_q + row_b] * kLseUnit : 0.f;
       const float* delta = p.delta + batch * p.d_sb + head * p.d_sh;
       const float delta_a = row_a < p.seq_q ? delta[row_a * p.d_sq] : 0.f;
       const float delta_b = row_b < p.seq_q ? delta[row_b * p.d_sq] : 0.f;
@@ -303,7 +311,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const __grid_
             if constexpr (kCausal) {
               if (col > row) x = kNegInf;
             }
-            x = x * kLog2e - lse_r;
+            x = kMask ? (x - lse_r) * kLog2e : x * kLog2e - lse_r;
           } else {
             x = fmaf(s[i], scale_log2, -lse_r);
           }
@@ -434,7 +442,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(const __gri
         }
       }
     } else if (threadIdx.x / 32 == 1) {
-      // warp 1: each step's LSE (times log2(e)) and delta beside its q tile;
+      // warp 1: each step's LSE (times log2(e); natural log in the masked
+      // instances) and delta beside its q tile;
       // 0 past Sq, where q = dO = 0 makes the step's contribution 0
       const int lane = threadIdx.x % 32;
       int it = 0;
@@ -449,7 +458,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(const __gri
           float* stat = reinterpret_cast<float*>(ring + stage * L::kStageBytes + L::kStatOffset);
           for (int i = lane; i < kBlockQ; i += 32) {
             const int q = step * kBlockQ + i;
-            stat[i] = q < p.seq_q ? lse[q] * kLog2e : 0.f;
+            stat[i] = q < p.seq_q ? (kMask ? lse[q] : lse[q] * kLog2e) : 0.f;
             stat[kBlockQ + i] = q < p.seq_q ? delta[q * p.d_sq] : 0.f;
           }
           mbar_arrive(&full[stage]);
@@ -538,7 +547,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(const __gri
               if constexpr (kCausal) {
                 if (key > query) x = kNegInf;
               }
-              x = x * kLog2e - lse_s[c];
+              x = kMask ? (x - lse_s[c]) * kLog2e : x * kLog2e - lse_s[c];
             } else {
               x = fmaf(st[i], scale_log2, -lse_s[c]);
             }

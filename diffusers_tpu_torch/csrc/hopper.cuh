@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's hand-written kernels:
-// TMA tensor maps (encoded on the host) and loads, mbarriers, wgmma shared-
-// memory descriptors, fences and instructions, and `setmaxnreg`.
+// TMA tensor maps (encoded on the host) and loads, 1-D bulk copies,
+// mbarriers, wgmma shared-memory descriptors, fences and instructions, and
+// `setmaxnreg`.
 //
 // Shared-memory layout convention: every tile that TMA writes and wgmma
 // reads is a stack of 128-byte rows in 128-byte swizzle
@@ -133,6 +134,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// 1-D bulk copy (no tensor map) of `bytes` from global `src` into shared
+// `dst`, completing on `bar` (transaction bytes). Both addresses and `bytes`
+// must be multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
 }
 
 // register budget of a warpgroup (all four warps execute it)

@@ -78,13 +78,23 @@ def flash_attention_plain(
 ):
     """Plain PyTorch version of K1: f32 logits, additive mask (a bool mask
     becomes 0 / NEG_INF), top-left-aligned causal mask (``row >= col``, as
-    `_fwd_kernel`), f32 softmax, output in the input dtype; optional f32 LSE
-    ``[B, H, Sq]``."""
+    `_fwd_kernel`), output in the input dtype; optional f32 LSE ``[B, H,
+    Sq]``.
+
+    The softmax follows `_fwd_kernel`'s rule, whose running max starts at
+    NEG_INF: ``m = max(rowmax(s), NEG_INF)``, ``p = exp(s - m)``, ``out = (p
+    v) / sum(p)``, ``lse = m + log(sum(p))``. On every row with a logit above
+    NEG_INF that is the softmax; a row whose every logit lies below it (an
+    additive mask of finfo.min or -inf over all keys) has ``sum(p) = 0``, so
+    its output is NaN and its LSE -inf, as in the JAX kernel and K1."""
     scale = scale if scale is not None else 1.0 / math.sqrt(query.shape[-1])
     s = _logits(query, key, attn_mask, scale, is_causal)
-    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), value.float()).to(query.dtype)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)  # noqa: E741
+    out = (torch.einsum("bhqk,bkhd->bqhd", p, value.float()) / l.transpose(1, 2)).to(query.dtype)
     if return_lse:
-        return out, torch.logsumexp(s, dim=-1)
+        return out, (m + torch.log(l)).squeeze(-1)
     return out
 
 
@@ -400,10 +410,17 @@ def flash_attention(
 ) -> torch.Tensor:
     """Forward-only flash attention (BSHD), the counterpart of
     `diffusers_tpu/ops/pallas/flash_attention.py:125` (TPU kernel
-    `_flash_kernel`, K6). K1's kernel computes the same function, so a CUDA
-    tensor launches it (counted in `flash_attention_full.launches`) and a CPU
-    tensor takes its plain version. Causal is top-left aligned (``row >=
-    col``), as `_flash_kernel`; JAX sends the lengths its kernel does not
-    tile to its native backend, whose causal mask is bottom-right aligned, so
-    the two differ for causal with Sq != Sk."""
+    `_flash_kernel`, K6), with its dispatch rule: a causal call whose lengths
+    that kernel does not tile (Sq or Sk not a multiple of 128) or whose
+    head_dim is not a multiple of 64 goes to the `native` backend, as JAX
+    sends it to `_native_attention` (`:137-141`); its causal mask is
+    bottom-right aligned. Every other call is K1's function (causal top-left
+    aligned, ``row >= col``, as `_flash_kernel`): a CUDA tensor launches K1
+    (counted in `flash_attention_full.launches`) and a CPU tensor takes its
+    plain version. A non-causal call is the same function on both routes,
+    so it stays on K1."""
+    if is_causal and (query.shape[1] % 128 or key.shape[1] % 128 or query.shape[-1] % 64):
+        from ..attention import _native_attention
+
+        return _native_attention(query, key, value, scale=scale, is_causal=True)
     return flash_attention_full(query, key, value, scale=scale, is_causal=is_causal)

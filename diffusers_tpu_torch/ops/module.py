@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .cuda.w8a8_matmul import w8a8_matmul
-from .triton.group_norm import group_norm
+from .cuda.group_norm import group_norm
 
 
 class Linear(nn.Linear):
@@ -84,7 +84,8 @@ class Conv2d(nn.Conv2d):
 class GroupNorm(nn.GroupNorm):
     """GroupNorm over the channel axis (dim 1) of ``[B, C, *spatial]``
     activations, statistics in f32. CUDA tensors run kernel K4
-    (`ops/triton/group_norm.py`); CPU tensors its plain version."""
+    (`ops/cuda/group_norm.py`, source `csrc/group_norm.cu`); CPU tensors its
+    plain version."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5, affine: bool = True):
         super().__init__(num_groups, num_channels, eps=eps, affine=affine)

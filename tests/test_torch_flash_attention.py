@@ -6,10 +6,11 @@ On the CPU the port takes K1's plain version (on the card, K1's kernel).
 Tolerances are the JAX tests' own: float32 `2e-5` absolute (summation order
 and the kernel's online softmax); bf16 `2e-2` (the JAX kernel rounds each
 probability to bf16 before P.v, the plain version keeps it f32, and both
-round the output to bf16: a few bf16 ulps at outputs of order 1). Causal
-with Sq != Sk is left out: JAX sends lengths its kernel does not tile to its
-native backend, whose causal mask is bottom-right aligned, where the kernel's
-is top-left (ROADMAP C).
+round the output to bf16: a few bf16 ulps at outputs of order 1). JAX sends
+a causal call at lengths its kernel does not tile to its native backend,
+whose causal mask is bottom-right aligned where the kernel's is top-left; the
+port routes such a call the same way (`test_flash_attention_routes_causal_
+calls_as_jax`).
 """
 
 import jax.numpy as jnp
@@ -43,3 +44,18 @@ def test_flash_attention_matches_pallas_interpret(case):
     assert out.dtype == tq.dtype and out.shape == tq.shape
     atol = 2e-2 if dtype == "bfloat16" else 2e-5
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, dtype=np.float32), atol=atol)
+
+
+@pytest.mark.parametrize("sq,sk", [(200, 300), (256, 256)], ids=["untiled-to-native", "tiled-k1"])
+def test_flash_attention_routes_causal_calls_as_jax(sq, sk):
+    """Causal at Sq=200, Sk=300: JAX's guard (`flash_attention.py:137`) sends
+    the call to `_native_attention`, bottom-right aligned, and so does the
+    port (its `native` backend). Causal at Sq=Sk=256 stays on the kernel's
+    function (K1's plain version here, K1 on the card)."""
+    rng = np.random.RandomState(1)
+    q = rng.randn(1, sq, 2, 128).astype(np.float32)
+    k, v = (rng.randn(1, sk, 2, 128).astype(np.float32) for _ in range(2))
+    ref = jax_flash_attention(*map(jnp.asarray, (q, k, v)), is_causal=True, block_q=128, block_k=128,
+                              interpret=True)
+    out = flash_attention(*map(torch.from_numpy, (q, k, v)), is_causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)

@@ -4,7 +4,8 @@ the CPU, and K2's split of the query sweep.
 K2 and K3 (`csrc/flash_attention_bwd.cu`) cannot run here, so their rounding
 order is emulated in PyTorch: f32 logits, ``p = exp2(s * (scale * log2(e))
 - lse * log2(e))`` (the masked and causal instances scale and mask first,
-then convert to log2 units), ``ds = p (dp - delta) scale`` in f32, P and dS
+then convert to log2 units; the masked ones subtract the natural-log LSE
+before the conversion), ``ds = p (dp - delta) scale`` in f32, P and dS
 rounded to the input type before their products, dQ summed in f32 and
 rounded once. K2 sums each query split's partial dK and dV in f32 over its
 range of 128-query blocks (`split_ranges`, as the kernel's `coords`), adds
@@ -76,7 +77,8 @@ def _emulated_k2_k3(q, k, v, out, lse, grad_out, scale, is_causal=False, mask=No
             x = x + mask
         if is_causal:
             x = torch.where(torch.arange(sq)[:, None] >= torch.arange(sk)[None, :], x, NEG_INF)
-        x = x * log2e - lse2
+        # the masked instances subtract the natural-log LSE first
+        x = (x - lse[..., None]) * log2e if mask is not None else x * log2e - lse2
     else:
         x = s * (scale32 * log2e) - lse2
     p = torch.exp2(x)

@@ -1,6 +1,6 @@
 """The port's hand-written kernels on the card: each against its plain version.
 
-These need an NVIDIA Hopper GPU (sm_90) with `nvcc` and `triton`; elsewhere
+These need an NVIDIA Hopper GPU (sm_90) with `nvcc`; elsewhere
 they skip, deciding at run time in the `cuda` fixture. On the card:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m gpu -q
@@ -22,6 +22,8 @@ import torch
 from chip_smoke import (
     FLASH_BWD_CARD_CASES,
     FLUX_W8A8_SHAPES,
+    GN_UNET_CALL,
+    GN_VAE_DECODE,
     W8A8_TILE_CASES,
     attention_bounds,
     attention_bwd_bounds,
@@ -45,7 +47,14 @@ from diffusers_tpu_torch.ops.cuda.w8a8_matmul import (
     w8a8_matmul_2d,
     w8a8_matmul_2d_plain,
 )
-from diffusers_tpu_torch.ops.triton.group_norm import group_norm, group_norm_bwd, group_norm_plain
+from diffusers_tpu_torch.ops.cuda.group_norm import (
+    _group_norm_cuda,
+    chunk_bounds,
+    group_norm,
+    group_norm_bwd,
+    group_norm_plain,
+    plan_group_norm,
+)
 from diffusers_tpu_torch.quantizers import quantize_kernel_int8
 
 pytestmark = pytest.mark.gpu
@@ -84,9 +93,15 @@ def _randn(gen, shape, dtype, device, scale=1.0):
         # other row: a whole 128-key kv tile hidden, which must give no inf - inf
         (2, 300, 333, 2, 64, False, "-inf", torch.bfloat16),
         (2, 300, 333, 2, 128, False, "finfo.min", torch.float16),
+        # finfo.min over every key of query row 5: NaN out and -inf LSE there, as the plain version and
+        # JAX's `_fwd_kernel` give
+        (1, 128, 128, 1, 64, False, "row", torch.bfloat16),
     ],
 )
 def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, d, causal, masked, dtype):
+    """K1 within `attention_bounds` of its plain version; where the plain
+    version is NaN (a row whose every logit a finfo.min mask hides) K1 is NaN
+    too, with the same -inf LSE (compared with ``equal_nan``)."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = _randn(gen, (b, sq, h, d), dtype, cuda, scale=2.0)
     k = _randn(gen, (b, sk, h, d), dtype, cuda)
@@ -95,6 +110,9 @@ def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, d, causal, masked, dtype
     if masked in ("-inf", "finfo.min"):
         mask = torch.zeros((b, 1, sq, sk), device=cuda)
         mask[:, :, ::2, :160] = float("-inf") if masked == "-inf" else torch.finfo(torch.float32).min
+    elif masked == "row":
+        mask = torch.zeros((b, 1, sq, sk), device=cuda)
+        mask[:, :, 5, :] = torch.finfo(torch.float32).min
     elif masked:
         mask = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=cuda) < 0.3, -1e4, 0.0)
     before = flash_attention_full.launches
@@ -105,8 +123,11 @@ def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, d, causal, masked, dtype
                                        return_lse=True)
     ref, bound, _ = attention_bounds(q, k, v, attn_mask=mask, is_causal=causal)
     assert out.dtype == dtype and out.shape == q.shape
-    assert bool(((out.float() - ref).abs() <= bound).all())
-    assert float((lse - ref_lse).abs().max()) <= 1e-3  # f32 online softmax (exp2) vs exact f32
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref)) and bool(fin.any())
+    assert bool(((out.float() - ref).abs() <= bound)[fin].all())
+    # f32 online softmax (exp2) vs exact f32; -inf where the plain version has it
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3, equal_nan=True)
 
 
 def test_flash_kernel_lse_at_flux_shape(cuda):
@@ -164,7 +185,7 @@ def test_dispatch_routes_by_kernel_support(cuda):
 
 @pytest.mark.parametrize("shape", [(2, 320, 32, 32), (1, 128, 256, 256), (2, 96, 7, 9), (2, 64, 1000)])
 @pytest.mark.parametrize("silu", [False, True])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 def test_group_norm_kernel_matches_plain(cuda, shape, silu, dtype):
     gen = torch.Generator(device=cuda).manual_seed(2)
     c = shape[1]
@@ -176,9 +197,56 @@ def test_group_norm_kernel_matches_plain(cuda, shape, silu, dtype):
     torch.cuda.synchronize()
     assert group_norm.launches == before + 1
     ref = group_norm_plain(x.float(), w.float(), b.float(), 32, 1e-6, apply_silu=silu)
-    ulp = 2.0**-7 if dtype == torch.bfloat16 else 2.0**-20
+    ulp = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10, torch.float32: 2.0**-20}[dtype]
     assert out.dtype == dtype
     assert float((out.float() - ref).abs().max()) <= ulp * max(1.0, float(ref.abs().max())) + 1e-5
+
+
+_GN_SHAPES = list(dict.fromkeys(shape for shape, _, _ in GN_UNET_CALL + GN_VAE_DECODE))
+
+
+@pytest.mark.parametrize("shape", _GN_SHAPES, ids=["x".join(map(str, s)) for s in _GN_SHAPES])
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_kernel_at_the_main_path_shapes(cuda, shape, silu):
+    """K4 at every GroupNorm shape of an SDXL UNet call and a VAE decode,
+    bf16 (both regimes of `plan_group_norm`): within one bf16 ulp at the
+    reference's largest magnitude of the f32 plain version, one launch a
+    call, and two launches bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    c = shape[1]
+    x = _randn(gen, shape, torch.bfloat16, cuda, scale=1.5) + 0.5
+    w = _randn(gen, (c,), torch.bfloat16, cuda, scale=0.1) + 1
+    b = _randn(gen, (c,), torch.bfloat16, cuda, scale=0.1)
+    before = group_norm.launches
+    out = group_norm(x, w, b, 32, 1e-6, apply_silu=silu)
+    assert group_norm.launches == before + 1
+    again = group_norm(x, w, b, 32, 1e-6, apply_silu=silu)
+    assert torch.equal(out, again)
+    ref = group_norm_plain(x.float(), w.float(), b.float(), 32, 1e-6, apply_silu=silu)
+    assert float((out.float() - ref).abs().max()) <= 2.0**-7 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(2, 320, 64, 64), (1, 512, 256, 256)], ids=["cluster", "split"])
+def test_group_norm_bound_rejects_a_dropped_partial(cuda, shape):
+    """Control: K4 with one cluster rank's or one chunk's partial left out of
+    its statistics, on inputs whose chunk of that partial is shifted by 20,
+    breaks the one-ulp limit more than tenfold."""
+    plan = plan_group_norm(shape, torch.bfloat16, sm_count(cuda.index or 0))
+    assert plan.split == (shape[1] == 512)
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    c = shape[1]
+    x = _randn(gen, shape, torch.bfloat16, cuda, scale=1.5) + 0.5
+    w = _randn(gen, (c,), torch.bfloat16, cuda, scale=0.1) + 1
+    b = _randn(gen, (c,), torch.bfloat16, cuda, scale=0.1)
+    span = x[0].numel() // 32
+    drop = plan.parts // 2
+    lo, hi = chunk_bounds(plan, span)[drop]
+    x.view(-1, span)[:, lo:hi] += 20.0
+    ref = group_norm_plain(x.float(), w.float(), b.float(), 32, 1e-6, apply_silu=True)
+    tol = 2.0**-7 * max(1.0, float(ref.abs().max()))
+    assert float((group_norm(x, w, b, 32, 1e-6, apply_silu=True).float() - ref).abs().max()) <= tol
+    broken = _group_norm_cuda(x, w, b, 32, 1e-6, True, _drop_partial=drop)
+    assert float((broken.float() - ref).abs().max()) > 10 * tol
 
 
 def test_group_norm_kernel_rejects_non_contiguous(cuda):
@@ -283,6 +351,9 @@ def _bwd_inputs(gen, b, sq, sk, h, d, causal, masked, dtype, device):
     if masked in ("-inf", "finfo.min"):  # a whole first 128-key kv tile hidden in every other row
         mask = torch.zeros((b, 1, sq, sk), device=device)
         mask[:, :, ::2, :160] = float("-inf") if masked == "-inf" else torch.finfo(torch.float32).min
+    elif masked == "row":  # every key of query row 5 hidden
+        mask = torch.zeros((b, 1, sq, sk), device=device)
+        mask[:, :, 5, :] = torch.finfo(torch.float32).min
     elif masked:
         mask = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=device) < 0.3, -1e4, 0.0)
     out, lse = flash_attention_full(q, k, v, attn_mask=mask, is_causal=causal, return_lse=True)
@@ -297,7 +368,10 @@ _DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
 def test_flash_bwd_kernels_match_plain(cuda, b, sq, sk, h, d, causal, masked, dtype):
     """K2 (split where `pick_split` says so, `test_card_cases_reach_both_k2_paths`)
     and K3 within `attention_bwd_bounds`, finite, at SDXL's cross-attention
-    shapes and with a mask of -inf or finfo.min over a row's first kv tile."""
+    shapes and with a mask of -inf or finfo.min over a row's first kv tile;
+    with finfo.min over a whole row, NaN, +inf and -inf exactly where the
+    plain version has them (JAX's kernels give the same) and within the bound
+    elsewhere."""
     dtype = _DTYPES[dtype]
     gen = torch.Generator(device=cuda).manual_seed(7)
     q, k, v, mask, out, lse, grad_out = _bwd_inputs(gen, b, sq, sk, h, d, causal, masked, dtype, cuda)
@@ -308,8 +382,10 @@ def test_flash_bwd_kernels_match_plain(cuda, b, sq, sk, h, d, causal, masked, dt
     refs, bounds, _ = attention_bwd_bounds(q, k, v, out, lse, grad_out, attn_mask=mask, is_causal=causal)
     for name, g, ref, bound in zip(("dq", "dk", "dv"), grads, refs, bounds):
         assert g.dtype == dtype and g.shape == ref.shape, name
-        assert bool(torch.isfinite(g).all()), name
-        assert bool(((g.float() - ref).abs() <= bound).all()), name
+        for where in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(where(g), where(ref)), name
+        fin = torch.isfinite(ref)
+        assert bool(((g.float() - ref).abs() <= bound)[fin].all()), name
 
 
 @pytest.mark.parametrize("sk", [77, 1024], ids=["split", "whole"])

@@ -21,14 +21,14 @@ import torch
 
 from diffusers_tpu.ops import module as jmod
 from diffusers_tpu.ops.attention import _native_attention as jax_native_attention
-from diffusers_tpu.ops.pallas.flash_attention_bwd import _flash_attention_fwd_impl
+from diffusers_tpu.ops.pallas.flash_attention_bwd import _flash_attention_fwd_impl, _flash_bwd_bhsd
 from diffusers_tpu.ops.pallas.flash_attention_bwd import flash_attention_full as jax_flash_attention_full
 from diffusers_tpu.ops.pallas.group_norm import group_norm_silu_nhwc
 from diffusers_tpu_torch.models.modeling_utils import load_jax_params
 from diffusers_tpu_torch.ops import module as tmod
 from diffusers_tpu_torch.ops.attention import _auto_backend, dispatch_attention_fn
-from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
-from diffusers_tpu_torch.ops.triton.group_norm import group_norm
+from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_bwd, flash_attention_full
+from diffusers_tpu_torch.ops.cuda.group_norm import group_norm
 
 torch.set_num_threads(1)
 
@@ -104,6 +104,54 @@ def test_flash_plain_lse_matches_pallas_interpret():
     assert lse.shape == (1, 2, 256) and lse.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=FLASH_ATOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=FLASH_ATOL)
+
+
+def _masked_row_case():
+    """q/k/v [1, 128, 1, 64] f32 and a grad, with finfo.min added to every key
+    of query row 5: every logit of that row lies below NEG_INF."""
+    rng = np.random.RandomState(6)
+    q, k, v, do = (rng.randn(1, 128, 1, 64).astype(np.float32) for _ in range(4))
+    mask = np.zeros((1, 1, 128, 128), np.float32)
+    mask[0, 0, 5, :] = np.finfo(np.float32).min
+    return q, k, v, do, mask
+
+
+def test_flash_plain_fully_masked_row_matches_pallas_interpret():
+    """A row whose every logit a finfo.min mask hides: `_fwd_kernel`'s running
+    max starts at NEG_INF, so its sum is 0, its output NaN and its LSE -inf.
+    K1's plain version follows that rule (K1 does the same on the card); the
+    other rows agree to the flash tolerance. The `native` backends keep their
+    own rule (a plain softmax: the mean of v), in JAX as in the port."""
+    q, k, v, _, mask = _masked_row_case()
+    ref_out, ref_lse = _flash_attention_fwd_impl(*map(jnp.asarray, (q, k, v, mask)), 0.125, False, 128, 128, True)
+    out, lse = flash_attention_full(*_to_torch(q, k, v), attn_mask=torch.from_numpy(mask), scale=0.125,
+                                    return_lse=True)
+    assert np.isnan(out.numpy()[0, 5]).all() and not np.isnan(np.delete(out.numpy(), 5, axis=1)).any()
+    assert np.isneginf(lse.numpy()[0, 0, 5])
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=FLASH_ATOL, equal_nan=True)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse).reshape(lse.shape), atol=FLASH_ATOL, equal_nan=True)
+
+
+def test_flash_bwd_plain_fully_masked_row_matches_pallas_interpret():
+    """The backward on that row (each side on its own forward's out and LSE):
+    JAX's `_flash_bwd_bhsd` gives p = exp(s - lse) = +inf on the row and a
+    NaN delta, so NaN dq on the row, NaN dk everywhere and +-inf dv; the
+    port's plain backward gives the same pattern, and the finite elements
+    agree to the grad tolerance."""
+    q, k, v, do, mask = _masked_row_case()
+    jq, jk, jv, jdo = (jnp.transpose(jnp.asarray(a), (0, 2, 1, 3)) for a in (q, k, v, do))
+    ref_out, ref_lse = _flash_attention_fwd_impl(*map(jnp.asarray, (q, k, v, mask)), 0.125, False, 128, 128, True)
+    refs = _flash_bwd_bhsd(jq, jk, jv, jnp.asarray(mask), jnp.transpose(ref_out, (0, 2, 1, 3)),
+                           ref_lse.reshape(1, 1, 128), jdo, scale=0.125, is_causal=False, block_q=128,
+                           block_k=128, interpret=True)
+    tq, tk, tv, tdo = _to_torch(q, k, v, do)
+    tmask = torch.from_numpy(mask)
+    out, lse = flash_attention_full(tq, tk, tv, attn_mask=tmask, scale=0.125, return_lse=True)
+    grads = flash_attention_bwd(tq, tk, tv, tmask, out, lse, tdo, scale=0.125)
+    for name, g, ref in zip(("dq", "dk", "dv"), grads, refs):
+        ref = np.transpose(np.asarray(ref), (0, 2, 1, 3))
+        assert not np.isfinite(ref).all(), name
+        np.testing.assert_allclose(g.numpy(), ref, atol=5e-4, equal_nan=True, err_msg=name)
 
 
 def test_flash_plain_ragged_lengths_match_native():

@@ -38,7 +38,7 @@ from diffusers_tpu_torch.models.transformers.transformer_flux import FluxTransfo
 from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
 from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
 from diffusers_tpu_torch.ops.cuda.w8a8_matmul import w8a8_matmul_2d
-from diffusers_tpu_torch.ops.triton.group_norm import group_norm
+from diffusers_tpu_torch.ops.cuda.group_norm import group_norm
 from diffusers_tpu_torch.pipelines.flux.pipeline_flux import FluxPipeline
 from diffusers_tpu_torch.pipelines.stable_diffusion_xl.pipeline_stable_diffusion_xl import StableDiffusionXLPipeline
 from diffusers_tpu_torch.schedulers import EulerDiscreteScheduler, FlowMatchEulerDiscreteScheduler

@@ -30,7 +30,7 @@ from diffusers_tpu_torch.models.modeling_utils import load_jax_params
 from diffusers_tpu_torch.models.text_encoders.clip import CLIPTextModel, CLIPTextModelWithProjection
 from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
 from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
-from diffusers_tpu_torch.ops.triton.group_norm import group_norm
+from diffusers_tpu_torch.ops.cuda.group_norm import group_norm
 from diffusers_tpu_torch.pipelines.stable_diffusion_xl.pipeline_stable_diffusion_xl import StableDiffusionXLPipeline
 from diffusers_tpu_torch.schedulers import EulerDiscreteScheduler
 

@@ -33,7 +33,7 @@ from diffusers_tpu.training.ema import EMAModel as JaxEMAModel
 from diffusers_tpu.training.optimization import get_scheduler as jax_get_scheduler
 from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
 from diffusers_tpu_torch.ops.cuda.w8a8_matmul import w8a8_matmul
-from diffusers_tpu_torch.ops.triton.group_norm import group_norm, group_norm_plain
+from diffusers_tpu_torch.ops.cuda.group_norm import group_norm, group_norm_plain
 from diffusers_tpu_torch.quantizers import quantize_kernel_int8
 from diffusers_tpu_torch.schedulers import DDPMScheduler
 from diffusers_tpu_torch.training import train_state
