@@ -1,23 +1,31 @@
 """Smoke run of the PyTorch + CUDA port (`diffusers_tpu_torch`) on one NVIDIA
 H100: builds the port's hand-written kernels from this checkout, holds each
 against its plain PyTorch version at the shapes of the main paths, checks the
-port on the card against the port on the CPU at a small size, then drives the
-three main paths through their public entry points, with random weights made
-from a seed on the card:
+port on the card against the port on the CPU at a small size (every cache
+config and callback included), then drives the main paths through their
+public entry points, with random weights made from a seed on the card:
 
   * SDXL: one full-width 1024 px text-to-image request (30 Euler steps, CFG
     5.0, bf16) through `StableDiffusionXLPipeline.__call__` (kernels K1, K4);
+    then, on the same pipeline, the headline request of bench.py with
+    `TaylorSeerCacheConfig(cache_interval=10, disable_cache_before_step=2,
+    max_order=2)` (5 of 30 steps call the UNet), one with FasterCache, one
+    with MagCache (flat ratios) and one with `SDXLCFGCutoffCallback`;
   * Flux.1-dev: one full-width 1024 px request (28 flow-match steps, guidance
     3.5; the transformer w8a8, T5-XXL, CLIP-L and the VAE bf16) through
     `FluxPipeline.__call__` (kernels K5 with its row quantization, K1 at
-    head_dim 128, K4);
+    head_dim 128, K4); then one request each with TaylorSeer,
+    FirstBlockCache, Pyramid Attention Broadcast and MagCache;
   * training: `train_text_to_image.main` on the SDXL UNet at its published
     widths, 1024 px, batch 1, TRAIN_STEPS steps (f32 weights and AdamW, bf16
     autocast; kernels K1 forward, K2 and K3 backward, K4), then a sharded
     safetensors checkpoint,
 
 and shows, from launch counts reset just before each path (each training
-step) and read just after, that each path ran through its kernels.
+step) and read just after, that each path ran through its kernels; a cached
+request's counts are read after every denoise step and held to its cache's
+schedule, so a step that the cache skips is seen to launch nothing of what
+it skips.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -206,6 +214,14 @@ SMALL_FLUX_VAE = dict(block_out_channels=(32, 64), down_block_types=("DownEncode
                       up_block_types=("UpDecoderBlock2D",) * 2, latent_channels=16, layers_per_block=1,
                       sample_size=64, scaling_factor=0.3611, shift_factor=0.1159, use_quant_conv=False,
                       use_post_quant_conv=False)
+
+# phase 10: the caches and callbacks on the small pipelines, at a step count where every schedule skips
+SMALL_CACHE_STEPS = 8
+SMALL_FBC_THRESHOLD = 0.5
+# the headline TaylorSeer request (bench.py:162): 5 of 30 steps call the UNet (140 K1 and 46 K4 launches
+# each), then one VAE decode (30 K4)
+SDXL_HEADLINE_LAUNCHES = dict(flash_attention_fwd=140 * 5, flash_attention_bwd_dkdv=0, flash_attention_bwd_dq=0,
+                              group_norm=46 * 5 + 30, w8a8_matmul=0, w8a8_quantize_rows=0)
 
 RESULTS = {}
 
@@ -1253,8 +1269,113 @@ def check_small_training(device: str = "cuda"):
             raise AssertionError(f"the small training step on the card did not launch {name}: {launches}")
 
 
+def small_cache_cases():
+    """Phase 10's cases: (pipeline, label, cache config or None, callback
+    factory or None), every config each pipeline honours and the callbacks,
+    at SMALL_CACHE_STEPS steps (schedules with skips at that count)."""
+    from diffusers_tpu_torch.callbacks import MultiPipelineCallbacks, SDXLCFGCutoffCallback
+    from diffusers_tpu_torch.hooks import (
+        FLUX_MAG_RATIOS,
+        FasterCacheConfig,
+        FirstBlockCacheConfig,
+        MagCacheConfig,
+        PyramidAttentionBroadcastConfig,
+        TaylorSeerCacheConfig,
+        TextKVCacheConfig,
+    )
+
+    n = SMALL_CACHE_STEPS
+    taylorseer = TaylorSeerCacheConfig(cache_interval=3, disable_cache_before_step=2, max_order=2)
+    noop = lambda: lambda p, i, t, kw: {}  # noqa: E731
+    halve_latents = lambda: lambda p, i, t, kw: {"latents": kw["latents"] * 0.5} if i == 3 else {}  # noqa: E731
+    return (
+        ("sdxl", "taylorseer", taylorseer, None),
+        ("sdxl", "faster_cache", FasterCacheConfig(unconditional_batch_skip_range=3,
+                                                   unconditional_batch_timestep_skip_range=(-1, 1000)), None),
+        ("sdxl", "mag_cache", MagCacheConfig(threshold=0.5, max_skip_steps=1, retention_ratio=0.25,
+                                             num_inference_steps=n, mag_ratios=(1.0,) * n), None),
+        ("sdxl", "text_kv", TextKVCacheConfig(), None),
+        ("sdxl", "callback_noop", None, noop),
+        ("sdxl", "callback_latents", None, halve_latents),
+        ("sdxl", "callback_cfg_cutoff", None, lambda: SDXLCFGCutoffCallback(cutoff_step_ratio=0.4)),
+        ("sdxl", "callback_multi", None,
+         lambda: MultiPipelineCallbacks([SDXLCFGCutoffCallback(cutoff_step_index=2), halve_latents()])),
+        ("flux", "taylorseer", taylorseer, None),
+        ("flux", "first_block_cache", FirstBlockCacheConfig(threshold=SMALL_FBC_THRESHOLD), None),
+        ("flux", "pab", PyramidAttentionBroadcastConfig(spatial_attention_timestep_skip_range=(100, 950)), None),
+        ("flux", "mag_cache", MagCacheConfig(threshold=0.5, max_skip_steps=1, retention_ratio=0.25,
+                                             mag_ratios=tuple(FLUX_MAG_RATIOS)), None),
+        ("flux", "text_kv", TextKVCacheConfig(), None),
+        ("flux", "callback_noop", None, noop),
+    )
+
+
+def check_small_caches(device: str = "cuda"):
+    """Phase 10: every cache config on each pipeline that honours it, and the
+    callbacks, on the small pipelines of phases 7 and 8 at SMALL_CACHE_STEPS
+    steps: the card (bf16, kernels) against the CPU (f32, plain versions;
+    held to JAX by tests/test_torch_pipeline_cache.py and
+    tests/test_torch_callbacks.py), with those phases' tolerance. For
+    FirstBlockCache, a decision is a ratio against a threshold, which bf16
+    on the card may put on the other side than f32 on the CPU: the two
+    decision sequences and each step's relative change are reported beside
+    the threshold, the steps where they differ recorded, and the image held
+    to the same tolerance."""
+    import numpy as np
+    import torch
+
+    sdxl = [_build_pipeline(SMALL_UNET, SMALL_VAE, SMALL_CLIP, SMALL_CLIP, "cpu", torch.float32) for _ in range(2)]
+    flux = [_build_flux_pipeline(SMALL_FLUX, SMALL_FLUX_MIN_WEIGHT_SIZE, SMALL_FLUX_VAE, SMALL_FLUX_CLIP, SMALL_T5,
+                                 "cpu", torch.float32) for _ in range(2)]
+    for pipe in (sdxl[1], flux[1]):
+        pipe.to(device=torch.device(device), dtype=torch.bfloat16)
+    rng = np.random.RandomState(SEED)
+    inputs = {
+        "sdxl": (sdxl, PROMPTS[0], dict(latents=torch.from_numpy(rng.randn(1, 4, 16, 16).astype(np.float32)),
+                                        guidance_scale=GUIDANCE)),
+        "flux": (flux, FLUX_PROMPT, dict(latents=torch.from_numpy(rng.randn(1, 256, 64).astype(np.float32)),
+                                         height=64, width=64, guidance_scale=FLUX_GUIDANCE, max_sequence_length=64)),
+    }
+    tol = 0.05  # phases 7 and 8: bf16 on the card against f32 on the CPU, on the [0, 1] image
+    results = {}
+    for name, label, config, callback in small_cache_cases():
+        (cpu, card), prompt, kwargs = inputs[name]
+        images, records = [], []
+        for pipe in (cpu, card):
+            if config is not None:
+                pipe.enable_cache(config)
+            reset_launches()
+            try:
+                images.append(pipe(prompt, num_inference_steps=SMALL_CACHE_STEPS, output_type="np",
+                                   callback_on_step_end=callback() if callback else None, **kwargs).images)
+            finally:
+                pipe.disable_cache()
+            records.append(pipe.fbc_record if label == "first_block_cache" else None)
+        launches = read_launches()
+        ref, out = images
+        err = float(np.abs(out - ref).max())
+        row = {"max_abs_err": err, "tol": tol, "launches": launches}
+        if records[0] is not None:
+            row["decisions"] = {"cpu": records[0]["decisions"], "card": records[1]["decisions"]}
+            row["ratios"] = {side: [None if r is None else float(r) for r in rec["ratios"]]
+                             for side, rec in zip(("cpu", "card"), records)}
+            row["flipped_steps"] = [i for i, (a, b) in enumerate(zip(*row["decisions"].values())) if a != b]
+            log(f"[ref-cache]   first-block relative change per step (threshold {config.threshold}): CPU "
+                f"{row['ratios']['cpu']}, card {row['ratios']['card']}; decisions CPU {row['decisions']['cpu']}, "
+                f"card {row['decisions']['card']}, differing at steps {row['flipped_steps']}")
+        results[f"{name} {label}"] = row
+        log(f"[ref-cache] small {name} {label}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol {tol}); "
+            f"launches {launches}")
+        if not (out.shape == ref.shape and np.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"small {name} {label}: the card disagrees with the CPU")
+        kernels = ("flash_attention_fwd", "group_norm") + (("w8a8_matmul",) if name == "flux" else ())
+        if min(launches[k] for k in kernels) <= 0:
+            raise AssertionError(f"small {name} {label} on the card missed a kernel: {launches}")
+    RESULTS["small_caches"] = results
+
+
 def run_training(smi: str):
-    """Phase 12: the full-width training path: `train_text_to_image.main`
+    """Phase 15: the full-width training path: `train_text_to_image.main`
     with the SDXL UNet at its published widths, 1024 px, batch 1, EMA off,
     for TRAIN_STEPS steps (f32 weights and AdamW, bf16 autocast), then its
     checkpoint. Launch counts are read after each step; every trainable
@@ -1326,7 +1447,8 @@ def run_training(smi: str):
 
 
 def run_pipeline(smi: str):
-    """Phase 10: one full-width SDXL 1024 px request through the kernels."""
+    """Phase 11: one full-width SDXL 1024 px request through the kernels.
+    Returns (launches, the pipeline, the uint8 image)."""
     import numpy as np
     import torch
 
@@ -1383,11 +1505,11 @@ def run_pipeline(smi: str):
         "seconds_per_request": [seconds], "unet_forward_b2_ms": unet_ms, "peak_memory_gb": peak_gb,
         "build_seconds": build_s, "parameters": n_params, "launches": launches,
     }
-    return launches
+    return launches, pipe, image
 
 
 def run_flux_pipeline(smi: str):
-    """Phase 11: one full-width Flux.1-dev 1024 px request (28 steps, guidance
+    """Phase 13: one full-width Flux.1-dev 1024 px request (28 steps, guidance
     3.5) through `FluxPipeline.__call__`: the w8a8 transformer on K5, its
     attention on K1 at head_dim 128, the VAE's GroupNorms on K4."""
     import numpy as np
@@ -1469,7 +1591,275 @@ def run_flux_pipeline(smi: str):
         "int8_weight_gb": int8_gb, "build_seconds": build_s, "parameters": n_params, "w8a8_linears": n_w8a8,
         "launches": launches, "expected_launches": expected, "image_mean": float(image.mean()),
     }
-    return launches
+    return launches, pipe, image
+
+
+class StepLaunches:
+    """Launch counts of each denoise step of one request: within the block,
+    the pipeline's `scheduler.step` reads the counters after every step, and
+    a step's counts are the difference to the previous read (the first
+    step's, to the counts at entry). A step that a cache skips shows zeros
+    for what it skipped. `after` holds what came after the last step (the VAE
+    decode); `batches`, the denoiser's batch size at each of its calls;
+    `timesteps`, the schedule's timestep at each step."""
+
+    def __init__(self, pipe, denoiser):
+        self.pipe, self.denoiser = pipe, denoiser
+
+    def __enter__(self):
+        scheduler, step = self.pipe.scheduler, self.pipe.scheduler.step
+        self.per_step, self.batches, self.timesteps, self._last = [], [], [], read_launches()
+
+        def counted_step(state, model_output, timestep, sample, **kwargs):
+            out = step(state, model_output, timestep, sample, **kwargs)
+            self.timesteps.append(float(timestep))
+            now = read_launches()
+            self.per_step.append({k: now[k] - self._last[k] for k in now})
+            self._last = now
+            return out
+
+        scheduler.step = counted_step
+        self._hook = self.denoiser.register_forward_pre_hook(lambda mod, args: self.batches.append(args[0].shape[0]))
+        return self
+
+    def __exit__(self, *exc):
+        del self.pipe.scheduler.step
+        self._hook.remove()
+        now = read_launches()
+        self.after = {k: now[k] - self._last[k] for k in now}
+        return False
+
+
+def _launches(**counts):
+    """A launch-count dict over every kernel, zero where not given."""
+    return {name: counts.get(name, 0) for name in launch_counters()}
+
+
+def _module_launches(module):
+    """The forward launches of one call of `module` that calls each of its
+    GroupNorms and attentions once: K4 per GroupNorm, K1 per attention at a
+    head dim the kernel takes (the others run `native`), and K5 with its row
+    quantization per w8a8 Linear."""
+    from diffusers_tpu_torch.models.attention import Attention
+    from diffusers_tpu_torch.models.transformers.transformer_flux import FluxAttention
+    from diffusers_tpu_torch.ops.cuda.flash_attention import HEAD_DIMS
+    from diffusers_tpu_torch.ops.module import GroupNorm, W8A8Linear
+
+    mods = list(module.modules())
+    w8a8 = sum(isinstance(m, W8A8Linear) for m in mods)
+    return _launches(group_norm=sum(isinstance(m, GroupNorm) for m in mods), w8a8_matmul=w8a8,
+                     w8a8_quantize_rows=w8a8,
+                     flash_attention_fwd=sum(isinstance(m, (Attention, FluxAttention)) and m.dim_head in HEAD_DIMS
+                                             for m in mods))
+
+
+def _request_seconds(call):
+    """(result, seconds, peak GB) of one request, on the host clock ending in a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _image_cosine(a, b) -> float:
+    """Cosine of two uint8 images as float64 vectors (bench.py's cached-vs-dense metric)."""
+    import numpy as np
+
+    a, b = np.asarray(a).astype(np.float64).ravel(), np.asarray(b).astype(np.float64).ravel()
+    return float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-12))
+
+
+def _check_steps(label, per_step, expected_steps, after, expected_after):
+    for i, (got, want) in enumerate(zip(per_step, expected_steps)):
+        if got != want:
+            raise AssertionError(f"{label}: step {i} launched {got}, expected {want}")
+    if len(per_step) != len(expected_steps):
+        raise AssertionError(f"{label}: {len(per_step)} steps, expected {len(expected_steps)}")
+    if after != expected_after:
+        raise AssertionError(f"{label}: the decode launched {after}, expected {expected_after}")
+
+
+def sdxl_cached_requests():
+    """The SDXL cached requests at full width: (label, cache config or None,
+    callback factory or None). The headline first (bench.py:162)."""
+    from diffusers_tpu_torch.callbacks import SDXLCFGCutoffCallback
+    from diffusers_tpu_torch.hooks import FasterCacheConfig, MagCacheConfig, TaylorSeerCacheConfig
+
+    return (
+        ("taylorseer", TaylorSeerCacheConfig(cache_interval=10, disable_cache_before_step=2, max_order=2), None),
+        ("faster_cache", FasterCacheConfig(), None),
+        # SDXL has no published ratio table: flat ratios (tests/test_cache_hooks.py does the same)
+        ("mag_cache", MagCacheConfig(num_inference_steps=STEPS, mag_ratios=(1.0,) * STEPS), None),
+        ("cfg_cutoff_callback", None, lambda: SDXLCFGCutoffCallback(cutoff_step_ratio=0.4)),
+    )
+
+
+def sdxl_unet_calls(label, config, pipe):
+    """The UNet's batch at each step of an SDXL request (0 where the step
+    makes no UNet call), from the cache's host-made schedule."""
+    from diffusers_tpu_torch.hooks import faster_cache_schedules, mag_cache_compute_mask, taylorseer_compute_mask
+
+    if label == "taylorseer":
+        return [2 * int(c) for c in taylorseer_compute_mask(STEPS, config)]
+    if label == "faster_cache":
+        skip, _, _ = faster_cache_schedules(pipe.scheduler.set_timesteps(STEPS).timesteps.numpy(), config)
+        return [1 if s else 2 for s in skip]
+    if label == "mag_cache":
+        return [2 * int(c) for c in mag_cache_compute_mask(config)]
+    cutoff = int(STEPS * 0.4)  # the callback halves the batch after step `cutoff`
+    return [2 if i <= cutoff else 1 for i in range(STEPS)]
+
+
+def run_sdxl_cached(smi: str, pipe, dense_image):
+    """Phase 12: the full-width SDXL requests through the caches and a
+    callback, on phase 11's pipeline, with its seed and prompt: first the
+    headline TaylorSeer request (bench.py:162; 5 of 30 steps computed:
+    SDXL_HEADLINE_LAUNCHES), then FasterCache, MagCache (flat
+    ratios) and `SDXLCFGCutoffCallback(cutoff_step_ratio=0.4)`. Each step's
+    launches are held to the schedule: a step that calls the UNet (at batch
+    1 or 2) 140 K1 and 46 K4 launches, a skipped one none."""
+    import numpy as np
+    import torch
+
+    per_call, decode = _module_launches(pipe.unet), _module_launches(pipe.vae.decoder)
+    out, paths = {}, {}
+    for label, config, callback in sdxl_cached_requests():
+        calls = sdxl_unet_calls(label, config, pipe)
+        expected = [per_call if b else _launches() for b in calls]
+        if config is not None:
+            pipe.enable_cache(config)
+        reset_launches()
+        try:
+            with StepLaunches(pipe, pipe.unet) as steps:
+                images, seconds, peak_gb = _request_seconds(lambda: pipe(
+                    PROMPTS[0], height=RESOLUTION, width=RESOLUTION, num_inference_steps=STEPS,
+                    guidance_scale=GUIDANCE, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                    output_type="pil", callback_on_step_end=callback() if callback else None).images)
+        finally:
+            pipe.disable_cache()
+        launches = read_launches()
+        image = np.asarray(images[0])
+        if image.shape != (RESOLUTION, RESOLUTION, 3) or image.dtype != np.uint8:
+            raise AssertionError(f"sdxl {label}: bad uint8 image {image.shape} {image.dtype}")
+        _check_steps(f"sdxl {label}", steps.per_step, expected, steps.after, decode)
+        if steps.batches != [b for b in calls if b]:
+            raise AssertionError(f"sdxl {label}: UNet batches {steps.batches}, expected {[b for b in calls if b]}")
+        cosine = _image_cosine(image, dense_image)
+        computed = sum(b == 2 for b in calls)
+        log(f"[sdxl-cache] {smi}: {label}: {seconds:.3f} s/image, peak memory {peak_gb:.1f} GB, UNet calls "
+            f"{sum(b > 0 for b in calls)} of {STEPS} steps ({computed} at batch 2, {sum(b == 1 for b in calls)} at "
+            f"batch 1), launches {launches}, cosine to the dense image {cosine:.4f} (random weights)")
+        out[label] = {"card": smi, "seconds_per_request": seconds, "peak_memory_gb": peak_gb,
+                      "unet_batch_per_step": calls, "launches": launches, "launches_per_step": steps.per_step,
+                      "cosine_to_dense": cosine}
+        paths[f"sdxl_{label}"] = launches
+    headline = out["taylorseer"]["launches"]
+    if headline != SDXL_HEADLINE_LAUNCHES:
+        raise AssertionError(f"the headline TaylorSeer request launched {headline}, expected {SDXL_HEADLINE_LAUNCHES}")
+    RESULTS["sdxl_cached"] = out
+    return paths
+
+
+def run_flux_cached(smi: str, pipe, dense_image):
+    """Phase 14: the full-width Flux.1-dev requests through each cache, on
+    phase 13's pipeline: TaylorSeer (the headline's schedule), FirstBlockCache
+    (threshold 0.05), PAB (default ranges) and MagCache (FLUX_MAG_RATIOS).
+    Each step's launches are held to the schedule or, for FirstBlockCache, to
+    the decision the run recorded: a computed step 500 w8a8 launches (each
+    with its row quantization) and 57 K1; a TaylorSeer step predicted, none;
+    a MagCache step skipped, the Linears outside the blocks; a FirstBlockCache
+    step skipped, those and the first block's (K1 once); a PAB broadcast step,
+    every Linear but the attentions' and no K1."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.hooks import (
+        FLUX_MAG_RATIOS,
+        FirstBlockCacheConfig,
+        MagCacheConfig,
+        PyramidAttentionBroadcastConfig,
+        TaylorSeerCacheConfig,
+        mag_cache_compute_mask,
+        pab_compute_mask,
+        taylorseer_compute_mask,
+    )
+    from diffusers_tpu_torch.ops.module import W8A8Linear
+
+    tr = pipe.transformer
+
+    def n_w8a8(*modules):
+        return sum(isinstance(m, W8A8Linear) for mod in modules for m in mod.modules())
+
+    total = n_w8a8(tr)
+    in_blocks = n_w8a8(*tr.transformer_blocks, *tr.single_transformer_blocks)
+    in_attention = n_w8a8(*(b.attn for b in (*tr.transformer_blocks, *tr.single_transformer_blocks)))
+
+    def step(w8a8, attention):
+        return _launches(w8a8_matmul=w8a8, w8a8_quantize_rows=w8a8, flash_attention_fwd=attention)
+
+    full = _module_launches(tr)
+    skipped = {
+        "taylorseer": step(0, 0),
+        "first_block_cache": step(total - in_blocks + n_w8a8(tr.transformer_blocks[0]), 1),
+        "pab": step(total - in_attention, 0),
+        "mag_cache": step(total - in_blocks, 0),
+    }
+    mag = MagCacheConfig(mag_ratios=tuple(FLUX_MAG_RATIOS))
+    requests = (
+        ("taylorseer", TaylorSeerCacheConfig(cache_interval=10, disable_cache_before_step=2, max_order=2),
+         lambda cfg, ts: taylorseer_compute_mask(FLUX_STEPS, cfg)),
+        ("first_block_cache", FirstBlockCacheConfig(), None),
+        ("pab", PyramidAttentionBroadcastConfig(),
+         lambda cfg, ts: pab_compute_mask(np.asarray(ts), cfg.spatial_attention_block_skip_range,
+                                          cfg.spatial_attention_timestep_skip_range)),
+        ("mag_cache", MagCacheConfig(mag_ratios=tuple(FLUX_MAG_RATIOS)),
+         lambda cfg, ts: mag_cache_compute_mask(dataclasses.replace(cfg, num_inference_steps=FLUX_STEPS))),
+    )
+    decode = _module_launches(pipe.vae.decoder)
+    out, paths = {}, {}
+    for label, config, schedule in requests:
+        pipe.enable_cache(config)
+        reset_launches()
+        try:
+            with StepLaunches(pipe, tr) as steps:
+                images, seconds, peak_gb = _request_seconds(lambda: pipe(
+                    FLUX_PROMPT, height=RESOLUTION, width=RESOLUTION, num_inference_steps=FLUX_STEPS,
+                    guidance_scale=FLUX_GUIDANCE, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                    max_sequence_length=FLUX_MAX_SEQUENCE_LENGTH, output_type="pil").images)
+        finally:
+            pipe.disable_cache()
+        launches = read_launches()
+        ratios = None
+        if schedule is None:  # FirstBlockCache: the decisions the run recorded
+            computed = list(pipe.fbc_record["decisions"])
+            ratios = [None if r is None else float(r) for r in pipe.fbc_record["ratios"]]
+        else:
+            computed = [bool(c) for c in schedule(config, steps.timesteps)]
+        image = np.asarray(images[0])
+        if image.shape != (RESOLUTION, RESOLUTION, 3) or image.dtype != np.uint8:
+            raise AssertionError(f"flux {label}: bad uint8 image {image.shape} {image.dtype}")
+        _check_steps(f"flux {label}", steps.per_step, [full if c else skipped[label] for c in computed],
+                     steps.after, decode)
+        cosine = _image_cosine(image, dense_image)
+        log(f"[flux-cache] {smi}: {label}: {seconds:.3f} s/image, peak memory {peak_gb:.1f} GB, "
+            f"{sum(computed)} of {FLUX_STEPS} steps computed, launches {launches}, cosine to the dense image "
+            f"{cosine:.4f} (random weights)")
+        if ratios is not None:
+            log(f"[flux-cache]   first-block relative change per step (threshold {config.threshold}): "
+                f"{['-' if r is None else f'{r:.4f}' for r in ratios]}")
+        out[label] = {"card": smi, "seconds_per_request": seconds, "peak_memory_gb": peak_gb,
+                      "computed_per_step": computed, "launches": launches, "launches_per_step": steps.per_step,
+                      "cosine_to_dense": cosine, "fbc_ratios": ratios}
+        paths[f"flux_{label}"] = launches
+        torch.cuda.empty_cache()  # PAB's stacked cache (~1.6 GB) goes with its request
+    RESULTS["flux_cached"] = out
+    return paths
 
 
 def main() -> int:
@@ -1490,13 +1880,18 @@ def main() -> int:
     check_small_reference()
     check_small_flux_reference()
     check_small_training()
-    sdxl = run_pipeline(smi)
-    torch.cuda.empty_cache()
-    flux = run_flux_pipeline(smi)
+    check_small_caches()
+    sdxl, pipe, image = run_pipeline(smi)
+    paths = {"sdxl": sdxl, **run_sdxl_cached(smi, pipe, image)}
+    del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    training = run_training(smi)
-    paths = {"sdxl": sdxl, "flux": flux, "training": training}
+    flux, pipe, image = run_flux_pipeline(smi)
+    paths.update(flux=flux, **run_flux_cached(smi, pipe, image))
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["training"] = run_training(smi)
     RESULTS["launches_by_path"] = paths
 
     meta = {

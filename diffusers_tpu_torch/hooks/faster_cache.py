@@ -1,0 +1,97 @@
+"""FasterCache CFG-cache: skip the unconditional branch on most steps and
+rebuild it from the conditional output plus a cached frequency-domain delta
+(arXiv:2410.19355, Eq. 9-11).
+
+Port of `diffusers_tpu/hooks/faster_cache.py` (the batch-2 CFG form that
+SDXL uses). The skip schedule and the low/high-frequency weights depend only
+on the timesteps, so they are made on the host (`faster_cache_schedules`); a
+skipped step runs the denoiser at batch 1 (cond only). The deltas are
+complex64. The FFT runs on a float32 copy: cuFFT takes no bf16, and JAX
+casts to float32 first too.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class FasterCacheConfig:
+    unconditional_batch_skip_range: int = 5
+    unconditional_batch_timestep_skip_range: Tuple[int, int] = (-1, 641)
+    low_frequency_weight_update_timestep_range: Tuple[int, int] = (99, 901)
+    high_frequency_weight_update_timestep_range: Tuple[int, int] = (-1, 301)
+    alpha_low_frequency: float = 1.1
+    alpha_high_frequency: float = 1.1
+
+
+def faster_cache_schedules(timesteps: np.ndarray, config: FasterCacheConfig):
+    """Per-step schedules on the host: (skip_uncond bool[n], lf_weight
+    f32[n], hf_weight f32[n])."""
+    t = np.asarray(timesteps, dtype=np.float64)
+    it = np.arange(len(t))
+    lo, hi = config.unconditional_batch_timestep_skip_range
+    within = (lo < t) & (t < hi)
+    skip = (it > 0) & within & (it % config.unconditional_batch_skip_range != 0)
+    llo, lhi = config.low_frequency_weight_update_timestep_range
+    lf_w = np.where((llo < t) & (t < lhi), config.alpha_low_frequency, 1.0).astype(np.float32)
+    hlo, hhi = config.high_frequency_weight_update_timestep_range
+    hf_w = np.where((hlo < t) & (t < hhi), config.alpha_high_frequency, 1.0).astype(np.float32)
+    return skip, lf_w, hf_w
+
+
+@dataclass
+class FasterCacheState:
+    """Frequency-domain (uncond - cond) deltas from the last full step."""
+
+    low_freq_delta: torch.Tensor  # complex64, [B, C, H, W] (fftshifted fft2)
+    high_freq_delta: torch.Tensor
+
+
+def init_faster_cache_state(cond_shape: Tuple[int, ...], device=None) -> FasterCacheState:
+    zeros = torch.zeros(cond_shape, dtype=torch.complex64, device=device)
+    return FasterCacheState(low_freq_delta=zeros, high_freq_delta=zeros)
+
+
+def _split_low_high_freq(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fft2 over the trailing 2 dims of a float32 copy of `x`, split by a
+    radius-(min(H, W) // 5) disk around the centre of the shifted spectrum."""
+    fft_shifted = torch.fft.fftshift(torch.fft.fft2(x.float()), dim=(-2, -1))
+    h, w = x.shape[-2], x.shape[-1]
+    radius = min(h, w) // 5
+    yy = np.arange(h)[:, None]
+    xx = np.arange(w)[None, :]
+    mask = torch.from_numpy((xx - w // 2) ** 2 + (yy - h // 2) ** 2 <= radius**2).to(x.device)
+    return fft_shifted * mask, fft_shifted * ~mask
+
+
+def faster_cache_apply(
+    state: FasterCacheState,
+    skip_uncond: bool,
+    lf_weight: float,
+    hf_weight: float,
+    full_forward: Callable[[], torch.Tensor],  # () -> [2B, C, H, W] (uncond, cond)
+    cond_forward: Callable[[], torch.Tensor],  # () -> [B, C, H, W] (cond only)
+) -> Tuple[torch.Tensor, FasterCacheState]:
+    """One step's denoiser evaluation under the CFG-cache. Returns the [2B,
+    ...] noise prediction (uncond first, the CFG batch layout) and the new
+    state."""
+    if not skip_uncond:
+        noise = full_forward()
+        uncond, cond = noise.chunk(2, dim=0)
+        lf_u, hf_u = _split_low_high_freq(uncond)
+        lf_c, hf_c = _split_low_high_freq(cond)
+        return noise, FasterCacheState(low_freq_delta=lf_u - lf_c, high_freq_delta=hf_u - hf_c)
+
+    cond = cond_forward()
+    lf_c, hf_c = _split_low_high_freq(cond)
+    lf_delta = state.low_freq_delta * lf_weight
+    hf_delta = state.high_freq_delta * hf_weight
+    uncond_freq = (lf_delta + lf_c) + (hf_delta + hf_c)
+    uncond = torch.fft.ifft2(torch.fft.ifftshift(uncond_freq, dim=(-2, -1))).real
+    noise = torch.cat([uncond.to(cond.dtype), cond], dim=0)
+    return noise, FasterCacheState(low_freq_delta=lf_delta, high_freq_delta=hf_delta)

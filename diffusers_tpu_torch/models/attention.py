@@ -3,7 +3,10 @@
 Port of `diffusers_tpu/models/attention.py` (`Attention` `:22-195`) without
 PAG, SEG and IP-Adapter, which wait for their pipelines. Submodule names
 (to_q/to_k/to_v/to_out.0/group_norm/norm_cross) match the reference
-state-dict keys.
+state-dict keys. `text_kv` is the slot of `hooks.generic_cache.text_kv_cache`
+(TextKVCacheConfig): while it is not None, the K/V projections of an
+`encoder_hidden_states` tensor are computed once and reused for as long as
+the module is called with that same tensor.
 """
 
 from __future__ import annotations
@@ -68,6 +71,16 @@ class Attention(nn.Module):
         self.to_v = Linear(self.cross_attention_dim, self.inner_kv_dim, use_bias=bias)
         if not pre_only:
             self.to_out = nn.ModuleList([Linear(self.inner_dim, self.out_dim, use_bias=out_bias)])
+        self.text_kv = None
+
+    def _cross_kv(self, encoder_hidden_states: torch.Tensor):
+        if self.text_kv and self.text_kv[0] is encoder_hidden_states:
+            return self.text_kv[1:]
+        context = encoder_hidden_states if self.norm_cross is None else self.norm_cross(encoder_hidden_states)
+        key, value = self.to_k(context), self.to_v(context)
+        if self.text_kv is not None:
+            self.text_kv = (encoder_hidden_states, key, value)
+        return key, value
 
     def forward(
         self,
@@ -82,13 +95,11 @@ class Attention(nn.Module):
             # GroupNorm normalizes the channel axis: tokens [B, S, C] -> [B, C, S]
             hidden_states = self.group_norm(hidden_states.transpose(1, 2)).transpose(1, 2)
 
-        context = hidden_states if encoder_hidden_states is None else encoder_hidden_states
-        if self.norm_cross is not None and encoder_hidden_states is not None:
-            context = self.norm_cross(context)
-
         query = self.to_q(hidden_states)
-        key = self.to_k(context)
-        value = self.to_v(context)
+        if encoder_hidden_states is None:
+            key, value = self.to_k(hidden_states), self.to_v(hidden_states)
+        else:
+            key, value = self._cross_kv(encoder_hidden_states)
 
         query = query.reshape(b, s, self.heads, self.dim_head)
         kv_heads = key.shape[-1] // self.dim_head

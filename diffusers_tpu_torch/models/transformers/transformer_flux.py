@@ -7,8 +7,14 @@ Port of `diffusers_tpu/models/transformers/transformer_flux.py`
 attention goes through the dispatch layer, so on the card it is kernel K1 at
 head_dim 128. After `quantize_w8a8`, every large Linear runs kernel K5.
 
-Left for later (ROADMAP A10): the `scan_blocks` path, Pyramid Attention
-Broadcast caches and ControlNet residuals.
+The forward is three reusable pieces, `embed` (the prologue), `run_blocks`
+and `project_out` (the epilogue), which the first-block and MagCache
+forwards of `diffusers_tpu_torch.hooks` share. Pyramid Attention Broadcast
+(`pab_compute`, `pab_cache`): on a broadcast step no block runs its
+attention or its q/k/v/out projections, and each block reuses its cached
+attention output.
+
+Left for later: the `scan_blocks` path and ControlNet residuals.
 """
 
 from __future__ import annotations
@@ -122,16 +128,23 @@ class FluxSingleTransformerBlock(nn.Module):
         self.attn = FluxAttention(query_dim=dim, heads=num_attention_heads, dim_head=attention_head_dim,
                                   out_dim=dim, bias=True, eps=1e-6, pre_only=True)
 
-    def forward(self, hidden_states, encoder_hidden_states, temb, image_rotary_emb=None):
+    def forward(self, hidden_states, encoder_hidden_states, temb, image_rotary_emb=None, pab=None):
+        """`pab=(compute, cached)`: on a step that does not compute, `cached`
+        stands in for the attention output; the attention output is then
+        returned third."""
         text_seq_len = encoder_hidden_states.shape[1]
         hidden_states = torch.cat([encoder_hidden_states, hidden_states], dim=1)
         residual = hidden_states
         norm_hidden_states, gate = self.norm(hidden_states, emb=temb)
         mlp_hidden_states = F.gelu(self.proj_mlp(norm_hidden_states), approximate="tanh")
-        attn_output = self.attn(norm_hidden_states, image_rotary_emb=image_rotary_emb)
+        if pab is None or pab[0]:
+            attn_output = self.attn(norm_hidden_states, image_rotary_emb=image_rotary_emb)
+        else:
+            attn_output = pab[1]
         hidden_states = torch.cat([attn_output, mlp_hidden_states], dim=2)
         hidden_states = residual + gate[:, None] * self.proj_out(hidden_states)
-        return hidden_states[:, :text_seq_len], hidden_states[:, text_seq_len:]
+        out = (hidden_states[:, :text_seq_len], hidden_states[:, text_seq_len:])
+        return out if pab is None else (*out, attn_output)
 
 
 class FluxTransformerBlock(nn.Module):
@@ -146,12 +159,17 @@ class FluxTransformerBlock(nn.Module):
         self.norm2_context = LayerNorm(dim, eps=1e-6, use_scale=False, use_bias=False)
         self.ff_context = FeedForward(dim=dim, dim_out=dim, activation_fn="gelu-approximate")
 
-    def forward(self, hidden_states, encoder_hidden_states, temb, image_rotary_emb=None):
+    def forward(self, hidden_states, encoder_hidden_states, temb, image_rotary_emb=None, pab=None):
+        """`pab=(compute, (attn_output, context_attn_output))` as for the
+        single block; the pair is then returned third."""
         norm_hidden, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(hidden_states, emb=temb)
         norm_context, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = self.norm1_context(
             encoder_hidden_states, emb=temb)
-        attn_output, context_attn_output = self.attn(norm_hidden, encoder_hidden_states=norm_context,
-                                                     image_rotary_emb=image_rotary_emb)
+        if pab is None or pab[0]:
+            attn_output, context_attn_output = self.attn(norm_hidden, encoder_hidden_states=norm_context,
+                                                         image_rotary_emb=image_rotary_emb)
+        else:
+            attn_output, context_attn_output = pab[1]
 
         hidden_states = hidden_states + gate_msa[:, None] * attn_output
         norm_hidden = self.norm2(hidden_states) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
@@ -160,6 +178,8 @@ class FluxTransformerBlock(nn.Module):
         encoder_hidden_states = encoder_hidden_states + c_gate_msa[:, None] * context_attn_output
         norm_context = self.norm2_context(encoder_hidden_states) * (1 + c_scale_mlp[:, None]) + c_shift_mlp[:, None]
         encoder_hidden_states = encoder_hidden_states + c_gate_mlp[:, None] * self.ff_context(norm_context)
+        if pab is not None:
+            return encoder_hidden_states, hidden_states, (attn_output, context_attn_output)
         return encoder_hidden_states, hidden_states
 
 
@@ -198,6 +218,38 @@ class FluxTransformer2DModel(ModelMixin, ConfigMixin):
         self.norm_out = AdaLayerNormContinuous(self.inner_dim, self.inner_dim, elementwise_affine=False, eps=1e-6)
         self.proj_out = Linear(self.inner_dim, patch_size * patch_size * self.out_channels, use_bias=True)
 
+    def embed(self, hidden_states, encoder_hidden_states, pooled_projections, timestep, guidance=None,
+              img_ids=None, txt_ids=None, image_rotary_emb=None, context=None):
+        """The prologue: (hidden, context, temb, image_rotary_emb). `context`,
+        when given, is `context_embedder(encoder_hidden_states)` computed by the
+        caller (it is loop-invariant: TextKVCacheConfig)."""
+        hidden_states = self.x_embedder(hidden_states)
+        timestep = timestep.to(hidden_states.dtype) * 1000
+        if guidance is None:
+            temb = self.time_text_embed(timestep, pooled_projections)
+        else:
+            temb = self.time_text_embed(timestep, guidance.to(hidden_states.dtype) * 1000, pooled_projections)
+        if context is None:
+            context = self.context_embedder(encoder_hidden_states)
+        if image_rotary_emb is None:
+            ids = torch.cat([torch.as_tensor(txt_ids), torch.as_tensor(img_ids)], dim=0)
+            cos, sin = self.pos_embed(ids)
+            image_rotary_emb = (cos.to(hidden_states.device), sin.to(hidden_states.device))
+        return hidden_states, context, temb, image_rotary_emb
+
+    def run_blocks(self, hidden_states, context, temb, image_rotary_emb, first: int = 0):
+        """The dual blocks from index `first`, then the single blocks:
+        (hidden, context)."""
+        for block in self.transformer_blocks[first:]:
+            context, hidden_states = block(hidden_states, context, temb, image_rotary_emb)
+        for block in self.single_transformer_blocks:
+            context, hidden_states = block(hidden_states, context, temb, image_rotary_emb)
+        return hidden_states, context
+
+    def project_out(self, hidden_states, temb):
+        """The epilogue: `norm_out`, then `proj_out`."""
+        return self.proj_out(self.norm_out(hidden_states, temb))
+
     def forward(
         self,
         hidden_states: torch.Tensor,  # [B, image_seq, in_channels] (packed latents)
@@ -208,27 +260,34 @@ class FluxTransformer2DModel(ModelMixin, ConfigMixin):
         txt_ids=None,  # [text_seq, 3]
         guidance: Optional[torch.Tensor] = None,  # [B]
         image_rotary_emb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        pab_compute: Optional[bool] = None,  # PAB: recompute attention this step?
+        pab_cache: Optional[dict] = None,  # stacked per-block attention outputs (hooks/pyramid_attention_broadcast.py)
+        context: Optional[torch.Tensor] = None,  # context_embedder(encoder_hidden_states), if the caller has it
         return_dict: bool = True,
     ) -> Union[Transformer2DModelOutput, tuple]:
-        hidden_states = self.x_embedder(hidden_states)
-        timestep = timestep.to(hidden_states.dtype) * 1000
-        if guidance is None:
-            temb = self.time_text_embed(timestep, pooled_projections)
-        else:
-            temb = self.time_text_embed(timestep, guidance.to(hidden_states.dtype) * 1000, pooled_projections)
-        encoder_hidden_states = self.context_embedder(encoder_hidden_states)
+        hidden_states, context, temb, image_rotary_emb = self.embed(
+            hidden_states, encoder_hidden_states, pooled_projections, timestep, guidance, img_ids, txt_ids,
+            image_rotary_emb, context)
 
-        if image_rotary_emb is None:
-            ids = torch.cat([torch.as_tensor(txt_ids), torch.as_tensor(img_ids)], dim=0)
-            cos, sin = self.pos_embed(ids)
-            image_rotary_emb = (cos.to(hidden_states.device), sin.to(hidden_states.device))
+        if pab_cache is not None:
+            # the PAB forward returns (sample, pab_cache), the cache's entries
+            # overwritten in place on a step that computes attention
+            for i, block in enumerate(self.transformer_blocks):
+                cached = (pab_cache["dual_attn"][i], pab_cache["dual_ctx"][i])
+                context, hidden_states, (a, c) = block(hidden_states, context, temb, image_rotary_emb,
+                                                       pab=(pab_compute, cached))
+                if pab_compute:
+                    pab_cache["dual_attn"][i].copy_(a)
+                    pab_cache["dual_ctx"][i].copy_(c)
+            for i, block in enumerate(self.single_transformer_blocks):
+                context, hidden_states, a = block(hidden_states, context, temb, image_rotary_emb,
+                                                  pab=(pab_compute, pab_cache["single_attn"][i]))
+                if pab_compute:
+                    pab_cache["single_attn"][i].copy_(a)
+            return self.project_out(hidden_states, temb), pab_cache
 
-        for block in self.transformer_blocks:
-            encoder_hidden_states, hidden_states = block(hidden_states, encoder_hidden_states, temb, image_rotary_emb)
-        for block in self.single_transformer_blocks:
-            encoder_hidden_states, hidden_states = block(hidden_states, encoder_hidden_states, temb, image_rotary_emb)
-
-        output = self.proj_out(self.norm_out(hidden_states, temb))
+        hidden_states, _ = self.run_blocks(hidden_states, context, temb, image_rotary_emb)
+        output = self.project_out(hidden_states, temb)
         if not return_dict:
             return (output,)
         return Transformer2DModelOutput(sample=output)

@@ -13,18 +13,35 @@ for the transformer, casts its output back to float32, and the scheduler
 steps in float32 (`pipeline_flux.py`'s `forward`). The pipeline is built on
 ``device`` (default ``"cuda"``; see `DiffusionPipeline._place`).
 
-Callbacks, the PAB/MagCache/TaylorSeer/FirstBlock caches, img2img, inpaint,
-fill, kontext and `from_pretrained` wait.
+`enable_cache` honours TaylorSeer, FirstBlockCache, Pyramid Attention
+Broadcast, MagCache and TextKV, as the JAX pipeline does. Where JAX's
+FirstBlockCache, PAB and MagCache branches feed the float32 latents to the
+transformer and keep their state in the latents' dtype, the port casts the
+latents to the prompt embeddings' dtype, as its plain branch does, and keeps
+the state in that dtype, the hidden stream's (a bf16 Linear takes no
+float32 input); on the CPU both are float32. TextKV hoists the only
+loop-invariant text computation, `context_embedder(prompt_embeds)`, out of
+the loop: the text stream is modulated by the timestep inside every block.
+The last FirstBlockCache request's per-step decisions and relative changes
+stay in `fbc_record`. `callback_on_step_end` runs the loop of
+`hooks.generic_cache.denoise_loop_with_callback`. img2img, inpaint, fill,
+kontext and `from_pretrained` wait.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional, Union
 
 import numpy as np
 import torch
 
+from ...hooks.first_block_cache import FirstBlockCacheConfig, flux_forward_with_fbc, init_fbc_state
+from ...hooks.generic_cache import TextKVCacheConfig, denoise_loop, denoise_loop_with_callback
+from ...hooks.mag_cache import MagCacheConfig, flux_forward_with_magcache, init_mag_cache_state, mag_cache_compute_mask
+from ...hooks.pyramid_attention_broadcast import PyramidAttentionBroadcastConfig, pab_compute_mask
+from ...hooks.taylorseer import TaylorSeerCacheConfig
 from ...image_processor import numpy_to_pil, postprocess_np, postprocess_uint8
 from ...schedulers.scheduling_flow_match_euler_discrete import calculate_shift
 from ...utils import BaseOutput
@@ -37,6 +54,12 @@ class FluxPipelineOutput(BaseOutput):
 
 
 class FluxPipeline(DiffusionPipeline):
+    _supported_cache_configs = (
+        "TaylorSeerCacheConfig", "FirstBlockCacheConfig", "PyramidAttentionBroadcastConfig",
+        "MagCacheConfig", "TextKVCacheConfig",
+    )
+    fbc_record = None
+
     def __init__(
         self,
         scheduler,
@@ -105,21 +128,85 @@ class FluxPipeline(DiffusionPipeline):
     # ------------------------------------------------------------- denoise
     @torch.no_grad()
     def _denoise(self, latents, prompt_embeds, pooled_prompt_embeds, rope, state, guidance):
+        transformer, scheduler = self.transformer, self.scheduler
         # the timestep fed to the transformer, t / 1000, divided on the host
         # (a true f32 division, as in JAX) and moved to the card once
         timesteps = (state.timesteps / 1000.0).to(latents.device)
-        batch = latents.shape[0]
-        for i, t in enumerate(state.timesteps):
-            noise_pred = self.transformer(
-                latents.to(prompt_embeds.dtype),
-                encoder_hidden_states=prompt_embeds,
-                pooled_projections=pooled_prompt_embeds,
-                timestep=timesteps[i].expand(batch),
-                guidance=guidance,
-                image_rotary_emb=rope,
+        batch, dtype = latents.shape[0], prompt_embeds.dtype
+        cfg = self._cache_config
+        context = transformer.context_embedder(prompt_embeds) if isinstance(cfg, TextKVCacheConfig) else None
+        cond = dict(encoder_hidden_states=prompt_embeds, pooled_projections=pooled_prompt_embeds,
+                    guidance=guidance, image_rotary_emb=rope, context=context)
+
+        def forward(latents, i, t):
+            return transformer(latents.to(dtype), timestep=timesteps[i].expand(batch), **cond).sample.to(latents.dtype)
+
+        if cfg is None or isinstance(cfg, (TextKVCacheConfig, TaylorSeerCacheConfig)):
+            return denoise_loop(forward, scheduler, latents, state, state.timesteps, cfg)
+
+        def loop(cached_forward, cache):
+            """The loop of the model-internal caches: cached_forward(latents
+            in the hidden dtype, timestep, i, cache) -> (sample, cache)."""
+            lat = latents
+            for i, t in enumerate(state.timesteps):
+                noise_pred, cache = cached_forward(lat.to(dtype), timesteps[i].expand(batch), i, cache)
+                lat = scheduler.step(state, noise_pred.to(lat.dtype), t, lat).prev_sample
+            return lat, cache
+
+        # their state is in the hidden stream's dtype
+        inner, img_seq, txt_seq = transformer.inner_dim, latents.shape[1], prompt_embeds.shape[1]
+        hidden_shape, context_shape = (batch, img_seq, inner), (batch, txt_seq, inner)
+        if isinstance(cfg, FirstBlockCacheConfig):
+            latents, fbc = loop(
+                lambda x, ts, i, st: flux_forward_with_fbc(transformer, st, cfg, x, timestep=ts, **cond),
+                init_fbc_state(hidden_shape, context_shape, dtype, latents.device))
+            self.fbc_record = {"decisions": fbc.decisions, "ratios": fbc.ratios}
+            return latents
+
+        if isinstance(cfg, PyramidAttentionBroadcastConfig):
+            mask = pab_compute_mask(state.timesteps.numpy(), cfg.spatial_attention_block_skip_range,
+                                    cfg.spatial_attention_timestep_skip_range)
+            n_dual, n_single = len(transformer.transformer_blocks), len(transformer.single_transformer_blocks)
+            pab_cache = {
+                "dual_attn": torch.zeros((n_dual, *hidden_shape), dtype=dtype, device=latents.device),
+                "dual_ctx": torch.zeros((n_dual, *context_shape), dtype=dtype, device=latents.device),
+                "single_attn": torch.zeros((n_single, batch, txt_seq + img_seq, inner), dtype=dtype,
+                                           device=latents.device),
+            }
+            return loop(lambda x, ts, i, c: transformer(x, timestep=ts, pab_compute=bool(mask[i]), pab_cache=c, **cond),
+                        pab_cache)[0]
+
+        if isinstance(cfg, MagCacheConfig):
+            num_steps = int(state.timesteps.shape[0])
+            if cfg.num_inference_steps != num_steps:
+                cfg = dataclasses.replace(cfg, num_inference_steps=num_steps)
+            mask = mag_cache_compute_mask(cfg)
+
+            def magcache(x, ts, i, st):
+                return flux_forward_with_magcache(transformer, st, bool(mask[i]), x, timestep=ts, **cond)
+
+            return loop(magcache, init_mag_cache_state(hidden_shape, context_shape, dtype, latents.device))[0]
+
+        raise ValueError(f"FluxPipeline does not support cache config {type(cfg).__name__}")
+
+    @torch.no_grad()
+    def _denoise_with_callback(self, latents, prompt_embeds, pooled_prompt_embeds, rope, state, guidance, callback):
+        """The loop that fires `callback_on_step_end` after each scheduler
+        step; the transformer reads "prompt_embeds", "pooled_prompt_embeds"
+        and "guidance" from the callback's tensors every step."""
+        timesteps = (state.timesteps / 1000.0).to(latents.device)
+
+        def forward_cb(latents, i, t, cb):
+            pe = cb["prompt_embeds"]
+            return self.transformer(
+                latents.to(pe.dtype), encoder_hidden_states=pe, pooled_projections=cb["pooled_prompt_embeds"],
+                timestep=timesteps[i].expand(latents.shape[0]), guidance=cb.get("guidance"), image_rotary_emb=rope,
             ).sample.to(latents.dtype)
-            latents = self.scheduler.step(state, noise_pred, t, latents).prev_sample
-        return latents
+
+        cb_tensors = {"prompt_embeds": prompt_embeds, "pooled_prompt_embeds": pooled_prompt_embeds,
+                      "guidance": guidance}
+        return denoise_loop_with_callback(forward_cb, self.scheduler, latents, state, state.timesteps, self,
+                                          callback, cb_tensors, cache_cfg=self._cache_config)
 
     # ------------------------------------------------------------ __call__
     @torch.no_grad()
@@ -139,10 +226,17 @@ class FluxPipeline(DiffusionPipeline):
         max_sequence_length: int = 512,
         output_type: str = "pil",
         return_dict: bool = True,
+        callback_on_step_end=None,
+        callback_on_step_end_tensor_inputs: Optional[List[str]] = None,
     ):
         """Text-to-image. `latents`, when given, are packed ([B, seq, 4 C]).
         `output_type`: "pil" (uint8 quantized on the device, then PIL), "np"
-        (float32 NHWC in [0, 1]), "latent" (the final packed latents)."""
+        (float32 NHWC in [0, 1]), "latent" (the final packed latents).
+        `callback_on_step_end(pipe, i, t, callback_kwargs)` is shown
+        "latents", "prompt_embeds", "pooled_prompt_embeds" and "guidance"
+        after each step and may return replacements
+        (`callback_on_step_end_tensor_inputs` is accepted for API parity). It
+        cannot be combined with a cache."""
         height = height or self.default_sample_size * self.vae_scale_factor
         width = width or self.default_sample_size * self.vae_scale_factor
         device = self.transformer.device
@@ -187,7 +281,11 @@ class FluxPipeline(DiffusionPipeline):
         if self.transformer.config.guidance_embeds:
             guidance = torch.full((batch_size,), guidance_scale, dtype=torch.float32, device=device)
 
-        latents = self._denoise(latents, prompt_embeds, pooled_prompt_embeds, rope, state, guidance)
+        if callback_on_step_end is not None:
+            latents = self._denoise_with_callback(latents, prompt_embeds, pooled_prompt_embeds, rope, state, guidance,
+                                                  callback_on_step_end)
+        else:
+            latents = self._denoise(latents, prompt_embeds, pooled_prompt_embeds, rope, state, guidance)
 
         if output_type == "latent":
             image = latents

@@ -6,8 +6,10 @@ Port of the container part of `diffusers_tpu/pipelines/pipeline_utils.py`
 `nn.Module`, and `.to(device, dtype)` moves them all. A pipeline runs on the
 card unless its caller asks for the CPU: every pipeline takes ``device``
 (default ``"cuda"``) and moves its components there when it is built, and it
-raises there if no CUDA device is visible. `from_pretrained`,
-`save_pretrained`, LoRA and the cache hooks wait.
+raises there if no CUDA device is visible. `enable_cache` /
+`disable_cache` store a config from `diffusers_tpu_torch.hooks` that the
+pipeline's denoise loop honours. `from_pretrained`, `save_pretrained` and
+LoRA wait.
 """
 
 from __future__ import annotations
@@ -62,3 +64,23 @@ class DiffusionPipeline(ConfigMixin):
             if isinstance(module, nn.Module):
                 module.to(device=device, dtype=dtype)
         return self
+
+    # ---------------------------------------------------------------- caches
+    # cache-config class names this pipeline's denoise loop honours
+    _supported_cache_configs: tuple = ()
+    _cache_config = None
+
+    def enable_cache(self, config):
+        """Enable a timestep cache for the denoise loop. `config` is one of
+        the frozen configs of `diffusers_tpu_torch.hooks`. Raises TypeError
+        when this pipeline's loop does not honour it."""
+        name = type(config).__name__
+        if name not in self._supported_cache_configs:
+            raise TypeError(
+                f"{type(self).__name__} does not support cache config {name}; "
+                f"supported here: {list(self._supported_cache_configs) or 'none'}"
+            )
+        self._cache_config = config
+
+    def disable_cache(self):
+        self._cache_config = None

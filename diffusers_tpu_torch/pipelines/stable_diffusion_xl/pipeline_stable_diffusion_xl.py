@@ -9,18 +9,28 @@ eager Python loop over the timesteps.
 The pipeline is built on ``device`` (default ``"cuda"``; see
 `DiffusionPipeline._place`). Latents run in the UNet's dtype: noise is drawn in float32 (from
 `generator`), cast to the UNet's dtype, and the scheduler casts every step's
-`prev_sample` back to it. Callbacks, IP-Adapter, the FasterCache/TaylorSeer
-caches and `from_pretrained` wait.
+`prev_sample` back to it.
+
+`enable_cache` honours FasterCache (with CFG), TaylorSeer, MagCache and
+TextKV, as the JAX pipeline does: a step that a cache skips makes no UNet
+call (FasterCache's skipped steps call it at batch 1, cond only), and
+TextKV computes each cross-attention's K/V of the prompt embeddings once a
+request. `callback_on_step_end` runs the loop of
+`hooks.generic_cache.denoise_loop_with_callback`. IP-Adapter and
+`from_pretrained` wait.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ...hooks.faster_cache import FasterCacheConfig, faster_cache_apply, faster_cache_schedules, init_faster_cache_state
+from ...hooks.generic_cache import TextKVCacheConfig, denoise_loop, denoise_loop_with_callback, text_kv_cache
 from ...image_processor import numpy_to_pil, postprocess_np, postprocess_uint8
 from ...utils import BaseOutput
 from ..pipeline_utils import DiffusionPipeline
@@ -32,6 +42,10 @@ class StableDiffusionXLPipelineOutput(BaseOutput):
 
 
 class StableDiffusionXLPipeline(DiffusionPipeline):
+    _supported_cache_configs = (
+        "FasterCacheConfig", "TaylorSeerCacheConfig", "MagCacheConfig", "TextKVCacheConfig",
+    )
+
     def __init__(
         self,
         vae,
@@ -103,26 +117,87 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
         return torch.tensor([add_time_ids] * batch, dtype=torch.float32, device=device)
 
     # ------------------------------------------------------------- denoise
+    def _unet(self, latent_input, t, prompt_embeds, text_embeds, time_ids):
+        return self.unet(latent_input, t, encoder_hidden_states=prompt_embeds,
+                         added_cond_kwargs={"text_embeds": text_embeds, "time_ids": time_ids}).sample
+
+    def _noise(self, state, t, t_device, latents, prompt_embeds, text_embeds, time_ids, guidance_scale):
+        """One step's noise prediction; with CFG (the embeddings hold twice
+        the latents' batch, uncond first) the two halves are combined."""
+        cfg = prompt_embeds.shape[0] == 2 * latents.shape[0]
+        latent_input = torch.cat([latents, latents], dim=0) if cfg else latents
+        latent_input = self.scheduler.scale_model_input(state, latent_input, t)
+        noise_pred = self._unet(latent_input, t_device, prompt_embeds, text_embeds, time_ids)
+        if cfg:
+            uncond, text = noise_pred.chunk(2, dim=0)
+            noise_pred = uncond + guidance_scale * (text - uncond)
+        return noise_pred
+
+    def _start(self, latents, num_inference_steps):
+        """(scheduler state, scaled initial latents, the timesteps on the
+        latents' device: one copy, no per-step host-to-device copy)."""
+        state = self.scheduler.set_timesteps(num_inference_steps)
+        return state, latents * state.init_noise_sigma, state.timesteps.to(latents.device)
+
     @torch.no_grad()
     def _denoise(self, prompt_embeds, add_text_embeds, add_time_ids, latents, guidance_scale,
                  num_inference_steps, do_cfg):
         scheduler = self.scheduler
-        state = scheduler.set_timesteps(num_inference_steps)
-        latents = latents * state.init_noise_sigma
-        timesteps_device = state.timesteps.to(latents.device)  # one copy, no per-step host->device
-        added_cond_kwargs = {"text_embeds": add_text_embeds, "time_ids": add_time_ids}
-        for i, t in enumerate(state.timesteps):
-            latent_input = torch.cat([latents, latents], dim=0) if do_cfg else latents
-            latent_input = scheduler.scale_model_input(state, latent_input, t)
-            noise_pred = self.unet(
-                latent_input,
-                timesteps_device[i],
-                encoder_hidden_states=prompt_embeds,
-                added_cond_kwargs=added_cond_kwargs,
-            ).sample
+        state, latents, timesteps_device = self._start(latents, num_inference_steps)
+        cache_cfg = self._cache_config
+        if isinstance(cache_cfg, FasterCacheConfig):
             if do_cfg:
-                uncond, text = noise_pred.chunk(2, dim=0)
-                noise_pred = uncond + guidance_scale * (text - uncond)
+                return self._denoise_faster_cache(prompt_embeds, add_text_embeds, add_time_ids, latents,
+                                                  guidance_scale, state, timesteps_device, cache_cfg)
+            cache_cfg = None  # FasterCache caches the uncond branch: nothing to do without CFG
+
+        def forward(latents, i, t):
+            return self._noise(state, t, timesteps_device[i], latents, prompt_embeds, add_text_embeds, add_time_ids,
+                               guidance_scale)
+
+        text_kv = text_kv_cache(self.unet) if isinstance(cache_cfg, TextKVCacheConfig) else contextlib.nullcontext()
+        with text_kv:
+            return denoise_loop(forward, scheduler, latents, state, state.timesteps, cache_cfg)
+
+    @torch.no_grad()
+    def _denoise_with_callback(self, prompt_embeds, add_text_embeds, add_time_ids, latents, guidance_scale,
+                               num_inference_steps, callback):
+        """The loop that fires `callback_on_step_end` after each scheduler
+        step. It reads the conditioning and the guidance scale from the
+        callback's tensors every step and detects CFG by batch shape, so
+        `SDXLCFGCutoffCallback` halves the batch mid-loop."""
+        state, latents, timesteps_device = self._start(latents, num_inference_steps)
+
+        def forward_cb(latents, i, t, cb):
+            return self._noise(state, t, timesteps_device[i], latents, cb["prompt_embeds"], cb["add_text_embeds"],
+                               cb["add_time_ids"], cb["guidance_scale"])
+
+        cb_tensors = {"prompt_embeds": prompt_embeds, "add_text_embeds": add_text_embeds,
+                      "add_time_ids": add_time_ids, "guidance_scale": guidance_scale}
+        return denoise_loop_with_callback(forward_cb, self.scheduler, latents, state, state.timesteps, self, callback,
+                                          cb_tensors, cache_cfg=self._cache_config)
+
+    def _denoise_faster_cache(self, prompt_embeds, add_text_embeds, add_time_ids, latents, guidance_scale, state,
+                              timesteps_device, cache_cfg):
+        """CFG-cached denoise (FasterCache): the uncond branch runs only on
+        the steps the schedule keeps; in between, the UNet runs at batch 1
+        and the uncond output is rebuilt from the cached frequency deltas."""
+        scheduler = self.scheduler
+        skip, lf_w, hf_w = faster_cache_schedules(state.timesteps.numpy(), cache_cfg)
+        b = latents.shape[0]
+        cond = (prompt_embeds[b:], add_text_embeds[b:], add_time_ids[b:])
+        fc = init_faster_cache_state(latents.shape, latents.device)
+        for i, t in enumerate(state.timesteps):
+            def full():
+                li = scheduler.scale_model_input(state, torch.cat([latents, latents], dim=0), t)
+                return self._unet(li, timesteps_device[i], prompt_embeds, add_text_embeds, add_time_ids)
+
+            def cond_only():
+                return self._unet(scheduler.scale_model_input(state, latents, t), timesteps_device[i], *cond)
+
+            noise_pred, fc = faster_cache_apply(fc, bool(skip[i]), float(lf_w[i]), float(hf_w[i]), full, cond_only)
+            uncond, text = noise_pred.chunk(2, dim=0)
+            noise_pred = uncond + guidance_scale * (text - uncond)
             latents = scheduler.step(state, noise_pred, t, latents).prev_sample
         return latents
 
@@ -146,10 +221,16 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
         target_size: Optional[Tuple[int, int]] = None,
         output_type: str = "pil",
         return_dict: bool = True,
+        callback_on_step_end=None,
+        callback_on_step_end_tensor_inputs: Optional[List[str]] = None,
     ):
         """Text-to-image. `output_type`: "pil" (uint8 quantized on the device,
         then PIL), "np" (float32 NHWC in [0, 1]), "latent" (the final
-        latents)."""
+        latents). `callback_on_step_end(pipe, i, t, callback_kwargs)` is
+        shown "latents", "prompt_embeds", "add_text_embeds", "add_time_ids"
+        and "guidance_scale" after each step, and may return replacements
+        (`callback_on_step_end_tensor_inputs` is accepted for API parity;
+        every tensor is shown). It cannot be combined with a cache."""
         height = height or self.default_sample_size * self.vae_scale_factor
         width = width or self.default_sample_size * self.vae_scale_factor
         original_size = original_size or (height, width)
@@ -182,8 +263,12 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
             latents = torch.randn(shape, generator=generator, device=noise_device, dtype=torch.float32)
         latents = latents.to(device=device, dtype=dtype)
 
-        latents = self._denoise(prompt_embeds, add_text_embeds, add_time_ids, latents, guidance_scale,
-                                num_inference_steps, do_cfg)
+        if callback_on_step_end is not None:
+            latents = self._denoise_with_callback(prompt_embeds, add_text_embeds, add_time_ids, latents,
+                                                  guidance_scale, num_inference_steps, callback_on_step_end)
+        else:
+            latents = self._denoise(prompt_embeds, add_text_embeds, add_time_ids, latents, guidance_scale,
+                                    num_inference_steps, do_cfg)
 
         if output_type == "latent":
             image = latents

@@ -13,7 +13,9 @@ warms it up with one 1024 px request, then:
   * traces one such forward with `torch.profiler` (CPU + CUDA activities)
     and sums device time by kernel group;
   * times one request (SDXL: 30 steps, CFG 5.0; Flux: 28 steps, guidance
-    3.5) on the host clock, profiler off, then traces one.
+    3.5) on the host clock, profiler off, then traces one; for SDXL, the
+    same again for the headline request of bench.py, with the TaylorSeer
+    cache of `chip_smoke.sdxl_cached_requests` (5 of 30 steps call the UNet).
 
 With `--model train` it builds the SDXL UNet of `train_text_to_image` (f32
 weights, AdamW, bf16 autocast), runs two warm-up steps on one synthetic
@@ -234,14 +236,29 @@ def main() -> int:
         run_request()
     request_summary = device_summary(prof, request_ms)
 
+    summaries = {"forward": forward_summary, "request": request_summary}
+    if args.model == "sdxl":
+        _, config, _ = chip_smoke.sdxl_cached_requests()[0]
+        pipe.enable_cache(config)
+        run_request()  # warm-up
+        t0 = time.perf_counter()
+        run_request()
+        cached_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=activities) as prof:
+            run_request()
+        summaries["request_taylorseer"] = device_summary(prof, cached_ms)
+
     chip_smoke.log(f"[profile] {smi}")
     print_summary(f"{forward_title}, 1024 px, bf16", forward_summary)
     print_summary(f"one request ({request['num_inference_steps']} steps, guidance {request['guidance_scale']}, "
                   f"1024 px)", request_summary)
+    if "request_taylorseer" in summaries:
+        print_summary("one request with TaylorSeer (cache_interval 10, disable_cache_before_step 2, max_order 2)",
+                      summaries["request_taylorseer"])
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / f"profile_{args.model}.json").write_text(json.dumps(
-            {"card": smi, "model": args.model, "forward": forward_summary, "request": request_summary}, indent=2))
+            {"card": smi, "model": args.model, **summaries}, indent=2))
     return 0
 
 
