@@ -2,15 +2,22 @@
 H100: builds the port's hand-written kernels from this checkout, holds each
 against its plain PyTorch version at the shapes of the main paths, checks the
 port on the card against the port on the CPU at a small size (every cache
-config and callback included), then drives the main paths through their
-public entry points, with random weights made from a seed on the card:
+config and callback, and the image-conditioned pipelines, included), then
+drives the main paths through their public entry points, with random weights
+made from a seed on the card:
 
   * SDXL: one full-width 1024 px text-to-image request (30 Euler steps, CFG
     5.0, bf16) through `StableDiffusionXLPipeline.__call__` (kernels K1, K4);
     then, on the same pipeline, the headline request of bench.py with
     `TaylorSeerCacheConfig(cache_interval=10, disable_cache_before_step=2,
     max_order=2)` (5 of 30 steps call the UNet), one with FasterCache, one
-    with MagCache (flat ratios) and one with `SDXLCFGCutoffCallback`;
+    with MagCache (flat ratios) and one with `SDXLCFGCutoffCallback`; then,
+    on its components, one img2img request (strength 0.3), one inpaint
+    request with a full-width 9-channel inpainting UNet (strength 0.99) and
+    one ControlNet request with the full-width SDXL ControlNet
+    (diffusers/controlnet-canny-sdxl-1.0's widths), which is first written
+    with `save_pretrained` and read back onto the card by `from_pretrained`
+    (bit-equal), on synthetic numpy inputs (an image, a mask, an edge map);
   * Flux.1-dev: one full-width 1024 px request (28 flow-match steps, guidance
     3.5; the transformer w8a8, T5-XXL, CLIP-L and the VAE bf16) through
     `FluxPipeline.__call__` (kernels K5 with its row quantization, K1 at
@@ -186,6 +193,13 @@ GN_VAE_DECODE = (
     ((1, 512, 512, 512), True, 1), ((1, 256, 512, 512), True, 5), ((1, 256, 1024, 1024), True, 1),
     ((1, 128, 1024, 1024), True, 6),
 )
+# ... and in one VAE encode of a 1024 px image (22 launches; img2img runs one, inpaint with the 9-channel
+# UNet two); two of its shapes, (1,128,512,512) and (1,256,256,256), are not in the decoder's table
+GN_VAE_ENCODE = (
+    ((1, 128, 1024, 1024), True, 4), ((1, 128, 512, 512), True, 1), ((1, 256, 512, 512), True, 3),
+    ((1, 256, 256, 256), True, 1), ((1, 512, 256, 256), True, 3), ((1, 512, 128, 128), True, 9),
+    ((1, 512, 16384), False, 1),
+)
 TRAIN_STEPS = 5
 
 # small SDXL-shaped pipeline for the card-vs-CPU check: head_dim 64 so the
@@ -214,6 +228,30 @@ SMALL_FLUX_VAE = dict(block_out_channels=(32, 64), down_block_types=("DownEncode
                       up_block_types=("UpDecoderBlock2D",) * 2, latent_channels=16, layers_per_block=1,
                       sample_size=64, scaling_factor=0.3611, shift_factor=0.1159, use_quant_conv=False,
                       use_post_quant_conv=False)
+
+# phase 10b: the image-conditioned pipelines on phase 7's small components, with SMALL_UNET at 9 input
+# channels and a small SDXL ControlNet (SMALL_UNET's down half; its conditioning embedding halves the
+# image, as SMALL_VAE does)
+SMALL_CONTROLNET = dict(
+    in_channels=4, down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"), block_out_channels=(64, 128),
+    layers_per_block=1, attention_head_dim=(1, 2), transformer_layers_per_block=(1, 2), use_linear_projection=True,
+    cross_attention_dim=64, addition_embed_type="text_time", addition_time_embed_dim=8,
+    projection_class_embeddings_input_dim=32 + 6 * 8, conditioning_embedding_out_channels=(16, 32),
+)
+# diffusers/controlnet-canny-sdxl-1.0 config.json (SDXL base's widths down to the mid block)
+SDXL_CONTROLNET = dict(
+    in_channels=4, down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+    block_out_channels=(320, 640, 1280), layers_per_block=2, transformer_layers_per_block=(1, 2, 10),
+    attention_head_dim=(5, 10, 20), cross_attention_dim=2048, use_linear_projection=True,
+    addition_embed_type="text_time", addition_time_embed_dim=256, projection_class_embeddings_input_dim=2816,
+    conditioning_embedding_out_channels=(16, 32, 96, 256),
+)
+# phase 12b's full-width requests: img2img at strength 0.3 (9 of 30 steps), the 9-channel inpainting UNet
+# of diffusers/stable-diffusion-xl-1.0-inpainting-0.1 (SDXL base's widths, in_channels=9) at 0.99 (29 of
+# 30), ControlNet at conditioning scale 0.5 (30 steps); CFG 5.0 for all
+IMG2IMG_STRENGTH = 0.3
+INPAINT_STRENGTH = 0.99
+CONTROLNET_SCALE = 0.5
 
 # phase 10: the caches and callbacks on the small pipelines, at a step count where every schedule skips
 SMALL_CACHE_STEPS = 8
@@ -676,7 +714,8 @@ def check_kernels():
 
 def check_group_norm():
     """Phase 4: K4 against its plain version at every GroupNorm of an SDXL
-    UNet call and a VAE decode (`GN_UNET_CALL`, `GN_VAE_DECODE`), bf16: one
+    UNet call and a VAE decode (`GN_UNET_CALL`, `GN_VAE_DECODE`), and at the
+    VAE encoder's two shapes that the decoder lacks (`GN_VAE_ENCODE`), bf16: one
     bf16 ulp at the reference's largest magnitude against the f32 plain
     version and the bf16 one, two launches bit-identical, one launch a call.
     Controls (one case of each regime): a launch that leaves one partial out
@@ -704,7 +743,9 @@ def check_group_norm():
     cases, max_err, controlled = [], 0.0, set()
     sums = {where: {k: 0.0 for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")}
             for where in ("UNet", "VAE")}
-    for where, table in (("UNet", GN_UNET_CALL), ("VAE", GN_VAE_DECODE)):
+    decoder_shapes = {(shape, silu) for shape, silu, _ in GN_VAE_DECODE}
+    encode_only = tuple(row for row in GN_VAE_ENCODE if row[:2] not in decoder_shapes)
+    for where, table in (("UNet", GN_UNET_CALL), ("VAE", GN_VAE_DECODE), ("VAE encode", encode_only)):
         for shape, silu, launches in table:
             c = shape[1]
             x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.5).to(torch.bfloat16)
@@ -768,11 +809,11 @@ def check_group_norm():
             if not ok:
                 raise AssertionError(f"group_norm disagrees with its plain version (or a control passed) on {name}: "
                                      f"{row}")
-            for key in sums[where]:
+            for key in sums.get(where, ()):
                 sums[where][key] += launches * row[key]
             del x, out
             torch.cuda.empty_cache()
-    assert sum(n for _, _, n in GN_UNET_CALL) == 46 and controlled == {False, True}
+    assert sum(n for _, _, n in GN_UNET_CALL) == 46 and controlled == {False, True} and len(encode_only) == 2
     RESULTS["group_norm_cases"] = cases
     RESULTS["group_norm_per_unet_call"], RESULTS["group_norm_per_vae_decode"] = sums["UNet"], sums["VAE"]
     for where, what in (("UNet", "one SDXL UNet call at b=2 (46 launches)"), ("VAE", "one VAE decode (30 launches)")):
@@ -1374,6 +1415,102 @@ def check_small_caches(device: str = "cuda"):
     RESULTS["small_caches"] = results
 
 
+def synthetic_inputs(size: int):
+    """(image, mask, edge map) at size x size as float32 numpy in [0, 1], for
+    want of PIL and OpenCV on the card's machine: an HWC image (a seeded
+    gradient plus noise), an HW mask (a centred square covering 25%) and an
+    HWC binary edge map (a few lines)."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32) / (size - 1)
+    image = 0.8 * np.stack([x, y, (x + y) / 2], axis=-1) + 0.2 * rng.rand(size, size, 3).astype(np.float32)
+    mask = np.zeros((size, size), np.float32)
+    mask[size // 4:size - size // 4, size // 4:size - size // 4] = 1.0
+    edges = np.zeros((size, size, 3), np.float32)
+    for k in range(1, 6):
+        edges[k * size // 6, :] = edges[:, k * size // 6] = 1.0
+    edges[np.arange(size), np.arange(size)] = 1.0
+    return image, mask, edges
+
+
+def _image_pipelines(base, unet9, controlnet, device):
+    """The img2img, inpaint (9- and 4-channel) and ControlNet pipelines on the
+    components of `base`, by label."""
+    from diffusers_tpu_torch.pipelines.controlnet import StableDiffusionXLControlNetPipeline
+    from diffusers_tpu_torch.pipelines.stable_diffusion_xl import (
+        StableDiffusionXLImg2ImgPipeline,
+        StableDiffusionXLInpaintPipeline,
+    )
+
+    parts = dict(base.components, device=device)
+    return {"img2img": StableDiffusionXLImg2ImgPipeline(**parts),
+            "inpaint_9ch": StableDiffusionXLInpaintPipeline(**dict(parts, unet=unet9)),
+            "inpaint_4ch": StableDiffusionXLInpaintPipeline(**parts),
+            "controlnet": StableDiffusionXLControlNetPipeline(**parts, controlnet=controlnet)}
+
+
+def check_small_image_pipelines(device: str = "cuda"):
+    """Phase 10b: the image-conditioned pipelines on the card (bf16, kernels)
+    against the CPU (f32, plain versions; held to JAX by
+    tests/test_torch_pipeline_img2img.py and tests/test_torch_controlnet.py)
+    on phase 7's small components, with SMALL_UNET at 9 input channels and
+    SMALL_CONTROLNET: img2img, inpaint with each UNet, ControlNet plain and
+    in guess mode, and text-to-image on the Karras ladder, each 4 steps,
+    with phase 7's tolerance. Both sides draw from one CPU generator seeded
+    alike, so they get the same noise and the same encoder samples."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.models.controlnets import ControlNetModel
+    from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
+    from diffusers_tpu_torch.schedulers import EulerDiscreteScheduler
+
+    sides = []
+    for dev in ("cpu", device):
+        base = _build_pipeline(SMALL_UNET, SMALL_VAE, SMALL_CLIP, SMALL_CLIP, "cpu", torch.float32)
+        torch.manual_seed(SEED + 1)
+        unet9 = UNet2DConditionModel(**dict(SMALL_UNET, in_channels=9))
+        controlnet = ControlNetModel(**SMALL_CONTROLNET)
+        pipes = _image_pipelines(base, unet9, controlnet, "cpu")
+        pipes["karras"] = type(base)(**dict(base.components, device="cpu",
+                                            scheduler=EulerDiscreteScheduler(**EULER, use_karras_sigmas=True)))
+        for pipe in pipes.values():
+            pipe.to(device=torch.device(dev), dtype=torch.float32 if not sides else torch.bfloat16)
+        sides.append(pipes)
+    image, mask, edges = synthetic_inputs(32)
+    latents = torch.from_numpy(np.random.RandomState(SEED).randn(1, 4, 16, 16).astype(np.float32))
+    cases = (
+        ("img2img", "img2img", dict(image=image, strength=0.6)),
+        ("inpaint_9ch", "inpaint_9ch", dict(image=image, mask_image=mask)),
+        ("inpaint_4ch", "inpaint_4ch", dict(image=image, mask_image=mask, strength=0.8)),
+        ("controlnet", "controlnet", dict(image=edges, latents=latents, controlnet_conditioning_scale=0.5)),
+        ("controlnet_guess_mode", "controlnet", dict(image=edges, latents=latents, controlnet_conditioning_scale=0.5,
+                                                     guess_mode=True)),
+        ("karras_text_to_image", "karras", dict(latents=latents)),
+    )
+    tol = 0.05  # phase 7: bf16 on the card against f32 on the CPU, on the [0, 1] image
+    results = {}
+    for label, pipe_name, kwargs in cases:
+        images = []
+        for pipes in sides:  # the CPU, then the card
+            reset_launches()
+            images.append(pipes[pipe_name](PROMPTS[0], num_inference_steps=4, guidance_scale=GUIDANCE,
+                                                generator=torch.Generator().manual_seed(SEED), output_type="np",
+                                                **kwargs).images)
+            launches = read_launches()
+        ref, out = images
+        err = float(np.abs(out - ref).max())
+        results[label] = {"max_abs_err": err, "mean_abs_err": float(np.abs(out - ref).mean()), "tol": tol,
+                          "launches": launches}
+        log(f"[ref-image] small {label}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol {tol}); launches {launches}")
+        if not (out.shape == ref.shape == (1, 32, 32, 3) and np.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"small {label}: the card disagrees with the CPU")
+        if min(launches["flash_attention_fwd"], launches["group_norm"]) <= 0:
+            raise AssertionError(f"small {label} on the card missed a kernel: {launches}")
+    RESULTS["small_image_pipelines"] = results
+
+
 def run_training(smi: str):
     """Phase 15: the full-width training path: `train_text_to_image.main`
     with the SDXL UNet at its published widths, 1024 px, batch 1, EMA off,
@@ -1764,6 +1901,159 @@ def run_sdxl_cached(smi: str, pipe, dense_image):
     return paths
 
 
+def _load_controlnet_from_pretrained(smi: str):
+    """The full-width ControlNet (SDXL_CONTROLNET, random weights from SEED,
+    bf16) written with the port's `save_pretrained` in 1 GB shards to a
+    temporary directory, loaded back onto the card with `from_pretrained`,
+    held bit-equal to what was saved; the directory is deleted. Returns the
+    loaded model."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from diffusers_tpu_torch.models.controlnets import ControlNetModel
+
+    torch.manual_seed(SEED + 2)
+    with torch.device("cuda"):
+        saved = ControlNetModel(**SDXL_CONTROLNET).to(torch.bfloat16)
+    n_params = sum(p.numel() for p in saved.parameters())
+    nbytes = sum(t.numel() * t.element_size() for t in saved.state_dict().values())
+    directory = tempfile.mkdtemp(prefix="chip_smoke_controlnet_")
+    try:
+        t0 = time.perf_counter()
+        saved.save_pretrained(directory, max_shard_size="1GB")
+        save_s = time.perf_counter() - t0
+        shards = sorted(f for f in Path(directory).iterdir() if f.suffix == ".safetensors")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = ControlNetModel.from_pretrained(directory, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(directory)
+    expected, got = saved.state_dict(), loaded.state_dict()
+    equal = list(expected) == list(got) and all(
+        got[k].dtype == v.dtype and got[k].device.type == "cuda" and torch.equal(got[k], v) for k, v in expected.items())
+    del saved, expected
+    torch.cuda.empty_cache()
+    RESULTS["controlnet_from_pretrained"] = {
+        "card": smi, "parameters": n_params, "bytes": nbytes, "shards": len(shards), "save_seconds": save_s,
+        "load_seconds": load_s, "load_gb_per_s": nbytes / load_s / 1e9, "bit_equal": equal}
+    log(f"[controlnet] {smi}: ControlNet at full width, {n_params / 1e9:.3f} B parameters, {nbytes / 1e9:.2f} GB "
+        f"bf16 in {len(shards)} shards: save {save_s:.1f} s, from_pretrained onto the card {load_s:.2f} s "
+        f"({nbytes / load_s / 1e9:.2f} GB/s), bit-equal {equal}")
+    if not equal:
+        raise AssertionError("from_pretrained did not give back the saved ControlNet bit for bit")
+    return loaded
+
+
+def run_image_pipelines(smi: str, pipe):
+    """Phase 12b: the full-width image-conditioned requests on phase 11's
+    pipeline (its CLIP towers, VAE and UNet, seed and prompt), 1024 px, 30
+    steps, CFG 5.0, inputs from `synthetic_inputs`: img2img at strength 0.3
+    (9 UNet calls), inpaint with a full-width 9-channel inpainting UNet at
+    0.99 (29 calls; the UNet is built, used and freed here), and ControlNet
+    at scale 0.5 with the full-width ControlNet loaded by `from_pretrained`
+    (30 ControlNet + UNet calls). Each step's launches are held to the
+    counts of the models' modules (`StepLaunches`): a UNet call, plus the
+    ControlNet's, plus at the first step each VAE encode the request makes;
+    the decode after the last step. Returns the launches by path."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
+    from diffusers_tpu_torch.schedulers import EulerDiscreteScheduler
+
+    image, mask, edges = synthetic_inputs(RESOLUTION)
+    unet_call, encode, decode = (_module_launches(m) for m in (pipe.unet, pipe.vae.encoder, pipe.vae.decoder))
+    base = dict(pipe.components, scheduler=EulerDiscreteScheduler(**EULER))
+    out, paths = {}, {}
+
+    def request(label, pipeline, steps, per_step, first_extra, n_params, **kwargs):
+        latents_seen = []
+        hook = pipeline.vae.post_quant_conv.register_forward_pre_hook(lambda m, a: latents_seen.append(a[0]))
+        reset_launches()
+        try:
+            with StepLaunches(pipeline, pipeline.unet) as counted:
+                images, seconds, peak_gb = _request_seconds(lambda: pipeline(
+                    PROMPTS[0], num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+                    generator=torch.Generator(device="cuda").manual_seed(SEED), output_type="pil", **kwargs).images)
+        finally:
+            hook.remove()
+        launches = read_launches()
+        result = np.asarray(images[0])
+        if result.shape != (RESOLUTION, RESOLUTION, 3) or result.dtype != np.uint8:
+            raise AssertionError(f"{label}: bad uint8 image {result.shape} {result.dtype}")
+        if not bool(torch.isfinite(latents_seen[-1]).all()):
+            raise AssertionError(f"{label}: non-finite latents")
+        expected = [dict(per_step) for _ in range(steps)]
+        for k, v in first_extra.items():
+            expected[0][k] += v
+        _check_steps(label, counted.per_step, expected, counted.after, decode)
+        log(f"[image] {smi}: {label}: {seconds:.3f} s/image, peak memory {peak_gb:.1f} GB, {steps} steps, "
+            f"{n_params / 1e9:.3f} B parameters; launches {launches} (K1 {per_step['flash_attention_fwd']} and "
+            f"K4 {per_step['group_norm']} a step, as the modules count)")
+        out[label] = {"card": smi, "seconds_per_request": seconds, "peak_memory_gb": peak_gb, "steps": steps,
+                      "parameters": n_params, "launches": launches, "launches_per_step": counted.per_step}
+        paths[label] = launches
+
+    def n_params(*models):
+        return sum(p.numel() for m in models for p in m.parameters())
+
+    sdxl_params = n_params(pipe.unet, pipe.vae, pipe.text_encoder, pipe.text_encoder_2)
+    from diffusers_tpu_torch.pipelines.controlnet import StableDiffusionXLControlNetPipeline
+    from diffusers_tpu_torch.pipelines.stable_diffusion_xl import (
+        StableDiffusionXLImg2ImgPipeline,
+        StableDiffusionXLInpaintPipeline,
+    )
+
+    steps = int(STEPS * IMG2IMG_STRENGTH)
+    request("sdxl_img2img", StableDiffusionXLImg2ImgPipeline(**base), steps, unet_call, encode, sdxl_params,
+            image=image, strength=IMG2IMG_STRENGTH)
+
+    torch.manual_seed(SEED + 1)
+    with torch.device("cuda"):
+        unet9 = UNet2DConditionModel(**dict(SDXL_UNET, in_channels=9)).to(torch.bfloat16)
+    inpaint = StableDiffusionXLInpaintPipeline(**dict(base, unet=unet9))
+    two_encodes = {k: 2 * v for k, v in encode.items()}
+    request("sdxl_inpaint_9ch", inpaint, int(STEPS * INPAINT_STRENGTH), _module_launches(unet9), two_encodes,
+            n_params(unet9, pipe.vae, pipe.text_encoder, pipe.text_encoder_2), image=image, mask_image=mask,
+            strength=INPAINT_STRENGTH)
+    del inpaint, unet9
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    controlnet = _load_controlnet_from_pretrained(smi)
+    cn_call = _module_launches(controlnet)
+    if (cn_call["flash_attention_fwd"], cn_call["group_norm"]) != (68, 21):
+        raise AssertionError(f"the full-width ControlNet's modules count {cn_call}, expected K1 68 and K4 21")
+    per_step = {k: unet_call[k] + cn_call[k] for k in unet_call}
+    request("sdxl_controlnet", StableDiffusionXLControlNetPipeline(**base, controlnet=controlnet), STEPS, per_step,
+            {}, sdxl_params + n_params(controlnet), image=edges, controlnet_conditioning_scale=CONTROLNET_SCALE)
+    # the ControlNet's forward at b=2 (one CFG step) beside the UNet's, as phase 11 times the UNet's
+    dev = torch.device("cuda")
+    sample = torch.randn(2, 4, 128, 128, device=dev, dtype=torch.bfloat16)
+    ehs = torch.randn(2, 77, 2048, device=dev, dtype=torch.bfloat16)
+    cond = {"text_embeds": torch.randn(2, 1280, device=dev, dtype=torch.bfloat16),
+            "time_ids": torch.tensor([[1024, 1024, 0, 0, 1024, 1024]] * 2, device=dev, dtype=torch.float32)}
+    edge_batch = torch.rand(2, 3, RESOLUTION, RESOLUTION, device=dev, dtype=torch.bfloat16)
+    t = torch.tensor(500.0, device=dev)
+    with torch.no_grad():
+        cn_ms = time_ms(lambda: controlnet(sample, t, ehs, edge_batch, added_cond_kwargs=cond), iters=10)
+        unet_ms = time_ms(lambda: pipe.unet(sample, t, ehs, added_cond_kwargs=cond), iters=10)
+    out["sdxl_controlnet"].update(controlnet_forward_b2_ms=cn_ms, unet_forward_b2_ms=unet_ms)
+    log(f"[image] {smi}: ControlNet forward b=2 {cn_ms:.2f} ms, UNet forward b=2 {unet_ms:.2f} ms (CUDA events, "
+        f"10 calls each): {cn_ms / unet_ms:.2f} of a UNet call")
+    del controlnet
+    gc.collect()
+    torch.cuda.empty_cache()
+    RESULTS["image_pipelines"] = out
+    return paths
+
+
 def run_flux_cached(smi: str, pipe, dense_image):
     """Phase 14: the full-width Flux.1-dev requests through each cache, on
     phase 13's pipeline: TaylorSeer (the headline's schedule), FirstBlockCache
@@ -1881,8 +2171,10 @@ def main() -> int:
     check_small_flux_reference()
     check_small_training()
     check_small_caches()
+    check_small_image_pipelines()
     sdxl, pipe, image = run_pipeline(smi)
     paths = {"sdxl": sdxl, **run_sdxl_cached(smi, pipe, image)}
+    paths.update(run_image_pipelines(smi, pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()

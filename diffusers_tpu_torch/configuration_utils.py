@@ -3,7 +3,8 @@
 Port of `diffusers_tpu/configuration_utils.py` (the reference's `ConfigMixin`
 and `register_to_config`). Stdlib only; the on-disk format is the same
 (`config.json` / `scheduler_config.json` with `_class_name` and
-`_diffusers_version`). Loading from the hub waits with `from_pretrained`.
+`_diffusers_version`). `from_pretrained` reads a local directory (and its
+`subfolder`); the hub waits.
 
 For `nn.Module` subclasses, `nn.Module.__getattr__` comes first in the MRO, so
 config values are read through ``self.config.<name>``.
@@ -243,3 +244,10 @@ class ConfigMixin:
         if return_unused_kwargs:
             return model, unused_kwargs
         return model
+
+    @classmethod
+    def from_pretrained(cls, pretrained_model_name_or_path: Union[str, os.PathLike], subfolder: Optional[str] = None,
+                        **kwargs):
+        """Config-only components (schedulers): read the config from a local
+        directory (and its `subfolder`), then build."""
+        return cls.from_config(cls.load_config(pretrained_model_name_or_path, subfolder=subfolder), **kwargs)

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ...ops.module import Conv2d, GroupNorm
-from ...utils import BaseOutput
+from ...utils import BaseOutput, torch_utils
 from ..resnet import Downsample2D, ResnetBlock2D, Upsample2D
 from ..unets.unet_2d_blocks import UNetMidBlock2D
 
@@ -240,10 +240,7 @@ class DiagonalGaussianDistribution:
     def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.deterministic:
             return self.mean
-        noise = torch.randn(
-            self.mean.shape, generator=generator, dtype=torch.float32,
-            device=generator.device if generator is not None else self.mean.device,
-        ).to(device=self.mean.device, dtype=self.mean.dtype)
+        noise = torch_utils.randn_tensor(self.mean.shape, generator, self.mean.device).to(self.mean.dtype)
         return self.mean + self.std * noise
 
     def mode(self) -> torch.Tensor:

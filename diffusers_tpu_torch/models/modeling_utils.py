@@ -1,24 +1,30 @@
-"""Model base class, checkpoint writing, and the weight bridge from the JAX
-package.
+"""Model base class, checkpoint reading and writing, and the weight bridge
+from the JAX package.
 
 Port of the layout rules of `diffusers_tpu/models/modeling_utils.py`
 (`_leaf_convert_to_torch` `:86-99`), extended to the w8a8 Linear branch
-(int8 ``kernel`` + ``kernel_scale_w8a8``) and RMSNorm's ``scale``, and of
+(int8 ``kernel`` + ``kernel_scale_w8a8``) and RMSNorm's ``scale``, of
 `ModelMixin.save_pretrained` (`:526-560`): `config.json` plus
-`diffusion_pytorch_model.safetensors`, sharded with its `.index.json` above
-`max_shard_size`. The safetensors files are written with the standard library
-and numpy (an 8-byte little-endian header length, the JSON header, then each
-tensor's raw little-endian bytes), one tensor at a time, so a model on the
-card never has a second full copy on the host. `from_pretrained` waits until
-checkpoint files are in the repository.
-"""
+`diffusion_pytorch_model[.variant].safetensors`, sharded with its
+`.index.json` above `max_shard_size`, and of `ModelMixin.from_pretrained`
+(`:439`) with its streaming load (`stream_load_params` `:289`) over the same
+files (`_resolve_weight_files` `:174`).
 
+The safetensors files are read and written with the standard library (an
+8-byte little-endian header length, the JSON header, then each tensor's raw
+little-endian bytes), one tensor at a time: the `safetensors` package is not
+needed. A model on the card never has a second full copy on the host, going
+out or coming in: `from_pretrained` builds the model on the meta device and
+places each tensor, read through a memory map, on its device in its dtype
+before it reads the next.
+"""
 from __future__ import annotations
 
 import json
+import mmap
 import os
 import struct
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,6 +40,7 @@ _SAFETENSORS_DTYPES = {
     torch.int64: "I64", torch.int32: "I32", torch.int16: "I16", torch.int8: "I8", torch.uint8: "U8",
     torch.bool: "BOOL",
 }
+_SAFETENSORS_TORCH_DTYPES = {name: dtype for dtype, name in _SAFETENSORS_DTYPES.items()}
 
 
 def _parse_size(size: Union[int, str]) -> int:
@@ -69,6 +76,67 @@ def save_safetensors(tensors: Dict[str, torch.Tensor], path: Union[str, os.PathL
             f.write(t.numpy().tobytes())  # native order: little-endian on x86-64 and aarch64, as the format needs
 
 
+def _variant_name(name: str, variant: Optional[str]) -> str:
+    """`diffusion_pytorch_model.safetensors` -> `diffusion_pytorch_model.fp16.safetensors`
+    for variant "fp16" (the index: `...model.fp16.safetensors.index.json`)."""
+    if not variant:
+        return name
+    stem, ext = SAFETENSORS_WEIGHTS_NAME.rsplit(".", 1)
+    return name.replace(SAFETENSORS_WEIGHTS_NAME, f"{stem}.{variant}.{ext}")
+
+
+def _resolve_weight_files(model_path: str, variant: Optional[str] = None) -> List[str]:
+    """The safetensors files of a checkpoint directory: the shards its index
+    names, else the single file (JAX `_resolve_weight_files`)."""
+    index_path = os.path.join(model_path, _variant_name(SAFETENSORS_INDEX_NAME, variant))
+    single_path = os.path.join(model_path, _variant_name(SAFETENSORS_WEIGHTS_NAME, variant))
+    if os.path.isfile(index_path):
+        with open(index_path) as f:
+            index = json.load(f)
+        return [os.path.join(model_path, s) for s in sorted(set(index["weight_map"].values()))]
+    if os.path.isfile(single_path):
+        return [single_path]
+    raise EnvironmentError(f"No safetensors weights found under {model_path} (looked for {single_path} and "
+                           f"{index_path})")
+
+
+def read_safetensors_header(path: Union[str, os.PathLike]) -> Tuple[int, Dict[str, Any]]:
+    """(offset of the data, header without `__metadata__`) of one safetensors file."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    return 8 + n, header
+
+
+def iter_safetensors(path: Union[str, os.PathLike]) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, CPU tensor) for each tensor of one safetensors file, in file
+    order. Each tensor is a view of a copy-on-write memory map of the file,
+    which lives as long as a view of it does: the caller copies a tensor
+    where it must live and drops the view, so the host holds about one
+    tensor at a time."""
+    start, header = read_safetensors_header(path)
+    with open(path, "rb") as f:
+        mapped = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    for name, info in sorted(header.items(), key=lambda kv: kv[1]["data_offsets"][0]):
+        if info["dtype"] not in _SAFETENSORS_TORCH_DTYPES:
+            raise ValueError(f"{path}: tensor {name} has dtype {info['dtype']}, which this reader does not know")
+        dtype = _SAFETENSORS_TORCH_DTYPES[info["dtype"]]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        begin, end = info["data_offsets"]
+        count = (end - begin) // itemsize
+        if count != int(np.prod(info["shape"], dtype=np.int64)) or start + end > len(mapped):
+            raise ValueError(f"{path}: tensor {name} has {end - begin} bytes at {begin}, not its shape "
+                             f"{info['shape']}, or lies beyond the file")
+        if count == 0:
+            t = torch.empty(info["shape"], dtype=dtype)
+        elif (start + begin) % itemsize:  # unaligned (files of other writers): copy the bytes
+            t = torch.frombuffer(bytearray(mapped[start + begin:start + end]), dtype=dtype)
+        else:
+            t = torch.frombuffer(mapped, dtype=dtype, count=count, offset=start + begin)
+        yield name, t.reshape(info["shape"])
+
+
 class ModelMixin(nn.Module):
     """Base of every port model: an `nn.Module` with a `config.json` config."""
 
@@ -82,19 +150,22 @@ class ModelMixin(nn.Module):
     def dtype(self) -> torch.dtype:
         return next(self.parameters()).dtype
 
-    def save_pretrained(self, save_directory: Union[str, os.PathLike], max_shard_size: Union[int, str] = "10GB"):
+    def save_pretrained(self, save_directory: Union[str, os.PathLike], max_shard_size: Union[int, str] = "10GB",
+                        variant: Optional[str] = None):
         """Write `config.json` and the state dict as safetensors; above
         `max_shard_size` it shards, in key order, into
         `diffusion_pytorch_model-0000i-of-0000n.safetensors` plus
         `diffusion_pytorch_model.safetensors.index.json`, as the JAX
-        package does."""
+        package does. `variant` ("fp16", say) goes into the file names:
+        `diffusion_pytorch_model.fp16.safetensors`."""
         os.makedirs(save_directory, exist_ok=True)
         self.save_config(save_directory)
         state_dict = self.state_dict()
         max_bytes = _parse_size(max_shard_size)
         total = sum(_nbytes(t) for t in state_dict.values())
+        weights_name = _variant_name(SAFETENSORS_WEIGHTS_NAME, variant)
         if total <= max_bytes:
-            save_safetensors(state_dict, os.path.join(save_directory, SAFETENSORS_WEIGHTS_NAME))
+            save_safetensors(state_dict, os.path.join(save_directory, weights_name))
             return
 
         # greedy split preserving key order
@@ -108,15 +179,85 @@ class ModelMixin(nn.Module):
         if current:
             shards.append(current)
 
-        stem, ext = SAFETENSORS_WEIGHTS_NAME.rsplit(".", 1)
+        stem, ext = weights_name.rsplit(".", 1)
         weight_map = {}
         for i, shard in enumerate(shards, start=1):
             fname = f"{stem}-{i:05d}-of-{len(shards):05d}.{ext}"
             save_safetensors(shard, os.path.join(save_directory, fname))
             weight_map.update(dict.fromkeys(shard, fname))
         index = {"metadata": {"total_size": total}, "weight_map": weight_map}
-        with open(os.path.join(save_directory, SAFETENSORS_INDEX_NAME), "w") as f:
+        with open(os.path.join(save_directory, _variant_name(SAFETENSORS_INDEX_NAME, variant)), "w") as f:
             json.dump(index, f, indent=2, sort_keys=True)
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        pretrained_model_name_or_path: Union[str, os.PathLike],
+        subfolder: Optional[str] = None,
+        dtype: Optional[torch.dtype] = None,
+        variant: Optional[str] = None,
+        device: Union[str, torch.device] = "cuda",
+        quantization_config=None,
+        gguf_file: Optional[str] = None,
+        mesh=None,
+        **kwargs,
+    ):
+        """Build the model from `config.json` of a local diffusers-format
+        directory (and its `subfolder`) and load its safetensors weights
+        (sharded through the index, or one file; `variant` selects
+        `diffusion_pytorch_model.<variant>.safetensors`) onto `device`,
+        floating tensors cast to `dtype` when it is given. `kwargs` override
+        config values.
+
+        The model is built on the meta device, and each tensor is copied to
+        `device` before the next is read, so the host never holds more than
+        about one tensor. Keys must match the model's state dict exactly, in
+        both directions, with their shapes, and no parameter or buffer may
+        be left on the meta device. The default device is the card: without
+        one this raises; pass ``device="cpu"`` to load on the CPU."""
+        for name, value, item in (("quantization_config", quantization_config, "load-time w8a8 quantization"),
+                                  ("gguf_file", gguf_file, "GGUF checkpoints"), ("mesh", mesh, "mesh placement")):
+            if value is not None:
+                raise NotImplementedError(f"{cls.__name__}.from_pretrained: `{name}` ({item}) is not ported yet "
+                                          "(ROADMAP A3, the load-time arguments of from_pretrained)")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"{cls.__name__}.from_pretrained: no CUDA device is visible; pass device='cpu' to "
+                               "load on the CPU")
+        root = str(pretrained_model_name_or_path)
+        model_path = os.path.join(root, subfolder) if subfolder else root
+        if not os.path.isdir(model_path):
+            raise EnvironmentError(f"{model_path} is not a local directory (loading from the hub is not ported)")
+
+        with torch.device("meta"):
+            model = cls.from_config(cls.load_config(model_path), **kwargs)
+        expected = model.state_dict(keep_vars=True)
+        files = _resolve_weight_files(model_path, variant)
+        keys = [k for f in files for k in read_safetensors_header(f)[1]]
+        missing, unexpected = sorted(expected.keys() - set(keys)), sorted(set(keys) - expected.keys())
+        if missing or unexpected or len(keys) != len(set(keys)):
+            raise ValueError(f"{cls.__name__}.from_pretrained({model_path}): the checkpoint does not match the "
+                             f"model: missing {missing[:5]} ({len(missing)}), unexpected {unexpected[:5]} "
+                             f"({len(unexpected)}), {len(keys) - len(set(keys))} keys in more than one file")
+        for f in files:
+            for key, tensor in iter_safetensors(f):
+                target = expected[key]
+                if tensor.shape != target.shape:
+                    raise ValueError(f"{cls.__name__}.from_pretrained: {key} has shape {tuple(tensor.shape)} in "
+                                     f"{f}, the model expects {tuple(target.shape)}")
+                cast = dtype if dtype is not None and tensor.is_floating_point() else tensor.dtype
+                value = tensor.to(device=device, dtype=cast, copy=True)
+                module_name, _, leaf = key.rpartition(".")
+                module = model.get_submodule(module_name)
+                if leaf in module._parameters:
+                    module._parameters[leaf] = nn.Parameter(value, requires_grad=target.requires_grad)
+                else:
+                    module._buffers[leaf] = value
+        left = [n for n, t in (*model.named_parameters(), *model.named_buffers()) if t.is_meta]
+        if left:
+            raise ValueError(f"{cls.__name__}.from_pretrained: {len(left)} tensors were left on the meta device "
+                             f"(not in the checkpoint's state dict), e.g. {left[:5]}")
+        return model.eval()
 
 
 def _leaf_to_torch(module: nn.Module, name: str, array: np.ndarray):

@@ -4,8 +4,10 @@ Port of `diffusers_tpu/models/unets/unet_2d_condition.py`: text
 cross-attention, the SDXL ``text_time`` additional embedding (and the
 ``text`` one), LCM's `time_cond_proj_dim`. Public I/O is NCHW, as in JAX
 (`:325`, `:497`); inside, the port stays NCHW (the JAX model goes NHWC).
-Class embeddings, `encoder_hid_proj` variants, ControlNet/T2I-Adapter
-residuals and FreeU wait.
+ControlNet residuals (`down_block_additional_residuals`,
+`mid_block_additional_residual`, JAX `:452-472`) arrive NCHW and are added
+as they are. Class embeddings, `encoder_hid_proj` variants, T2I-Adapter's
+`down_intrablock_additional_residuals` and FreeU wait.
 """
 
 from __future__ import annotations
@@ -232,6 +234,8 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
         attention_mask: Optional[torch.Tensor] = None,
         added_cond_kwargs: Optional[Dict[str, torch.Tensor]] = None,
         encoder_attention_mask: Optional[torch.Tensor] = None,
+        down_block_additional_residuals: Optional[Tuple[torch.Tensor, ...]] = None,
+        mid_block_additional_residual: Optional[torch.Tensor] = None,
         return_dict: bool = True,
     ) -> Union[UNet2DConditionOutput, tuple]:
         if self.config.center_input_sample:
@@ -282,6 +286,12 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
                 sample, res_samples = block(sample, temb=emb)
             down_block_res_samples += res_samples
 
+        # 3.5 ControlNet residuals
+        if down_block_additional_residuals is not None:
+            down_block_res_samples = tuple(
+                r + cr for r, cr in zip(down_block_res_samples, down_block_additional_residuals)
+            )
+
         # 4. mid
         if self.mid_block is not None:
             sample = self.mid_block(
@@ -291,6 +301,8 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
                 attention_mask=attention_mask,
                 encoder_attention_mask=encoder_attention_mask,
             )
+        if mid_block_additional_residual is not None:
+            sample = sample + mid_block_additional_residual
 
         # 5. up
         for block in self.up_blocks:

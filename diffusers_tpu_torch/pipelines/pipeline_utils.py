@@ -8,8 +8,9 @@ card unless its caller asks for the CPU: every pipeline takes ``device``
 (default ``"cuda"``) and moves its components there when it is built, and it
 raises there if no CUDA device is visible. `enable_cache` /
 `disable_cache` store a config from `diffusers_tpu_torch.hooks` that the
-pipeline's denoise loop honours. `from_pretrained`, `save_pretrained` and
-LoRA wait.
+pipeline's denoise loop honours. A model that `ModelMixin.from_pretrained`
+loaded drops in as a component. The pipeline-level `from_pretrained`
+(`model_index.json`), `save_pretrained` and LoRA wait.
 """
 
 from __future__ import annotations
@@ -43,6 +44,14 @@ class DiffusionPipeline(ConfigMixin):
                 register_dict = {name: (library, cls_name)}
             self.register_to_config(**register_dict)
             setattr(self, name, module)
+
+    @classmethod
+    def from_pretrained(cls, *args, **kwargs):
+        raise NotImplementedError(
+            f"{cls.__name__}.from_pretrained (model_index.json) is not ported yet: it waits for the CLIP and T5 "
+            "tokenizers (ROADMAP A3). Load each model with ModelMixin.from_pretrained and build the pipeline "
+            "from them."
+        )
 
     @property
     def components(self) -> Dict[str, Any]:

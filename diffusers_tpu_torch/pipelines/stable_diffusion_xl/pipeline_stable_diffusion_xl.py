@@ -16,8 +16,11 @@ TextKV, as the JAX pipeline does: a step that a cache skips makes no UNet
 call (FasterCache's skipped steps call it at batch 1, cond only), and
 TextKV computes each cross-attention's K/V of the prompt embeddings once a
 request. `callback_on_step_end` runs the loop of
-`hooks.generic_cache.denoise_loop_with_callback`. IP-Adapter and
-`from_pretrained` wait.
+`hooks.generic_cache.denoise_loop_with_callback`. The prompt conditioning,
+the VAE encode of an input image and the decode are shared with the
+image-conditioned pipelines (img2img, inpaint, ControlNet). Every random draw
+goes through `utils.torch_utils.randn_tensor`. IP-Adapter and the
+pipeline-level `from_pretrained` wait.
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ import torch
 
 from ...hooks.faster_cache import FasterCacheConfig, faster_cache_apply, faster_cache_schedules, init_faster_cache_state
 from ...hooks.generic_cache import TextKVCacheConfig, denoise_loop, denoise_loop_with_callback, text_kv_cache
-from ...image_processor import numpy_to_pil, postprocess_np, postprocess_uint8
-from ...utils import BaseOutput
+from ...image_processor import VaeImageProcessor
+from ...utils import BaseOutput, torch_utils
 from ..pipeline_utils import DiffusionPipeline
 
 
@@ -71,6 +74,7 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
         self.register_to_config(force_zeros_for_empty_prompt=force_zeros_for_empty_prompt)
         self.vae_scale_factor = 2 ** (len(self.vae.config.block_out_channels) - 1) if vae is not None else 8
         self.default_sample_size = self.unet.config.sample_size
+        self.image_processor = VaeImageProcessor(vae_scale_factor=self.vae_scale_factor)
         self._place(device)
 
     # ---------------------------------------------------------------- text
@@ -115,6 +119,52 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
     def _get_add_time_ids(original_size, crops_coords_top_left, target_size, batch: int, device) -> torch.Tensor:
         add_time_ids = list(original_size + crops_coords_top_left + target_size)
         return torch.tensor([add_time_ids] * batch, dtype=torch.float32, device=device)
+
+    def _conditioning(self, prompt, prompt_2, negative_prompt, negative_prompt_2, do_cfg, original_size,
+                      crops_coords_top_left, target_size, num_images_per_prompt: int = 1):
+        """(prompt_embeds, add_text_embeds, add_time_ids, batch_size): with
+        CFG each holds the negative batch first, then the positive one."""
+        prompt_embeds, negative_embeds, pooled, negative_pooled = self.encode_prompt(
+            prompt, prompt_2, negative_prompt, negative_prompt_2, do_cfg
+        )
+        batch_size = prompt_embeds.shape[0] * num_images_per_prompt
+        add_time_ids = self._get_add_time_ids(original_size, crops_coords_top_left, target_size, batch_size,
+                                              self.unet.device)
+        if num_images_per_prompt != 1:
+            prompt_embeds = prompt_embeds.repeat_interleave(num_images_per_prompt, dim=0)
+            pooled = pooled.repeat_interleave(num_images_per_prompt, dim=0)
+            if do_cfg:
+                negative_embeds = negative_embeds.repeat_interleave(num_images_per_prompt, dim=0)
+                negative_pooled = negative_pooled.repeat_interleave(num_images_per_prompt, dim=0)
+        if not do_cfg:
+            return prompt_embeds, pooled, add_time_ids, batch_size
+        return (torch.cat([negative_embeds, prompt_embeds], dim=0), torch.cat([negative_pooled, pooled], dim=0),
+                torch.cat([add_time_ids, add_time_ids], dim=0), batch_size)
+
+    def _preprocess(self, image) -> torch.Tensor:
+        """An input image (PIL, array or tensor; see `VaeImageProcessor.preprocess`)
+        -> NCHW in [-1, 1] on the VAE's device, in its dtype."""
+        return torch.from_numpy(self.image_processor.preprocess(image)).to(device=self.vae.device,
+                                                                          dtype=self.vae.dtype)
+
+    def _encode(self, image: torch.Tensor, generator: Optional[torch.Generator] = None,
+                sample: bool = True) -> torch.Tensor:
+        """VAE latents of a preprocessed image, scaled: the posterior's sample
+        (drawn from `generator`), or its mode."""
+        posterior = self.vae.encode(image)
+        latents = posterior.sample(generator) if sample else posterior.mode()
+        return latents * self.vae.config.scaling_factor
+
+    def _output(self, latents: torch.Tensor, output_type: str, return_dict: bool):
+        """The final latents ("latent"), or their decode postprocessed ("np", "pil")."""
+        if output_type == "latent":
+            image = latents
+        else:
+            decoded = self.vae.decode(latents.to(self.vae.dtype) / self.vae.config.scaling_factor).sample
+            image = self.image_processor.postprocess(decoded, output_type)
+        if not return_dict:
+            return (image,)
+        return StableDiffusionXLPipelineOutput(images=image)
 
     # ------------------------------------------------------------- denoise
     def _unet(self, latent_input, t, prompt_embeds, text_embeds, time_ids):
@@ -238,29 +288,13 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
         device, dtype = self.unet.device, self.unet.dtype
 
         do_cfg = guidance_scale > 1.0
-        prompt_embeds, negative_embeds, pooled, negative_pooled = self.encode_prompt(
-            prompt, prompt_2, negative_prompt, negative_prompt_2, do_cfg
+        prompt_embeds, add_text_embeds, add_time_ids, batch_size = self._conditioning(
+            prompt, prompt_2, negative_prompt, negative_prompt_2, do_cfg, original_size, crops_coords_top_left,
+            target_size, num_images_per_prompt,
         )
-        batch_size = prompt_embeds.shape[0] * num_images_per_prompt
-        add_time_ids = self._get_add_time_ids(original_size, crops_coords_top_left, target_size, batch_size, device)
         shape = (batch_size, self.unet.config.in_channels, height // self.vae_scale_factor, width // self.vae_scale_factor)
-
-        # CFG batch assembly: [negative, positive]
-        if num_images_per_prompt != 1:
-            prompt_embeds = prompt_embeds.repeat_interleave(num_images_per_prompt, dim=0)
-            pooled = pooled.repeat_interleave(num_images_per_prompt, dim=0)
-            if do_cfg:
-                negative_embeds = negative_embeds.repeat_interleave(num_images_per_prompt, dim=0)
-                negative_pooled = negative_pooled.repeat_interleave(num_images_per_prompt, dim=0)
-        if do_cfg:
-            prompt_embeds = torch.cat([negative_embeds, prompt_embeds], dim=0)
-            add_text_embeds = torch.cat([negative_pooled, pooled], dim=0)
-            add_time_ids = torch.cat([add_time_ids, add_time_ids], dim=0)
-        else:
-            add_text_embeds = pooled
         if latents is None:
-            noise_device = generator.device if generator is not None else device
-            latents = torch.randn(shape, generator=generator, device=noise_device, dtype=torch.float32)
+            latents = torch_utils.randn_tensor(shape, generator, device)
         latents = latents.to(device=device, dtype=dtype)
 
         if callback_on_step_end is not None:
@@ -269,18 +303,4 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
         else:
             latents = self._denoise(prompt_embeds, add_text_embeds, add_time_ids, latents, guidance_scale,
                                     num_inference_steps, do_cfg)
-
-        if output_type == "latent":
-            image = latents
-        else:
-            decoded = self.vae.decode(latents.to(self.vae.dtype) / self.vae.config.scaling_factor).sample
-            if output_type == "np":
-                image = postprocess_np(decoded)
-            elif output_type == "pil":
-                image = numpy_to_pil(postprocess_uint8(decoded))
-            else:
-                raise ValueError(f"unsupported output_type {output_type!r}; choose 'pil', 'np' or 'latent'")
-
-        if not return_dict:
-            return (image,)
-        return StableDiffusionXLPipelineOutput(images=image)
+        return self._output(latents, output_type, return_dict)

@@ -2,10 +2,14 @@
 
 Port of `diffusers_tpu/schedulers/scheduling_euler_discrete.py`. The sigma and
 timestep ladders are built in numpy at `set_timesteps` time exactly as in JAX
-(`:90-176`) and kept on the host as float32 tensors; `step` gathers its
-scalars on the host and does the sample arithmetic in torch, in float32, and
-casts `prev_sample` back to the model output's dtype (`:227`). The Karras /
-exponential / beta sigma ladders and `add_noise` wait.
+(`:90-176`), the Karras, exponential and beta ladders included, and kept on
+the host as float32 tensors; `step` and `add_noise` gather their sigmas on
+the host and do the sample arithmetic in torch. `step` computes in float32
+and casts `prev_sample` back to the model output's dtype (`:227`).
+
+With a ladder, the timesteps are fractional (`sigma_to_t`), and a timestep
+is found in the schedule by equality (`index_for_timestep`): pass the
+schedule's own float32 values back.
 """
 
 from __future__ import annotations
@@ -21,10 +25,12 @@ from ..utils import BaseOutput
 from .scheduling_utils import (
     KarrasDiffusionSchedulers,
     SchedulerMixin,
+    broadcast_to_left,
     index_for_timestep,
     make_beta_schedule,
     rescale_zero_terminal_snr,
 )
+from .sigma_utils import convert_to_beta, convert_to_exponential, convert_to_karras, sigma_to_t
 
 
 @dataclass
@@ -69,8 +75,6 @@ class EulerDiscreteScheduler(SchedulerMixin, ConfigMixin):
         rescale_betas_zero_snr: bool = False,
         final_sigmas_type: str = "zero",
     ):
-        if use_karras_sigmas or use_exponential_sigmas or use_beta_sigmas:
-            raise NotImplementedError("Karras/exponential/beta sigma ladders are not ported yet")
         betas = make_beta_schedule(beta_schedule, num_train_timesteps, beta_start, beta_end, trained_betas)
         if rescale_betas_zero_snr:
             betas = rescale_zero_terminal_snr(betas)
@@ -111,12 +115,20 @@ class EulerDiscreteScheduler(SchedulerMixin, ConfigMixin):
             raise ValueError(f"unsupported timestep_spacing {self.config.timestep_spacing}")
 
         sigmas_full = np.array(((1 - self.alphas_cumprod) / self.alphas_cumprod) ** 0.5)
+        log_sigmas = np.log(sigmas_full)
         if self.config.interpolation_type == "linear":
             sigmas = np.interp(timesteps, np.arange(0, len(sigmas_full)), sigmas_full)
         elif self.config.interpolation_type == "log_linear":
             sigmas = np.exp(np.linspace(np.log(sigmas_full[-1]), np.log(sigmas_full[0]), num_inference_steps + 1))
         else:
             raise ValueError(f"unsupported interpolation_type {self.config.interpolation_type}")
+
+        ladder = (convert_to_karras if self.config.use_karras_sigmas else
+                  convert_to_exponential if self.config.use_exponential_sigmas else
+                  convert_to_beta if self.config.use_beta_sigmas else None)
+        if ladder is not None:
+            sigmas = ladder(sigmas, num_inference_steps, self.config.sigma_min, self.config.sigma_max)
+            timesteps = np.array([sigma_to_t(s, log_sigmas) for s in sigmas])
 
         if self.config.final_sigmas_type == "sigma_min":
             sigma_last = float(((1 - self.alphas_cumprod[0]) / self.alphas_cumprod[0]) ** 0.5)
@@ -198,6 +210,16 @@ class EulerDiscreteScheduler(SchedulerMixin, ConfigMixin):
             pred_original_sample=pred_original_sample.to(model_output.dtype),
             state=state,
         )
+
+    def add_noise(self, state: EulerDiscreteSchedulerState, original_samples: torch.Tensor, noise: torch.Tensor,
+                  timesteps) -> torch.Tensor:
+        """`original_samples + noise * sigma(t)`, one t per batch row (or one
+        for all); each t is a value of the schedule, found by equality."""
+        ts = torch.as_tensor(timesteps, dtype=state.timesteps.dtype).reshape(-1)
+        sigma = state.sigmas[[index_for_timestep(state.timesteps, t) for t in ts]]
+        sigma = broadcast_to_left(sigma.to(device=original_samples.device, dtype=original_samples.dtype),
+                                  original_samples.ndim)
+        return original_samples + noise * sigma
 
     def __len__(self):
         return self.config.num_train_timesteps

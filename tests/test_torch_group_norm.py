@@ -3,9 +3,9 @@ bulk copies' alignment, and its partition and reduction order.
 
 K4 cannot run here, so what surrounds it is checked in Python:
 
-* `plan_group_norm` at every GroupNorm shape of an SDXL UNet call and a VAE
-  decode (`chip_smoke.GN_UNET_CALL`, `chip_smoke.GN_VAE_DECODE`, themselves
-  checked against the models), on a card of 132 SMs (H100 SXM) and of 114
+* `plan_group_norm` at every GroupNorm shape of an SDXL UNet call, a VAE
+  decode and a VAE encode (`chip_smoke.GN_UNET_CALL`, `GN_VAE_DECODE`,
+  `GN_VAE_ENCODE`, themselves checked against the models), on a card of 132 SMs (H100 SXM) and of 114
   (H100 PCIe): the regime, the cluster size, the shared memory, and that
   every bulk copy the kernel issues is 16-byte aligned in address and size.
 * The kernel's two reductions, emulated in f32 with numpy: the cluster
@@ -28,7 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
-from chip_smoke import GN_UNET_CALL, GN_VAE_DECODE
+from chip_smoke import GN_UNET_CALL, GN_VAE_DECODE, GN_VAE_ENCODE
 from diffusers_tpu.ops.pallas.group_norm import group_norm_silu_nhwc
 from diffusers_tpu_torch.ops.cuda.group_norm import (
     CLUSTER_CHUNK_BYTES,
@@ -48,7 +48,7 @@ from diffusers_tpu_torch.ops.cuda.group_norm import (
 
 torch.set_num_threads(1)
 
-_SHAPES = list(dict.fromkeys(shape for shape, _, _ in GN_UNET_CALL + GN_VAE_DECODE))
+_SHAPES = list(dict.fromkeys(shape for shape, _, _ in GN_UNET_CALL + GN_VAE_DECODE + GN_VAE_ENCODE))
 
 
 def _span(shape, groups=32):
@@ -130,10 +130,11 @@ def test_fast_divisor_is_exact():
 
 
 def test_group_norm_tables_match_the_models():
-    """`GN_UNET_CALL` and `GN_VAE_DECODE` (K4's shapes, SiLU flags and
-    launches, which `chip_smoke.py` and the card tests time and check) are
-    the GroupNorm calls of the SDXL UNet at 1024 px and b=2 and of the SDXL
-    VAE decoder to 1024 px, counted on the meta device."""
+    """`GN_UNET_CALL`, `GN_VAE_DECODE` and `GN_VAE_ENCODE` (K4's shapes,
+    SiLU flags and launches, which `chip_smoke.py` and the card tests time
+    and check) are the GroupNorm calls of the SDXL UNet at 1024 px and b=2
+    and of the SDXL VAE decoder to and encoder from 1024 px, counted on the
+    meta device."""
     from diffusers_tpu_torch.models.autoencoders.autoencoder_kl import AutoencoderKL
     from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
     from diffusers_tpu_torch.ops import module
@@ -160,8 +161,11 @@ def test_group_norm_tables_match_the_models():
                  added_cond_kwargs={"text_embeds": torch.zeros(2, 1280), "time_ids": torch.zeros(2, 6)})
             census(GN_UNET_CALL)
             del unet
-            AutoencoderKL(**chip_smoke.SDXL_VAE).decode(torch.zeros(1, 4, 128, 128))
+            vae = AutoencoderKL(**chip_smoke.SDXL_VAE)
+            vae.decode(torch.zeros(1, 4, 128, 128))
             census(GN_VAE_DECODE)
+            vae.encode(torch.zeros(1, 3, 1024, 1024))
+            census(GN_VAE_ENCODE)
     finally:
         module.group_norm = original
 

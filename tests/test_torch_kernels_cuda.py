@@ -24,6 +24,7 @@ from chip_smoke import (
     FLUX_W8A8_SHAPES,
     GN_UNET_CALL,
     GN_VAE_DECODE,
+    GN_VAE_ENCODE,
     W8A8_TILE_CASES,
     attention_bounds,
     attention_bwd_bounds,
@@ -202,13 +203,13 @@ def test_group_norm_kernel_matches_plain(cuda, shape, silu, dtype):
     assert float((out.float() - ref).abs().max()) <= ulp * max(1.0, float(ref.abs().max())) + 1e-5
 
 
-_GN_SHAPES = list(dict.fromkeys(shape for shape, _, _ in GN_UNET_CALL + GN_VAE_DECODE))
+_GN_SHAPES = list(dict.fromkeys(shape for shape, _, _ in GN_UNET_CALL + GN_VAE_DECODE + GN_VAE_ENCODE))
 
 
 @pytest.mark.parametrize("shape", _GN_SHAPES, ids=["x".join(map(str, s)) for s in _GN_SHAPES])
 @pytest.mark.parametrize("silu", [False, True])
 def test_group_norm_kernel_at_the_main_path_shapes(cuda, shape, silu):
-    """K4 at every GroupNorm shape of an SDXL UNet call and a VAE decode,
+    """K4 at every GroupNorm shape of an SDXL UNet call, a VAE decode and a VAE encode,
     bf16 (both regimes of `plan_group_norm`): within one bf16 ulp at the
     reference's largest magnitude of the f32 plain version, one launch a
     call, and two launches bit-identical."""

@@ -4,8 +4,11 @@ Both schedulers get the same config (the SDXL one of bench.py:118-121 by
 default: scaled_linear betas, leading spacing, steps_offset=1), the same
 initial sample and the same per-step model outputs (numpy, seeded); the test
 compares the timestep and sigma ladders, `init_noise_sigma`, the scaled model
-inputs and every step's sample. The ladders are the same numpy code, so they
-must agree exactly; the per-step float32 arithmetic agrees to `1e-6`.
+inputs and every step's sample. The ladders (the Karras, exponential and
+beta ones included, whose timesteps are fractional) are the same numpy code,
+so they must agree exactly; the per-step float32 arithmetic and `add_noise`
+agree to `1e-6` relative. Also here: `VaeImageProcessor.preprocess` against
+JAX's, on numpy and torch inputs, exactly.
 """
 
 import jax.numpy as jnp
@@ -32,8 +35,14 @@ STEPS = 30
         {"prediction_type": "v_prediction"},
         {"prediction_type": "sample", "final_sigmas_type": "sigma_min"},
         {"interpolation_type": "log_linear"},
+        {"use_karras_sigmas": True},
+        {"use_karras_sigmas": True, "sigma_min": 0.05, "sigma_max": 10.0, "timestep_spacing": "trailing",
+         "steps_offset": 0},
+        {"use_exponential_sigmas": True},
+        {"use_beta_sigmas": True},
     ],
-    ids=["sdxl-leading", "linspace", "trailing", "v-prediction", "sample-sigma-min", "log-linear"],
+    ids=["sdxl-leading", "linspace", "trailing", "v-prediction", "sample-sigma-min", "log-linear", "karras",
+         "karras-min-max-trailing", "exponential", "beta"],
 )
 def test_full_loop_matches_jax(overrides):
     cfg = dict(SDXL_EULER, **overrides)
@@ -59,6 +68,81 @@ def test_full_loop_matches_jax(overrides):
         np.testing.assert_allclose(tsample.numpy(), np.asarray(jsample), rtol=1e-6, atol=1e-6, err_msg=f"step {i}")
         np.testing.assert_allclose(tout.pred_original_sample.numpy(), np.asarray(jout.pred_original_sample),
                                    rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("ladder", [{}, {"use_karras_sigmas": True}, {"use_beta_sigmas": True}],
+                         ids=["default", "karras", "beta"])
+def test_add_noise_matches_jax(ladder):
+    """img2img's noising: one timestep for the batch, then one per row (the
+    schedule's own, fractional with a ladder), float32 and bf16 samples."""
+    cfg = dict(SDXL_EULER, **ladder)
+    jsched, tsched = JaxEuler(**cfg), EulerDiscreteScheduler(**cfg)
+    jstate, tstate = jsched.set_timesteps(STEPS), tsched.set_timesteps(STEPS)
+    rng = np.random.RandomState(3)
+    x, noise = rng.randn(2, 4, 8, 8).astype(np.float32), rng.randn(2, 4, 8, 8).astype(np.float32)
+    for idx in ([9], [0, 29]):
+        ref = jsched.add_noise(jstate, jnp.asarray(x), jnp.asarray(noise), jstate.timesteps[np.array(idx)])
+        out = tsched.add_noise(tstate, torch.from_numpy(x), torch.from_numpy(noise), tstate.timesteps[idx])
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+    out = tsched.add_noise(tstate, torch.from_numpy(x).bfloat16(), torch.from_numpy(noise).bfloat16(),
+                           tstate.timesteps[:1])
+    ref = jsched.add_noise(jstate, jnp.asarray(x, jnp.bfloat16), jnp.asarray(noise, jnp.bfloat16), jstate.timesteps[:1])
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.float().numpy(), np.asarray(ref, np.float32))
+
+
+@pytest.mark.parametrize("make", [
+    lambda rng: rng.rand(16, 24, 3).astype(np.float32),  # HWC in [0, 1]: normalized
+    lambda rng: rng.rand(2, 16, 24, 3).astype(np.float32),  # NHWC
+    lambda rng: rng.rand(1, 3, 16, 24).astype(np.float32) * 2 - 1,  # NCHW in [-1, 1]: kept
+    lambda rng: torch.from_numpy(rng.rand(1, 16, 24, 1).astype(np.float32)),  # a torch NHWC mask-like image
+], ids=["hwc", "nhwc", "nchw-signed", "torch-nhwc-1"])
+def test_vae_image_processor_preprocess_matches_jax(make):
+    from diffusers_tpu.image_processor import VaeImageProcessor as JaxVaeImageProcessor
+    from diffusers_tpu_torch.image_processor import VaeImageProcessor
+
+    image = make(np.random.RandomState(4))
+    ref = JaxVaeImageProcessor(vae_scale_factor=8).preprocess(np.asarray(image))
+    out = VaeImageProcessor(vae_scale_factor=8).preprocess(image)
+    assert out.dtype == np.float32 and out.shape == ref.shape
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_vae_image_processor_helpers():
+    from diffusers_tpu_torch.image_processor import VaeImageProcessor
+    from diffusers_tpu_torch.pipelines.inpaint_utils import as_mask_array, repeat_to_batch, resize_mask_nearest
+
+    proc = VaeImageProcessor(vae_scale_factor=8)
+    assert proc.get_default_height_width(np.zeros((1, 3, 70, 45))) == (64, 40)
+    img = np.arange(2 * 4 * 6 * 3, dtype=np.float32).reshape(2, 4, 6, 3)
+    np.testing.assert_array_equal(proc.resize(img, 2, 3), img[:, ::2][:, :, ::2])
+    np.testing.assert_array_equal(proc.binarize(np.array([0.2, 0.5, 0.9], np.float32)), [0, 0, 1])
+    np.testing.assert_array_equal(proc.binarize(torch.tensor([0.5, 0.51])).numpy(), [0, 1])
+    x = torch.tensor([[-1.0, 0.0, 1.0]])
+    np.testing.assert_array_equal(proc.denormalize(x).numpy(), [[0.0, 0.5, 1.0]])
+    mask = as_mask_array(np.array([[0.2, 0.7], [0.51, 0.5]], np.float32))
+    assert mask.shape == (1, 1, 2, 2) and mask.ravel().tolist() == [0, 1, 1, 0]
+    big = np.random.RandomState(5).rand(1, 1, 64, 48) > 0.5
+    np.testing.assert_array_equal(resize_mask_nearest(big, 8, 6), big[:, :, ::8, ::8])
+    assert repeat_to_batch(torch.zeros(1, 4), 3).shape == (3, 4)
+    with pytest.raises(ValueError, match="not a multiple"):
+        repeat_to_batch(np.zeros((2, 4)), 3)
+
+
+def test_binarize_of_a_pil_mask_matches_jax():
+    """Every 8-bit grey level: the port's one threshold (> 0.5) gives JAX's
+    PIL `binarize` (>= 0.5) exactly, and `as_mask_array` agrees with it."""
+    from PIL import Image
+
+    from diffusers_tpu.image_processor import VaeImageProcessor as JaxVaeImageProcessor
+    from diffusers_tpu_torch.image_processor import VaeImageProcessor
+    from diffusers_tpu_torch.pipelines.inpaint_utils import as_mask_array
+
+    mask = Image.fromarray(np.arange(256, dtype=np.uint8).reshape(16, 16), mode="L")
+    ref = np.asarray(JaxVaeImageProcessor(vae_scale_factor=8).binarize(mask))
+    out = np.asarray(VaeImageProcessor.binarize(mask))
+    np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(as_mask_array(mask)[0, 0] * 255, ref)
 
 
 def test_step_casts_prev_sample_to_the_model_dtype():
