@@ -2,7 +2,8 @@
 H100: builds the port's hand-written kernels from this checkout, holds each
 against its plain PyTorch version at the shapes of the main paths, checks the
 port on the card against the port on the CPU at a small size (every cache
-config and callback, and the image-conditioned pipelines, included), then
+config and callback, the image-conditioned pipelines and the SD3 pipelines
+included), then
 drives the main paths through their public entry points, with random weights
 made from a seed on the card:
 
@@ -23,6 +24,15 @@ made from a seed on the card:
     `FluxPipeline.__call__` (kernels K5 with its row quantization, K1 at
     head_dim 128, K4); then one request each with TaylorSeer,
     FirstBlockCache, Pyramid Attention Broadcast and MagCache;
+  * SD3.5 Medium: its published widths (24 layers, 13 dual-attention, 24 x
+    64 heads; CLIP-L, bigG, T5-XXL; the 16-channel VAE) served by the
+    port's HTTP server (`diffusers_tpu_torch.serving.server`, seed 0) at its
+    defaults (1024 px, 28 flow-match steps, CFG 7.0): one request, then two
+    that coalesce into one batch of 2 (kernels K1 at head_dim 64 over the
+    ragged 4429-token joint stream and the 4096-token attn2, K4); the PNGs
+    read back with the port's decoder, the first equal to a direct pipeline
+    call from the same seed; then one TaylorSeer and one FirstBlockCache
+    request on the pipeline;
   * training: `train_text_to_image.main` on the SDXL UNet at its published
     widths, 1024 px, batch 1, TRAIN_STEPS steps (f32 weights and AdamW, bf16
     autocast; kernels K1 forward, K2 and K3 backward, K4), then a sharded
@@ -260,6 +270,27 @@ SMALL_FBC_THRESHOLD = 0.5
 # each), then one VAE decode (30 K4)
 SDXL_HEADLINE_LAUNCHES = dict(flash_attention_fwd=140 * 5, flash_attention_bwd_dkdv=0, flash_attention_bwd_dq=0,
                               group_norm=46 * 5 + 30, w8a8_matmul=0, w8a8_quantize_rows=0)
+
+# stabilityai/stable-diffusion-3.5-medium: transformer/config.json (24 layers, the first 13 dual-attention,
+# 24 x 64 heads, qk RMSNorm, pos_embed_max_size 384), the text encoders chip_smoke builds for SDXL and Flux
+# (CLIP-L and OpenCLIP-bigG with their projections, T5-XXL at 256 tokens), the 16-channel VAE of its
+# vae/config.json (no quant convs), flow-match Euler with shift 3.0; 1024 px, 28 steps, CFG 7.0 (the
+# server's defaults, examples/server/server.py:165-166)
+SD35_MEDIUM = dict(sample_size=128, patch_size=2, in_channels=16, num_layers=24, attention_head_dim=64,
+                   num_attention_heads=24, joint_attention_dim=4096, caption_projection_dim=1536,
+                   pooled_projection_dim=2048, out_channels=16, pos_embed_max_size=384,
+                   dual_attention_layers=tuple(range(13)), qk_norm="rms_norm")
+SD3_VAE = dict(FLUX_VAE, scaling_factor=1.5305, shift_factor=0.0609)
+SD3_STEPS = 28
+SD3_GUIDANCE = 7.0
+SD3_PROMPTS = ("a photo of a red fox in fresh snow", "a blue kite over the sea", "a green kite over a field")
+# phase 10c: small SD3.0- and SD3.5-style pipelines (head_dim 64: K1 in the transformer and the VAE mid-block)
+SMALL_SD3 = dict(sample_size=16, patch_size=2, in_channels=16, num_layers=3, attention_head_dim=64,
+                 num_attention_heads=2, joint_attention_dim=256, caption_projection_dim=128,
+                 pooled_projection_dim=128, out_channels=16, pos_embed_max_size=96)
+SMALL_SD35 = dict(SMALL_SD3, dual_attention_layers=(0, 1), qk_norm="rms_norm")
+SMALL_SD3_CLIP = dict(SMALL_FLUX_CLIP, projection_dim=64)
+SMALL_SD3_VAE = dict(SMALL_FLUX_VAE, scaling_factor=1.5305, shift_factor=0.0609, sample_size=32)
 
 RESULTS = {}
 
@@ -589,6 +620,12 @@ def check_kernels():
         ("self 1024 (UNet level 3)", (2, 1024, 20, 64), 1024, {}, True),
         ("cross 4096 x 77 (UNet level 2)", (2, 4096, 10, 64), 77, {}, True),
         ("cross 1024 x 77 (UNet level 3)", (2, 1024, 20, 64), 77, {}, True),
+        # SD3.5 Medium at 1024 px under CFG: the joint attention over 4096 image + 333 text tokens (a ragged
+        # last q tile: 4429 = 34 x 128 + 77), the dual blocks' attn2 over the image tokens, and the joint
+        # attention of a coalesced pair of requests
+        ("SD3 joint 4429 d=64", (2, 4429, 24, 64), 4429, {}, True),
+        ("SD3.5 attn2 4096 d=64", (2, 4096, 24, 64), 4096, {}, True),
+        ("SD3 joint 4429 d=64, coalesced pair", (4, 4429, 24, 64), 4429, {}, False),
         ("causal 300 (ragged)", (1, 300, 2, 64), 300, {"is_causal": True}, False),
         ("additive mask 200 x 333, d=128", (1, 200, 2, 128), 333, {"mask": True}, False),
         ("fp16 d=128 500 x 700", (1, 500, 3, 128), 700, {"dtype": torch.float16}, False),
@@ -654,6 +691,16 @@ def check_kernels():
                f"{row['library_device_ms']:.4f} ms; host {row['host_us_per_call']:.1f} us a call" if timed else ""))
         if not (used32 <= 1.0 and used16 <= 1.0 and same_pattern and torch.isfinite(out[fin]).all()):
             raise AssertionError(f"flash_attention_fwd disagrees with its plain version on {label}")
+        if sq % 128 and mask is None and not causal:
+            # the ragged last q tile: its rows past seq_q are neither stored nor let into the LSE
+            tail = sq // 128 * 128
+            logits = torch.einsum("bqhd,bkhd->bhqk", q[:, tail:].float(), k.float()) / math.sqrt(d)
+            tail_err = float((lse[:, :, tail:] - torch.logsumexp(logits, dim=-1)).abs().max())
+            row["ragged_tail_rows"], row["ragged_tail_lse_err"] = sq - tail, tail_err
+            log(f"[K1]   ragged last q tile ({sq - tail} of 128 rows): LSE err vs torch.logsumexp {tail_err:.3e} "
+                "(tol 1e-3)")
+            if not tail_err <= 1e-3:
+                raise AssertionError(f"flash_attention_fwd's LSE of the ragged last q tile is wrong on {label}")
         if timed:
             # controls: outputs of a partly wrong kernel must break the bound
             t0 = (sk // 2) // 64 * 64  # 64 keys from the middle
@@ -1779,6 +1826,7 @@ def _module_launches(module):
     quantization per w8a8 Linear."""
     from diffusers_tpu_torch.models.attention import Attention
     from diffusers_tpu_torch.models.transformers.transformer_flux import FluxAttention
+    from diffusers_tpu_torch.models.transformers.transformer_sd3 import JointAttention
     from diffusers_tpu_torch.ops.cuda.flash_attention import HEAD_DIMS
     from diffusers_tpu_torch.ops.module import GroupNorm, W8A8Linear
 
@@ -1786,8 +1834,8 @@ def _module_launches(module):
     w8a8 = sum(isinstance(m, W8A8Linear) for m in mods)
     return _launches(group_norm=sum(isinstance(m, GroupNorm) for m in mods), w8a8_matmul=w8a8,
                      w8a8_quantize_rows=w8a8,
-                     flash_attention_fwd=sum(isinstance(m, (Attention, FluxAttention)) and m.dim_head in HEAD_DIMS
-                                             for m in mods))
+                     flash_attention_fwd=sum(isinstance(m, (Attention, FluxAttention, JointAttention))
+                                             and m.dim_head in HEAD_DIMS for m in mods))
 
 
 def _request_seconds(call):
@@ -2152,6 +2200,380 @@ def run_flux_cached(smi: str, pipe, dense_image):
     return paths
 
 
+def _build_sd3_pipeline(transformer_cfg, vae_cfg, clip1_cfg, clip2_cfg, t5_cfg, device, dtype):
+    """A StableDiffusion3Pipeline with random weights from SEED. The
+    transformer and T5 are built on the meta device and allocated one block at
+    a time on `device` (random init in float32, cast to `dtype`), so no full
+    float copy of either exists."""
+    import torch
+
+    from diffusers_tpu_torch.models.autoencoders.autoencoder_kl import AutoencoderKL
+    from diffusers_tpu_torch.models.modeling_utils import materialize_
+    from diffusers_tpu_torch.models.text_encoders.clip import CLIPTextModelWithProjection
+    from diffusers_tpu_torch.models.text_encoders.t5 import T5EncoderModel
+    from diffusers_tpu_torch.models.transformers.transformer_sd3 import SD3Transformer2DModel
+    from diffusers_tpu_torch.pipelines.stable_diffusion_3 import StableDiffusion3Pipeline
+    from diffusers_tpu_torch.schedulers import FlowMatchEulerDiscreteScheduler
+
+    torch.manual_seed(SEED)
+    with torch.device("meta"):
+        transformer = SD3Transformer2DModel(**transformer_cfg)
+        t5 = T5EncoderModel(**t5_cfg)
+    materialize_(transformer, device, dtype)
+    materialize_(t5, device, dtype)
+    with torch.device(device):
+        vae = AutoencoderKL(**vae_cfg).to(dtype)
+        clip1 = CLIPTextModelWithProjection(**clip1_cfg).to(dtype)
+        clip2 = CLIPTextModelWithProjection(**clip2_cfg).to(dtype)
+    kwargs = {} if device == "cuda" else {"device": device}  # the pipeline's default device is the card
+    return StableDiffusion3Pipeline(
+        transformer=transformer, scheduler=FlowMatchEulerDiscreteScheduler(shift=3.0), vae=vae,
+        text_encoder=clip1, tokenizer=StandInTokenizer(), text_encoder_2=clip2, tokenizer_2=StandInTokenizer(),
+        text_encoder_3=t5, tokenizer_3=StandInTokenizer(**T5_TOKENIZER), **kwargs,
+    )
+
+
+def sd3_step_launches(config, pipe, timesteps, fbc_decisions=None):
+    """The launches expected at each denoise step of an SD3 request under
+    `config`, from the module counts and the cache's host-made schedule (for
+    FirstBlockCache, from the decisions the run recorded): a step that calls
+    the transformer whole launches its module count; a TaylorSeer or MagCache
+    step that predicts, nothing; a PAB broadcast step, no K1; a
+    FirstBlockCache step that skips, the first block's K1."""
+    import numpy as np
+
+    from diffusers_tpu_torch.hooks import (
+        FirstBlockCacheConfig,
+        MagCacheConfig,
+        PyramidAttentionBroadcastConfig,
+        TaylorSeerCacheConfig,
+        mag_cache_compute_mask,
+        pab_compute_mask,
+        taylorseer_compute_mask,
+    )
+
+    tr, n = pipe.transformer, len(timesteps)
+    full, none = _module_launches(tr), _launches()
+    if isinstance(config, TaylorSeerCacheConfig):
+        return [full if c else none for c in taylorseer_compute_mask(n, config)]
+    if isinstance(config, MagCacheConfig):
+        return [full if c else none for c in mag_cache_compute_mask(config)]
+    if isinstance(config, PyramidAttentionBroadcastConfig):
+        mask = pab_compute_mask(np.asarray(timesteps), config.spatial_attention_block_skip_range,
+                                config.spatial_attention_timestep_skip_range)
+        return [full if c else _launches() for c in mask]
+    if isinstance(config, FirstBlockCacheConfig):
+        return [full if c else _module_launches(tr.transformer_blocks[0]) for c in fbc_decisions]
+    return [full] * n  # dense, TextKV, FasterCache (one call a step at batch 2 or 1), a callback
+
+
+def small_sd3_cases():
+    """Phase 10c's cases: (pipeline, label, cache config or None, callback or
+    None, extra call arguments); the image-conditioned ones on the SD3.5-style
+    components."""
+    from diffusers_tpu_torch.hooks import (
+        FasterCacheConfig,
+        FirstBlockCacheConfig,
+        MagCacheConfig,
+        PyramidAttentionBroadcastConfig,
+        TaylorSeerCacheConfig,
+        TextKVCacheConfig,
+    )
+
+    n = SMALL_CACHE_STEPS
+    image, mask, _ = synthetic_inputs(32)
+    halve_latents = lambda p, i, t, kw: {"latents": kw["latents"] * 0.5} if i == 3 else {}  # noqa: E731
+    return (
+        ("sd3.0", "sd3.0 dense", None, None, {}),
+        ("sd3.5", "sd3.5 dense", None, None, {}),
+        ("sd3.5", "sd3.5 taylorseer", TaylorSeerCacheConfig(cache_interval=3, disable_cache_before_step=2, max_order=2),
+         None, {}),
+        ("sd3.5", "sd3.5 mag_cache", MagCacheConfig(threshold=0.5, max_skip_steps=1, retention_ratio=0.25,
+                                              num_inference_steps=n, mag_ratios=(1.0,) * n), None, {}),
+        ("sd3.5", "sd3.5 text_kv", TextKVCacheConfig(), None, {}),
+        ("sd3.5", "sd3.5 faster_cache", FasterCacheConfig(unconditional_batch_skip_range=3,
+                                                    unconditional_batch_timestep_skip_range=(-1, 1000)), None, {}),
+        ("sd3.5", "sd3.5 pab", PyramidAttentionBroadcastConfig(spatial_attention_timestep_skip_range=(100, 950)), None, {}),
+        ("sd3.5", "sd3.5 first_block_cache", FirstBlockCacheConfig(threshold=SMALL_FBC_THRESHOLD), None, {}),
+        ("sd3.5", "sd3.5 callback_latents", None, halve_latents, {}),
+        ("img2img", "sd3.5 img2img", None, None, dict(image=image, strength=0.6)),
+        ("inpaint", "sd3.5 inpaint", None, None, dict(image=image, mask_image=mask, strength=0.8)),
+    )
+
+
+def check_small_sd3(device: str = "cuda"):
+    """Phase 10c: small SD3.0- and SD3.5-style pipelines (SMALL_SD3,
+    SMALL_SD35) on the card (bf16, kernels) against the CPU (f32, plain
+    versions; held to JAX by tests/test_torch_pipeline_sd3.py), with phase
+    7's tolerance: text-to-image, every SD3 cache config and a step callback
+    at SMALL_CACHE_STEPS steps, img2img and inpaint. Both sides take the same
+    latents, or draw from one CPU generator seeded alike. On the card each
+    step's launches are held to the module counts under the cache's schedule
+    (`StepLaunches`; the VAE encode of img2img and inpaint booked to the first
+    step, the decode after the last)."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.pipelines.stable_diffusion_3 import (
+        StableDiffusion3Img2ImgPipeline,
+        StableDiffusion3InpaintPipeline,
+    )
+
+    sides = []
+    for dev in ("cpu", device):
+        pipes = {}
+        for name, cfg in (("sd3.0", SMALL_SD3), ("sd3.5", SMALL_SD35)):
+            pipes[name] = _build_sd3_pipeline(cfg, SMALL_SD3_VAE, SMALL_SD3_CLIP, SMALL_SD3_CLIP, SMALL_T5, "cpu",
+                                              torch.float32)
+        parts = dict(pipes["sd3.5"].components, device="cpu")
+        pipes["img2img"] = StableDiffusion3Img2ImgPipeline(**parts)
+        pipes["inpaint"] = StableDiffusion3InpaintPipeline(**parts)
+        for pipe in pipes.values():
+            pipe.to(device=torch.device(dev), dtype=torch.float32 if dev == "cpu" else torch.bfloat16)
+        sides.append(pipes)
+    latents = torch.from_numpy(np.random.RandomState(SEED).randn(1, 16, 16, 16).astype(np.float32))
+    tol = 0.05  # phase 7: bf16 on the card against f32 on the CPU, on the [0, 1] image
+    results = {}
+    for name, label, config, callback, extra in small_sd3_cases():
+        images, records = [], []
+        for pipes in sides:  # the CPU, then the card
+            pipe = pipes[name]
+            kwargs = dict(num_inference_steps=SMALL_CACHE_STEPS, guidance_scale=SD3_GUIDANCE, max_sequence_length=64,
+                          output_type="np", **extra)
+            if "image" in extra:
+                kwargs["generator"] = torch.Generator().manual_seed(SEED)
+            else:
+                kwargs.update(latents=latents, callback_on_step_end=callback)
+            if config is not None:
+                pipe.enable_cache(config)
+            reset_launches()
+            try:
+                with StepLaunches(pipe, pipe.transformer) as steps:
+                    images.append(pipe(PROMPTS[0], **kwargs).images)
+            finally:
+                pipe.disable_cache()
+            records.append(list(pipe.fbc_record["decisions"]) if "first_block" in label else None)
+        ref, out = images
+        err = float(np.abs(out - ref).max())
+        timesteps = steps.timesteps
+        expected = sd3_step_launches(config, pipe, timesteps, records[1])
+        if "image" in extra:  # the VAE encode runs before the first step
+            expected[0] = {k: v + _module_launches(pipe.vae.encoder)[k] for k, v in expected[0].items()}
+        row = {"max_abs_err": err, "tol": tol, "launches": read_launches(), "steps": len(timesteps),
+               "transformer_batches": steps.batches}
+        if records[0] is not None:
+            row["decisions"] = {"cpu": records[0], "card": records[1]}
+        results[label] = row
+        log(f"[ref-sd3] small {label}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol {tol}); launches "
+            f"{row['launches']}; transformer batches {steps.batches}"
+            + (f"; decisions CPU {records[0]}, card {records[1]}" if records[0] is not None else ""))
+        if not (out.shape == ref.shape == (1, 32, 32, 3) and np.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"small {label}: the card disagrees with the CPU")
+        _check_steps(f"small {label}", steps.per_step, expected, steps.after,
+                     _module_launches(pipe.vae.decoder))
+    RESULTS["small_sd3"] = results
+
+
+def _post(port: int, payload: dict, timeout: float = 600):
+    """(status, JSON) of a POST to the server's generation route."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/images/generations", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _fetch_png(port: int, url: str):
+    import urllib.request
+
+    from diffusers_tpu_torch.utils.png import decode_png
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/images/{url.rsplit('/', 1)[-1]}", timeout=60) as r:
+        return decode_png(r.read())
+
+
+def run_sd3_served(smi: str):
+    """Phase 16: SD3.5 Medium at its published widths (SD35_MEDIUM, SD3_VAE,
+    CLIP-L, bigG, T5-XXL; random bf16 weights from SEED made on the card),
+    served by the port's HTTP server (`serving.server.serve`, seed 0) on
+    127.0.0.1 at its defaults (1024 px, 28 steps, CFG 7.0): one request,
+    held at its first transformer call until two more same-shape requests
+    are queued, which then coalesce into one batch of 2. Each PNG is fetched
+    and decoded with the port's reader; the first must equal a direct
+    pipeline call from the same seed. Then, directly on the pipeline, one
+    TaylorSeer(10, 2, 2) and one FirstBlockCache request. Every step's
+    launches are held to the module counts (`StepLaunches`)."""
+    import logging
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.hooks import FirstBlockCacheConfig, TaylorSeerCacheConfig
+    from diffusers_tpu_torch.serving import server
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = _build_sd3_pipeline(SD35_MEDIUM, SD3_VAE, CLIP_L, CLIP_BIGG, T5_XXL, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tr = pipe.transformer
+    n_params = {name: sum(p.numel() for p in getattr(pipe, name).parameters())
+                for name in ("transformer", "text_encoder_3", "text_encoder", "text_encoder_2", "vae")}
+    log(f"[sd3] built SD3.5 Medium at full width on the card in {build_s:.1f} s: parameters "
+        f"{ {k: f'{v / 1e9:.3f} B' for k, v in n_params.items()} }, bf16, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB resident")
+    per_call, decode = _module_launches(tr), _module_launches(pipe.vae.decoder)
+    k1_call = per_call["flash_attention_fwd"]  # 24 joint attentions + 13 attn2
+
+    # --- served: one request, then two coalesced
+    records, image_dir = [], tempfile.mkdtemp(prefix="sd3_images_")
+    capture = logging.Handler()
+    capture.emit = lambda record: records.append(record.getMessage())
+    server.logger.addHandler(capture)
+    server.logger.setLevel(logging.INFO)
+    server.IMAGE_DIR = image_dir
+    httpd = server.serve(pipeline=pipe, host="127.0.0.1", port=0, seed=SEED)
+    worker, port = httpd.worker, httpd.server_address[1]
+    held = threading.Event()
+
+    def hold_first(mod, args):  # the first batch waits for the next two jobs, so they coalesce
+        hold.remove()
+        held.set()
+        deadline = time.monotonic() + 120
+        while worker.jobs.qsize() < 2:
+            if time.monotonic() > deadline:
+                raise RuntimeError("the second and third requests never reached the queue")
+            time.sleep(0.005)
+
+    hold = tr.register_forward_pre_hook(hold_first)
+    serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serving.start()
+    answers = {}
+
+    def post(i):  # the server's defaults, stated
+        answers[i] = _post(port, {"prompt": SD3_PROMPTS[i], "size": f"{RESOLUTION}x{RESOLUTION}", "steps": SD3_STEPS,
+                                  "guidance_scale": SD3_GUIDANCE})
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        clients = [threading.Thread(target=post, args=(0,))]
+        clients[0].start()
+        if not held.wait(timeout=600):
+            raise AssertionError("the server never started the first request")
+        clients += [threading.Thread(target=post, args=(i,)) for i in (1, 2)]
+        for c in clients[1:]:
+            c.start()
+        for c in clients:
+            c.join(timeout=900)
+        torch.cuda.synchronize()
+        served_launches = read_launches()
+        served_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if sorted(answers) != [0, 1, 2] or any(answers[i][0] != 200 for i in range(3)):
+            raise AssertionError(f"the served requests failed: {answers}")
+        pngs = [_fetch_png(port, answers[i][1]["data"][0]["url"]) for i in range(3)]
+    finally:
+        hold.remove()
+        server.logger.removeHandler(capture)
+        httpd.shutdown()
+        worker.stop()
+        httpd.server_close()
+        shutil.rmtree(image_dir, ignore_errors=True)
+    batches = [(int(m.split()[0].split("=")[1]), float(m.rsplit(" in ", 1)[1].rstrip("s")))
+               for m in records if m.startswith("batch=")]
+    if [b for b, _ in batches] != [1, 2]:
+        raise AssertionError(f"the server ran batches {batches}, expected [1, 2]")
+    if any(im.shape != (RESOLUTION, RESOLUTION, 3) or im.dtype != np.uint8 for im in pngs):
+        raise AssertionError(f"bad served images {[(im.shape, im.dtype) for im in pngs]}")
+    expected = {k: 2 * (SD3_STEPS * per_call[k] + decode[k]) for k in per_call}  # two pipeline calls
+    log(f"[sd3] {smi}: served 3 requests as batches {[b for b, _ in batches]} in {[s for _, s in batches]} s "
+        f"(s/image {batches[0][1]:.3f} alone, {batches[1][1] / 2:.3f} coalesced); peak memory {served_peak_gb:.1f} "
+        f"GB; launches {served_launches} (expected {expected})")
+    if served_launches != expected:
+        raise AssertionError(f"the served requests launched {served_launches}, expected {expected}")
+
+    # --- the first request again, directly, from the same seed; transformer time on CUDA events
+    spans = []
+
+    def on_start(mod, args):
+        spans.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
+        spans[-1][0].record()
+
+    pre = tr.register_forward_pre_hook(on_start)
+    post_hook = tr.register_forward_hook(lambda mod, args, out: spans[-1][1].record())
+    seen = {}
+    vae_in = pipe.vae.decoder.register_forward_pre_hook(lambda mod, args: seen.__setitem__("latents", args[0]))
+    reset_launches()
+    try:
+        with StepLaunches(pipe, tr) as steps:
+            direct, direct_s, direct_peak = _request_seconds(lambda: pipe(
+                SD3_PROMPTS[0], height=RESOLUTION, width=RESOLUTION, num_inference_steps=SD3_STEPS,
+                guidance_scale=SD3_GUIDANCE, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                output_type="np").images)
+    finally:
+        for h in (pre, post_hook, vae_in):
+            h.remove()
+    direct_launches = read_launches()
+    step_ms = [a.elapsed_time(b) for a, b in spans]
+    direct_image = server.to_uint8(direct[0])
+    diff = int(np.abs(direct_image.astype(np.int16) - pngs[0].astype(np.int16)).max())
+    if not bool(torch.isfinite(seen["latents"]).all()):
+        raise AssertionError("non-finite SD3 latents")
+    _check_steps("sd3 direct", steps.per_step, [per_call] * SD3_STEPS, steps.after, decode)
+    mean_ms = sum(step_ms) / len(step_ms)
+    log(f"[sd3] {smi}: direct request {direct_s:.3f} s/image, transformer {mean_ms:.2f} ms a call at b=2 (CUDA "
+        f"events; min {min(step_ms):.2f}, max {max(step_ms):.2f}), peak memory {direct_peak:.1f} GB; served image "
+        f"vs direct call from seed {SEED}: max |diff| {diff} (uint8 levels; limit 2); launches a request "
+        f"K1 {SD3_STEPS * k1_call} ({k1_call} a call), K4 {decode['group_norm']} (the decode)")
+    if diff > 2:  # the same latents through the same kernels: equal but for a rounding flip
+        raise AssertionError(f"the served image differs from a direct call from the same seed by {diff}")
+
+    # --- the cached requests, directly on the pipeline
+    cached = {}
+    for label, config in (("taylorseer", TaylorSeerCacheConfig(cache_interval=10, disable_cache_before_step=2,
+                                                               max_order=2)),
+                          ("first_block_cache", FirstBlockCacheConfig())):
+        pipe.enable_cache(config)
+        reset_launches()
+        try:
+            with StepLaunches(pipe, tr) as steps:
+                images, seconds, peak_gb = _request_seconds(lambda: pipe(
+                    SD3_PROMPTS[0], height=RESOLUTION, width=RESOLUTION, num_inference_steps=SD3_STEPS,
+                    guidance_scale=SD3_GUIDANCE, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                    output_type="np").images)
+        finally:
+            pipe.disable_cache()
+        decisions = list(pipe.fbc_record["decisions"]) if label == "first_block_cache" else None
+        expected_steps = sd3_step_launches(config, pipe, steps.timesteps, decisions)
+        _check_steps(f"sd3 {label}", steps.per_step, expected_steps, steps.after, decode)
+        calls = sum(decisions) if decisions is not None else len(steps.batches)  # whole-transformer calls
+        image = server.to_uint8(images[0])
+        cached[label] = {"seconds_per_request": seconds, "peak_memory_gb": peak_gb, "full_transformer_calls": calls,
+                         "transformer_calls": len(steps.batches), "launches": read_launches(),
+                         "cosine_to_dense": _image_cosine(image, direct_image), "fbc_decisions": decisions}
+        log(f"[sd3-cache] {smi}: {label}: {seconds:.3f} s/image, {calls} of {SD3_STEPS} steps ran the whole "
+            f"transformer ({len(steps.batches)} transformer calls), launches {cached[label]['launches']}, cosine to "
+            f"the dense image {cached[label]['cosine_to_dense']:.4f} (random weights)")
+    RESULTS["sd3"] = {
+        "card": smi, "steps": SD3_STEPS, "resolution": RESOLUTION, "guidance_scale": SD3_GUIDANCE,
+        "build_seconds": build_s, "parameters": n_params, "served_batches": batches,
+        "served_seconds_per_image": [batches[0][1], batches[1][1] / 2], "served_peak_memory_gb": served_peak_gb,
+        "served_launches": served_launches, "direct_seconds": direct_s, "direct_peak_memory_gb": direct_peak,
+        "direct_launches": direct_launches, "transformer_ms_per_call": step_ms, "transformer_ms_mean": mean_ms,
+        "served_vs_direct_max_diff": diff, "k1_per_call": k1_call, "cached": cached,
+    }
+    return {"sd3_served": served_launches, "sd3_direct": direct_launches,
+            **{f"sd3_{label}": row["launches"] for label, row in cached.items()}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", type=Path, default=None, help="directory for chip_smoke.json")
@@ -2172,6 +2594,7 @@ def main() -> int:
     check_small_training()
     check_small_caches()
     check_small_image_pipelines()
+    check_small_sd3()
     sdxl, pipe, image = run_pipeline(smi)
     paths = {"sdxl": sdxl, **run_sdxl_cached(smi, pipe, image)}
     paths.update(run_image_pipelines(smi, pipe))
@@ -2181,6 +2604,9 @@ def main() -> int:
     flux, pipe, image = run_flux_pipeline(smi)
     paths.update(flux=flux, **run_flux_cached(smi, pipe, image))
     del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(run_sd3_served(smi))
     gc.collect()
     torch.cuda.empty_cache()
     paths["training"] = run_training(smi)

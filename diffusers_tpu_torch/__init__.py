@@ -12,3 +12,17 @@ kernel: kernels compile on first launch on a CUDA tensor.
 """
 
 __version__ = "0.1.0"
+
+_EXPORTS = {
+    "StableDiffusion3Pipeline": "diffusers_tpu_torch.pipelines.stable_diffusion_3",
+}
+
+
+def __getattr__(name):
+    """The pipelines exported from the root load on first use, so importing
+    the package stays light."""
+    if name in _EXPORTS:
+        import importlib
+
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

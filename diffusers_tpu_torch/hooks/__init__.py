@@ -5,7 +5,15 @@ from .faster_cache import (
     faster_cache_schedules,
     init_faster_cache_state,
 )
-from .first_block_cache import FBCState, FirstBlockCacheConfig, flux_forward_with_fbc, init_fbc_state
+from .first_block_cache import (
+    FBCSingleState,
+    FBCState,
+    FirstBlockCacheConfig,
+    fbc_single_gate,
+    flux_forward_with_fbc,
+    init_fbc_single_state,
+    init_fbc_state,
+)
 from .generic_cache import TextKVCacheConfig, denoise_loop, denoise_loop_with_callback, text_kv_cache
 from .mag_cache import (
     FLUX_MAG_RATIOS,

@@ -1,9 +1,13 @@
-"""First-block cache (FBC) for the Flux transformer.
+"""First-block cache (FBC) for the Flux and SD3 transformers.
 
 Port of `diffusers_tpu/hooks/first_block_cache.py`: when the first
 transformer block's residual barely changes between denoise steps (relative
 mean-abs change at most `threshold`), the remaining blocks are skipped and
-the cached tail residual is reused.
+the cached tail residual is reused. Flux's form (`flux_forward_with_fbc`)
+caches the residuals of both streams; the single-stream form
+(`FBCSingleState`, `fbc_single_gate`, JAX `:61-110`) caches the hidden
+stream's alone, for a model that runs the head/tail split in its own forward
+(`SD3Transformer2DModel` with `fbc_state`).
 
 JAX decides on the device inside a `lax.cond`. Here the decision is read on
 the host once a step (one sync), and only the branch taken runs: a skipped
@@ -46,7 +50,7 @@ def init_fbc_state(hidden_shape, context_shape, dtype=torch.float32, device=None
     )
 
 
-def fbc_relative_change(state: FBCState, first_residual: torch.Tensor) -> torch.Tensor:
+def fbc_relative_change(state, first_residual: torch.Tensor) -> torch.Tensor:
     """Relative mean-abs change of the first block's residual against the last
     computed step's, in the residual's dtype (a device scalar)."""
     diff = torch.mean(torch.abs(first_residual - state.prev_first_residual))
@@ -58,6 +62,45 @@ def fbc_should_compute(state: FBCState, config: FirstBlockCacheConfig, first_res
     """The skip decision as a device bool: compute when the state is not
     valid yet or the relative change exceeds the threshold."""
     return (fbc_relative_change(state, first_residual) > config.threshold) | (not state.valid)
+
+
+@dataclass
+class FBCSingleState:
+    prev_first_residual: torch.Tensor  # the first block's residual at the last computed step
+    tail_residual: torch.Tensor  # final hidden - hidden after the first block, at the last computed step
+    valid: bool = False  # True after the first step
+    decisions: List[bool] = field(default_factory=list)
+    ratios: List[Optional[torch.Tensor]] = field(default_factory=list)
+
+
+def init_fbc_single_state(hidden_shape, dtype=torch.float32, device=None) -> FBCSingleState:
+    return FBCSingleState(prev_first_residual=torch.zeros(hidden_shape, dtype=dtype, device=device),
+                          tail_residual=torch.zeros(hidden_shape, dtype=dtype, device=device))
+
+
+def _decide(state, config: FirstBlockCacheConfig, first_residual: torch.Tensor) -> bool:
+    """The step's decision, recorded on the state with its ratio: compute
+    when the state is not valid yet (no read) or the relative change exceeds
+    the threshold (the step's one host sync)."""
+    if state.valid:
+        ratio = fbc_relative_change(state, first_residual)
+        should_compute = bool(ratio > config.threshold)
+    else:
+        ratio, should_compute = None, True
+    state.decisions.append(should_compute)
+    state.ratios.append(ratio)
+    return should_compute
+
+
+def fbc_single_gate(state: FBCSingleState, config: FirstBlockCacheConfig, first_residual: torch.Tensor,
+                    hidden: torch.Tensor, tail_fn) -> Tuple[torch.Tensor, FBCSingleState]:
+    """Run `tail_fn(hidden) -> final hidden` or replay the cached tail
+    residual. Returns (final hidden, new state)."""
+    if not _decide(state, config, first_residual):
+        return hidden + state.tail_residual, state
+    out = tail_fn(hidden)
+    return out, FBCSingleState(prev_first_residual=first_residual, tail_residual=out - hidden, valid=True,
+                               decisions=state.decisions, ratios=state.ratios)
 
 
 def flux_forward_with_fbc(
@@ -80,15 +123,7 @@ def flux_forward_with_fbc(
     context, hidden = model.transformer_blocks[0](hidden, context, temb, rope)
     first_residual = hidden - first_in
 
-    if fbc_state.valid:
-        ratio = fbc_relative_change(fbc_state, first_residual)
-        should_compute = bool(ratio > config.threshold)  # the step's one host sync
-    else:
-        ratio, should_compute = None, True
-    fbc_state.decisions.append(should_compute)
-    fbc_state.ratios.append(ratio)
-
-    if should_compute:
+    if _decide(fbc_state, config, first_residual):
         after_first_hidden, after_first_context = hidden, context
         hidden, context = model.run_blocks(hidden, context, temb, rope, first=1)
         fbc_state = FBCState(

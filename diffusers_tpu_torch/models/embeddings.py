@@ -257,3 +257,90 @@ class FluxPosEmbed(nn.Module):
         cos = np.concatenate([c for c, _ in tables], axis=-1)
         sin = np.concatenate([s for _, s in tables], axis=-1)
         return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+
+
+def get_2d_sincos_pos_embed(
+    embed_dim: int,
+    grid_size: Union[int, Tuple[int, int]],
+    base_size: int = 16,
+    interpolation_scale: float = 1.0,
+    crop: Optional[Tuple[int, int, int, int]] = None,
+) -> np.ndarray:
+    """Fixed 2D sin-cos position table [N, embed_dim] float32 over a grid of
+    `grid_size` (JAX `get_2d_sincos_pos_embed`), or over the window `crop` =
+    (top, left, h, w) of that grid only: the rows of the full table for those
+    positions, row-major, bit for bit (each element is one float64 product,
+    its sin or cos, and one cast to float32). Position (i, j) holds the
+    column's code (grid_w[j]) in its first half and the row's (grid_h[i]) in
+    its second, as JAX's table does."""
+    gh, gw = grid_size if isinstance(grid_size, tuple) else (grid_size, grid_size)
+    top, left, h, w = crop if crop is not None else (0, 0, gh, gw)
+    if top < 0 or left < 0 or top + h > gh or left + w > gw:
+        raise ValueError(f"crop {(top, left, h, w)} does not fit in the {gh} x {gw} position grid")
+    grid_h = np.arange(top, top + h, dtype=np.float32) / (gh / base_size) / interpolation_scale
+    grid_w = np.arange(left, left + w, dtype=np.float32) / (gw / base_size) / interpolation_scale
+
+    def _1d(dim, pos):
+        omega = np.arange(dim // 2, dtype=np.float64) / (dim / 2.0)
+        omega = 1.0 / 10000**omega
+        out = pos.astype(np.float64)[:, None] * omega[None, :]
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1).astype(np.float32)
+
+    half = embed_dim // 2
+    cols, rows = _1d(half, grid_w), _1d(half, grid_h)  # [w, half], [h, half]
+    table = np.concatenate([np.broadcast_to(cols[None], (h, w, half)), np.broadcast_to(rows[:, None], (h, w, half))],
+                           axis=-1)
+    return table.reshape(h * w, 2 * half)
+
+
+class PatchEmbed(nn.Module):
+    """Image -> patch tokens plus the SD3-style cropped sin-cos position
+    table (JAX `PatchEmbed` with its SD3 settings: sin-cos positions, no
+    LayerNorm). JAX builds the whole `pos_embed_max_size`² table at init
+    (384² x 1536 for SD3.5 Medium, 0.9 GB) to crop the centre of it; the
+    port computes only the crop a call needs (`get_2d_sincos_pos_embed` with
+    `crop`), the same values, and keeps it in a per-shape cache on the
+    call's device and dtype: no parameter and no state-dict entry."""
+
+    def __init__(
+        self,
+        height: int = 224,
+        width: int = 224,
+        patch_size: int = 16,
+        in_channels: int = 3,
+        embed_dim: int = 768,
+        bias: bool = True,
+        interpolation_scale: float = 1,
+        pos_embed_max_size: Optional[int] = None,
+    ):
+        super().__init__()
+        self.patch_size = patch_size
+        self.embed_dim = embed_dim
+        self.pos_embed_max_size = pos_embed_max_size
+        self.height, self.width = height // patch_size, width // patch_size
+        self.base_size = height // patch_size
+        self.interpolation_scale = interpolation_scale
+        self.proj = nn.Conv2d(in_channels, embed_dim, kernel_size=patch_size, stride=patch_size, bias=bias)
+        self._pos_cache = {}
+
+    def pos_table(self, h: int, w: int) -> np.ndarray:
+        """The position rows [h * w, D] of an h x w patch grid: the centre crop
+        of the `pos_embed_max_size`² table (JAX `cropped_pos_embed`), or the
+        whole table of the configured grid when there is no maximum."""
+        m = self.pos_embed_max_size
+        if m is None:
+            size = int((self.height * self.width) ** 0.5)
+            return get_2d_sincos_pos_embed(self.embed_dim, size, self.base_size, self.interpolation_scale)
+        if h > m or w > m:
+            raise ValueError(f"a {h} x {w} patch grid exceeds pos_embed_max_size {m}")
+        return get_2d_sincos_pos_embed(self.embed_dim, m, self.base_size, self.interpolation_scale,
+                                       crop=((m - h) // 2, (m - w) // 2, h, w))
+
+    def forward(self, latent: torch.Tensor) -> torch.Tensor:
+        """latent [B, C, H, W] -> tokens [B, (H / p) (W / p), D]."""
+        x = self.proj(latent).flatten(2).transpose(1, 2)
+        h, w = latent.shape[-2] // self.patch_size, latent.shape[-1] // self.patch_size
+        key = (h, w, x.device, x.dtype)
+        if key not in self._pos_cache:
+            self._pos_cache[key] = torch.from_numpy(self.pos_table(h, w)).to(device=x.device, dtype=x.dtype)
+        return x + self._pos_cache[key]

@@ -141,6 +141,13 @@ class ModelMixin(nn.Module):
     """Base of every port model: an `nn.Module` with a `config.json` config."""
 
     config_name = CONFIG_NAME
+    # state-dict keys that upstream checkpoints hold but the model derives from
+    # its config instead (SD3's sin-cos table): `from_pretrained` hands each to
+    # `check_derived_tensor`, which raises unless it is what the config gives
+    _derived_keys: Tuple[str, ...] = ()
+
+    def check_derived_tensor(self, key: str, tensor: torch.Tensor) -> None:
+        raise ValueError(f"{type(self).__name__} derives no checkpoint tensor ({key})")
 
     @property
     def device(self) -> torch.device:
@@ -213,7 +220,9 @@ class ModelMixin(nn.Module):
         `device` before the next is read, so the host never holds more than
         about one tensor. Keys must match the model's state dict exactly, in
         both directions, with their shapes, and no parameter or buffer may
-        be left on the meta device. The default device is the card: without
+        be left on the meta device. The one exception is a key of the
+        model's `_derived_keys`: it may be present, and its tensor must pass
+        `check_derived_tensor` (it is not kept). The default device is the card: without
         one this raises; pass ``device="cpu"`` to load on the CPU."""
         for name, value, item in (("quantization_config", quantization_config, "load-time w8a8 quantization"),
                                   ("gguf_file", gguf_file, "GGUF checkpoints"), ("mesh", mesh, "mesh placement")):
@@ -234,13 +243,18 @@ class ModelMixin(nn.Module):
         expected = model.state_dict(keep_vars=True)
         files = _resolve_weight_files(model_path, variant)
         keys = [k for f in files for k in read_safetensors_header(f)[1]]
-        missing, unexpected = sorted(expected.keys() - set(keys)), sorted(set(keys) - expected.keys())
+        derived = set(keys) & set(model._derived_keys)
+        missing = sorted(expected.keys() - set(keys))
+        unexpected = sorted(set(keys) - expected.keys() - derived)
         if missing or unexpected or len(keys) != len(set(keys)):
             raise ValueError(f"{cls.__name__}.from_pretrained({model_path}): the checkpoint does not match the "
                              f"model: missing {missing[:5]} ({len(missing)}), unexpected {unexpected[:5]} "
                              f"({len(unexpected)}), {len(keys) - len(set(keys))} keys in more than one file")
         for f in files:
             for key, tensor in iter_safetensors(f):
+                if key in derived:
+                    model.check_derived_tensor(key, tensor)
+                    continue
                 target = expected[key]
                 if tensor.shape != target.shape:
                     raise ValueError(f"{cls.__name__}.from_pretrained: {key} has shape {tuple(tensor.shape)} in "

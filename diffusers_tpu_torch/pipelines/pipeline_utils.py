@@ -54,6 +54,14 @@ class DiffusionPipeline(ConfigMixin):
         )
 
     @property
+    def device(self) -> torch.device:
+        """The device of the pipeline's models (its first `nn.Module` component's)."""
+        for module in self.components.values():
+            if isinstance(module, nn.Module):
+                return next(module.parameters()).device
+        return torch.device("cpu")
+
+    @property
     def components(self) -> Dict[str, Any]:
         return {k: getattr(self, k) for k in self.config.keys() if not k.startswith("_")}
 

@@ -5,9 +5,10 @@ static shift, dynamic (mu) time shifting, the shift-terminal stretch, and the
 Euler step ``x <- x + (sigma_next - sigma) v``. The sigma and timestep tables
 are built in numpy on the host exactly as in JAX (float32 with float64
 inputs) and kept as float32 host tensors; only `step` runs in torch, in
-float32, casting `prev_sample` to the model output's dtype. The Karras /
-exponential / beta ladders, stochastic sampling, per-token timesteps and
-`scale_noise` wait for the pipelines that use them.
+float32, casting `prev_sample` to the model output's dtype; `scale_noise`, the forward
+process of the image-conditioned SD3 pipelines, likewise. The Karras /
+exponential / beta ladders, stochastic sampling and per-token timesteps wait
+for the pipelines that use them.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from ..configuration_utils import ConfigMixin, register_to_config
 from ..utils import BaseOutput
-from .scheduling_utils import SchedulerMixin, index_for_timestep
+from .scheduling_utils import SchedulerMixin, broadcast_to_left, index_for_timestep
 
 
 @dataclass
@@ -135,6 +136,16 @@ class FlowMatchEulerDiscreteScheduler(SchedulerMixin, ConfigMixin):
 
     def scale_model_input(self, state, sample: torch.Tensor, timestep=None) -> torch.Tensor:
         return sample
+
+    def scale_noise(self, state: FlowMatchEulerDiscreteSchedulerState, sample: torch.Tensor, timestep,
+                    noise: torch.Tensor) -> torch.Tensor:
+        """The forward process of rectified flow, ``sigma * noise + (1 - sigma)
+        * sample``, one t per batch row (or one for all); each t is a value of
+        the schedule, found by equality (JAX `scale_noise`)."""
+        ts = torch.as_tensor(timestep, dtype=state.timesteps.dtype).reshape(-1)
+        sigma = state.sigmas[[index_for_timestep(state.timesteps, t) for t in ts]]
+        sigma = broadcast_to_left(sigma.to(device=sample.device, dtype=sample.dtype), sample.ndim)
+        return sigma * noise + (1.0 - sigma) * sample
 
     def step(
         self,

@@ -1,10 +1,11 @@
-"""Where the port's main paths (SDXL, Flux.1-dev, SDXL-UNet training) spend
-device time, on one CUDA card.
+"""Where the port's main paths (SDXL, Flux.1-dev, SD3.5 Medium, SDXL-UNet
+training) spend device time, on one CUDA card.
 
-    python3 tools/profile_sdxl.py [--model sdxl|flux|train] [--out DIR]
+    python3 tools/profile_sdxl.py [--model sdxl|flux|sd3|train] [--out DIR]
 
 Builds the full-width pipeline of `chip_smoke.py` (random weights from a
-seed, made on the card: SDXL bf16; Flux.1-dev with the w8a8 transformer),
+seed, made on the card: SDXL and SD3.5 Medium bf16; Flux.1-dev with the
+w8a8 transformer),
 warms it up with one 1024 px request, then:
 
   * times one denoiser forward (the SDXL UNet at b=2, one CFG step; the Flux
@@ -13,9 +14,12 @@ warms it up with one 1024 px request, then:
   * traces one such forward with `torch.profiler` (CPU + CUDA activities)
     and sums device time by kernel group;
   * times one request (SDXL: 30 steps, CFG 5.0; Flux: 28 steps, guidance
-    3.5) on the host clock, profiler off, then traces one; for SDXL, the
-    same again for the headline request of bench.py, with the TaylorSeer
-    cache of `chip_smoke.sdxl_cached_requests` (5 of 30 steps call the UNet).
+    3.5; SD3.5 Medium: 28 steps, CFG 7.0, the server's defaults) on the host
+    clock, profiler off, then traces one; for SDXL, the same again for the
+    headline request of bench.py, with the TaylorSeer cache of
+    `chip_smoke.sdxl_cached_requests` (5 of 30 steps call the UNet); for
+    SD3.5 Medium, the same again for a request of two prompts, the batch
+    the server makes of two coalesced requests.
 
 With `--model train` it builds the SDXL UNet of `train_text_to_image` (f32
 weights, AdamW, bf16 autocast), runs two warm-up steps on one synthetic
@@ -145,6 +149,22 @@ def _flux(torch):
             "Flux transformer forward (4096 image + 512 text tokens, w8a8)", 3)
 
 
+def _sd3(torch):
+    """The SD3.5 Medium pipeline, its request (the server's defaults), and one
+    transformer forward at b=2 with the arguments of the request's last step."""
+    pipe = chip_smoke._build_sd3_pipeline(chip_smoke.SD35_MEDIUM, chip_smoke.SD3_VAE, chip_smoke.CLIP_L,
+                                          chip_smoke.CLIP_BIGG, chip_smoke.T5_XXL, "cuda", torch.bfloat16)
+    request = dict(prompt=chip_smoke.SD3_PROMPTS[0], height=chip_smoke.RESOLUTION, width=chip_smoke.RESOLUTION,
+                   num_inference_steps=chip_smoke.SD3_STEPS, guidance_scale=chip_smoke.SD3_GUIDANCE, output_type="np")
+    seen = {}
+    hook = pipe.transformer.register_forward_pre_hook(
+        lambda mod, args, kwargs: seen.update(args=args, kwargs=kwargs), with_kwargs=True)
+    pipe(**dict(request, num_inference_steps=1), generator=torch.Generator(device="cuda").manual_seed(0))
+    hook.remove()
+    return (pipe, request, lambda: pipe.transformer(*seen["args"], **seen["kwargs"]),
+            "SD3.5 Medium transformer forward b=2 (4096 image + 333 text tokens)", 10)
+
+
 def profile_train(torch, smi: str, out) -> int:
     """One SDXL-UNet train step at 1024 px, batch 1: phase times and a trace."""
     import numpy as np
@@ -203,7 +223,7 @@ def profile_train(torch, smi: str, out) -> int:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", choices=("sdxl", "flux", "train"), default="sdxl")
+    parser.add_argument("--model", choices=("sdxl", "flux", "sd3", "train"), default="sdxl")
     parser.add_argument("--out", type=Path, default=None, help="directory for profile_<model>.json")
     args = parser.parse_args()
     smi = chip_smoke.setup()
@@ -213,10 +233,11 @@ def main() -> int:
     if args.model == "train":
         return profile_train(torch, smi, args.out)
 
-    pipe, request, forward, forward_title, forward_iters = (_flux if args.model == "flux" else _sdxl)(torch)
+    build = {"sdxl": _sdxl, "flux": _flux, "sd3": _sd3}[args.model]
+    pipe, request, forward, forward_title, forward_iters = build(torch)
 
-    def run_request():
-        pipe(**request, generator=torch.Generator(device="cuda").manual_seed(chip_smoke.SEED))
+    def run_request(**overrides):
+        pipe(**dict(request, **overrides), generator=torch.Generator(device="cuda").manual_seed(chip_smoke.SEED))
         torch.cuda.synchronize()
 
     run_request()  # warm-up: cuDNN/cuBLAS heuristics, Triton compile, kernel build
@@ -247,6 +268,15 @@ def main() -> int:
         with profile(activities=activities) as prof:
             run_request()
         summaries["request_taylorseer"] = device_summary(prof, cached_ms)
+    if args.model == "sd3":
+        pair = dict(prompt=list(chip_smoke.SD3_PROMPTS[1:]))
+        run_request(**pair)  # warm-up at batch 2
+        t0 = time.perf_counter()
+        run_request(**pair)
+        pair_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=activities) as prof:
+            run_request(**pair)
+        summaries["request_pair"] = device_summary(prof, pair_ms)
 
     chip_smoke.log(f"[profile] {smi}")
     print_summary(f"{forward_title}, 1024 px, bf16", forward_summary)
@@ -255,6 +285,9 @@ def main() -> int:
     if "request_taylorseer" in summaries:
         print_summary("one request with TaylorSeer (cache_interval 10, disable_cache_before_step 2, max_order 2)",
                       summaries["request_taylorseer"])
+    if "request_pair" in summaries:
+        print_summary("one request of two prompts (the server's coalesced batch; transformer at b=4)",
+                      summaries["request_pair"])
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / f"profile_{args.model}.json").write_text(json.dumps(
