@@ -2,8 +2,8 @@
 H100: builds the port's hand-written kernels from this checkout, holds each
 against its plain PyTorch version at the shapes of the main paths, checks the
 port on the card against the port on the CPU at a small size (every cache
-config and callback, the image-conditioned pipelines and the SD3 pipelines
-included), then
+config and callback, the image-conditioned pipelines, the SD3 pipelines and
+the Wan pipeline included), then
 drives the main paths through their public entry points, with random weights
 made from a seed on the card:
 
@@ -33,6 +33,12 @@ made from a seed on the card:
     read back with the port's decoder, the first equal to a direct pipeline
     call from the same seed; then one TaylorSeer and one FirstBlockCache
     request on the pipeline;
+  * Wan 2.1 text-to-video: Wan2.1-T2V-1.3B at its published widths (30
+    layers, 12 x 128 heads; UMT5-XXL; the 3-D causal VAE, decoded in
+    temporal chunks) through `WanPipeline.__call__`: one 480 x 832, 81-frame
+    request (32,760 tokens; 50 UniPC steps, CFG 5.0 as two batch-1 calls a
+    step, 512 text tokens; kernel K1 at head_dim 128, 60 a call), then one
+    TaylorSeer(10, 2, 2) request;
   * training: `train_text_to_image.main` on the SDXL UNet at its published
     widths, 1024 px, batch 1, TRAIN_STEPS steps (f32 weights and AdamW, bf16
     autocast; kernels K1 forward, K2 and K3 backward, K4), then a sharded
@@ -291,6 +297,37 @@ SMALL_SD3 = dict(sample_size=16, patch_size=2, in_channels=16, num_layers=3, att
 SMALL_SD35 = dict(SMALL_SD3, dual_attention_layers=(0, 1), qk_norm="rms_norm")
 SMALL_SD3_CLIP = dict(SMALL_FLUX_CLIP, projection_dim=64)
 SMALL_SD3_VAE = dict(SMALL_FLUX_VAE, scaling_factor=1.5305, shift_factor=0.0609, sample_size=32)
+# Wan 2.1 text-to-video, Wan-AI/Wan2.1-T2V-1.3B-Diffusers: transformer/config.json (1.3B: 30 layers, 12 x 128
+# heads, ffn 8960), the VAE at the JAX package's defaults with upstream's 16-channel latent statistics, UMT5-XXL,
+# UniPC with flow prediction and flow shift 3.0; 480 x 832, 81 frames, 50 steps, CFG 5.0, 512 text tokens
+WAN_1_3B = dict(patch_size=(1, 2, 2), num_attention_heads=12, attention_head_dim=128, in_channels=16, out_channels=16,
+                text_dim=4096, freq_dim=256, ffn_dim=8960, num_layers=30, cross_attn_norm=True,
+                qk_norm="rms_norm_across_heads", eps=1e-6, rope_max_seq_len=1024)
+WAN_VAE = dict(base_dim=96, z_dim=16, dim_mult=(1, 2, 4, 4), num_res_blocks=2, temperal_downsample=(False, True, True),
+               latents_mean=[-0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653, -0.1517, 1.5508, 0.4134, -0.0715,
+                             0.5517, -0.3632, -0.1922, -0.9497, 0.2503, -0.2921],
+               latents_std=[2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052, 2.0743, 3.2687, 2.1526, 2.8652,
+                            1.5579, 1.6382, 1.1253, 2.8251, 1.9160])
+UMT5_XXL = dict(vocab_size=256384, d_model=4096, d_kv=64, d_ff=10240, num_layers=24, num_heads=64,
+                feed_forward_proj="gated-gelu")
+WAN_UNIPC = dict(prediction_type="flow_prediction", use_flow_sigmas=True, flow_shift=3.0)
+WAN_HEIGHT, WAN_WIDTH, WAN_FRAMES = 480, 832, 81
+WAN_STEPS = 50
+WAN_GUIDANCE = 5.0
+WAN_TEXT_LEN = 512
+WAN_PROMPT = "a red panda eating bamboo in a misty forest, cinematic"
+WAN_NEGATIVE = "blurry, low quality, static"
+WAN_TOKENS = 21 * 30 * 52  # (81 - 1) / 4 + 1 latent frames of 60 x 104, patches of 1 x 2 x 2
+WAN_SELF_ATTENTION = (1, WAN_TOKENS, 12, 128)
+WAN_Q_CHUNK = 2048  # query rows a check of the self attention against its plain version takes at a time
+# phase 10d: a small Wan pipeline (head_dim 64: K1 in both attentions of a block), 9 frames of 64 x 64
+SMALL_WAN = dict(patch_size=(1, 2, 2), num_attention_heads=2, attention_head_dim=64, in_channels=16, out_channels=16,
+                 text_dim=64, freq_dim=64, ffn_dim=256, num_layers=2, cross_attn_norm=True, rope_max_seq_len=1024)
+SMALL_WAN_VAE = dict(base_dim=16, z_dim=16, dim_mult=(1, 2, 2, 2), num_res_blocks=1,
+                     temperal_downsample=(False, True, True), latents_mean=WAN_VAE["latents_mean"],
+                     latents_std=WAN_VAE["latents_std"])
+SMALL_UMT5 = dict(vocab_size=32128, d_model=64, d_kv=32, d_ff=128, num_layers=2, num_heads=2,
+                  feed_forward_proj="gated-gelu")
 
 RESULTS = {}
 
@@ -626,6 +663,9 @@ def check_kernels():
         ("SD3 joint 4429 d=64", (2, 4429, 24, 64), 4429, {}, True),
         ("SD3.5 attn2 4096 d=64", (2, 4096, 24, 64), 4096, {}, True),
         ("SD3 joint 4429 d=64, coalesced pair", (4, 4429, 24, 64), 4429, {}, False),
+        # Wan2.1-T2V-1.3B at 480 x 832 x 81: the cross attention over 512 text tokens (a ragged last q tile: 32760
+        # = 255 x 128 + 120); the self attention is checked apart (check_k1_wan_self)
+        ("Wan cross 32760 x 512 d=128", (1, WAN_TOKENS, 12, 128), 512, {}, True),
         ("causal 300 (ragged)", (1, 300, 2, 64), 300, {"is_causal": True}, False),
         ("additive mask 200 x 333, d=128", (1, 200, 2, 128), 333, {"mask": True}, False),
         ("fp16 d=128 500 x 700", (1, 500, 3, 128), 700, {"dtype": torch.float16}, False),
@@ -755,8 +795,81 @@ def check_kernels():
     if not routed:
         raise AssertionError("flash_attention does not route a causal call at untiled lengths to native")
 
+    wan_self = check_k1_wan_self(randn)
+    cases.append(wan_self)
+    k1_errs.append(wan_self["max_abs_err_vs_f32"])
     RESULTS["kernel_cases"] = cases
     return {"flash_attention_fwd": (max(k1_errs + [lse_err]), k1_times["Flux joint 4608 d=128"])}
+
+
+def check_k1_wan_self(randn):
+    """Phase 3, Wan's self attention: K1 at (1, 32760, 12, 128), bf16, held to
+    `attention_bounds` over every query row and every head, WAN_Q_CHUNK query
+    rows at a time (the plain version of the whole would hold a 12 x 32760²
+    f32 logit matrix, 51.5 GB); the ragged last q tile's 120 rows and their
+    LSE; controls that must break the bound (on the first chunk); the kernel's
+    time on events, its device time (CUDA graph), its bound, SDPA's time, and
+    the plain version's time computing the whole output chunk by chunk."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full, flash_attention_plain
+
+    b, sq, h, d = WAN_SELF_ATTENTION
+    q, k, v = randn(b, sq, h, d, scale=2.0), randn(b, sq, h, d), randn(b, sq, h, d)
+    out, lse = flash_attention_full(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    err32 = err16 = used32 = used16 = 0.0
+    for start in range(0, sq, WAN_Q_CHUNK):
+        qs, o = q[:, start:start + WAN_Q_CHUNK], out[:, start:start + WAN_Q_CHUNK].float()
+        ref32, bound32, bound16 = attention_bounds(qs, k, v)
+        ref16 = flash_attention_plain(qs, k, v).float()
+        err32, err16 = max(err32, float((o - ref32).abs().max())), max(err16, float((o - ref16).abs().max()))
+        used32 = max(used32, float(((o - ref32).abs() / bound32).max()))
+        used16 = max(used16, float(((o - ref16).abs() / bound16).max()))
+        if start == 0:  # controls: outputs of a partly wrong kernel must break the bound
+            keep = torch.cat([torch.arange(16384, device=q.device), torch.arange(16448, sq, device=q.device)])
+            last = (sq - 1) // 128 * 128
+            controls = {
+                "kv_tile_dropped": float(((flash_attention_full(qs, k[:, keep], v[:, keep]).float() - ref32).abs()
+                                          / bound32).max()),
+                "last_kv_tile_dropped": float(((flash_attention_full(qs, k[:, :last], v[:, :last]).float() - ref32)
+                                               .abs() / bound32).max()),
+                "rows_misscaled": float(((o[:, ::64] * (1 + 2.0**-5) - ref32[:, ::64]).abs() / bound32[:, ::64]).max()),
+            }
+        del ref32, bound32, bound16, ref16
+    tail = sq // 128 * 128
+    logits = torch.einsum("bqhd,bkhd->bhqk", q[:, tail:].float(), k.float()) / math.sqrt(d)
+    tail_err = float((lse[:, :, tail:] - torch.logsumexp(logits, dim=-1)).abs().max())
+    flops = 4.0 * b * h * sq * sq * d
+    bms, by = bound_ms(2 * 4 * q.numel(), flops, PEAK_BF16_FLOPS)
+    ms = (time_ms(lambda: flash_attention_full(q, k, v), iters=10) + time_ms(lambda: flash_attention_full(q, k, v),
+                                                                             iters=10)) / 2
+    plain_ms = time_ms(lambda: [flash_attention_plain(q[:, i:i + WAN_Q_CHUNK], k, v)
+                                for i in range(0, sq, WAN_Q_CHUNK)], iters=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row = {"kernel": "flash_attention_fwd", "case": "Wan self 32760 d=128", "q": list(WAN_SELF_ATTENTION), "sk": sq,
+           "dtype": "torch.bfloat16", "checked": f"every query row and head, {WAN_Q_CHUNK} rows at a time",
+           "max_abs_err_vs_f32": err32, "max_abs_err_vs_plain_same_dtype": err16,
+           "max_share_of_bound_vs_f32": used32, "max_share_of_bound_vs_plain_same_dtype": used16,
+           "ragged_tail_rows": sq - tail, "ragged_tail_lse_err": tail_err, "controls_share_of_bound": controls,
+           "ms": ms, "plain_ms": plain_ms, "plain": f"chunked, {WAN_Q_CHUNK} query rows a call",
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=10),
+           "bound_ms": bms, "bound_by": by, "tflops": flops / ms / 1e9, "share_of_time_bound": bms / ms,
+           "device_ms": graph_ms(lambda: flash_attention_full(q, k, v), iters=5),
+           "library_device_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=5),
+           "host_us_per_call": host_us(lambda: flash_attention_full(q, k, v), iters=5)}
+    log(f"[K1] Wan self 32760 d=128 (every query row of every head, {WAN_Q_CHUNK} rows at a time): err vs f32 "
+        f"{err32:.3e}, vs plain {err16:.3e}; share of the per-element bound {used32:.3f} / {used16:.3f}; ragged last q "
+        f"tile ({sq - tail} rows): LSE err {tail_err:.3e} (tol 1e-3); controls {controls}; kernel {ms:.3f} ms "
+        f"({row['tflops']:.1f} TFLOP/s, {100 * bms / ms:.1f}% of its bound), device {row['device_ms']:.3f} ms, SDPA "
+        f"{row['library_ms']:.3f} ms (device {row['library_device_ms']:.3f}), bound {bms:.3f} ms, plain (chunked) "
+        f"{plain_ms:.1f} ms")
+    if not (used32 <= 1.0 and used16 <= 1.0 and tail_err <= 1e-3 and torch.isfinite(out).all()):
+        raise AssertionError("flash_attention_fwd disagrees with its plain version at Wan's self attention")
+    if min(controls.values()) <= 1.0:
+        raise AssertionError("the flash_attention_fwd bound does not reject a broken output at Wan's self attention")
+    return row
 
 
 def check_group_norm():
@@ -1827,6 +1940,7 @@ def _module_launches(module):
     from diffusers_tpu_torch.models.attention import Attention
     from diffusers_tpu_torch.models.transformers.transformer_flux import FluxAttention
     from diffusers_tpu_torch.models.transformers.transformer_sd3 import JointAttention
+    from diffusers_tpu_torch.models.transformers.transformer_wan import WanAttention
     from diffusers_tpu_torch.ops.cuda.flash_attention import HEAD_DIMS
     from diffusers_tpu_torch.ops.module import GroupNorm, W8A8Linear
 
@@ -1834,7 +1948,7 @@ def _module_launches(module):
     w8a8 = sum(isinstance(m, W8A8Linear) for m in mods)
     return _launches(group_norm=sum(isinstance(m, GroupNorm) for m in mods), w8a8_matmul=w8a8,
                      w8a8_quantize_rows=w8a8,
-                     flash_attention_fwd=sum(isinstance(m, (Attention, FluxAttention, JointAttention))
+                     flash_attention_fwd=sum(isinstance(m, (Attention, FluxAttention, JointAttention, WanAttention))
                                              and m.dim_head in HEAD_DIMS for m in mods))
 
 
@@ -2574,6 +2688,273 @@ def run_sd3_served(smi: str):
             **{f"sd3_{label}": row["launches"] for label, row in cached.items()}}
 
 
+def _build_wan_pipeline(transformer_cfg, vae_cfg, umt5_cfg, device, dtype):
+    """A WanPipeline with random weights from SEED. UMT5 is built on the meta
+    device and allocated one block at a time on `device` (random init in
+    float32, cast to `dtype`); the transformer (whose `scale_shift_table` sits
+    on the model itself) and the VAE are made in float32 on `device`, then
+    cast."""
+    import torch
+
+    from diffusers_tpu_torch import AutoencoderKLWan, UMT5EncoderModel, UniPCMultistepScheduler, WanPipeline, \
+        WanTransformer3DModel
+    from diffusers_tpu_torch.models.modeling_utils import materialize_
+
+    torch.manual_seed(SEED)
+    with torch.device("meta"):
+        umt5 = UMT5EncoderModel(**umt5_cfg)
+    materialize_(umt5, device, dtype)
+    with torch.device(device):
+        transformer = WanTransformer3DModel(**transformer_cfg).to(dtype)
+        vae = AutoencoderKLWan(**vae_cfg).to(dtype)
+    kwargs = {} if device == "cuda" else {"device": device}  # the pipeline's default device is the card
+    tokenizer = StandInTokenizer(vocab_size=umt5_cfg["vocab_size"], bos=None, eos=1)  # no mask: ids != 0 count
+    return WanPipeline(tokenizer=tokenizer, text_encoder=umt5.eval(),
+                       transformer=transformer.eval(), vae=vae.eval(), scheduler=UniPCMultistepScheduler(**WAN_UNIPC),
+                       **kwargs)
+
+
+def wan_step_launches(config, pipe, timesteps, fbc_record=None):
+    """The launches expected at each denoise step of a Wan request under
+    `config` (CFG: a cond and an uncond call a step), from the module counts
+    and the cache's host-made schedule (for FirstBlockCache, from the
+    decisions the run recorded for each stream): a step's calls launch their
+    module counts; a TaylorSeer or MagCache step that predicts, nothing; a
+    PAB broadcast step, the cross attentions alone; a FirstBlockCache call
+    that skips, the first block's; a FasterCache step that skips, one call."""
+    import numpy as np
+
+    from diffusers_tpu_torch.hooks import (
+        FasterCacheConfig,
+        FirstBlockCacheConfig,
+        MagCacheConfig,
+        PyramidAttentionBroadcastConfig,
+        TaylorSeerCacheConfig,
+        faster_cache_schedules,
+        mag_cache_compute_mask,
+        pab_compute_mask,
+        taylorseer_compute_mask,
+    )
+
+    tr, n = pipe.transformer, len(timesteps)
+    full, none = _module_launches(tr), _launches()
+
+    def times(counts, calls):
+        return {k: calls * v for k, v in counts.items()}
+
+    if isinstance(config, TaylorSeerCacheConfig):
+        return [times(full, 2) if c else none for c in taylorseer_compute_mask(n, config)]
+    if isinstance(config, MagCacheConfig):
+        return [times(full, 2) if c else none for c in mag_cache_compute_mask(config)]
+    if isinstance(config, FasterCacheConfig):
+        skip = faster_cache_schedules(np.asarray(timesteps), config)[0]
+        return [times(full, 1 if s else 2) for s in skip]
+    if isinstance(config, PyramidAttentionBroadcastConfig):
+        mask = pab_compute_mask(np.asarray(timesteps), config.spatial_attention_block_skip_range,
+                                config.spatial_attention_timestep_skip_range)
+        cross = _launches(flash_attention_fwd=len(tr.blocks))
+        return [times(full if c else cross, 2) for c in mask]
+    if isinstance(config, FirstBlockCacheConfig):
+        first = _module_launches(tr.blocks[0])
+        return [{k: (full if c else first)[k] + (full if u else first)[k] for k in full}
+                for c, u in zip(fbc_record["cond"]["decisions"], fbc_record["uncond"]["decisions"])]
+    return [times(full, 2)] * n  # dense, TextKV, a callback
+
+
+def small_wan_cases():
+    """Phase 10d's cases: (label, cache config or None, callback or None, FreeInit or None)."""
+    from diffusers_tpu_torch.hooks import (
+        FasterCacheConfig,
+        FirstBlockCacheConfig,
+        MagCacheConfig,
+        PyramidAttentionBroadcastConfig,
+        TaylorSeerCacheConfig,
+        TextKVCacheConfig,
+    )
+
+    n = SMALL_CACHE_STEPS
+    halve_latents = lambda p, i, t, kw: {"latents": kw["latents"] * 0.5} if i == 3 else {}  # noqa: E731
+    return (
+        ("dense", None, None, None),
+        ("taylorseer", TaylorSeerCacheConfig(cache_interval=3, disable_cache_before_step=2, max_order=2), None, None),
+        ("mag_cache", MagCacheConfig(threshold=0.5, max_skip_steps=1, retention_ratio=0.25, num_inference_steps=n,
+                                     mag_ratios=(1.0,) * n), None, None),
+        ("text_kv", TextKVCacheConfig(), None, None),
+        ("faster_cache", FasterCacheConfig(unconditional_batch_skip_range=3,
+                                           unconditional_batch_timestep_skip_range=(-1, 1000)), None, None),
+        ("pab", PyramidAttentionBroadcastConfig(spatial_attention_timestep_skip_range=(100, 950)), None, None),
+        ("first_block_cache", FirstBlockCacheConfig(threshold=SMALL_FBC_THRESHOLD), None, None),
+        ("callback_latents", None, halve_latents, None),
+        ("free_init", None, None, dict(num_iters=2, use_fast_sampling=True)),
+    )
+
+
+def check_small_wan(device: str = "cuda"):
+    """Phase 10d: a small Wan pipeline (SMALL_WAN, SMALL_WAN_VAE, SMALL_UMT5;
+    9 frames of 64 x 64) on the card (bf16, kernels) against the CPU (f32,
+    plain versions; held to JAX by tests/test_torch_pipeline_wan.py), with
+    phase 7's tolerance on the [0, 1] video: the dense request, each of the six
+    caches, a step callback and FreeInit (two passes, fast sampling) at
+    SMALL_CACHE_STEPS steps. Both sides take the same latents and draw
+    FreeInit's fresh noise from one CPU generator seeded alike. On the card
+    each step's launches are held to the module counts under the cache's
+    schedule (`StepLaunches`; the UMT5 encode and the VAE decode launch no
+    kernel: their attention is `native`)."""
+    import numpy as np
+    import torch
+
+    sides = [_build_wan_pipeline(SMALL_WAN, SMALL_WAN_VAE, SMALL_UMT5, "cpu", torch.float32) for _ in range(2)]
+    sides[1].to(device=torch.device(device), dtype=torch.bfloat16)
+    latents = torch.from_numpy(np.random.RandomState(SEED).randn(1, 16, 3, 8, 8).astype(np.float32))
+    tol = 0.05  # phase 7: bf16 on the card against f32 on the CPU, on the [0, 1] video
+    results = {}
+    for label, config, callback, free_init in small_wan_cases():
+        videos, records = [], []
+        for pipe in sides:  # the CPU, then the card
+            if config is not None:
+                pipe.enable_cache(config)
+            if free_init is not None:
+                pipe.enable_free_init(**free_init)
+            reset_launches()
+            try:
+                with StepLaunches(pipe, pipe.transformer) as steps:
+                    videos.append(pipe(WAN_PROMPT, WAN_NEGATIVE, height=64, width=64, num_frames=9,
+                                       num_inference_steps=SMALL_CACHE_STEPS, guidance_scale=WAN_GUIDANCE,
+                                       max_sequence_length=64, latents=latents, callback_on_step_end=callback,
+                                       generator=torch.Generator().manual_seed(SEED), output_type="np").frames)
+            finally:
+                pipe.disable_cache()
+                pipe.disable_free_init()
+            records.append(pipe.fbc_record if label == "first_block_cache" else None)
+        ref, out = videos
+        err = float(np.abs(out - ref).max())
+        expected = wan_step_launches(config, pipe, steps.timesteps, records[1])
+        row = {"max_abs_err": err, "tol": tol, "launches": read_launches(), "steps": len(steps.timesteps),
+               "transformer_calls": len(steps.batches)}
+        if records[0] is not None:
+            row["decisions"] = {side: {stream: rec[stream]["decisions"] for stream in rec}
+                                for side, rec in zip(("cpu", "card"), records)}
+        results[label] = row
+        log(f"[ref-wan] small Wan {label}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol {tol}); launches "
+            f"{row['launches']}; {row['transformer_calls']} transformer calls over {row['steps']} steps"
+            + (f"; decisions {row['decisions']}" if records[0] is not None else ""))
+        if not (out.shape == ref.shape == (1, 9, 64, 64, 3) and np.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"small Wan {label}: the card disagrees with the CPU")
+        _check_steps(f"small Wan {label}", steps.per_step, expected, steps.after, _launches())
+        if read_launches()["flash_attention_fwd"] <= 0:
+            raise AssertionError(f"small Wan {label} on the card launched no K1")
+    RESULTS["small_wan"] = results
+
+
+def run_wan(smi: str):
+    """Phase 17: Wan2.1-T2V-1.3B at its published widths (WAN_1_3B, WAN_VAE,
+    UMT5-XXL; random bf16 weights from SEED made on the card): one 480 x 832,
+    81-frame request of WAN_STEPS UniPC steps with CFG 5.0 (two batch-1
+    transformer calls a step) and 512 text tokens, through
+    `WanPipeline.__call__`; then one TaylorSeer(10, 2, 2) request. Recorded:
+    seconds a video (host clock ending in a synchronise), each transformer
+    call on CUDA events, the UMT5 encodes and the VAE decode apart (CUDA
+    events), peak memory; every step's launches held to the module counts
+    (K1 60 a call, 6,000 a dense request)."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.hooks import TaylorSeerCacheConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = _build_wan_pipeline(WAN_1_3B, WAN_VAE, UMT5_XXL, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tr = pipe.transformer
+    n_params = {name: sum(p.numel() for p in getattr(pipe, name).parameters())
+                for name in ("transformer", "text_encoder", "vae")}
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"[wan] built Wan2.1-T2V-1.3B at full width on the card in {build_s:.1f} s: parameters "
+        f"{ {k: f'{v / 1e9:.3f} B' for k, v in n_params.items()} }, bf16, {resident_gb:.1f} GB resident")
+    per_call = _module_launches(tr)
+    if per_call["flash_attention_fwd"] != 60:
+        raise AssertionError(f"the Wan transformer counts {per_call} launches a call, expected K1 60")
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
+
+    spans = {"transformer": [], "text_encoder": [], "vae_decode": []}
+    hooks = []
+    for name in ("transformer", "text_encoder"):
+        def on_start(mod, args, name=name):
+            spans[name].append(events())
+            spans[name][-1][0].record()
+
+        module = getattr(pipe, name)
+        hooks.append(module.register_forward_pre_hook(on_start))
+        hooks.append(module.register_forward_hook(lambda mod, args, out, name=name: spans[name][-1][1].record()))
+    decode = pipe.vae.decode
+
+    def timed_decode(*args, **kwargs):
+        spans["vae_decode"].append(events())
+        spans["vae_decode"][-1][0].record()
+        out = decode(*args, **kwargs)
+        spans["vae_decode"][-1][1].record()
+        return out
+
+    pipe.vae.decode = timed_decode
+    request = dict(prompt=WAN_PROMPT, negative_prompt=WAN_NEGATIVE, height=WAN_HEIGHT, width=WAN_WIDTH,
+                   num_frames=WAN_FRAMES, num_inference_steps=WAN_STEPS, guidance_scale=WAN_GUIDANCE,
+                   max_sequence_length=WAN_TEXT_LEN, output_type="np")
+    results = {}
+    try:
+        for label, config in (("dense", None), ("taylorseer", TaylorSeerCacheConfig(
+                cache_interval=10, disable_cache_before_step=2, max_order=2))):
+            for v in spans.values():
+                v.clear()
+            if config is not None:
+                pipe.enable_cache(config)
+            reset_launches()
+            try:
+                with StepLaunches(pipe, tr) as steps:
+                    frames, seconds, peak_gb = _request_seconds(lambda: pipe(
+                        generator=torch.Generator(device="cuda").manual_seed(SEED), **request).frames)
+            finally:
+                pipe.disable_cache()
+            ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in spans.items()}
+            launches = read_launches()
+            expected = wan_step_launches(config, pipe, steps.timesteps)
+            _check_steps(f"wan {label}", steps.per_step, expected, steps.after, _launches())
+            if not (frames.shape == (1, WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH, 3) and np.isfinite(frames).all()):
+                raise AssertionError(f"wan {label}: bad frames {frames.shape}")
+            row = {"seconds_per_video": seconds, "peak_memory_gb": peak_gb, "launches": launches,
+                   "transformer_calls": len(ms["transformer"]), "transformer_ms_per_call": ms["transformer"],
+                   "transformer_ms_mean": float(np.mean(ms["transformer"])),
+                   "umt5_encode_seconds": sum(ms["text_encoder"]) / 1e3, "umt5_calls": len(ms["text_encoder"]),
+                   "vae_decode_seconds": sum(ms["vae_decode"]) / 1e3, "frames_mean": float(frames.mean()),
+                   "frames_std": float(frames.std())}
+            if label == "dense":
+                dense_frames = frames
+                if launches["flash_attention_fwd"] != 2 * WAN_STEPS * 60:
+                    raise AssertionError(f"the dense Wan request launched {launches}, expected K1 6000")
+            else:
+                a, b = dense_frames.astype(np.float64).ravel(), frames.astype(np.float64).ravel()
+                row["cosine_to_dense"] = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-12))
+            results[label] = row
+            log(f"[wan] {smi}: {label}: {seconds:.2f} s a video ({WAN_FRAMES} x {WAN_HEIGHT} x {WAN_WIDTH}, "
+                f"{WAN_STEPS} steps), {row['transformer_calls']} transformer calls of {row['transformer_ms_mean']:.1f} "
+                f"ms (CUDA events; min {min(ms['transformer']):.1f}, max {max(ms['transformer']):.1f}), UMT5 encode "
+                f"{row['umt5_encode_seconds']:.3f} s ({row['umt5_calls']} calls), VAE decode "
+                f"{row['vae_decode_seconds']:.2f} s, peak memory {peak_gb:.1f} GB; launches {launches}"
+                + (f"; cosine to the dense video {row['cosine_to_dense']:.4f} (random weights)"
+                   if "cosine_to_dense" in row else ""))
+    finally:
+        for h in hooks:
+            h.remove()
+        del pipe.vae.decode
+    RESULTS["wan"] = {"card": smi, "steps": WAN_STEPS, "frames": WAN_FRAMES, "height": WAN_HEIGHT,
+                      "width": WAN_WIDTH, "guidance_scale": WAN_GUIDANCE, "text_tokens": WAN_TEXT_LEN,
+                      "build_seconds": build_s, "parameters": n_params, "resident_gb": resident_gb,
+                      "k1_per_call": per_call["flash_attention_fwd"], **results}
+    return {"wan": results["dense"]["launches"], "wan_taylorseer": results["taylorseer"]["launches"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", type=Path, default=None, help="directory for chip_smoke.json")
@@ -2595,6 +2976,7 @@ def main() -> int:
     check_small_caches()
     check_small_image_pipelines()
     check_small_sd3()
+    check_small_wan()
     sdxl, pipe, image = run_pipeline(smi)
     paths = {"sdxl": sdxl, **run_sdxl_cached(smi, pipe, image)}
     paths.update(run_image_pipelines(smi, pipe))
@@ -2607,6 +2989,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(run_sd3_served(smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(run_wan(smi))
     gc.collect()
     torch.cuda.empty_cache()
     paths["training"] = run_training(smi)

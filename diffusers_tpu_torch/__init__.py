@@ -15,12 +15,17 @@ __version__ = "0.1.0"
 
 _EXPORTS = {
     "StableDiffusion3Pipeline": "diffusers_tpu_torch.pipelines.stable_diffusion_3",
+    "WanPipeline": "diffusers_tpu_torch.pipelines.wan",
+    "WanTransformer3DModel": "diffusers_tpu_torch.models.transformers.transformer_wan",
+    "AutoencoderKLWan": "diffusers_tpu_torch.models.autoencoders.autoencoder_kl_wan",
+    "UMT5EncoderModel": "diffusers_tpu_torch.models.text_encoders.t5",
+    "UniPCMultistepScheduler": "diffusers_tpu_torch.schedulers",
 }
 
 
 def __getattr__(name):
-    """The pipelines exported from the root load on first use, so importing
-    the package stays light."""
+    """The pipelines and models exported from the root load on first use, so
+    importing the package stays light."""
     if name in _EXPORTS:
         import importlib
 

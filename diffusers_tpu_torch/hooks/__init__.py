@@ -1,7 +1,9 @@
 from .faster_cache import (
     FasterCacheConfig,
     FasterCacheState,
+    denoise_loop_faster_cache,
     faster_cache_apply,
+    faster_cache_apply_pair,
     faster_cache_schedules,
     init_faster_cache_state,
 )

@@ -2,12 +2,15 @@
 rebuild it from the conditional output plus a cached frequency-domain delta
 (arXiv:2410.19355, Eq. 9-11).
 
-Port of `diffusers_tpu/hooks/faster_cache.py` (the batch-2 CFG form that
-SDXL uses). The skip schedule and the low/high-frequency weights depend only
-on the timesteps, so they are made on the host (`faster_cache_schedules`); a
-skipped step runs the denoiser at batch 1 (cond only). The deltas are
-complex64. The FFT runs on a float32 copy: cuFFT takes no bf16, and JAX
-casts to float32 first too.
+Port of `diffusers_tpu/hooks/faster_cache.py`: the batch-2 CFG form that
+SDXL and SD3 use (`faster_cache_apply`), and the pair form of pipelines whose
+CFG is two separate forwards, Wan's (`faster_cache_apply_pair` `:86`, and its
+loop `denoise_loop_faster_cache`, JAX's `denoise_scan_faster_cache` `:117`).
+The skip schedule and the low/high-frequency weights depend only on the
+timesteps, so they are made on the host (`faster_cache_schedules`); a
+skipped step runs the denoiser at batch 1 (cond only) and calls nothing of
+the unconditional branch. The deltas are complex64. The FFT runs on a
+float32 copy: cuFFT takes no bf16, and JAX casts to float32 first too.
 """
 
 from __future__ import annotations
@@ -95,3 +98,48 @@ def faster_cache_apply(
     uncond = torch.fft.ifft2(torch.fft.ifftshift(uncond_freq, dim=(-2, -1))).real
     noise = torch.cat([uncond.to(cond.dtype), cond], dim=0)
     return noise, FasterCacheState(low_freq_delta=lf_delta, high_freq_delta=hf_delta)
+
+
+def faster_cache_apply_pair(
+    state: FasterCacheState,
+    skip_uncond: bool,
+    lf_weight: float,
+    hf_weight: float,
+    pair_forward: Callable[[], Tuple[torch.Tensor, torch.Tensor]],  # () -> (uncond, cond)
+    cond_forward: Callable[[], torch.Tensor],  # () -> cond
+) -> Tuple[Tuple[torch.Tensor, torch.Tensor], FasterCacheState]:
+    """The pair form: returns ((uncond, cond), new state); the FFT runs over
+    the trailing two axes of a prediction."""
+    if not skip_uncond:
+        uncond, cond = pair_forward()
+        lf_u, hf_u = _split_low_high_freq(uncond)
+        lf_c, hf_c = _split_low_high_freq(cond)
+        return (uncond, cond), FasterCacheState(low_freq_delta=lf_u - lf_c, high_freq_delta=hf_u - hf_c)
+
+    cond = cond_forward()
+    lf_c, hf_c = _split_low_high_freq(cond)
+    lf_delta = state.low_freq_delta * lf_weight
+    hf_delta = state.high_freq_delta * hf_weight
+    uncond_freq = (lf_delta + lf_c) + (hf_delta + hf_c)
+    uncond = torch.fft.ifft2(torch.fft.ifftshift(uncond_freq, dim=(-2, -1))).real.to(cond.dtype)
+    return (uncond, cond), FasterCacheState(low_freq_delta=lf_delta, high_freq_delta=hf_delta)
+
+
+def denoise_loop_faster_cache(pair_forward, cond_forward, combine, scheduler, latents, state, timesteps, config):
+    """The denoise loop under the pair form of the CFG-cache.
+
+    Args:
+        pair_forward: fn(latents, i, t) -> (uncond, cond) predictions.
+        cond_forward: fn(latents, i, t) -> cond prediction.
+        combine: fn(uncond, cond) -> the model output fed to `scheduler.step`.
+        timesteps: the schedule's timesteps (host tensor); the skip schedule
+            and weights come from `faster_cache_schedules(timesteps, config)`.
+    Returns the final latents."""
+    skip, lf_w, hf_w = faster_cache_schedules(timesteps.numpy(), config)
+    fc = init_faster_cache_state(latents.shape, latents.device)
+    for i, t in enumerate(timesteps):
+        (uncond, cond), fc = faster_cache_apply_pair(
+            fc, bool(skip[i]), float(lf_w[i]), float(hf_w[i]),
+            lambda: pair_forward(latents, i, t), lambda: cond_forward(latents, i, t))
+        latents = scheduler.step(state, combine(uncond, cond), t, latents).prev_sample
+    return latents

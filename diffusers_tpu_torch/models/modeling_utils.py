@@ -222,8 +222,11 @@ class ModelMixin(nn.Module):
         both directions, with their shapes, and no parameter or buffer may
         be left on the meta device. The one exception is a key of the
         model's `_derived_keys`: it may be present, and its tensor must pass
-        `check_derived_tensor` (it is not kept). The default device is the card: without
-        one this raises; pass ``device="cpu"`` to load on the CPU."""
+        `check_derived_tensor` (it is not kept). A parameter that its module
+        lists in `reshape_on_load` may come in another shape of the same
+        size (`WanRMSNorm.gamma`, which the JAX package writes flat). The
+        default device is the card: without one this raises; pass
+        ``device="cpu"`` to load on the CPU."""
         for name, value, item in (("quantization_config", quantization_config, "load-time w8a8 quantization"),
                                   ("gguf_file", gguf_file, "GGUF checkpoints"), ("mesh", mesh, "mesh placement")):
             if value is not None:
@@ -256,13 +259,16 @@ class ModelMixin(nn.Module):
                     model.check_derived_tensor(key, tensor)
                     continue
                 target = expected[key]
+                module_name, _, leaf = key.rpartition(".")
+                module = model.get_submodule(module_name)
+                if (tensor.shape != target.shape and leaf in getattr(module, "reshape_on_load", ())
+                        and tensor.numel() == target.numel()):
+                    tensor = tensor.reshape(target.shape)  # e.g. WanRMSNorm.gamma as the JAX package writes it
                 if tensor.shape != target.shape:
                     raise ValueError(f"{cls.__name__}.from_pretrained: {key} has shape {tuple(tensor.shape)} in "
                                      f"{f}, the model expects {tuple(target.shape)}")
                 cast = dtype if dtype is not None and tensor.is_floating_point() else tensor.dtype
                 value = tensor.to(device=device, dtype=cast, copy=True)
-                module_name, _, leaf = key.rpartition(".")
-                module = model.get_submodule(module_name)
                 if leaf in module._parameters:
                     module._parameters[leaf] = nn.Parameter(value, requires_grad=target.requires_grad)
                 else:
@@ -282,6 +288,8 @@ def _leaf_to_torch(module: nn.Module, name: str, array: np.ndarray):
         return "weight_scale", array
     if isinstance(module, nn.Conv2d) and name == "kernel":  # HWIO -> OIHW
         return "weight", array.transpose(3, 2, 0, 1)
+    if isinstance(module, nn.Conv3d) and name == "kernel":  # DHWIO -> OIDHW
+        return "weight", array.transpose(4, 3, 0, 1, 2)
     if isinstance(module, (nn.GroupNorm, nn.LayerNorm, RMSNorm)) and name == "scale":
         return "weight", array
     if isinstance(module, nn.Embedding) and name == "embedding":

@@ -1,8 +1,10 @@
-"""T5 text encoder (`T5EncoderModel`), the long-prompt tower of Flux.
+"""T5 text encoders: `T5EncoderModel`, the long-prompt tower of Flux and SD3,
+and `UMT5EncoderModel`, Wan's.
 
 Port of `diffusers_tpu/models/text_encoders/t5.py`: pre-norm (RMSNorm)
 blocks, bidirectional relative-position bias computed by block 0 and shared by
-every block, no 1/sqrt(d) attention scaling, gated-GELU or ReLU feed-forward.
+every block (UMT5: every block owns and computes its own, JAX `:170-176`), no
+1/sqrt(d) attention scaling, gated-GELU or ReLU feed-forward.
 Attention runs the ``native`` backend, as in JAX (`t5.py:87`): the additive
 [1, H, S, S] bias is not a shape the flash kernel takes. Submodule names
 (``encoder.block.N.layer.0.SelfAttention.q`` ...) match the transformers state
@@ -141,23 +143,33 @@ class T5Block(nn.Module):
 
 
 class T5Stack(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, per_layer_relative_bias: bool = False):
         super().__init__()
-        self.block = nn.ModuleList([T5Block(cfg, has_relative_bias=(i == 0)) for i in range(cfg["num_layers"])])
+        self.per_layer_relative_bias = per_layer_relative_bias
+        self.block = nn.ModuleList([T5Block(cfg, has_relative_bias=(per_layer_relative_bias or i == 0))
+                                    for i in range(cfg["num_layers"])])
         self.final_layer_norm = RMSNorm(cfg["d_model"], eps=cfg["layer_norm_epsilon"])
 
     def forward(self, hidden: torch.Tensor, attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        position_bias = self.block[0].layer[0].SelfAttention.compute_bias(hidden.shape[1], hidden.device)
+        s, mask = hidden.shape[1], None
         if attention_mask is not None:
             # [B, S] keep-mask -> additive [B, 1, 1, S]
             keep = attention_mask[:, None, None, :].to(torch.float32)
-            position_bias = position_bias + (1.0 - keep) * torch.finfo(torch.float32).min
+            mask = (1.0 - keep) * torch.finfo(torch.float32).min
+
+        def bias(block):
+            b = block.layer[0].SelfAttention.compute_bias(s, hidden.device)
+            return b if mask is None else b + mask
+
+        position_bias = None if self.per_layer_relative_bias else bias(self.block[0])
         for block in self.block:
-            hidden = block(hidden, position_bias)
+            hidden = block(hidden, bias(block) if self.per_layer_relative_bias else position_bias)
         return self.final_layer_norm(hidden)
 
 
 class T5EncoderModel(ModelMixin, ConfigMixin):
+    _per_layer_relative_bias = False
+
     @register_to_config
     def __init__(
         self,
@@ -180,7 +192,15 @@ class T5EncoderModel(ModelMixin, ConfigMixin):
             layer_norm_epsilon=layer_norm_epsilon, feed_forward_proj=feed_forward_proj,
         )
         self.shared = Embedding(vocab_size, d_model)
-        self.encoder = T5Stack(cfg)
+        self.encoder = T5Stack(cfg, per_layer_relative_bias=self._per_layer_relative_bias)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None) -> T5EncoderOutput:
         return T5EncoderOutput(last_hidden_state=self.encoder(self.shared(input_ids), attention_mask))
+
+
+class UMT5EncoderModel(T5EncoderModel):
+    """UMT5 (Wan's umt5-xxl; transformers `UMT5EncoderModel` key names): every
+    block owns its relative attention bias
+    (``encoder.block.N.layer.0.SelfAttention.relative_attention_bias``)."""
+
+    _per_layer_relative_bias = True
