@@ -39,6 +39,17 @@ made from a seed on the card:
     request (32,760 tokens; 50 UniPC steps, CFG 5.0 as two batch-1 calls a
     step, 512 text tokens; kernel K1 at head_dim 128, 60 a call), then one
     TaylorSeer(10, 2, 2) request;
+  * pipelines from disk (phase 18): SDXL written with `save_pretrained` and
+    read back with `StableDiffusionXLPipeline.from_pretrained(dir,
+    dtype=torch.bfloat16)`, one request; SD3.5 Medium given real tokenizers
+    (a CLIP vocabulary and a T5 Unigram model written on the spot), saved
+    (T5-XXL in transformers shards) and served by `serve()` from
+    `MODEL_PATH`, one request; Flux.1-dev at full width cut to 2 dual and 4
+    single blocks, saved in bf16 and loaded with
+    `PipelineQuantizationConfig(quant_mapping={"transformer":
+    Int8DynamicActConfig()})` (w8a8 on load, kernel K5), one request; the
+    four small pipelines round-tripped on the card; weights bit-equal and
+    images within 2 uint8 levels of the in-memory pipelines';
   * training: `train_text_to_image.main` on the SDXL UNet at its published
     widths, 1024 px, batch 1, TRAIN_STEPS steps (f32 weights and AdamW, bf16
     autocast; kernels K1 forward, K2 and K3 backward, K4), then a sharded
@@ -329,6 +340,16 @@ SMALL_WAN_VAE = dict(base_dim=16, z_dim=16, dim_mult=(1, 2, 2, 2), num_res_block
 SMALL_UMT5 = dict(vocab_size=32128, d_model=64, d_kv=32, d_ff=128, num_layers=2, num_heads=2,
                   feed_forward_proj="gated-gelu")
 
+# phase 18c: Flux.1-dev at full width, depth cut to 2 dual and 4 single blocks (every distinct Linear shape of
+# the 500), T5-XXL at full width with 2 layers; CLIP-L and the VAE whole. Its transformer is saved in bf16 and
+# quantized on load by JAX's w8a8 rule for Int8DynamicActConfig(): 2 x 14 + 4 x 6 block Linears, and of the
+# rest the context embedder, the timestep / guidance / text embedders' linear_2, norm_out and proj_out
+FLUX_CUT = dict(FLUX_DEV, num_layers=2, num_single_layers=4)
+T5_CUT = dict(T5_XXL, num_layers=2)
+FLUX_CUT_W8A8 = 2 * 14 + 4 * 6 + 6
+SAMPLE_ROUND_TRIP_STEPS = 4  # phase 18d: the small pipelines' requests
+DISK_MARGIN = 2e9  # bytes kept free beyond what a phase-18 directory takes
+
 RESULTS = {}
 
 
@@ -364,6 +385,62 @@ class StandInTokenizer:
 
 
 T5_TOKENIZER = dict(vocab_size=32128, bos=None, eos=1)
+
+
+def clip_tokenizer(directory):
+    """A real `transformers.CLIPTokenizer` with a vocabulary written on the
+    spot into `directory` (no download): CLIP's byte-level alphabet, each
+    symbol also as a word end (``</w>``), a few merges, then BOS and EOS,
+    the highest ids (CLIP pools at the highest). Loaded with
+    `from_pretrained`, as a published pipeline's `tokenizer/` folder is."""
+    import transformers
+
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    alphabet = list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1)) + \
+        list(range(ord("®"), ord("ÿ") + 1))
+    extra = [b for b in range(256) if b not in alphabet]
+    symbols = [chr(b) for b in alphabet] + [chr(256 + i) for i in range(len(extra))]  # bytes_to_unicode's order
+    merges = ["t h", "th e</w>", "a n", "an d</w>", "o n</w>", "i n"]
+    vocab = {sym: i for i, sym in enumerate(symbols)}
+    vocab.update({sym + "</w>": 256 + i for i, sym in enumerate(symbols)})
+    for m in merges:
+        vocab["".join(m.split())] = len(vocab)
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = len(vocab), len(vocab) + 1
+    (directory / "vocab.json").write_text(json.dumps(vocab))
+    (directory / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n")
+    (directory / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "CLIPTokenizer", "model_max_length": 77, "bos_token": "<|startoftext|>",
+         "eos_token": "<|endoftext|>", "unk_token": "<|endoftext|>", "pad_token": "<|endoftext|>"}))
+    return transformers.CLIPTokenizer.from_pretrained(str(directory))
+
+
+def t5_tokenizer(directory):
+    """A real T5 tokenizer (`T5TokenizerFast`, or `T5Tokenizer` where
+    transformers has no separate fast class) over a `tokenizers` Unigram
+    model written on the spot into `directory` (no download): pad 0, EOS 1,
+    unk 2, the lower-case letters and digits with and without a word-start
+    marker; EOS appended. Loaded with `from_pretrained`."""
+    import transformers
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers, processors
+
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    letters = [chr(c) for c in range(ord("a"), ord("z") + 1)] + [str(d) for d in range(10)]
+    pieces = [("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0), ("\u2581", -2.0)]
+    pieces += [("\u2581" + c, -3.0 - i / 100) for i, c in enumerate(letters)]
+    pieces += [(c, -4.0 - i / 100) for i, c in enumerate(letters)]
+    tok = Tokenizer(models.Unigram(pieces, unk_id=2, byte_fallback=False))
+    tok.pre_tokenizer = pre_tokenizers.Metaspace(replacement="\u2581", prepend_scheme="always")
+    tok.decoder = decoders.Metaspace(replacement="\u2581", prepend_scheme="always")
+    tok.post_processor = processors.TemplateProcessing(single="$A </s>", pair="$A </s> $B </s>",
+                                                       special_tokens=[("</s>", 1)])
+    tok.save(str(directory / "tokenizer.json"))
+    cls = getattr(transformers, "T5TokenizerFast", None) or transformers.T5Tokenizer
+    (directory / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": cls.__name__, "model_max_length": 512, "eos_token": "</s>", "unk_token": "<unk>",
+         "pad_token": "<pad>", "extra_ids": 0}))
+    return cls.from_pretrained(str(directory))
 
 
 def bf16_tol(ref) -> float:
@@ -1315,8 +1392,8 @@ def _build_flux_pipeline(transformer_cfg, min_weight_size, vae_cfg, clip_cfg, t5
     """A FluxPipeline with random weights from SEED. The transformer and T5
     are built on the meta device and allocated one block at a time on
     `device` (random init in float32, cast to `dtype`, transformer Linears of
-    >= `min_weight_size` elements quantized to w8a8), so no full float copy
-    of either exists."""
+    >= `min_weight_size` elements quantized to w8a8; none when it is None),
+    so no full float copy of either exists."""
     import torch
 
     from diffusers_tpu_torch.models.autoencoders.autoencoder_kl import AutoencoderKL
@@ -1332,7 +1409,8 @@ def _build_flux_pipeline(transformer_cfg, min_weight_size, vae_cfg, clip_cfg, t5
     with torch.device("meta"):
         transformer = FluxTransformer2DModel(**transformer_cfg)
         t5 = T5EncoderModel(**t5_cfg)
-    materialize_(transformer, device, dtype, lambda unit: quantize_w8a8(unit, min_weight_size))
+    materialize_(transformer, device, dtype,
+                 None if min_weight_size is None else lambda unit: quantize_w8a8(unit, min_weight_size))
     materialize_(t5, device, dtype)
     with torch.device(device):
         vae = AutoencoderKL(**vae_cfg).to(dtype)
@@ -1936,7 +2014,8 @@ def _module_launches(module):
     """The forward launches of one call of `module` that calls each of its
     GroupNorms and attentions once: K4 per GroupNorm, K1 per attention at a
     head dim the kernel takes (the others run `native`), and K5 with its row
-    quantization per w8a8 Linear."""
+    quantization per w8a8 Linear whose K and N are multiples of 128 (the
+    others take the dequantized matmul, as in JAX)."""
     from diffusers_tpu_torch.models.attention import Attention
     from diffusers_tpu_torch.models.transformers.transformer_flux import FluxAttention
     from diffusers_tpu_torch.models.transformers.transformer_sd3 import JointAttention
@@ -1945,7 +2024,7 @@ def _module_launches(module):
     from diffusers_tpu_torch.ops.module import GroupNorm, W8A8Linear
 
     mods = list(module.modules())
-    w8a8 = sum(isinstance(m, W8A8Linear) for m in mods)
+    w8a8 = sum(isinstance(m, W8A8Linear) and m.in_features % 128 == 0 and m.out_features % 128 == 0 for m in mods)
     return _launches(group_norm=sum(isinstance(m, GroupNorm) for m in mods), w8a8_matmul=w8a8,
                      w8a8_quantize_rows=w8a8,
                      flash_attention_fwd=sum(isinstance(m, (Attention, FluxAttention, JointAttention, WanAttention))
@@ -1953,7 +2032,8 @@ def _module_launches(module):
 
 
 def _request_seconds(call):
-    """(result, seconds, peak GB) of one request, on the host clock ending in a synchronise."""
+    """(result, seconds, peak GB) of one call (a request, a save, a load), on
+    the host clock ending in a synchronise."""
     import torch
 
     torch.cuda.synchronize()
@@ -2685,7 +2765,7 @@ def run_sd3_served(smi: str):
         "served_vs_direct_max_diff": diff, "k1_per_call": k1_call, "cached": cached,
     }
     return {"sd3_served": served_launches, "sd3_direct": direct_launches,
-            **{f"sd3_{label}": row["launches"] for label, row in cached.items()}}
+            **{f"sd3_{label}": row["launches"] for label, row in cached.items()}}, pipe
 
 
 def _build_wan_pipeline(transformer_cfg, vae_cfg, umt5_cfg, device, dtype):
@@ -2955,6 +3035,403 @@ def run_wan(smi: str):
     return {"wan": results["dense"]["launches"], "wan_taylorseer": results["taylorseer"]["launches"]}
 
 
+# ------------------------------------------------------------------ phase 18: pipelines from disk
+
+
+def _scratch_dir(label: str, need_bytes: float) -> str:
+    """A new directory for `need_bytes` of checkpoint: under the system
+    temporary directory, else under the git-ignored `build/`; raises with
+    the numbers when neither has room."""
+    import shutil
+    import tempfile
+
+    free = {}
+    for base in (tempfile.gettempdir(), str(ROOT / "build")):
+        Path(base).mkdir(parents=True, exist_ok=True)
+        free[base] = shutil.disk_usage(base).free
+        if free[base] >= need_bytes + DISK_MARGIN:
+            return tempfile.mkdtemp(prefix=f"chip_smoke_{label}_", dir=base)
+    raise RuntimeError(f"phase 18 {label}: {need_bytes / 1e9:.1f} GB to write (+{DISK_MARGIN / 1e9:.0f} GB margin), "
+                       f"free: { {k: f'{v / 1e9:.1f} GB' for k, v in free.items()} }")
+
+
+def _state_bytes(pipe) -> int:
+    import torch
+
+    return sum(t.numel() * t.element_size() for m in pipe.components.values() if isinstance(m, torch.nn.Module)
+               for t in m.state_dict().values())
+
+
+def _bit_equal_components(saved, loaded) -> dict:
+    """{component: True} when every state-dict tensor of the loaded pipeline
+    equals the saved one in key order, dtype and bits; raises otherwise."""
+    import torch
+
+    out = {}
+    for name, model in saved.components.items():
+        if not isinstance(model, torch.nn.Module):
+            continue
+        a, b = model.state_dict(), getattr(loaded, name).state_dict()
+        out[name] = list(a) == list(b) and all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+    if not all(out.values()):
+        raise AssertionError(f"from_pretrained did not give back the saved weights bit for bit: {out}")
+    return out
+
+
+def _component_bytes(directory) -> dict:
+    """Bytes on disk of each component folder of a saved pipeline."""
+    return {d.name: sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+            for d in sorted(Path(directory).iterdir()) if d.is_dir()}
+
+
+def _evict_page_cache(directory) -> None:
+    """Flush each file of `directory` to disk and ask the kernel to drop its
+    cached pages (`posix_fadvise` DONTNEED; best effort, no privileges), so
+    that the next read comes from the disk."""
+    import os
+
+    for f in Path(directory).rglob("*"):
+        if f.is_file():
+            fd = os.open(f, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+
+
+def _uint8_diff(a, b) -> int:
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        raise AssertionError(f"images of shapes {a.shape} and {b.shape}")
+    return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+
+def run_sdxl_from_disk(smi: str, pipe, image):
+    """Phase 18a: phase 11's full-width SDXL pipeline written with the
+    port's `save_pretrained` (the page cache left warm) and read back onto
+    the card with `StableDiffusionXLPipeline.from_pretrained(dir,
+    dtype=torch.bfloat16)`, its stand-in tokenizers passed back as
+    components; every component bit-equal; then phase 11's request (1024
+    px, 30 steps, CFG 5.0, SEED) within 2 uint8 levels of phase 11's image,
+    K1 and K4 at the module counts."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch import StableDiffusionXLPipeline
+
+    nbytes = _state_bytes(pipe)
+    directory = _scratch_dir("sdxl", nbytes)
+    try:
+        _, save_s, _ = _request_seconds(lambda: pipe.save_pretrained(directory))
+        on_disk = _component_bytes(directory)
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        loaded, load_s, load_peak_gb = _request_seconds(lambda: StableDiffusionXLPipeline.from_pretrained(
+            directory, dtype=torch.bfloat16, tokenizer=StandInTokenizer(), tokenizer_2=StandInTokenizer()))
+        load_peak_gb -= base_gb
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    equal = _bit_equal_components(pipe, loaded)
+    expected = {k: STEPS * v + _module_launches(loaded.vae.decoder)[k] for k, v in _module_launches(loaded.unet).items()}
+    reset_launches()
+    images, request_s, peak_gb = _request_seconds(lambda: loaded(
+        PROMPTS[0], height=RESOLUTION, width=RESOLUTION, num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+        generator=torch.Generator(device="cuda").manual_seed(SEED), output_type="pil").images)
+    launches = read_launches()
+    diff = _uint8_diff(np.asarray(images[0]), image)
+    RESULTS["sdxl_from_disk"] = {
+        "card": smi, "bytes": nbytes, "bytes_on_disk": on_disk, "save_seconds": save_s, "load_seconds": load_s,
+        "load_gb_per_s": nbytes / load_s / 1e9, "page_cache": "warm (just written)", "load_peak_gb": load_peak_gb,
+        "request_seconds": request_s, "request_peak_gb": peak_gb, "first_image_seconds": load_s + request_s,
+        "bit_equal": equal, "max_diff_to_phase_11": diff, "launches": launches, "expected_launches": expected}
+    log(f"[sdxl-disk] {smi}: SDXL {nbytes / 1e9:.2f} GB bf16: save_pretrained {save_s:.1f} s, from_pretrained onto "
+        f"the card {load_s:.2f} s ({nbytes / load_s / 1e9:.2f} GB/s, page cache warm), load peak {load_peak_gb:.2f} "
+        f"GB; components bit-equal {equal}; request {request_s:.3f} s (first image {load_s + request_s:.2f} s after "
+        f"from_pretrained began), peak {peak_gb:.1f} GB; max |diff| to phase 11's image {diff} (uint8 levels; limit "
+        f"2); launches {launches} (expected {expected})")
+    if diff > 2:
+        raise AssertionError(f"the SDXL pipeline read from disk differs from phase 11's image by {diff} levels")
+    if launches != expected:
+        raise AssertionError(f"the SDXL pipeline read from disk launched {launches}, expected {expected}")
+    return {"sdxl_from_disk": launches}
+
+
+def run_sd3_from_disk(smi: str, pipe):
+    """Phase 18b: phase 16's SD3.5 Medium pipeline, given real tokenizers
+    (`clip_tokenizer`, `t5_tokenizer`), answers a direct request from SEED;
+    then it is written with `save_pretrained` (T5-XXL in 5 GB transformers
+    shards, as published), flushed from the page cache, and served by
+    `serving.server.serve()` with MODEL_PATH set to the directory, which
+    loads it with `StableDiffusion3Pipeline.from_pretrained(MODEL_PATH,
+    dtype=torch.bfloat16)` onto the card. The loaded weights must be
+    bit-equal, the served image within 2 uint8 levels of the direct one,
+    the launches at the module counts."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from diffusers_tpu_torch.serving import server
+
+    tokenizer_dir = tempfile.mkdtemp(prefix="chip_smoke_tokenizers_")
+    try:
+        clip = clip_tokenizer(Path(tokenizer_dir) / "clip")
+        pipe.register_modules(tokenizer=clip, tokenizer_2=clip, tokenizer_3=t5_tokenizer(Path(tokenizer_dir) / "t5"))
+    finally:
+        shutil.rmtree(tokenizer_dir, ignore_errors=True)
+    call = dict(height=RESOLUTION, width=RESOLUTION, num_inference_steps=SD3_STEPS, guidance_scale=SD3_GUIDANCE,
+                output_type="np")
+    direct = pipe(SD3_PROMPTS[0], generator=torch.Generator(device="cuda").manual_seed(SEED), **call).images
+    direct_image = server.to_uint8(direct[0])
+
+    nbytes = _state_bytes(pipe)
+    directory = _scratch_dir("sd3", nbytes)
+    image_dir = tempfile.mkdtemp(prefix="chip_smoke_sd3_images_")
+    previous = (os.environ.get("MODEL_PATH"), server.IMAGE_DIR)
+    httpd = None
+    try:
+        _, save_s, _ = _request_seconds(lambda: pipe.save_pretrained(directory))
+        on_disk = _component_bytes(directory)
+        t5_files = sorted(f.name for f in (Path(directory) / "text_encoder_3").iterdir())
+        _evict_page_cache(directory)
+        os.environ["MODEL_PATH"] = directory
+        server.IMAGE_DIR = image_dir
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        httpd, load_s, load_peak_gb = _request_seconds(lambda: server.serve(host="127.0.0.1", port=0, seed=SEED))
+        load_peak_gb -= base_gb
+        loaded = httpd.worker.pipeline
+        equal = _bit_equal_components(pipe, loaded)
+        per_call, decode = _module_launches(loaded.transformer), _module_launches(loaded.vae.decoder)
+        expected = {k: SD3_STEPS * per_call[k] + decode[k] for k in per_call}
+        serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+        serving.start()
+        reset_launches()
+        (status, answer), request_s, _ = _request_seconds(lambda: _post(httpd.server_address[1], {
+            "prompt": SD3_PROMPTS[0], "size": f"{RESOLUTION}x{RESOLUTION}", "steps": SD3_STEPS,
+            "guidance_scale": SD3_GUIDANCE}))
+        launches = read_launches()
+        if status != 200:
+            raise AssertionError(f"the server loaded from MODEL_PATH answered {status}: {answer}")
+        served = _fetch_png(httpd.server_address[1], answer["data"][0]["url"])
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.worker.stop()
+            httpd.server_close()
+        os.environ.pop("MODEL_PATH", None)
+        if previous[0] is not None:
+            os.environ["MODEL_PATH"] = previous[0]
+        server.IMAGE_DIR = previous[1]
+        shutil.rmtree(directory, ignore_errors=True)
+        shutil.rmtree(image_dir, ignore_errors=True)
+    del loaded, httpd
+    diff = _uint8_diff(served, direct_image)
+    RESULTS["sd3_from_disk"] = {
+        "card": smi, "bytes": nbytes, "bytes_on_disk": on_disk, "text_encoder_3_files": t5_files,
+        "save_seconds": save_s, "load_seconds": load_s, "load_gb_per_s": nbytes / load_s / 1e9,
+        "page_cache": "evicted after the save (fsync + posix_fadvise DONTNEED, best effort)",
+        "load_peak_gb": load_peak_gb, "request_seconds": request_s, "first_image_seconds": load_s + request_s,
+        "bit_equal": equal, "served_vs_direct_max_diff": diff, "launches": launches, "expected_launches": expected}
+    log(f"[sd3-disk] {smi}: SD3.5 Medium {nbytes / 1e9:.2f} GB bf16, on disk "
+        f"{ {k: f'{v / 1e9:.3f} GB' for k, v in on_disk.items()} } (text_encoder_3: {t5_files}): save_pretrained "
+        f"{save_s:.1f} s; serve() from MODEL_PATH loaded it onto the card in {load_s:.2f} s "
+        f"({nbytes / load_s / 1e9:.2f} GB/s, page cache evicted), load peak {load_peak_gb:.2f} GB; components "
+        f"bit-equal {equal}; one request {request_s:.3f} s (first image {load_s + request_s:.2f} s after serve() "
+        f"began); served vs direct max |diff| {diff} (uint8 levels; limit 2); launches {launches} (expected "
+        f"{expected})")
+    if diff > 2:
+        raise AssertionError(f"the pipeline served from MODEL_PATH differs from the direct call by {diff} levels")
+    if launches != expected:
+        raise AssertionError(f"the request served from MODEL_PATH launched {launches}, expected {expected}")
+    return {"sd3_from_disk": launches}
+
+
+def run_flux_w8a8_on_load(smi: str):
+    """Phase 18c: Flux.1-dev at full width, cut to FLUX_CUT (T5_CUT), built
+    in bf16 from SEED and written with `save_pretrained`; the in-memory
+    transformer is then quantized by the rule `Int8DynamicActConfig()`
+    selects (`quantizers.w8a8_linear_names`, JAX's); the transformer read
+    alone with that config must equal it bit for bit (each int8 weight and
+    scale `quantize_kernel_int8` of the saved bf16 weight, on the card) with
+    a load peak below its bf16 bytes; then `FluxPipeline.from_pretrained`
+    with a `PipelineQuantizationConfig` serves one 28-step 1024 px request,
+    K5 launched 28 times for each 128-aligned W8A8Linear (all but
+    `proj_out`, 3072 -> 64), within 2 uint8 levels of the in-memory
+    pipeline's request from the same seed."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch import FluxPipeline, Int8DynamicActConfig, PipelineQuantizationConfig
+    from diffusers_tpu_torch.models.transformers.transformer_flux import FluxTransformer2DModel
+    from diffusers_tpu_torch.ops.module import W8A8Linear
+    from diffusers_tpu_torch.quantizers import quantize_linears, w8a8_linear_names
+
+    pipe = _build_flux_pipeline(FLUX_CUT, None, FLUX_VAE, CLIP_L, T5_CUT, "cuda", torch.bfloat16)
+    tr = pipe.transformer
+    config = Int8DynamicActConfig()
+    names = w8a8_linear_names(tr, config)
+    bench = [n for n, m in tr.named_modules() if isinstance(m, torch.nn.Linear) and m.weight.numel() >= 2**20]
+    bf16_bytes = sum(t.numel() * t.element_size() for t in tr.state_dict().values())
+    if len(names) != FLUX_CUT_W8A8:
+        raise AssertionError(f"JAX's rule selects {len(names)} Linears of the cut Flux transformer, expected "
+                             f"{FLUX_CUT_W8A8}")
+    nbytes = _state_bytes(pipe)
+    directory = _scratch_dir("flux", nbytes)
+    tokenizers = dict(tokenizer=StandInTokenizer(), tokenizer_2=StandInTokenizer(**T5_TOKENIZER))
+    try:
+        _, save_s, _ = _request_seconds(lambda: pipe.save_pretrained(directory))
+        quantize_linears(tr, names)  # the in-memory reference, quantized by the same rule on the card
+        base = torch.cuda.memory_allocated()
+        alone, alone_s, peak_gb = _request_seconds(lambda: FluxTransformer2DModel.from_pretrained(
+            directory, subfolder="transformer", dtype=torch.bfloat16, quantization_config=config))
+        load_peak_bytes = peak_gb * 1e9 - base
+        a, b = tr.state_dict(), alone.state_dict()
+        alone_equal = list(a) == list(b) and all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+        int8_bytes = sum(t.numel() * t.element_size() for t in b.values())
+        del alone, a, b
+        torch.cuda.empty_cache()
+        quant = PipelineQuantizationConfig(quant_mapping={"transformer": config})
+        loaded, load_s, _ = _request_seconds(lambda: FluxPipeline.from_pretrained(
+            directory, dtype=torch.bfloat16, quantization_config=quant, **tokenizers))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    equal = _bit_equal_components(pipe, loaded)
+    n_w8a8 = sum(isinstance(m, W8A8Linear) for m in loaded.transformer.modules())
+    n_k5 = _module_launches(loaded.transformer)["w8a8_matmul"]  # proj_out's N = 64 takes the dequantized matmul
+    call = dict(height=RESOLUTION, width=RESOLUTION, num_inference_steps=FLUX_STEPS, guidance_scale=FLUX_GUIDANCE,
+                max_sequence_length=FLUX_MAX_SEQUENCE_LENGTH, output_type="pil")
+    reset_launches()
+    reference, reference_s, _ = _request_seconds(lambda: pipe(
+        FLUX_PROMPT, generator=torch.Generator(device="cuda").manual_seed(SEED), **call).images)
+    reference_launches = read_launches()
+    reset_launches()
+    images, request_s, peak_gb = _request_seconds(lambda: loaded(
+        FLUX_PROMPT, generator=torch.Generator(device="cuda").manual_seed(SEED), **call).images)
+    launches = read_launches()
+    expected = {k: FLUX_STEPS * v + _module_launches(loaded.vae.decoder)[k]
+                for k, v in _module_launches(loaded.transformer).items()}
+    diff = _uint8_diff(np.asarray(images[0]), np.asarray(reference[0]))
+    RESULTS["flux_w8a8_on_load"] = {
+        "card": smi, "transformer": FLUX_CUT, "text_encoder_2": T5_CUT, "bytes": nbytes, "save_seconds": save_s,
+        "transformer_bf16_bytes": bf16_bytes, "transformer_w8a8_bytes": int8_bytes,
+        "transformer_load_seconds": alone_s, "transformer_load_peak_bytes": load_peak_bytes,
+        "transformer_bit_equal_to_in_memory": alone_equal, "pipeline_load_seconds": load_s,
+        "pipeline_load_gb_per_s": nbytes / load_s / 1e9, "page_cache": "warm (just written)",
+        "w8a8_linears": n_w8a8, "w8a8_linears_on_k5": n_k5, "bench_rule_only": sorted(set(bench) - set(names)),
+        "jax_rule_only": sorted(set(names) - set(bench)), "bit_equal": equal, "request_seconds": request_s,
+        "reference_request_seconds": reference_s, "request_peak_gb": peak_gb, "first_image_seconds": load_s + request_s,
+        "max_diff_to_in_memory": diff, "launches": launches, "expected_launches": expected}
+    log(f"[flux-w8a8-load] {smi}: Flux.1-dev cut to {FLUX_CUT['num_layers']} dual + {FLUX_CUT['num_single_layers']} "
+        f"single blocks, T5-XXL {T5_CUT['num_layers']} layers: {nbytes / 1e9:.2f} GB bf16 saved in {save_s:.1f} s; "
+        f"JAX's rule quantizes {n_w8a8} Linears, {n_k5} of them 128-aligned for K5 (bench's rule alone: {sorted(set(bench) - set(names))}; JAX's "
+        f"alone: {sorted(set(names) - set(bench))}); the transformer alone loaded in {alone_s:.2f} s, peak "
+        f"{load_peak_bytes / 1e9:.3f} GB against its {bf16_bytes / 1e9:.3f} GB bf16 ({int8_bytes / 1e9:.3f} GB "
+        f"w8a8), bit-equal to the in-memory quantization {alone_equal}; the pipeline loaded in {load_s:.2f} s "
+        f"({nbytes / load_s / 1e9:.2f} GB/s, warm), components bit-equal; request {request_s:.3f} s (in-memory "
+        f"{reference_s:.3f} s), max |diff| {diff} (uint8 levels; limit 2); launches {launches} (expected {expected})")
+    if not alone_equal:
+        raise AssertionError("the transformer quantized on load differs from the same model quantized in memory")
+    if load_peak_bytes >= bf16_bytes:
+        raise AssertionError(f"the w8a8 load peaked at {load_peak_bytes} bytes, not below the bf16 {bf16_bytes}")
+    if n_w8a8 != len(names) or launches["w8a8_matmul"] != n_k5 * FLUX_STEPS or launches != expected:
+        raise AssertionError(f"the Flux request read from disk launched {launches}, expected {expected}")
+    if diff > 2:
+        raise AssertionError(f"the Flux pipeline quantized on load differs from the in-memory one by {diff} levels")
+    return {"flux_w8a8_on_load": launches, "flux_w8a8_in_memory": reference_launches}
+
+
+def small_round_trip_cases():
+    """Phase 18d's pipelines (phase 10's small SDXL, Flux with a float
+    transformer, SD3.5-style and Wan, built on the CPU in float32 from SEED
+    and moved to the card in bf16), their tokenizer slots, and a call."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED)
+    n = SAMPLE_ROUND_TRIP_STEPS
+
+    def on_card(pipe):
+        return pipe.to(device=torch.device("cuda"), dtype=torch.bfloat16)
+
+    sdxl_latents = torch.from_numpy(rng.randn(1, 4, 16, 16).astype(np.float32))
+    flux_latents = torch.from_numpy(rng.randn(1, 256, 64).astype(np.float32))
+    sd3_latents = torch.from_numpy(rng.randn(1, 16, 16, 16).astype(np.float32))
+    wan_latents = torch.from_numpy(rng.randn(1, 16, 3, 8, 8).astype(np.float32))
+    return (
+        ("sdxl", lambda: on_card(_build_pipeline(SMALL_UNET, SMALL_VAE, SMALL_CLIP, SMALL_CLIP, "cpu",
+                                                 torch.float32)), ("clip", "clip"),
+         lambda p: p(PROMPTS[0], latents=sdxl_latents, num_inference_steps=n, guidance_scale=GUIDANCE,
+                     output_type="np").images),
+        ("flux", lambda: on_card(_build_flux_pipeline(SMALL_FLUX, None, SMALL_FLUX_VAE, SMALL_FLUX_CLIP, SMALL_T5,
+                                                      "cpu", torch.float32)), ("clip", "t5"),
+         lambda p: p(FLUX_PROMPT, latents=flux_latents, height=64, width=64, num_inference_steps=n,
+                     guidance_scale=FLUX_GUIDANCE, max_sequence_length=64, output_type="np").images),
+        ("sd3", lambda: on_card(_build_sd3_pipeline(SMALL_SD35, SMALL_SD3_VAE, SMALL_SD3_CLIP, SMALL_SD3_CLIP,
+                                                    SMALL_T5, "cpu", torch.float32)), ("clip", "clip", "t5"),
+         lambda p: p(PROMPTS[0], latents=sd3_latents, num_inference_steps=n, guidance_scale=SD3_GUIDANCE,
+                     max_sequence_length=64, output_type="np").images),
+        ("wan", lambda: on_card(_build_wan_pipeline(SMALL_WAN, SMALL_WAN_VAE, SMALL_UMT5, "cpu", torch.float32)),
+         ("t5",), lambda p: p(WAN_PROMPT, WAN_NEGATIVE, height=64, width=64, num_frames=9, num_inference_steps=n,
+                              guidance_scale=WAN_GUIDANCE, max_sequence_length=64, latents=wan_latents,
+                              output_type="np").frames),
+    )
+
+
+def run_small_round_trips(smi: str):
+    """Phase 18d: phase 10's small SDXL, Flux, SD3 and Wan pipelines on the
+    card, given real tokenizers, each through `save_pretrained` and
+    `from_pretrained(device="cuda")` (Wan's in 1 MB shards, so its UMT5 is
+    several transformers shards); each component bit-equal, each output
+    within 2 uint8 levels of the same call before the round trip."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from diffusers_tpu_torch.serving.server import to_uint8
+
+    results, root = {}, tempfile.mkdtemp(prefix="chip_smoke_small_")
+    reset_launches()
+    try:
+        tokenizers = {"clip": clip_tokenizer(Path(root) / "clip"), "t5": t5_tokenizer(Path(root) / "t5")}
+        for name, build, slots, call in small_round_trip_cases():
+            pipe = build()
+            pipe.register_modules(**{f"tokenizer{'' if i == 0 else f'_{i + 1}'}": tokenizers[kind]
+                                     for i, kind in enumerate(slots)})
+            before = call(pipe)
+            directory = Path(root) / name
+            pipe.save_pretrained(directory, max_shard_size="1MB" if name == "wan" else None)
+            files = {d.name: sorted(f.name for f in d.iterdir()) for d in directory.iterdir() if d.is_dir()}
+            loaded, load_s, _ = _request_seconds(lambda: type(pipe).from_pretrained(directory, device="cuda"))
+            equal = _bit_equal_components(pipe, loaded)
+            after = call(loaded)
+            diff = _uint8_diff(to_uint8(after), to_uint8(before))
+            results[name] = {"load_seconds": load_s, "bit_equal": equal, "max_diff": diff,
+                             "max_abs_diff": float(np.abs(after - before).max()), "files": files}
+            log(f"[small-disk] {smi}: small {name} through save_pretrained / from_pretrained(device='cuda') in "
+                f"{load_s:.2f} s: components bit-equal {equal}, output max |diff| {diff} uint8 levels "
+                f"({results[name]['max_abs_diff']:.3e}); files {files.get('text_encoder', files)}")
+            if diff > 2:
+                raise AssertionError(f"small {name} after the round trip differs by {diff} levels")
+            if name == "wan" and sum(f.endswith(".safetensors") for f in files["text_encoder"]) < 2:
+                raise AssertionError(f"Wan's UMT5 was not written in shards: {files['text_encoder']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = read_launches()
+    RESULTS["small_round_trips"] = dict(results, launches=launches)
+    if min(launches[k] for k in ("flash_attention_fwd", "group_norm")) <= 0:
+        raise AssertionError(f"the small round trips missed a kernel: {launches}")
+    return {"small_round_trips": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", type=Path, default=None, help="directory for chip_smoke.json")
@@ -2980,6 +3457,7 @@ def main() -> int:
     sdxl, pipe, image = run_pipeline(smi)
     paths = {"sdxl": sdxl, **run_sdxl_cached(smi, pipe, image)}
     paths.update(run_image_pipelines(smi, pipe))
+    paths.update(run_sdxl_from_disk(smi, pipe, image))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -2988,7 +3466,14 @@ def main() -> int:
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(run_sd3_served(smi))
+    paths.update(run_flux_w8a8_on_load(smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(run_small_round_trips(smi))
+    sd3_paths, pipe = run_sd3_served(smi)
+    paths.update(sd3_paths)
+    paths.update(run_sd3_from_disk(smi, pipe))
+    del pipe
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(run_wan(smi))

@@ -14,12 +14,20 @@ kernel: kernels compile on first launch on a CUDA tensor.
 __version__ = "0.1.0"
 
 _EXPORTS = {
+    "DiffusionPipeline": "diffusers_tpu_torch.pipelines.pipeline_utils",
+    "StableDiffusionXLPipeline": "diffusers_tpu_torch.pipelines.stable_diffusion_xl",
+    "FluxPipeline": "diffusers_tpu_torch.pipelines.flux.pipeline_flux",
     "StableDiffusion3Pipeline": "diffusers_tpu_torch.pipelines.stable_diffusion_3",
     "WanPipeline": "diffusers_tpu_torch.pipelines.wan",
     "WanTransformer3DModel": "diffusers_tpu_torch.models.transformers.transformer_wan",
     "AutoencoderKLWan": "diffusers_tpu_torch.models.autoencoders.autoencoder_kl_wan",
     "UMT5EncoderModel": "diffusers_tpu_torch.models.text_encoders.t5",
     "UniPCMultistepScheduler": "diffusers_tpu_torch.schedulers",
+    "Int8DynamicActConfig": "diffusers_tpu_torch.quantizers",
+    "Int8WeightOnlyConfig": "diffusers_tpu_torch.quantizers",
+    "Fp8WeightOnlyConfig": "diffusers_tpu_torch.quantizers",
+    "Int4WeightOnlyConfig": "diffusers_tpu_torch.quantizers",
+    "PipelineQuantizationConfig": "diffusers_tpu_torch.quantizers",
 }
 
 

@@ -4,7 +4,9 @@ Port of `diffusers_tpu/configuration_utils.py` (the reference's `ConfigMixin`
 and `register_to_config`). Stdlib only; the on-disk format is the same
 (`config.json` / `scheduler_config.json` with `_class_name` and
 `_diffusers_version`). `from_pretrained` reads a local directory (and its
-`subfolder`); the hub waits.
+`subfolder`); the hub is not ported. A config file written by another
+library (a transformers `config.json`) loads too: the keys the class does
+not take stay in its config and are written back by `save_config`.
 
 For `nn.Module` subclasses, `nn.Module.__getattr__` comes first in the MRO, so
 config values are read through ``self.config.<name>``.
@@ -192,8 +194,9 @@ class ConfigMixin:
 
     @classmethod
     def extract_init_dict(cls, config_dict: Dict[str, Any], **kwargs):
-        """Split a loaded config into (init kwargs, unused config keys, hidden
-        config keys)."""
+        """Split a loaded config into (init kwargs, unused config keys and
+        keyword arguments, hidden config keys: the config file's keys that
+        the constructor does not take)."""
         config_dict = dict(config_dict)
         expected_keys = cls._get_init_keys(cls)
         expected_keys.discard("self")
@@ -216,7 +219,10 @@ class ConfigMixin:
         passed_keys = set(init_dict.keys())
         if len(expected_keys - passed_keys) > 0:
             logger.info(f"{expected_keys - passed_keys} was not found in config. Values will be initialized to default values.")
-        hidden_config_dict = {k: v for k, v in config_dict.items() if k.startswith("_")}
+        # every config-file key the constructor does not take (the underscore
+        # keys, and other writers' metadata such as a transformers config's
+        # `architectures` or `torch_dtype`) is kept in the config, never passed
+        hidden_config_dict = dict(config_dict)
         return init_dict, unused_kwargs, hidden_config_dict
 
     @staticmethod

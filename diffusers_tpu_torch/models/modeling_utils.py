@@ -8,7 +8,14 @@ Port of the layout rules of `diffusers_tpu/models/modeling_utils.py`
 `diffusion_pytorch_model[.variant].safetensors`, sharded with its
 `.index.json` above `max_shard_size`, and of `ModelMixin.from_pretrained`
 (`:439`) with its streaming load (`stream_load_params` `:289`) over the same
-files (`_resolve_weight_files` `:174`).
+files (`_resolve_weight_files` `:174`). A class names its own checkpoint
+layout: the text encoders read and write transformers' (`model.safetensors`,
+or `model-0000i-of-0000n.safetensors` shards with
+`model.safetensors.index.json`) and keep only the keys of their encoder, as
+the JAX text encoders' `from_pretrained` do. `quantization_config` quantizes
+on load: the Linears the config selects (`quantizers.quantize.w8a8_linear_names`,
+JAX's rule) become `W8A8Linear`s on the meta model, and each float weight is
+quantized on the device as it arrives.
 
 The safetensors files are read and written with the standard library (an
 8-byte little-endian header length, the JSON header, then each tensor's raw
@@ -31,6 +38,8 @@ import torch
 from torch import nn
 
 from ..ops.module import RMSNorm, W8A8Linear
+from ..quantizers.auto import resolve_quantization_config
+from ..quantizers.quantize import quantize_kernel_int8, replace_with_w8a8, w8a8_linear_names
 
 CONFIG_NAME = "config.json"
 SAFETENSORS_WEIGHTS_NAME = "diffusion_pytorch_model.safetensors"
@@ -78,18 +87,20 @@ def save_safetensors(tensors: Dict[str, torch.Tensor], path: Union[str, os.PathL
 
 def _variant_name(name: str, variant: Optional[str]) -> str:
     """`diffusion_pytorch_model.safetensors` -> `diffusion_pytorch_model.fp16.safetensors`
-    for variant "fp16" (the index: `...model.fp16.safetensors.index.json`)."""
+    for variant "fp16" (an index: `...model.fp16.safetensors.index.json`;
+    transformers' `model.safetensors` -> `model.fp16.safetensors`)."""
     if not variant:
         return name
-    stem, ext = SAFETENSORS_WEIGHTS_NAME.rsplit(".", 1)
-    return name.replace(SAFETENSORS_WEIGHTS_NAME, f"{stem}.{variant}.{ext}")
+    stem, ext, rest = name.partition(".safetensors")
+    return f"{stem}.{variant}{ext}{rest}"
 
 
-def _resolve_weight_files(model_path: str, variant: Optional[str] = None) -> List[str]:
+def _resolve_weight_files(model_path: str, weights_name: str, index_name: str,
+                          variant: Optional[str] = None) -> List[str]:
     """The safetensors files of a checkpoint directory: the shards its index
     names, else the single file (JAX `_resolve_weight_files`)."""
-    index_path = os.path.join(model_path, _variant_name(SAFETENSORS_INDEX_NAME, variant))
-    single_path = os.path.join(model_path, _variant_name(SAFETENSORS_WEIGHTS_NAME, variant))
+    index_path = os.path.join(model_path, _variant_name(index_name, variant))
+    single_path = os.path.join(model_path, _variant_name(weights_name, variant))
     if os.path.isfile(index_path):
         with open(index_path) as f:
             index = json.load(f)
@@ -141,6 +152,16 @@ class ModelMixin(nn.Module):
     """Base of every port model: an `nn.Module` with a `config.json` config."""
 
     config_name = CONFIG_NAME
+    # the checkpoint layout: file names (a `variant` goes in before
+    # `.safetensors`) and the shard size `save_pretrained` writes by default
+    _weights_name = SAFETENSORS_WEIGHTS_NAME
+    _weights_index_name = SAFETENSORS_INDEX_NAME
+    _default_max_shard_size = "10GB"
+    # checkpoint keys `from_pretrained` reads: those under these prefixes (None:
+    # every key), less those ending in one of `_drop_key_suffixes`; every key
+    # it reads must then match the state dict, in both directions
+    _keep_key_prefixes: Optional[Tuple[str, ...]] = None
+    _drop_key_suffixes: Tuple[str, ...] = ()
     # state-dict keys that upstream checkpoints hold but the model derives from
     # its config instead (SD3's sin-cos table): `from_pretrained` hands each to
     # `check_derived_tensor`, which raises unless it is what the config gives
@@ -148,6 +169,11 @@ class ModelMixin(nn.Module):
 
     def check_derived_tensor(self, key: str, tensor: torch.Tensor) -> None:
         raise ValueError(f"{type(self).__name__} derives no checkpoint tensor ({key})")
+
+    @classmethod
+    def _reads_key(cls, key: str) -> bool:
+        kept = cls._keep_key_prefixes is None or key.startswith(cls._keep_key_prefixes)
+        return kept and not key.endswith(cls._drop_key_suffixes)
 
     @property
     def device(self) -> torch.device:
@@ -157,20 +183,22 @@ class ModelMixin(nn.Module):
     def dtype(self) -> torch.dtype:
         return next(self.parameters()).dtype
 
-    def save_pretrained(self, save_directory: Union[str, os.PathLike], max_shard_size: Union[int, str] = "10GB",
+    def save_pretrained(self, save_directory: Union[str, os.PathLike], max_shard_size: Union[int, str, None] = None,
                         variant: Optional[str] = None):
-        """Write `config.json` and the state dict as safetensors; above
-        `max_shard_size` it shards, in key order, into
-        `diffusion_pytorch_model-0000i-of-0000n.safetensors` plus
-        `diffusion_pytorch_model.safetensors.index.json`, as the JAX
-        package does. `variant` ("fp16", say) goes into the file names:
+        """Write `config.json` and the state dict as safetensors in the
+        class's layout (`diffusion_pytorch_model.safetensors`; the text
+        encoders `model.safetensors`); above `max_shard_size` (the class's
+        default: 10 GB, the text encoders 5 GB, as transformers writes) it
+        shards, in key order, into `<stem>-0000i-of-0000n.safetensors` plus
+        `<stem>.safetensors.index.json`, as the JAX package does. `variant`
+        ("fp16", say) goes into the file names:
         `diffusion_pytorch_model.fp16.safetensors`."""
         os.makedirs(save_directory, exist_ok=True)
         self.save_config(save_directory)
         state_dict = self.state_dict()
-        max_bytes = _parse_size(max_shard_size)
+        max_bytes = _parse_size(self._default_max_shard_size if max_shard_size is None else max_shard_size)
         total = sum(_nbytes(t) for t in state_dict.values())
-        weights_name = _variant_name(SAFETENSORS_WEIGHTS_NAME, variant)
+        weights_name = _variant_name(self._weights_name, variant)
         if total <= max_bytes:
             save_safetensors(state_dict, os.path.join(save_directory, weights_name))
             return
@@ -193,7 +221,7 @@ class ModelMixin(nn.Module):
             save_safetensors(shard, os.path.join(save_directory, fname))
             weight_map.update(dict.fromkeys(shard, fname))
         index = {"metadata": {"total_size": total}, "weight_map": weight_map}
-        with open(os.path.join(save_directory, _variant_name(SAFETENSORS_INDEX_NAME, variant)), "w") as f:
+        with open(os.path.join(save_directory, _variant_name(self._weights_index_name, variant)), "w") as f:
             json.dump(index, f, indent=2, sort_keys=True)
 
     @classmethod
@@ -209,29 +237,39 @@ class ModelMixin(nn.Module):
         mesh=None,
         **kwargs,
     ):
-        """Build the model from `config.json` of a local diffusers-format
-        directory (and its `subfolder`) and load its safetensors weights
+        """Build the model from `config.json` of a local directory (and its
+        `subfolder`) and load its safetensors weights in the class's layout
         (sharded through the index, or one file; `variant` selects
-        `diffusion_pytorch_model.<variant>.safetensors`) onto `device`,
-        floating tensors cast to `dtype` when it is given. `kwargs` override
-        config values.
+        `<stem>.<variant>.safetensors`) onto `device`, floating tensors cast
+        to `dtype` when it is given. `kwargs` override config values.
 
         The model is built on the meta device, and each tensor is copied to
         `device` before the next is read, so the host never holds more than
-        about one tensor. Keys must match the model's state dict exactly, in
-        both directions, with their shapes, and no parameter or buffer may
-        be left on the meta device. The one exception is a key of the
-        model's `_derived_keys`: it may be present, and its tensor must pass
+        about one tensor. The checkpoint keys the class reads (`_reads_key`:
+        a text encoder skips a full checkpoint's decoder and its legacy
+        aliases) must match the model's state dict exactly, in both
+        directions, with their shapes, and no parameter or buffer may be
+        left on the meta device. The one exception is a key of the model's
+        `_derived_keys`: it may be present, and its tensor must pass
         `check_derived_tensor` (it is not kept). A parameter that its module
         lists in `reshape_on_load` may come in another shape of the same
-        size (`WanRMSNorm.gamma`, which the JAX package writes flat). The
-        default device is the card: without one this raises; pass
-        ``device="cpu"`` to load on the CPU."""
-        for name, value, item in (("quantization_config", quantization_config, "load-time w8a8 quantization"),
-                                  ("gguf_file", gguf_file, "GGUF checkpoints"), ("mesh", mesh, "mesh placement")):
+        size (`WanRMSNorm.gamma`, which the JAX package writes flat).
+
+        `quantization_config` (a config of `diffusers_tpu_torch.quantizers`,
+        a dict or a method name) quantizes on load. With
+        `Int8DynamicActConfig` the Linears JAX's `quantize_params` would mark
+        w8a8 become `W8A8Linear`s before any tensor is read; a float weight
+        is cast to `dtype` and quantized on `device` as it arrives
+        (`quantize_kernel_int8`), and an int8 weight with its `weight_scale`
+        (the port's own w8a8 save) loads as it is. The other configs raise
+        `NotImplementedError`, as do `gguf_file` and `mesh`. The default
+        device is the card: without one this raises; pass ``device="cpu"``
+        to load on the CPU."""
+        for name, value, item in (("gguf_file", gguf_file, "GGUF checkpoints, ROADMAP A4.5"),
+                                  ("mesh", mesh, "mesh placement, ROADMAP A8")):
             if value is not None:
-                raise NotImplementedError(f"{cls.__name__}.from_pretrained: `{name}` ({item}) is not ported yet "
-                                          "(ROADMAP A3, the load-time arguments of from_pretrained)")
+                raise NotImplementedError(f"{cls.__name__}.from_pretrained: `{name}` ({item}) is not ported yet")
+        quantization_config = resolve_quantization_config(quantization_config)
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"{cls.__name__}.from_pretrained: no CUDA device is visible; pass device='cpu' to "
@@ -243,18 +281,30 @@ class ModelMixin(nn.Module):
 
         with torch.device("meta"):
             model = cls.from_config(cls.load_config(model_path), **kwargs)
+        quantized = []
+        if quantization_config is not None:
+            quantized = w8a8_linear_names(model, quantization_config)
+            replace_with_w8a8(model, quantized)
         expected = model.state_dict(keep_vars=True)
-        files = _resolve_weight_files(model_path, variant)
-        keys = [k for f in files for k in read_safetensors_header(f)[1]]
-        derived = set(keys) & set(model._derived_keys)
-        missing = sorted(expected.keys() - set(keys))
-        unexpected = sorted(set(keys) - expected.keys() - derived)
-        if missing or unexpected or len(keys) != len(set(keys)):
+        files = _resolve_weight_files(model_path, cls._weights_name, cls._weights_index_name, variant)
+        dtypes = [(k, info["dtype"]) for f in files for k, info in read_safetensors_header(f)[1].items()
+                  if cls._reads_key(k)]
+        keys = dict(dtypes)
+        # a quantized Linear whose checkpoint weight is float makes its scale on arrival
+        on_arrival = {n for n in quantized if keys.get(f"{n}.weight", "I8") != "I8"
+                      and f"{n}.weight_scale" not in keys}
+        derived = keys.keys() & set(model._derived_keys)
+        missing = sorted(expected.keys() - keys.keys() - {f"{n}.weight_scale" for n in on_arrival})
+        unexpected = sorted(keys.keys() - expected.keys() - derived)
+        if missing or unexpected or len(dtypes) != len(keys):
             raise ValueError(f"{cls.__name__}.from_pretrained({model_path}): the checkpoint does not match the "
-                             f"model: missing {missing[:5]} ({len(missing)}), unexpected {unexpected[:5]} "
-                             f"({len(unexpected)}), {len(keys) - len(set(keys))} keys in more than one file")
+                             f"model{' quantized by ' + type(quantization_config).__name__ if quantized else ''}: "
+                             f"missing {missing[:5]} ({len(missing)}), unexpected {unexpected[:5]} "
+                             f"({len(unexpected)}), {len(dtypes) - len(keys)} keys in more than one file")
         for f in files:
             for key, tensor in iter_safetensors(f):
+                if not cls._reads_key(key):
+                    continue
                 if key in derived:
                     model.check_derived_tensor(key, tensor)
                     continue
@@ -268,7 +318,15 @@ class ModelMixin(nn.Module):
                     raise ValueError(f"{cls.__name__}.from_pretrained: {key} has shape {tuple(tensor.shape)} in "
                                      f"{f}, the model expects {tuple(target.shape)}")
                 cast = dtype if dtype is not None and tensor.is_floating_point() else tensor.dtype
+                if isinstance(module, W8A8Linear) and leaf == "weight_scale":
+                    cast = torch.float32  # the f32 epilogue scale, whatever `dtype` is
                 value = tensor.to(device=device, dtype=cast, copy=True)
+                if isinstance(module, W8A8Linear) and leaf == "weight":
+                    if module_name in on_arrival:
+                        value, module._buffers["weight_scale"] = quantize_kernel_int8(value)
+                    elif value.dtype != torch.int8:
+                        raise ValueError(f"{cls.__name__}.from_pretrained: {key} is {value.dtype} beside a "
+                                         "weight_scale; a w8a8 checkpoint holds int8 weights")
                 if leaf in module._parameters:
                     module._parameters[leaf] = nn.Parameter(value, requires_grad=target.requires_grad)
                 else:

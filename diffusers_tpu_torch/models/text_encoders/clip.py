@@ -6,8 +6,12 @@ names (``text_model.encoder.layers.N.self_attn.q_proj`` ...), causal
 attention through the dispatch layer, forced to ``native`` with the causal
 keep-mask as JAX does (`:58`), and the SD-family contracts: per-layer
 `hidden_states` (SDXL reads the penultimate), `pooler_output` at the EOS
-position, `text_embeds` for SDXL's pooled embedding. The vision tower and
-`from_pretrained` wait.
+position, `text_embeds` for SDXL's pooled embedding. `from_pretrained` and
+`save_pretrained` take transformers' layout (JAX `clip.py:231-283`): a
+transformers `config.json` and `model.safetensors` (or shards with
+`model.safetensors.index.json`); of a checkpoint's keys only those under
+``text_model.`` and ``text_projection`` are read, less the legacy
+``position_ids`` buffer. The vision tower waits.
 """
 
 from __future__ import annotations
@@ -142,6 +146,11 @@ class CLIPTextModel(ModelMixin, ConfigMixin):
     """Matches the transformers.CLIPTextModel checkpoint layout."""
 
     has_projection = False
+    _weights_name = "model.safetensors"
+    _weights_index_name = "model.safetensors.index.json"
+    _default_max_shard_size = "5GB"
+    _keep_key_prefixes = ("text_model.", "text_projection")
+    _drop_key_suffixes = ("position_ids",)
 
     @register_to_config
     def __init__(

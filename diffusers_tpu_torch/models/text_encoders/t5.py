@@ -8,7 +8,11 @@ every block (UMT5: every block owns and computes its own, JAX `:170-176`), no
 Attention runs the ``native`` backend, as in JAX (`t5.py:87`): the additive
 [1, H, S, S] bias is not a shape the flash kernel takes. Submodule names
 (``encoder.block.N.layer.0.SelfAttention.q`` ...) match the transformers state
-dict. `from_pretrained` waits until checkpoint files are in the repository.
+dict. `from_pretrained` and `save_pretrained` take transformers' layout
+(JAX `t5.py:227-271`): a transformers `config.json` and `model.safetensors`,
+or 5 GB shards with `model.safetensors.index.json`; of a checkpoint's keys
+only those under ``shared`` and ``encoder`` are read (a full T5's decoder is
+skipped), less the ``encoder.embed_tokens.weight`` alias of ``shared``.
 """
 
 from __future__ import annotations
@@ -169,6 +173,11 @@ class T5Stack(nn.Module):
 
 class T5EncoderModel(ModelMixin, ConfigMixin):
     _per_layer_relative_bias = False
+    _weights_name = "model.safetensors"
+    _weights_index_name = "model.safetensors.index.json"
+    _default_max_shard_size = "5GB"
+    _keep_key_prefixes = ("shared", "encoder")
+    _drop_key_suffixes = ("encoder.embed_tokens.weight",)
 
     @register_to_config
     def __init__(

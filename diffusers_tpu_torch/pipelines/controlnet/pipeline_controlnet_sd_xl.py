@@ -30,10 +30,12 @@ class StableDiffusionXLControlNetPipeline(StableDiffusionXLPipeline):
     _supported_cache_configs = ()
 
     def __init__(self, vae, text_encoder, text_encoder_2, tokenizer, tokenizer_2, unet, controlnet, scheduler,
-                 force_zeros_for_empty_prompt: bool = True, device: Union[str, torch.device] = "cuda"):
+                 image_encoder=None, feature_extractor=None, force_zeros_for_empty_prompt: bool = True,
+                 device: Union[str, torch.device] = "cuda"):
         self.register_modules(controlnet=controlnet)  # before the base places the components
         super().__init__(vae=vae, text_encoder=text_encoder, text_encoder_2=text_encoder_2, tokenizer=tokenizer,
-                         tokenizer_2=tokenizer_2, unet=unet, scheduler=scheduler,
+                         tokenizer_2=tokenizer_2, unet=unet, scheduler=scheduler, image_encoder=image_encoder,
+                         feature_extractor=feature_extractor,
                          force_zeros_for_empty_prompt=force_zeros_for_empty_prompt, device=device)
 
     def _conditioning_image(self, image) -> torch.Tensor:

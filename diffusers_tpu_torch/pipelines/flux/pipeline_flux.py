@@ -24,8 +24,11 @@ loop-invariant text computation, `context_embedder(prompt_embeds)`, out of
 the loop: the text stream is modulated by the timestep inside every block.
 The last FirstBlockCache request's per-step decisions and relative changes
 stay in `fbc_record`. `callback_on_step_end` runs the loop of
-`hooks.generic_cache.denoise_loop_with_callback`. img2img, inpaint, fill,
-kontext and `from_pretrained` wait.
+`hooks.generic_cache.denoise_loop_with_callback`. `from_pretrained` (the
+base class's) loads it from a saved directory, the transformer w8a8 on load
+with ``quantization_config=PipelineQuantizationConfig(quant_mapping=
+{"transformer": Int8DynamicActConfig()})``. img2img, inpaint, fill and
+kontext wait.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ class FluxPipelineOutput(BaseOutput):
 
 
 class FluxPipeline(DiffusionPipeline):
+    _optional_components = ["image_encoder", "feature_extractor"]
     _supported_cache_configs = (
         "TaylorSeerCacheConfig", "FirstBlockCacheConfig", "PyramidAttentionBroadcastConfig",
         "MagCacheConfig", "TextKVCacheConfig",
@@ -69,6 +73,8 @@ class FluxPipeline(DiffusionPipeline):
         text_encoder_2,
         tokenizer_2,
         transformer,
+        image_encoder=None,
+        feature_extractor=None,
         device: Union[str, torch.device] = "cuda",
     ):
         super().__init__()
@@ -81,6 +87,7 @@ class FluxPipeline(DiffusionPipeline):
             transformer=transformer,
             scheduler=scheduler,
         )
+        self._register_image_encoder(image_encoder, feature_extractor)
         self.vae_scale_factor = 2 ** (len(self.vae.config.block_out_channels) - 1) if vae is not None else 8
         self.tokenizer_max_length = 77
         self.default_sample_size = 128

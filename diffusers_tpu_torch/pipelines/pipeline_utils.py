@@ -1,28 +1,85 @@
-"""DiffusionPipeline: component container.
+"""DiffusionPipeline: component container, loading and saving.
 
-Port of the container part of `diffusers_tpu/pipelines/pipeline_utils.py`
-(`register_modules`, config, `components`). JAX pipelines hold
-``(module, params)`` pairs; here a weight-bearing component is one
+Port of `diffusers_tpu/pipelines/pipeline_utils.py`: `register_modules`,
+config, `components`, the class registry and `resolve_component_class`
+(`:42-265`), `from_pretrained` over `model_index.json` (`:294-404`),
+`from_pipe` (`:407-427`) and `save_pretrained` (`:429-447`). JAX pipelines
+hold ``(module, params)`` pairs; here a weight-bearing component is one
 `nn.Module`, and `.to(device, dtype)` moves them all. A pipeline runs on the
 card unless its caller asks for the CPU: every pipeline takes ``device``
 (default ``"cuda"``) and moves its components there when it is built, and it
-raises there if no CUDA device is visible. `enable_cache` /
-`disable_cache` store a config from `diffusers_tpu_torch.hooks` that the
-pipeline's denoise loop honours. A model that `ModelMixin.from_pretrained`
-loaded drops in as a component. The pipeline-level `from_pretrained`
-(`model_index.json`), `save_pretrained` and LoRA wait.
+raises there if no CUDA device is visible. `from_pretrained` loads each
+component straight onto that device. `enable_cache` / `disable_cache` store
+a config from `diffusers_tpu_torch.hooks` that the pipeline's denoise loop
+honours. LoRA waits.
 """
 
 from __future__ import annotations
 
+import importlib
+import inspect
+import json
+import os
+import tempfile
 from typing import Any, Dict, Optional, Union
 
 import torch
 from torch import nn
 
+from .. import __version__
 from ..configuration_utils import ConfigMixin
+from ..models.modeling_utils import ModelMixin
+from ..quantizers.auto import PipelineQuantizationConfig
+from ..utils import logging
+
+logger = logging.get_logger(__name__)
 
 PIPELINE_CONFIG_NAME = "model_index.json"
+
+# model_index.json class name -> the port's class (the classes the port has)
+_CLASS_REGISTRY: Dict[str, str] = {
+    "UNet2DConditionModel": "diffusers_tpu_torch.models.unets.unet_2d_condition.UNet2DConditionModel",
+    "AutoencoderKL": "diffusers_tpu_torch.models.autoencoders.autoencoder_kl.AutoencoderKL",
+    "ControlNetModel": "diffusers_tpu_torch.models.controlnets.controlnet.ControlNetModel",
+    "FluxTransformer2DModel": "diffusers_tpu_torch.models.transformers.transformer_flux.FluxTransformer2DModel",
+    "SD3Transformer2DModel": "diffusers_tpu_torch.models.transformers.transformer_sd3.SD3Transformer2DModel",
+    "WanTransformer3DModel": "diffusers_tpu_torch.models.transformers.transformer_wan.WanTransformer3DModel",
+    "AutoencoderKLWan": "diffusers_tpu_torch.models.autoencoders.autoencoder_kl_wan.AutoencoderKLWan",
+    "EulerDiscreteScheduler": "diffusers_tpu_torch.schedulers.scheduling_euler_discrete.EulerDiscreteScheduler",
+    "FlowMatchEulerDiscreteScheduler":
+        "diffusers_tpu_torch.schedulers.scheduling_flow_match_euler_discrete.FlowMatchEulerDiscreteScheduler",
+    "UniPCMultistepScheduler": "diffusers_tpu_torch.schedulers.scheduling_unipc_multistep.UniPCMultistepScheduler",
+    "DDPMScheduler": "diffusers_tpu_torch.schedulers.scheduling_ddpm.DDPMScheduler",
+    "CLIPTextModel": "diffusers_tpu_torch.models.text_encoders.clip.CLIPTextModel",
+    "CLIPTextModelWithProjection": "diffusers_tpu_torch.models.text_encoders.clip.CLIPTextModelWithProjection",
+    "T5EncoderModel": "diffusers_tpu_torch.models.text_encoders.t5.T5EncoderModel",
+    "UMT5EncoderModel": "diffusers_tpu_torch.models.text_encoders.t5.UMT5EncoderModel",
+}
+
+# loaded with transformers' own from_pretrained (host-side preprocessing; JAX `_TOKENIZER_CLASSES`)
+_TOKENIZER_CLASSES = {
+    "CLIPTokenizer", "CLIPTokenizerFast", "T5Tokenizer", "T5TokenizerFast", "AutoTokenizer",
+    "GemmaTokenizer", "GemmaTokenizerFast", "Qwen2Tokenizer", "Qwen2TokenizerFast",
+    "CLIPImageProcessor", "CLIPFeatureExtractor", "Gemma3Processor", "Qwen2VLProcessor",
+    "ByT5Tokenizer", "XLMRobertaTokenizer", "XLMRobertaTokenizerFast",
+}
+
+
+def resolve_component_class(library: Optional[str], class_name: str):
+    """(class, kind) of a model_index.json entry: kind "model" (weights), "config"
+    (a scheduler) or "tokenizer" (from `transformers`, imported here so the
+    package imports where it is absent). The library is not consulted: the
+    class name decides, as in the JAX package."""
+    if class_name in _CLASS_REGISTRY:
+        module_name, _, name = _CLASS_REGISTRY[class_name].rpartition(".")
+        cls = getattr(importlib.import_module(module_name), name)
+        return cls, "model" if issubclass(cls, ModelMixin) else "config"
+    if class_name in _TOKENIZER_CLASSES:
+        import transformers
+
+        return getattr(transformers, class_name), "tokenizer"
+    raise ValueError(f"{class_name!r} ({library}) is not a class the port has; it loads "
+                     f"{sorted(_CLASS_REGISTRY)} and the transformers tokenizers {sorted(_TOKENIZER_CLASSES)}")
 
 
 class DiffusionPipeline(ConfigMixin):
@@ -45,13 +102,149 @@ class DiffusionPipeline(ConfigMixin):
             self.register_to_config(**register_dict)
             setattr(self, name, module)
 
+    def _register_image_encoder(self, image_encoder, feature_extractor) -> None:
+        """Register SDXL's and Flux's optional IP-Adapter components, which
+        published model_index.json files list as ``[null, null]``; one that
+        is not None raises, as IP-Adapter is not ported."""
+        if image_encoder is not None or feature_extractor is not None:
+            raise NotImplementedError(f"{type(self).__name__}: image_encoder / feature_extractor (IP-Adapter) are "
+                                      "not ported yet (ROADMAP A4.1)")
+        self.register_modules(image_encoder=None, feature_extractor=None)
+
     @classmethod
-    def from_pretrained(cls, *args, **kwargs):
-        raise NotImplementedError(
-            f"{cls.__name__}.from_pretrained (model_index.json) is not ported yet: it waits for the CLIP and T5 "
-            "tokenizers (ROADMAP A3). Load each model with ModelMixin.from_pretrained and build the pipeline "
-            "from them."
-        )
+    def _component_names(cls) -> set:
+        """The constructor's arguments, less `device`."""
+        return set(inspect.signature(cls.__init__).parameters) - {"self", "device"}
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        pretrained_model_name_or_path: Union[str, os.PathLike],
+        dtype: Optional[torch.dtype] = None,
+        variant: Optional[str] = None,
+        quantization_config=None,
+        device: Union[str, torch.device] = "cuda",
+        mesh=None,
+        custom_pipeline: Optional[str] = None,
+        trust_remote_code: bool = False,
+        **kwargs,
+    ):
+        """Build the pipeline from a local diffusers-format directory (its
+        `model_index.json` and one subfolder a component) or a `.dduf`
+        archive of one, loading each component straight onto `device`.
+
+        As in the JAX package: a component passed as a keyword argument is
+        used as it is and not loaded (``tokenizer=...`` needs no
+        `transformers`); a ``[null, null]`` entry loads as None; a plain
+        entry (``force_zeros_for_empty_prompt``) passes through; an entry
+        the constructor does not take is dropped; `_optional_components`
+        missing from the file are None. Models and text encoders load with
+        `ModelMixin.from_pretrained(dtype=, variant=, quantization_config=)`
+        (`quantization_config` is a `PipelineQuantizationConfig`, read per
+        component with `config_for`, or one config for every weight-bearing
+        component); schedulers from their config; tokenizers with
+        `transformers`' `from_pretrained`. Hub ids, `mesh` and custom
+        pipelines are not ported: they raise."""
+        if mesh is not None:
+            raise NotImplementedError(f"{cls.__name__}.from_pretrained: `mesh` (sharded loading) is not ported "
+                                      "yet (ROADMAP A8)")
+        if custom_pipeline is not None or trust_remote_code:
+            raise NotImplementedError(f"{cls.__name__}.from_pretrained: `custom_pipeline` / `trust_remote_code` "
+                                      "(pipelines from outside code) are not ported (ROADMAP A9)")
+        root = str(pretrained_model_name_or_path)
+        if root.endswith(".dduf") and os.path.isfile(root):
+            from ..utils.dduf import extract_dduf
+
+            with tempfile.TemporaryDirectory(prefix="dduf_") as extracted:
+                return cls.from_pretrained(extract_dduf(root, extracted), dtype=dtype, variant=variant,
+                                           quantization_config=quantization_config, device=device, **kwargs)
+        if not os.path.isdir(root):
+            raise EnvironmentError(f"{cls.__name__}.from_pretrained: {root} is not a local directory or a .dduf "
+                                   "file (loading from the hub is not ported)")
+        expected = cls._component_names()
+        init_kwargs = {k: kwargs.pop(k) for k in list(kwargs) if k in expected}  # passed components win
+        if kwargs:
+            raise TypeError(f"{cls.__name__}.from_pretrained got unexpected arguments {sorted(kwargs)}")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"{cls.__name__}.from_pretrained: no CUDA device is visible; pass device='cpu' to "
+                               "load on the CPU")
+
+        with open(os.path.join(root, PIPELINE_CONFIG_NAME)) as f:
+            config_dict = json.load(f)
+        for name, value in config_dict.items():
+            if name.startswith("_") or name not in expected or name in init_kwargs:
+                continue
+            if not isinstance(value, (list, tuple)) or len(value) != 2:
+                init_kwargs[name] = value  # plain config flag (e.g. force_zeros_for_empty_prompt)
+                continue
+            if value[0] is None:
+                init_kwargs[name] = None
+                continue
+            component_cls, kind = resolve_component_class(*value)
+            if kind == "tokenizer":
+                init_kwargs[name] = component_cls.from_pretrained(os.path.join(root, name))
+            elif kind == "model":
+                component_quant = quantization_config
+                if isinstance(quantization_config, PipelineQuantizationConfig):
+                    component_quant = quantization_config.config_for(name)
+                init_kwargs[name] = component_cls.from_pretrained(
+                    root, subfolder=name, dtype=dtype, variant=variant, device=device,
+                    quantization_config=component_quant)
+            else:
+                init_kwargs[name] = component_cls.from_pretrained(root, subfolder=name)
+
+        for name in expected - set(init_kwargs):  # optional components absent from the file
+            if name in cls._optional_components:
+                init_kwargs[name] = None
+        return cls(**init_kwargs, device=device)
+
+    @classmethod
+    def from_pipe(cls, pipeline: "DiffusionPipeline", **overrides):
+        """Re-bind an existing pipeline's components into a sibling task
+        pipeline on the same device with no extra memory: components are
+        shared by reference; `overrides` replaces or adds components by
+        name."""
+        kwargs = {}
+        for name in cls._component_names():
+            if name in overrides:
+                kwargs[name] = overrides.pop(name)
+                continue
+            comp = getattr(pipeline, name, None)
+            if comp is not None:
+                kwargs[name] = comp
+            elif name in cls._optional_components:
+                kwargs[name] = None
+        device = overrides.pop("device", pipeline.device)
+        if overrides:
+            raise ValueError(f"from_pipe got components {list(overrides)} not accepted by {cls.__name__}")
+        return cls(**kwargs, device=device)
+
+    def save_pretrained(self, save_directory: Union[str, os.PathLike], max_shard_size: Union[int, str, None] = None):
+        """Write `model_index.json` (`_class_name`, `_diffusers_version`, then
+        ``[library, class]`` for each component and the plain flags) and each
+        component into its subfolder through its own `save_pretrained`:
+        models in the diffusers layout, text encoders in the transformers
+        layout (both with `max_shard_size` when given),
+        schedulers their config, tokenizers through `transformers`. A
+        component without `save_pretrained` (a stand-in tokenizer) is
+        listed and not written: pass it to `from_pretrained` again."""
+        os.makedirs(save_directory, exist_ok=True)
+        config = dict(self.config)
+        for name in config:
+            component = None if name.startswith("_") else getattr(self, name, None)
+            sub_dir = os.path.join(save_directory, name)
+            if isinstance(component, ModelMixin):
+                component.save_pretrained(sub_dir, max_shard_size=max_shard_size)
+            elif hasattr(component, "save_pretrained"):
+                component.save_pretrained(sub_dir)
+            elif component is not None and isinstance(config[name], (list, tuple)):
+                logger.warning(f"{name} ({type(component).__name__}) has no save_pretrained: not written")
+        config["_class_name"] = type(self).__name__
+        config["_diffusers_version"] = __version__
+        with open(os.path.join(save_directory, PIPELINE_CONFIG_NAME), "w") as f:
+            json.dump({k: list(v) if isinstance(v, tuple) else v for k, v in config.items()}, f, indent=2)
+        logger.info(f"Pipeline saved to {save_directory}")
 
     @property
     def device(self) -> torch.device:

@@ -28,8 +28,10 @@ FasterCache raises, as JAX's loop does. `callback_on_step_end` runs the loop
 of `hooks.generic_cache.denoise_loop_with_callback`; as in JAX, the callback
 sees and may replace "latents". The VAE encode of an input image and the
 decode are shared with img2img and inpaint; every random draw goes through
-`utils.torch_utils.randn_tensor`. The pipeline-level `from_pretrained`, PAG
-and Skip Layer Guidance wait.
+`utils.torch_utils.randn_tensor`. `from_pretrained` (the base class's) loads
+it from a saved directory, `text_encoder_3` / `tokenizer_3` optional as in
+the JAX pipeline; the HTTP server loads SD3.5 Medium that way. PAG and Skip
+Layer Guidance wait.
 """
 
 from __future__ import annotations

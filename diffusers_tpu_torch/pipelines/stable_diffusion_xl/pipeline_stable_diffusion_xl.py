@@ -19,8 +19,10 @@ request. `callback_on_step_end` runs the loop of
 `hooks.generic_cache.denoise_loop_with_callback`. The prompt conditioning,
 the VAE encode of an input image and the decode are shared with the
 image-conditioned pipelines (img2img, inpaint, ControlNet). Every random draw
-goes through `utils.torch_utils.randn_tensor`. IP-Adapter and the
-pipeline-level `from_pretrained` wait.
+goes through `utils.torch_utils.randn_tensor`. `from_pretrained` (the base
+class's) loads it from a saved directory; `image_encoder` and
+`feature_extractor` are registered as the published `model_index.json`
+lists them, ``[null, null]``, and raise if given, as IP-Adapter waits.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ class StableDiffusionXLPipelineOutput(BaseOutput):
 
 
 class StableDiffusionXLPipeline(DiffusionPipeline):
+    _optional_components = ["image_encoder", "feature_extractor"]
     _supported_cache_configs = (
         "FasterCacheConfig", "TaylorSeerCacheConfig", "MagCacheConfig", "TextKVCacheConfig",
     )
@@ -58,6 +61,8 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
         tokenizer_2,
         unet,
         scheduler,
+        image_encoder=None,
+        feature_extractor=None,
         force_zeros_for_empty_prompt: bool = True,
         device: Union[str, torch.device] = "cuda",
     ):
@@ -71,6 +76,7 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
             unet=unet,
             scheduler=scheduler,
         )
+        self._register_image_encoder(image_encoder, feature_extractor)
         self.register_to_config(force_zeros_for_empty_prompt=force_zeros_for_empty_prompt)
         self.vae_scale_factor = 2 ** (len(self.vae.config.block_out_channels) - 1) if vae is not None else 8
         self.default_sample_size = self.unet.config.sample_size

@@ -25,10 +25,12 @@ API (OpenAI images shape):
 
 Run: `serve(pipeline=pipe, host=..., port=...)` returns the HTTP server
 (`serve_forever()` it; `httpd.worker.stop()` afterwards). Without a pipeline
-it loads `StableDiffusion3Pipeline.from_pretrained(MODEL_PATH)` (environment,
-default stabilityai/stable-diffusion-3.5-medium), which raises until the
-pipeline-level loader is ported (ROADMAP A3.1); so does
-`python -m diffusers_tpu_torch.serving.server`.
+it loads `StableDiffusion3Pipeline.from_pretrained(MODEL_PATH,
+dtype=torch.bfloat16)` onto the card, as the JAX server does: MODEL_PATH
+(environment) is a local pipeline directory or `.dduf` file. Its default,
+the hub id stabilityai/stable-diffusion-3.5-medium, raises the loader's
+`EnvironmentError` (hub loading is not ported); so does
+`python -m diffusers_tpu_torch.serving.server` without MODEL_PATH.
 """
 
 from __future__ import annotations

@@ -115,8 +115,14 @@ def test_subfolder_and_scheduler_and_pipeline_components(tmp_path):
     assert sched.config.use_karras_sigmas and sched.config.steps_offset == 1
     # JAX reads the port's scheduler config too
     assert JaxEulerDiscreteScheduler.from_pretrained(str(tmp_path), subfolder="scheduler").config.use_karras_sigmas
-    with pytest.raises(NotImplementedError, match="tokenizers"):
-        StableDiffusionXLPipeline.from_pretrained(tmp_path)
+    # the pipeline-level loader reads the subfolders model_index.json names; components passed in are not loaded
+    (tmp_path / "model_index.json").write_text(json.dumps({
+        "_class_name": "StableDiffusionXLPipeline", "unet": ["diffusers", "UNet2DConditionModel"],
+        "scheduler": ["diffusers", "EulerDiscreteScheduler"], "force_zeros_for_empty_prompt": False}))
+    pipe = StableDiffusionXLPipeline.from_pretrained(tmp_path, device="cpu", vae=None, text_encoder=None,
+                                                     text_encoder_2=None, tokenizer=None, tokenizer_2=None)
+    _assert_same_state(unet, pipe.unet)
+    assert pipe.scheduler.config.use_karras_sigmas and pipe.config.force_zeros_for_empty_prompt is False
 
 
 def _rewrite_weights(path, edit):
@@ -160,7 +166,7 @@ def test_mismatched_checkpoints_raise(tmp_path, monkeypatch):
 
     with open(tmp_path / "missing" / "config.json") as f:
         assert json.load(f)["_class_name"] == "UNet2DConditionModel"
-    for kwarg in ("quantization_config", "gguf_file", "mesh"):
+    for kwarg in ("gguf_file", "mesh"):  # quantization_config: tests/test_torch_pipeline_loading.py
         with pytest.raises(NotImplementedError, match=kwarg):
             UNet2DConditionModel.from_pretrained(tmp_path / "extra", device="cpu", **{kwarg: object()})
     with pytest.raises(EnvironmentError):

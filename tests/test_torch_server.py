@@ -9,8 +9,12 @@ unknown route (404); the status codes and the JSON shapes must be the same.
 Then the port's server alone: three requests of one shape, the second and
 third sent while the worker holds the first, must run as two pipeline calls
 (batch 1, then the two coalesced into batch 2); the first image equals a
-direct pipeline call from the same seed bit for bit; `serve()` without a
-pipeline raises (the pipeline-level `from_pretrained` waits).
+direct pipeline call from the same seed bit for bit. Without a pipeline,
+`serve()` loads `MODEL_PATH` with the pipeline-level `from_pretrained`: the
+default hub id raises `EnvironmentError`; a tiny SD3 directory saved with
+real tokenizers reaches the loader, which refuses the card's default device
+here; loaded on the CPU, the same directory serves a request equal to a
+direct call.
 """
 
 import importlib.util
@@ -29,6 +33,7 @@ import pytest
 import torch
 from PIL import Image
 
+from chip_smoke import clip_tokenizer, t5_tokenizer
 from diffusers_tpu_torch.serving import server
 from diffusers_tpu_torch.utils.png import decode_png, encode_png
 from test_torch_pipeline_sd3 import JaxSD3Pipeline, StableDiffusion3Pipeline, build
@@ -161,10 +166,38 @@ def test_server_coalesces_same_shape_requests(tmp_path, monkeypatch):
 
 
 def test_serve_without_a_pipeline_raises(monkeypatch):
-    """The default load is the pipeline-level `from_pretrained`, which waits
-    for the tokenizers: serving raises instead of serving something else."""
-    with pytest.raises(NotImplementedError, match="from_pretrained"):
+    """The default load is the pipeline-level `from_pretrained` of MODEL_PATH,
+    whose default is a hub id: loading from the hub is not ported, so serving
+    raises instead of serving something else."""
+    monkeypatch.delenv("MODEL_PATH", raising=False)
+    with pytest.raises(EnvironmentError, match="stabilityai/stable-diffusion-3.5-medium.*hub"):
         server.serve(host="127.0.0.1", port=0)
+
+
+def test_serve_loads_model_path(tmp_path, monkeypatch):
+    _, pipe = build(t5=True, jcls=JaxSD3Pipeline, tcls=StableDiffusion3Pipeline)
+    pipe.register_modules(tokenizer=clip_tokenizer(tmp_path / "clip"), tokenizer_2=clip_tokenizer(tmp_path / "clip"),
+                          tokenizer_3=t5_tokenizer(tmp_path / "t5"))
+    pipe.save_pretrained(tmp_path / "sd3")
+    monkeypatch.setenv("MODEL_PATH", str(tmp_path / "sd3"))
+    with pytest.raises(RuntimeError, match="StableDiffusion3Pipeline.from_pretrained: no CUDA device"):
+        server.serve(host="127.0.0.1", port=0)  # the server loads onto the card
+
+    loaded = StableDiffusion3Pipeline.from_pretrained(tmp_path / "sd3", device="cpu")
+    monkeypatch.setattr(server, "IMAGE_DIR", str(tmp_path / "images"))
+    httpd = server.serve(pipeline=loaded, host="127.0.0.1", port=0, seed=3, **HANDLER)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        status, body = _request(httpd.server_address[1], "/v1/images/generations", {"prompt": "a red kite"})
+    finally:
+        httpd.shutdown()
+        httpd.worker.stop()
+    assert status == 200
+    served = decode_png((tmp_path / "images" / json.loads(body)["data"][0]["url"].rsplit("/", 1)[-1]).read_bytes())
+    direct = pipe("a red kite", height=8, width=8, num_inference_steps=2, guidance_scale=5.0,
+                  generator=torch.Generator().manual_seed(3), output_type="np").images[0]
+    np.testing.assert_array_equal(served, server.to_uint8(direct))
 
 
 def _filters(png: bytes, row_bytes: int):
