@@ -3,7 +3,7 @@ H100: builds the port's hand-written kernels from this checkout, holds each
 against its plain PyTorch version at the shapes of the main paths, checks the
 port on the card against the port on the CPU at a small size (every cache
 config and callback, the image-conditioned pipelines, the SD3 pipelines and
-the Wan pipeline included), then
+the Wan pipelines included), then
 drives the main paths through their public entry points, with random weights
 made from a seed on the card:
 
@@ -38,7 +38,17 @@ made from a seed on the card:
     temporal chunks) through `WanPipeline.__call__`: one 480 x 832, 81-frame
     request (32,760 tokens; 50 UniPC steps, CFG 5.0 as two batch-1 calls a
     step, 512 text tokens; kernel K1 at head_dim 128, 60 a call), then one
-    TaylorSeer(10, 2, 2) request;
+    TaylorSeer(10, 2, 2) request, then video-to-video on the same pipeline
+    (`WanVideoToVideoPipeline`, a synthetic 81-frame video, strength 0.8);
+  * Wan image-to-video: Wan2.1-I2V-14B-480P at its published widths and
+    depth (40 layers, 40 x 128 heads, 36 input channels, the CLIP image
+    branch; a CLIP ViT-H/14; phase 17's UMT5-XXL and VAE, whose chunked
+    encode takes the 81-frame clip) through
+    `WanImageToVideoPipeline.__call__`: one 480 x 832, 81-frame request of
+    a few steps from a synthetic image (K1 120 a call: self, text and image
+    cross attention in each block); then first-last-frame (Wan2.1-FLF2V's
+    514-token image table) and Wan 2.2's two experts (boundary 0.9) at
+    full width with the depth cut to 2 blocks;
   * pipelines from disk (phase 18): SDXL written with `save_pretrained` and
     read back with `StableDiffusionXLPipeline.from_pretrained(dir,
     dtype=torch.bfloat16)`, one request; SD3.5 Medium given real tokenizers
@@ -331,6 +341,30 @@ WAN_NEGATIVE = "blurry, low quality, static"
 WAN_TOKENS = 21 * 30 * 52  # (81 - 1) / 4 + 1 latent frames of 60 x 104, patches of 1 x 2 x 2
 WAN_SELF_ATTENTION = (1, WAN_TOKENS, 12, 128)
 WAN_Q_CHUNK = 2048  # query rows a check of the self attention against its plain version takes at a time
+# Wan image-to-video (phase 19), Wan-AI/Wan2.1-I2V-14B-480P-Diffusers: transformer/config.json (40 layers, 40 x 128
+# heads, ffn 13824, 36 input channels: 16 latent + 4 mask + 16 condition; the image branch: image_dim 1280,
+# added_kv_proj_dim 5120); image_encoder/config.json, CLIP ViT-H/14 (32 layers, width 1280, 16 x 80 heads, ffn
+# 5120, gelu, 224 px: 257 tokens); UMT5-XXL, the VAE and UniPC as phase 17's; 480 x 832, 81 frames, CFG 5.0,
+# 512 text tokens, WAN_I2V_STEPS steps (the depth is whole; the step count is the cut)
+WAN_I2V_14B = dict(WAN_1_3B, num_attention_heads=40, ffn_dim=13824, num_layers=40, in_channels=36, image_dim=1280,
+                   added_kv_proj_dim=5120)
+CLIP_VIT_H = dict(hidden_size=1280, intermediate_size=5120, num_hidden_layers=32, num_attention_heads=16,
+                  image_size=224, patch_size=14, hidden_act="gelu", layer_norm_eps=1e-5)
+WAN_I2V_STEPS = 3
+WAN_14B_SELF_ATTENTION = (1, WAN_TOKENS, 40, 128)
+WAN_14B_Q_CHUNK = 512  # at 40 heads a 2,048-row chunk of f32 logits would be 10.7 GB
+# phase 19's cut requests at full width, WAN_CUT_LAYERS blocks a transformer, WAN_CUT_STEPS steps: first-last-frame
+# at Wan-AI/Wan2.1-FLF2V-14B-720P-Diffusers' widths (I2V-14B's and a 2 x 257-token image table, pos_embed_seq_len
+# 514) at 480 x 832; Wan 2.2's two experts at Wan-AI/Wan2.2-I2V-A14B-Diffusers' widths (I2V-14B's with no image
+# branch, boundary_ratio 0.9), guidance 4.0 then 3.0
+WAN_CUT_LAYERS = 2
+WAN_CUT_STEPS = 4
+WAN_FLF_CUT = dict(WAN_I2V_14B, pos_embed_seq_len=514, num_layers=WAN_CUT_LAYERS)
+WAN_A14B_CUT = dict(WAN_I2V_14B, image_dim=None, added_kv_proj_dim=None, num_layers=WAN_CUT_LAYERS)
+WAN_A14B_BOUNDARY = 0.9
+WAN_A14B_GUIDANCE = (4.0, 3.0)
+# phase 17b: video-to-video on phase 17's Wan2.1-T2V-1.3B pipeline, a synthetic 81-frame 480 x 832 video
+WAN_V2V_STEPS, WAN_V2V_STRENGTH = 10, 0.8
 # phase 10d: a small Wan pipeline (head_dim 64: K1 in both attentions of a block), 9 frames of 64 x 64
 SMALL_WAN = dict(patch_size=(1, 2, 2), num_attention_heads=2, attention_head_dim=64, in_channels=16, out_channels=16,
                  text_dim=64, freq_dim=64, ffn_dim=256, num_layers=2, cross_attn_norm=True, rope_max_seq_len=1024)
@@ -339,6 +373,13 @@ SMALL_WAN_VAE = dict(base_dim=16, z_dim=16, dim_mult=(1, 2, 2, 2), num_res_block
                      latents_std=WAN_VAE["latents_std"])
 SMALL_UMT5 = dict(vocab_size=32128, d_model=64, d_kv=32, d_ff=128, num_layers=2, num_heads=2,
                   feed_forward_proj="gated-gelu")
+# phase 10e: small image-to-video, first-last-frame, two-expert and video-to-video pipelines on phase 10d's
+# components: SMALL_WAN at 36 input channels, a small CLIP vision tower at 224 px (257 tokens), 512 text tokens
+SMALL_CLIP_VISION = dict(hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=2,
+                         image_size=224, patch_size=14, hidden_act="gelu")
+SMALL_WAN_I2V = dict(SMALL_WAN, in_channels=36, image_dim=64, added_kv_proj_dim=128)
+SMALL_WAN_FLF = dict(SMALL_WAN_I2V, pos_embed_seq_len=514)
+SMALL_WAN_EXPERT = dict(SMALL_WAN, in_channels=36)
 
 # phase 18c: Flux.1-dev at full width, depth cut to 2 dual and 4 single blocks (every distinct Linear shape of
 # the 500), T5-XXL at full width with 2 layers; CLIP-L and the VAE whole. Its transformer is saved in bf16 and
@@ -441,6 +482,18 @@ def t5_tokenizer(directory):
         {"tokenizer_class": cls.__name__, "model_max_length": 512, "eos_token": "</s>", "unk_token": "<unk>",
          "pad_token": "<pad>", "extra_ids": 0}))
     return cls.from_pretrained(str(directory))
+
+
+def clip_image_processor():
+    """transformers' `CLIPImageProcessor` with Wan2.1-I2V-14B-480P's numbers
+    (224 px, bicubic, centre crop, OpenAI CLIP's mean and std); on the card's
+    transformers 5.5 without torchvision it is the PIL backend's class."""
+    import transformers
+
+    from diffusers_tpu_torch.models.text_encoders.clip import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
+
+    return transformers.CLIPImageProcessor(size={"shortest_edge": 224}, crop_size={"height": 224, "width": 224},
+                                           image_mean=list(OPENAI_CLIP_MEAN), image_std=list(OPENAI_CLIP_STD))
 
 
 def bf16_tol(ref) -> float:
@@ -743,6 +796,11 @@ def check_kernels():
         # Wan2.1-T2V-1.3B at 480 x 832 x 81: the cross attention over 512 text tokens (a ragged last q tile: 32760
         # = 255 x 128 + 120); the self attention is checked apart (check_k1_wan_self)
         ("Wan cross 32760 x 512 d=128", (1, WAN_TOKENS, 12, 128), 512, {}, True),
+        # Wan2.1-I2V-14B-480P's 40 heads: the text cross attention over 512 tokens, the image cross attention over
+        # 257 CLIP tokens (2 x 128 + 1 keys), and Wan2.1-FLF2V's over 514 (4 x 128 + 2)
+        ("Wan 14B cross 32760 x 512 d=128", (1, WAN_TOKENS, 40, 128), 512, {}, True),
+        ("Wan 14B image cross 32760 x 257 d=128", (1, WAN_TOKENS, 40, 128), 257, {}, True),
+        ("Wan FLF image cross 32760 x 514 d=128", (1, WAN_TOKENS, 40, 128), 514, {}, True),
         ("causal 300 (ragged)", (1, 300, 2, 64), 300, {"is_causal": True}, False),
         ("additive mask 200 x 333, d=128", (1, 200, 2, 128), 333, {"mask": True}, False),
         ("fp16 d=128 500 x 700", (1, 500, 3, 128), 700, {"dtype": torch.float16}, False),
@@ -872,33 +930,37 @@ def check_kernels():
     if not routed:
         raise AssertionError("flash_attention does not route a causal call at untiled lengths to native")
 
-    wan_self = check_k1_wan_self(randn)
-    cases.append(wan_self)
-    k1_errs.append(wan_self["max_abs_err_vs_f32"])
+    for shape, chunk in ((WAN_SELF_ATTENTION, WAN_Q_CHUNK), (WAN_14B_SELF_ATTENTION, WAN_14B_Q_CHUNK)):
+        wan_self = check_k1_wan_self(randn, shape, chunk)
+        cases.append(wan_self)
+        k1_errs.append(wan_self["max_abs_err_vs_f32"])
     RESULTS["kernel_cases"] = cases
     return {"flash_attention_fwd": (max(k1_errs + [lse_err]), k1_times["Flux joint 4608 d=128"])}
 
 
-def check_k1_wan_self(randn):
-    """Phase 3, Wan's self attention: K1 at (1, 32760, 12, 128), bf16, held to
-    `attention_bounds` over every query row and every head, WAN_Q_CHUNK query
-    rows at a time (the plain version of the whole would hold a 12 x 32760²
-    f32 logit matrix, 51.5 GB); the ragged last q tile's 120 rows and their
-    LSE; controls that must break the bound (on the first chunk); the kernel's
-    time on events, its device time (CUDA graph), its bound, SDPA's time, and
-    the plain version's time computing the whole output chunk by chunk."""
+def check_k1_wan_self(randn, shape, chunk):
+    """Phase 3, Wan's self attention: K1 at `shape` ((1, 32760, 12, 128) for
+    the 1.3B model, (1, 32760, 40, 128) for the 14B), bf16, held to
+    `attention_bounds` over every query row and every head, `chunk` query
+    rows at a time (the plain version of the whole would hold an h x 32760²
+    f32 logit matrix, 51.5 GB at 12 heads); the ragged last q tile's 120 rows
+    and their LSE; controls that must break the bound (on the first chunk);
+    the kernel's time on events, its device time (CUDA graph), its bound,
+    SDPA's time, and the plain version's time computing the whole output
+    chunk by chunk."""
     import torch
     import torch.nn.functional as F
 
     from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full, flash_attention_plain
 
-    b, sq, h, d = WAN_SELF_ATTENTION
+    b, sq, h, d = shape
+    label = f"Wan self {sq} x {h} heads d={d}"
     q, k, v = randn(b, sq, h, d, scale=2.0), randn(b, sq, h, d), randn(b, sq, h, d)
     out, lse = flash_attention_full(q, k, v, return_lse=True)
     torch.cuda.synchronize()
     err32 = err16 = used32 = used16 = 0.0
-    for start in range(0, sq, WAN_Q_CHUNK):
-        qs, o = q[:, start:start + WAN_Q_CHUNK], out[:, start:start + WAN_Q_CHUNK].float()
+    for start in range(0, sq, chunk):
+        qs, o = q[:, start:start + chunk], out[:, start:start + chunk].float()
         ref32, bound32, bound16 = attention_bounds(qs, k, v)
         ref16 = flash_attention_plain(qs, k, v).float()
         err32, err16 = max(err32, float((o - ref32).abs().max())), max(err16, float((o - ref16).abs().max()))
@@ -922,30 +984,30 @@ def check_k1_wan_self(randn):
     bms, by = bound_ms(2 * 4 * q.numel(), flops, PEAK_BF16_FLOPS)
     ms = (time_ms(lambda: flash_attention_full(q, k, v), iters=10) + time_ms(lambda: flash_attention_full(q, k, v),
                                                                              iters=10)) / 2
-    plain_ms = time_ms(lambda: [flash_attention_plain(q[:, i:i + WAN_Q_CHUNK], k, v)
-                                for i in range(0, sq, WAN_Q_CHUNK)], iters=1)
+    plain_ms = time_ms(lambda: [flash_attention_plain(q[:, i:i + chunk], k, v)
+                                for i in range(0, sq, chunk)], iters=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    row = {"kernel": "flash_attention_fwd", "case": "Wan self 32760 d=128", "q": list(WAN_SELF_ATTENTION), "sk": sq,
-           "dtype": "torch.bfloat16", "checked": f"every query row and head, {WAN_Q_CHUNK} rows at a time",
+    row = {"kernel": "flash_attention_fwd", "case": label, "q": list(shape), "sk": sq,
+           "dtype": "torch.bfloat16", "checked": f"every query row and head, {chunk} rows at a time",
            "max_abs_err_vs_f32": err32, "max_abs_err_vs_plain_same_dtype": err16,
            "max_share_of_bound_vs_f32": used32, "max_share_of_bound_vs_plain_same_dtype": used16,
            "ragged_tail_rows": sq - tail, "ragged_tail_lse_err": tail_err, "controls_share_of_bound": controls,
-           "ms": ms, "plain_ms": plain_ms, "plain": f"chunked, {WAN_Q_CHUNK} query rows a call",
+           "ms": ms, "plain_ms": plain_ms, "plain": f"chunked, {chunk} query rows a call",
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=10),
            "bound_ms": bms, "bound_by": by, "tflops": flops / ms / 1e9, "share_of_time_bound": bms / ms,
            "device_ms": graph_ms(lambda: flash_attention_full(q, k, v), iters=5),
            "library_device_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=5),
            "host_us_per_call": host_us(lambda: flash_attention_full(q, k, v), iters=5)}
-    log(f"[K1] Wan self 32760 d=128 (every query row of every head, {WAN_Q_CHUNK} rows at a time): err vs f32 "
+    log(f"[K1] {label} (every query row of every head, {chunk} rows at a time): err vs f32 "
         f"{err32:.3e}, vs plain {err16:.3e}; share of the per-element bound {used32:.3f} / {used16:.3f}; ragged last q "
         f"tile ({sq - tail} rows): LSE err {tail_err:.3e} (tol 1e-3); controls {controls}; kernel {ms:.3f} ms "
         f"({row['tflops']:.1f} TFLOP/s, {100 * bms / ms:.1f}% of its bound), device {row['device_ms']:.3f} ms, SDPA "
         f"{row['library_ms']:.3f} ms (device {row['library_device_ms']:.3f}), bound {bms:.3f} ms, plain (chunked) "
         f"{plain_ms:.1f} ms")
     if not (used32 <= 1.0 and used16 <= 1.0 and tail_err <= 1e-3 and torch.isfinite(out).all()):
-        raise AssertionError("flash_attention_fwd disagrees with its plain version at Wan's self attention")
+        raise AssertionError(f"flash_attention_fwd disagrees with its plain version at {label}")
     if min(controls.values()) <= 1.0:
-        raise AssertionError("the flash_attention_fwd bound does not reject a broken output at Wan's self attention")
+        raise AssertionError(f"the flash_attention_fwd bound does not reject a broken output at {label}")
     return row
 
 
@@ -2013,9 +2075,11 @@ def _launches(**counts):
 def _module_launches(module):
     """The forward launches of one call of `module` that calls each of its
     GroupNorms and attentions once: K4 per GroupNorm, K1 per attention at a
-    head dim the kernel takes (the others run `native`), and K5 with its row
-    quantization per w8a8 Linear whose K and N are multiples of 128 (the
-    others take the dequantized matmul, as in JAX)."""
+    head dim the kernel takes (the others run `native`; a Wan cross
+    attention with an image branch launches twice: the text, then the image
+    tokens), and K5 with its row quantization per w8a8 Linear whose K and N
+    are multiples of 128 (the others take the dequantized matmul, as in
+    JAX)."""
     from diffusers_tpu_torch.models.attention import Attention
     from diffusers_tpu_torch.models.transformers.transformer_flux import FluxAttention
     from diffusers_tpu_torch.models.transformers.transformer_sd3 import JointAttention
@@ -2027,8 +2091,9 @@ def _module_launches(module):
     w8a8 = sum(isinstance(m, W8A8Linear) and m.in_features % 128 == 0 and m.out_features % 128 == 0 for m in mods)
     return _launches(group_norm=sum(isinstance(m, GroupNorm) for m in mods), w8a8_matmul=w8a8,
                      w8a8_quantize_rows=w8a8,
-                     flash_attention_fwd=sum(isinstance(m, (Attention, FluxAttention, JointAttention, WanAttention))
-                                             and m.dim_head in HEAD_DIMS for m in mods))
+                     flash_attention_fwd=sum((1 + (isinstance(m, WanAttention) and m.added_kv_proj_dim is not None))
+                                             * (isinstance(m, (Attention, FluxAttention, JointAttention, WanAttention))
+                                                and m.dim_head in HEAD_DIMS) for m in mods))
 
 
 def _request_seconds(call):
@@ -2935,7 +3000,8 @@ def run_wan(smi: str):
     seconds a video (host clock ending in a synchronise), each transformer
     call on CUDA events, the UMT5 encodes and the VAE decode apart (CUDA
     events), peak memory; every step's launches held to the module counts
-    (K1 60 a call, 6,000 a dense request)."""
+    (K1 60 a call, 6,000 a dense request). Returns the paths' launches and
+    the pipeline (phases 17b and 19 go on with its components)."""
     import numpy as np
     import torch
 
@@ -2956,83 +3022,393 @@ def run_wan(smi: str):
     if per_call["flash_attention_fwd"] != 60:
         raise AssertionError(f"the Wan transformer counts {per_call} launches a call, expected K1 60")
 
-    def events():
-        return [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
-
-    spans = {"transformer": [], "text_encoder": [], "vae_decode": []}
-    hooks = []
-    for name in ("transformer", "text_encoder"):
-        def on_start(mod, args, name=name):
-            spans[name].append(events())
-            spans[name][-1][0].record()
-
-        module = getattr(pipe, name)
-        hooks.append(module.register_forward_pre_hook(on_start))
-        hooks.append(module.register_forward_hook(lambda mod, args, out, name=name: spans[name][-1][1].record()))
-    decode = pipe.vae.decode
-
-    def timed_decode(*args, **kwargs):
-        spans["vae_decode"].append(events())
-        spans["vae_decode"][-1][0].record()
-        out = decode(*args, **kwargs)
-        spans["vae_decode"][-1][1].record()
-        return out
-
-    pipe.vae.decode = timed_decode
     request = dict(prompt=WAN_PROMPT, negative_prompt=WAN_NEGATIVE, height=WAN_HEIGHT, width=WAN_WIDTH,
                    num_frames=WAN_FRAMES, num_inference_steps=WAN_STEPS, guidance_scale=WAN_GUIDANCE,
                    max_sequence_length=WAN_TEXT_LEN, output_type="np")
     results = {}
-    try:
-        for label, config in (("dense", None), ("taylorseer", TaylorSeerCacheConfig(
-                cache_interval=10, disable_cache_before_step=2, max_order=2))):
-            for v in spans.values():
-                v.clear()
-            if config is not None:
-                pipe.enable_cache(config)
-            reset_launches()
-            try:
-                with StepLaunches(pipe, tr) as steps:
-                    frames, seconds, peak_gb = _request_seconds(lambda: pipe(
-                        generator=torch.Generator(device="cuda").manual_seed(SEED), **request).frames)
-            finally:
-                pipe.disable_cache()
-            ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in spans.items()}
-            launches = read_launches()
-            expected = wan_step_launches(config, pipe, steps.timesteps)
-            _check_steps(f"wan {label}", steps.per_step, expected, steps.after, _launches())
-            if not (frames.shape == (1, WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH, 3) and np.isfinite(frames).all()):
-                raise AssertionError(f"wan {label}: bad frames {frames.shape}")
-            row = {"seconds_per_video": seconds, "peak_memory_gb": peak_gb, "launches": launches,
-                   "transformer_calls": len(ms["transformer"]), "transformer_ms_per_call": ms["transformer"],
-                   "transformer_ms_mean": float(np.mean(ms["transformer"])),
-                   "umt5_encode_seconds": sum(ms["text_encoder"]) / 1e3, "umt5_calls": len(ms["text_encoder"]),
-                   "vae_decode_seconds": sum(ms["vae_decode"]) / 1e3, "frames_mean": float(frames.mean()),
-                   "frames_std": float(frames.std())}
-            if label == "dense":
-                dense_frames = frames
-                if launches["flash_attention_fwd"] != 2 * WAN_STEPS * 60:
-                    raise AssertionError(f"the dense Wan request launched {launches}, expected K1 6000")
-            else:
-                a, b = dense_frames.astype(np.float64).ravel(), frames.astype(np.float64).ravel()
-                row["cosine_to_dense"] = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-12))
-            results[label] = row
-            log(f"[wan] {smi}: {label}: {seconds:.2f} s a video ({WAN_FRAMES} x {WAN_HEIGHT} x {WAN_WIDTH}, "
-                f"{WAN_STEPS} steps), {row['transformer_calls']} transformer calls of {row['transformer_ms_mean']:.1f} "
-                f"ms (CUDA events; min {min(ms['transformer']):.1f}, max {max(ms['transformer']):.1f}), UMT5 encode "
-                f"{row['umt5_encode_seconds']:.3f} s ({row['umt5_calls']} calls), VAE decode "
-                f"{row['vae_decode_seconds']:.2f} s, peak memory {peak_gb:.1f} GB; launches {launches}"
-                + (f"; cosine to the dense video {row['cosine_to_dense']:.4f} (random weights)"
-                   if "cosine_to_dense" in row else ""))
-    finally:
-        for h in hooks:
-            h.remove()
-        del pipe.vae.decode
+    for label, config in (("dense", None), ("taylorseer", TaylorSeerCacheConfig(
+            cache_interval=10, disable_cache_before_step=2, max_order=2))):
+        if config is not None:
+            pipe.enable_cache(config)
+        reset_launches()
+        spans = CudaSpans({"transformer": tr, "text_encoder": pipe.text_encoder}, {"vae_decode": (pipe.vae, "decode")})
+        try:
+            with StepLaunches(pipe, tr) as steps, spans:
+                frames, seconds, peak_gb = _request_seconds(lambda: pipe(
+                    generator=torch.Generator(device="cuda").manual_seed(SEED), **request).frames)
+        finally:
+            pipe.disable_cache()
+        ms = spans.ms()
+        launches = read_launches()
+        expected = wan_step_launches(config, pipe, steps.timesteps)
+        _check_steps(f"wan {label}", steps.per_step, expected, steps.after, _launches())
+        if not (frames.shape == (1, WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH, 3) and np.isfinite(frames).all()):
+            raise AssertionError(f"wan {label}: bad frames {frames.shape}")
+        row = {"seconds_per_video": seconds, "peak_memory_gb": peak_gb, "launches": launches,
+               "transformer_calls": len(ms["transformer"]), "transformer_ms_per_call": ms["transformer"],
+               "transformer_ms_mean": float(np.mean(ms["transformer"])),
+               "umt5_encode_seconds": sum(ms["text_encoder"]) / 1e3, "umt5_calls": len(ms["text_encoder"]),
+               "vae_decode_seconds": sum(ms["vae_decode"]) / 1e3, "frames_mean": float(frames.mean()),
+               "frames_std": float(frames.std())}
+        if label == "dense":
+            dense_frames = frames
+            if launches["flash_attention_fwd"] != 2 * WAN_STEPS * 60:
+                raise AssertionError(f"the dense Wan request launched {launches}, expected K1 6000")
+        else:
+            a, b = dense_frames.astype(np.float64).ravel(), frames.astype(np.float64).ravel()
+            row["cosine_to_dense"] = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-12))
+        results[label] = row
+        log(f"[wan] {smi}: {label}: {seconds:.2f} s a video ({WAN_FRAMES} x {WAN_HEIGHT} x {WAN_WIDTH}, "
+            f"{WAN_STEPS} steps), {row['transformer_calls']} transformer calls of {row['transformer_ms_mean']:.1f} "
+            f"ms (CUDA events; min {min(ms['transformer']):.1f}, max {max(ms['transformer']):.1f}), UMT5 encode "
+            f"{row['umt5_encode_seconds']:.3f} s ({row['umt5_calls']} calls), VAE decode "
+            f"{row['vae_decode_seconds']:.2f} s, peak memory {peak_gb:.1f} GB; launches {launches}"
+            + (f"; cosine to the dense video {row['cosine_to_dense']:.4f} (random weights)"
+               if "cosine_to_dense" in row else ""))
     RESULTS["wan"] = {"card": smi, "steps": WAN_STEPS, "frames": WAN_FRAMES, "height": WAN_HEIGHT,
                       "width": WAN_WIDTH, "guidance_scale": WAN_GUIDANCE, "text_tokens": WAN_TEXT_LEN,
                       "build_seconds": build_s, "parameters": n_params, "resident_gb": resident_gb,
                       "k1_per_call": per_call["flash_attention_fwd"], **results}
-    return {"wan": results["dense"]["launches"], "wan_taylorseer": results["taylorseer"]["launches"]}
+    return {"wan": results["dense"]["launches"], "wan_taylorseer": results["taylorseer"]["launches"]}, pipe
+
+
+def synthetic_video(frames: int, height: int, width: int):
+    """float32 [frames, H, W, 3] in [0, 1]: seeded colour gradients that drift
+    frame by frame, plus noise (the first frame, as uint8, is the image of
+    the image-to-video requests)."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    y, x = np.mgrid[0:height, 0:width].astype(np.float32)
+    y, x = y / (height - 1), x / (width - 1)
+    t = np.arange(frames, dtype=np.float32)[:, None, None] / max(frames - 1, 1)
+    video = np.stack([0.5 + 0.4 * np.sin(6.0 * (x + t)), 0.5 + 0.4 * np.cos(5.0 * (y - t)),
+                      0.5 + 0.4 * np.sin(4.0 * (x + y + 2 * t))], axis=-1)
+    return np.clip(0.85 * video + 0.15 * rng.rand(frames, height, width, 3), 0, 1).astype(np.float32)
+
+
+def _wan_random_model(cls, cfg, device, dtype, seed):
+    """A model of `cls` with random weights from `seed`: on the CPU built
+    directly (float32 init), on the card built on the meta device and
+    allocated unit by unit (`materialize_`), so that no float32 copy of a
+    14B transformer exists; a parameter of the model itself (the Wan
+    transformer's `scale_shift_table`) is drawn as its module draws it,
+    randn / sqrt(dim)."""
+    import torch
+    from torch import nn
+
+    from diffusers_tpu_torch.models.modeling_utils import materialize_
+
+    torch.manual_seed(seed)
+    if torch.device(device).type == "cpu":
+        return cls(**cfg).to(dtype).eval()
+    with torch.device("meta"):
+        model = cls(**cfg)
+    materialize_(model, device, dtype)
+    for name, p in list(model.named_parameters(recurse=False)):
+        if p.is_meta:
+            setattr(model, name, nn.Parameter((torch.randn(p.shape, device=device) / p.shape[-1] ** 0.5).to(dtype)))
+    return model.eval()
+
+
+def _build_wan_i2v_pipeline(base, transformer_cfg, clip_cfg=None, transformer_2_cfg=None, boundary_ratio=None,
+                            image_processor=None):
+    """A WanImageToVideoPipeline on `base`'s (a WanPipeline's) tokenizer, UMT5
+    and VAE, on its device and in its dtype, with random transformer(s) and
+    CLIP vision tower (`clip_cfg` None: no image encoder) from SEED."""
+    from diffusers_tpu_torch import CLIPVisionModel, UniPCMultistepScheduler, WanImageToVideoPipeline, \
+        WanTransformer3DModel
+
+    device, dtype = base.device, base.vae.dtype
+    make = lambda cls, cfg, seed: None if cfg is None else _wan_random_model(cls, cfg, device, dtype, seed)  # noqa
+    return WanImageToVideoPipeline(
+        tokenizer=base.tokenizer, text_encoder=base.text_encoder, vae=base.vae,
+        scheduler=UniPCMultistepScheduler(**WAN_UNIPC), transformer=make(WanTransformer3DModel, transformer_cfg, SEED + 1),
+        transformer_2=make(WanTransformer3DModel, transformer_2_cfg, SEED + 2),
+        image_encoder=make(CLIPVisionModel, clip_cfg, SEED + 3), image_processor=image_processor,
+        boundary_ratio=boundary_ratio, device=device)
+
+
+def wan_i2v_step_launches(pipe, timesteps):
+    """The launches expected at each step of an image-to-video request: two
+    calls (cond, uncond) of the step's expert, `transformer` while t >=
+    boundary_ratio x 1000 (every step without a boundary), then
+    `transformer_2`."""
+    ratio = pipe.config.get("boundary_ratio")
+    k = len(timesteps) if ratio is None else sum(t >= ratio * 1000 for t in timesteps)
+    first, second = (_module_launches(m) if m is not None else None for m in (pipe.transformer, pipe.transformer_2))
+    return [{n: 2 * (first if i < k else second)[n] for n in first} for i in range(len(timesteps))]
+
+
+class CudaSpans:
+    """CUDA-event spans, by label, of module forwards (`modules`: label ->
+    module) and method calls (`methods`: label -> (object, method name))
+    within the block; `ms()` gives each label's spans in ms, in call order."""
+
+    def __init__(self, modules=None, methods=None):
+        self.modules, self.methods = modules or {}, methods or {}
+
+    def _start(self, label):
+        import torch
+
+        self.spans[label].append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
+        self.spans[label][-1][0].record()
+
+    def __enter__(self):
+        self.spans = {label: [] for label in (*self.modules, *self.methods)}
+        self._hooks = []
+        for label, module in self.modules.items():
+            self._hooks.append(module.register_forward_pre_hook(lambda mod, args, label=label: self._start(label)))
+            self._hooks.append(module.register_forward_hook(
+                lambda mod, args, out, label=label: self.spans[label][-1][1].record()))
+        self._saved = {label: owner.__dict__.get(name) for label, (owner, name) in self.methods.items()}
+        for label, (owner, name) in self.methods.items():
+            def timed(*args, _fn=getattr(owner, name), _label=label, **kwargs):
+                self._start(_label)
+                out = _fn(*args, **kwargs)
+                self.spans[_label][-1][1].record()
+                return out
+
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._hooks:
+            h.remove()
+        for label, (owner, name) in self.methods.items():  # what was there before: another wrapper, or nothing
+            if self._saved[label] is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, self._saved[label])
+        return False
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return {label: [a.elapsed_time(b) for a, b in spans] for label, spans in self.spans.items()}
+
+
+def small_wan_i2v_cases():
+    """Phase 10e's requests: (label, a function that builds the pipeline on
+    the CPU in float32, call keyword arguments). Each call of it draws the
+    same weights from SEED."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch import WanVideoToVideoPipeline
+
+    def base():
+        return _build_wan_pipeline(SMALL_WAN, SMALL_WAN_VAE, SMALL_UMT5, "cpu", torch.float32)
+
+    video = synthetic_video(9, 64, 64)
+    image, last = (np.round(255 * video[i]).astype(np.uint8) for i in (0, -1))
+    latents = torch.from_numpy(np.random.RandomState(SEED).randn(1, 16, 3, 8, 8).astype(np.float32))
+    i2v = dict(image=image, prompt=WAN_PROMPT, negative_prompt=WAN_NEGATIVE, height=64, width=64, num_frames=9,
+               num_inference_steps=SAMPLE_ROUND_TRIP_STEPS, guidance_scale=WAN_GUIDANCE,
+               max_sequence_length=WAN_TEXT_LEN, latents=latents, output_type="np")
+    return (
+        ("i2v", lambda: _build_wan_i2v_pipeline(base(), SMALL_WAN_I2V, SMALL_CLIP_VISION), i2v),
+        ("flf", lambda: _build_wan_i2v_pipeline(base(), SMALL_WAN_FLF, SMALL_CLIP_VISION), dict(i2v, last_image=last)),
+        ("two_experts", lambda: _build_wan_i2v_pipeline(base(), SMALL_WAN_EXPERT, transformer_2_cfg=SMALL_WAN_EXPERT,
+                                                        boundary_ratio=0.5),
+         dict(i2v, guidance_scale=WAN_A14B_GUIDANCE[0], guidance_scale_2=WAN_A14B_GUIDANCE[1])),
+        ("v2v", lambda: WanVideoToVideoPipeline.from_pipe(base()),
+         dict(prompt=WAN_PROMPT, negative_prompt=WAN_NEGATIVE, video=video, strength=WAN_V2V_STRENGTH, height=64,
+              width=64, num_inference_steps=5, guidance_scale=WAN_GUIDANCE, output_type="np")),
+    )
+
+
+def check_small_wan_i2v(device: str = "cuda"):
+    """Phase 10e: small Wan image-to-video (a CLIP vision tower, 512 text
+    tokens), first-last-frame (a 2 x 257-token image table), the two-expert
+    loop (boundary 0.5, guidance 4.0 then 3.0) and video-to-video (strength
+    0.8) pipelines on phase 10d's components, on the card (bf16, kernels)
+    against the CPU (f32, plain versions; held to JAX by
+    tests/test_torch_pipeline_wan_i2v.py), with phase 7's tolerance on the
+    [0, 1] video. Both sides take the same latents, and V2V's noise comes
+    from one CPU generator seeded alike. On the card each step's launches
+    are held to the step's expert's module counts (K1 3 a block with the
+    image branch; the CLIP tower, UMT5 and the VAE launch none: `native`)."""
+    import numpy as np
+    import torch
+
+    tol = 0.05  # phase 7: bf16 on the card against f32 on the CPU, on the [0, 1] video
+    results = {}
+    for label, build, call in small_wan_i2v_cases():
+        sides = [build(), build().to(device=torch.device(device), dtype=torch.bfloat16)]
+        videos = []
+        for pipe in sides:  # the CPU, then the card
+            reset_launches()
+            with StepLaunches(pipe, pipe.transformer) as steps:
+                videos.append(pipe(generator=torch.Generator().manual_seed(SEED), **call).frames)
+        ref, out = videos
+        err = float(np.abs(out - ref).max())
+        expected = (wan_i2v_step_launches(pipe, steps.timesteps) if label != "v2v"
+                    else wan_step_launches(None, pipe, steps.timesteps))
+        results[label] = row = {"max_abs_err": err, "tol": tol, "launches": read_launches(),
+                                "steps": len(steps.timesteps), "transformer_calls": len(steps.batches)}
+        log(f"[ref-wan-i2v] small Wan {label}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol {tol}); launches "
+            f"{row['launches']}; {row['transformer_calls']} calls of `transformer` over {row['steps']} steps")
+        if not (out.shape == ref.shape == (1, 9, 64, 64, 3) and np.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"small Wan {label}: the card disagrees with the CPU")
+        _check_steps(f"small Wan {label}", steps.per_step, expected, steps.after, _launches())
+        if read_launches()["flash_attention_fwd"] <= 0:
+            raise AssertionError(f"small Wan {label} on the card launched no K1")
+    RESULTS["small_wan_i2v"] = results
+
+
+def run_wan_v2v(smi: str, base):
+    """Phase 17b: video-to-video on phase 17's Wan2.1-T2V-1.3B pipeline
+    (`WanVideoToVideoPipeline.from_pipe`): a synthetic 81-frame 480 x 832
+    video at strength WAN_V2V_STRENGTH, WAN_V2V_STEPS steps (the last 8
+    run), CFG 5.0, 512 text tokens. Recorded: seconds a video, the chunked
+    81-frame VAE encode and the decode (CUDA events), each transformer call,
+    peak memory; every step's launches (K1 60 a call)."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch import WanVideoToVideoPipeline
+
+    pipe = WanVideoToVideoPipeline.from_pipe(base)
+    video = synthetic_video(WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH)
+    reset_launches()
+    spans = CudaSpans({"transformer": pipe.transformer},
+                      {"vae_encode": (pipe.vae, "encode"), "vae_decode": (pipe.vae, "decode")})
+    with spans, StepLaunches(pipe, pipe.transformer) as steps:
+        frames, seconds, peak_gb = _request_seconds(lambda: pipe(
+            WAN_PROMPT, WAN_NEGATIVE, video=video, strength=WAN_V2V_STRENGTH, height=WAN_HEIGHT, width=WAN_WIDTH,
+            num_inference_steps=WAN_V2V_STEPS, guidance_scale=WAN_GUIDANCE, max_sequence_length=WAN_TEXT_LEN,
+            generator=torch.Generator(device="cuda").manual_seed(SEED)).frames)
+    ms = spans.ms()
+    launches = read_launches()
+    _check_steps("wan v2v", steps.per_step, wan_step_launches(None, pipe, steps.timesteps), steps.after, _launches())
+    kept = WAN_V2V_STEPS - (WAN_V2V_STEPS - int(WAN_V2V_STEPS * WAN_V2V_STRENGTH))
+    if not (frames.shape == (1, WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH, 3) and np.isfinite(frames).all()
+            and len(steps.timesteps) == kept and launches["flash_attention_fwd"] == 2 * kept * 60):
+        raise AssertionError(f"wan v2v: frames {frames.shape}, {len(steps.timesteps)} steps, launches {launches}")
+    row = {"seconds_per_video": seconds, "peak_memory_gb": peak_gb, "launches": launches, "steps": kept,
+           "strength": WAN_V2V_STRENGTH, "transformer_ms_per_call": ms["transformer"],
+           "transformer_ms_mean": float(np.mean(ms["transformer"])), "vae_encode_seconds": sum(ms["vae_encode"]) / 1e3,
+           "vae_decode_seconds": sum(ms["vae_decode"]) / 1e3,
+           "abs_diff_to_input_mean": float(np.abs(frames[0] - video).mean())}
+    log(f"[wan-v2v] {smi}: {seconds:.2f} s a video ({WAN_FRAMES} x {WAN_HEIGHT} x {WAN_WIDTH}, strength "
+        f"{WAN_V2V_STRENGTH}: {kept} of {WAN_V2V_STEPS} steps), {len(ms['transformer'])} transformer calls of "
+        f"{row['transformer_ms_mean']:.1f} ms (CUDA events), VAE encode {row['vae_encode_seconds']:.2f} s (81 frames, "
+        f"chunked), decode {row['vae_decode_seconds']:.2f} s, peak memory {peak_gb:.1f} GB; launches {launches}; mean "
+        f"|output - input| {row['abs_diff_to_input_mean']:.3f} (random weights)")
+    RESULTS["wan_v2v"] = row
+    return {"wan_v2v": launches}
+
+
+def run_wan_i2v(smi: str, base):
+    """Phase 19: Wan2.1-I2V-14B-480P at its published widths and full depth
+    (WAN_I2V_14B, built on the meta device and filled tensor by tensor on the
+    card, bf16; a CLIP ViT-H/14; phase 17's UMT5-XXL and VAE): one 480 x 832,
+    81-frame request from a synthetic image, CFG 5.0, 512 text tokens,
+    WAN_I2V_STEPS steps, through `WanImageToVideoPipeline.__call__`. Recorded:
+    each step's and each transformer call's ms (CUDA events), the CLIP
+    encode, the chunked 81-frame VAE encode (and its own peak memory,
+    measured apart) and the decode, the request's peak memory; K1 held to
+    120 a transformer call. Then, at full width with the depth cut to
+    WAN_CUT_LAYERS blocks, WAN_CUT_STEPS steps: first-last-frame with
+    Wan2.1-FLF2V's 514-token image table, and Wan 2.2's two experts
+    (boundary 0.9, guidance 4.0 then 3.0, no CLIP context); each step's
+    launches held to its expert's module counts."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    video = synthetic_video(WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH)
+    image, last = (np.round(255 * video[i]).astype(np.uint8) for i in (0, -1))
+    request = dict(image=image, prompt=WAN_PROMPT, negative_prompt=WAN_NEGATIVE, height=WAN_HEIGHT, width=WAN_WIDTH,
+                   num_frames=WAN_FRAMES, guidance_scale=WAN_GUIDANCE, max_sequence_length=WAN_TEXT_LEN)
+    cases = (
+        ("i2v_14b", dict(transformer_cfg=WAN_I2V_14B, clip_cfg=CLIP_VIT_H), dict(num_inference_steps=WAN_I2V_STEPS)),
+        ("flf_cut", dict(transformer_cfg=WAN_FLF_CUT, clip_cfg=CLIP_VIT_H),
+         dict(num_inference_steps=WAN_CUT_STEPS, last_image=last)),
+        ("two_experts_cut", dict(transformer_cfg=WAN_A14B_CUT, transformer_2_cfg=WAN_A14B_CUT,
+                                 boundary_ratio=WAN_A14B_BOUNDARY),
+         dict(num_inference_steps=WAN_CUT_STEPS, guidance_scale=WAN_A14B_GUIDANCE[0],
+              guidance_scale_2=WAN_A14B_GUIDANCE[1])),
+    )
+    results, paths = {}, {}
+    for label, build, call in cases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = _build_wan_i2v_pipeline(base, **build)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        resident_gb = torch.cuda.memory_allocated() / 1e9
+        log(f"[wan-i2v] {label}: built in {build_s:.1f} s, {resident_gb:.1f} GB resident")
+        per_call = _module_launches(pipe.transformer)
+        experts = {"transformer": pipe.transformer, **({"transformer_2": pipe.transformer_2}
+                                                        if pipe.transformer_2 is not None else {})}
+        n_params = {name: sum(p.numel() for p in m.parameters()) for name, m in experts.items()}
+        if label == "i2v_14b":
+            n_params["image_encoder"] = sum(p.numel() for p in pipe.image_encoder.parameters())
+            if per_call["flash_attention_fwd"] != 120:
+                raise AssertionError(f"the 14B transformer counts {per_call} launches a call, expected K1 120")
+            # the chunked encode of the request's 81-frame clip, alone: its own peak memory
+            clip = torch.zeros((1, 3, WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH), device="cuda", dtype=pipe.vae.dtype)
+            clip[:, :, 0] = torch.from_numpy(image).permute(2, 0, 1).to("cuda") / 127.5 - 1
+            before = torch.cuda.memory_allocated()
+            with torch.no_grad():
+                _, encode_s, encode_peak = _request_seconds(lambda: pipe.vae.encode(clip).mode())
+            encode_peak_gb = encode_peak - before / 1e9
+            del clip
+        reset_launches()
+        spans = CudaSpans({**experts, "text_encoder": pipe.text_encoder,
+                           **({"image_encoder": pipe.image_encoder} if pipe.image_encoder is not None else {})},
+                          {"vae_encode": (pipe.vae, "encode"), "vae_decode": (pipe.vae, "decode"),
+                           "scheduler_step": (pipe.scheduler, "step")})
+        with StepLaunches(pipe, pipe.transformer) as steps, spans:
+            frames, seconds, peak_gb = _request_seconds(lambda: pipe(
+                generator=torch.Generator(device="cuda").manual_seed(SEED), **{**request, **call}).frames)
+        ms = spans.ms()
+        launches = read_launches()
+        _check_steps(f"wan {label}", steps.per_step, wan_i2v_step_launches(pipe, steps.timesteps), steps.after,
+                     _launches())
+        if not (frames.shape == (1, WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH, 3) and np.isfinite(frames).all()):
+            raise AssertionError(f"wan {label}: bad frames {frames.shape}")
+        calls = {name: ms[name] for name in experts}
+        if label == "two_experts_cut" and not all(calls.values()):
+            raise AssertionError(f"wan {label}: an expert was not called: { {k: len(v) for k, v in calls.items()} }")
+        # a step's device time: its two transformer calls (the experts' calls come in step order) and its UniPC step
+        in_order = [c for v in calls.values() for c in v]
+        step_ms = [in_order[2 * i] + in_order[2 * i + 1] + u for i, u in enumerate(ms["scheduler_step"])]
+        row = {"build_seconds": build_s, "resident_gb": resident_gb, "parameters": n_params,
+               "k1_per_call": per_call["flash_attention_fwd"], "seconds_per_video": seconds, "peak_memory_gb": peak_gb,
+               "launches": launches, "steps": len(steps.timesteps), "timesteps": steps.timesteps,
+               "transformer_ms_per_call": calls, "transformer_calls": sum(len(v) for v in calls.values()),
+               "step_ms": step_ms, "denoise_seconds": sum(step_ms) / 1e3,
+               "clip_encode_seconds": sum(ms.get("image_encoder", [])) / 1e3,
+               "umt5_encode_seconds": sum(ms["text_encoder"]) / 1e3,
+               "vae_encode_seconds": sum(ms["vae_encode"]) / 1e3, "vae_decode_seconds": sum(ms["vae_decode"]) / 1e3,
+               "frames_mean": float(frames.mean()), "frames_std": float(frames.std())}
+        if label == "i2v_14b":
+            row.update(vae_encode_alone_seconds=encode_s, vae_encode_alone_peak_gb=encode_peak_gb)
+            row["seconds_per_step"] = row["denoise_seconds"] / len(steps.timesteps)
+            if launches["flash_attention_fwd"] != 2 * WAN_I2V_STEPS * 120:
+                raise AssertionError(f"the 14B I2V request launched {launches}, expected K1 {2 * WAN_I2V_STEPS * 120}")
+        results[label] = row
+        log(f"[wan-i2v] {smi}: {label}: built in {build_s:.1f} s ({ {k: f'{v / 1e9:.3f} B' for k, v in n_params.items()} }"
+            f" parameters, {resident_gb:.1f} GB resident); {seconds:.2f} s a video ({WAN_FRAMES} x {WAN_HEIGHT} x "
+            f"{WAN_WIDTH}, {row['steps']} steps), transformer calls (ms, CUDA events) "
+            f"{ {k: [round(x, 1) for x in v] for k, v in calls.items()} }, denoise {row['denoise_seconds']:.2f} s, CLIP "
+            f"encode {row['clip_encode_seconds']:.3f} s, UMT5 {row['umt5_encode_seconds']:.3f} s, VAE encode "
+            f"{row['vae_encode_seconds']:.2f} s (81 frames, chunked), decode {row['vae_decode_seconds']:.2f} s, peak "
+            f"memory {peak_gb:.1f} GB; launches {launches}"
+            + (f"; the encode alone: {encode_s:.2f} s, {encode_peak_gb:.2f} GB above the resident weights"
+               if label == "i2v_14b" else ""))
+        paths[f"wan_{label}"] = launches
+        del pipe, experts, spans, steps  # the next case's build needs the 14B's memory back
+    RESULTS["wan_i2v"] = {"card": smi, "frames": WAN_FRAMES, "height": WAN_HEIGHT, "width": WAN_WIDTH,
+                          "guidance_scale": WAN_GUIDANCE, "text_tokens": WAN_TEXT_LEN, **results}
+    return paths
 
 
 # ------------------------------------------------------------------ phase 18: pipelines from disk
@@ -3350,8 +3726,9 @@ def run_flux_w8a8_on_load(smi: str):
 
 def small_round_trip_cases():
     """Phase 18d's pipelines (phase 10's small SDXL, Flux with a float
-    transformer, SD3.5-style and Wan, built on the CPU in float32 from SEED
-    and moved to the card in bf16), their tokenizer slots, and a call."""
+    transformer, SD3.5-style and Wan, and phase 10e's Wan image-to-video,
+    built on the CPU in float32 from SEED and moved to the card in bf16),
+    their tokenizer slots, and a call."""
     import numpy as np
     import torch
 
@@ -3365,6 +3742,7 @@ def small_round_trip_cases():
     flux_latents = torch.from_numpy(rng.randn(1, 256, 64).astype(np.float32))
     sd3_latents = torch.from_numpy(rng.randn(1, 16, 16, 16).astype(np.float32))
     wan_latents = torch.from_numpy(rng.randn(1, 16, 3, 8, 8).astype(np.float32))
+    wan_image = np.round(255 * synthetic_video(1, 64, 64)[0]).astype(np.uint8)
     return (
         ("sdxl", lambda: on_card(_build_pipeline(SMALL_UNET, SMALL_VAE, SMALL_CLIP, SMALL_CLIP, "cpu",
                                                  torch.float32)), ("clip", "clip"),
@@ -3382,12 +3760,21 @@ def small_round_trip_cases():
          ("t5",), lambda p: p(WAN_PROMPT, WAN_NEGATIVE, height=64, width=64, num_frames=9, num_inference_steps=n,
                               guidance_scale=WAN_GUIDANCE, max_sequence_length=64, latents=wan_latents,
                               output_type="np").frames),
+        # phase 10e's image-to-video pipeline with a transformers CLIPImageProcessor (Wan2.1-I2V's numbers)
+        ("wan_i2v", lambda: on_card(_build_wan_i2v_pipeline(
+            _build_wan_pipeline(SMALL_WAN, SMALL_WAN_VAE, SMALL_UMT5, "cpu", torch.float32), SMALL_WAN_I2V,
+            SMALL_CLIP_VISION, image_processor=clip_image_processor())),
+         ("t5",), lambda p: p(image=wan_image, prompt=WAN_PROMPT, negative_prompt=WAN_NEGATIVE, height=64, width=64,
+                              num_frames=9, num_inference_steps=n, guidance_scale=WAN_GUIDANCE,
+                              max_sequence_length=WAN_TEXT_LEN, latents=wan_latents, output_type="np").frames),
     )
 
 
 def run_small_round_trips(smi: str):
-    """Phase 18d: phase 10's small SDXL, Flux, SD3 and Wan pipelines on the
-    card, given real tokenizers, each through `save_pretrained` and
+    """Phase 18d: phase 10's small SDXL, Flux, SD3 and Wan pipelines and
+    phase 10e's Wan image-to-video (its CLIP tower and a transformers
+    `CLIPImageProcessor` too) on the card, given real tokenizers, each
+    through `save_pretrained` and
     `from_pretrained(device="cuda")` (Wan's in 1 MB shards, so its UMT5 is
     several transformers shards); each component bit-equal, each output
     within 2 uint8 levels of the same call before the round trip."""
@@ -3454,6 +3841,7 @@ def main() -> int:
     check_small_image_pipelines()
     check_small_sd3()
     check_small_wan()
+    check_small_wan_i2v()
     sdxl, pipe, image = run_pipeline(smi)
     paths = {"sdxl": sdxl, **run_sdxl_cached(smi, pipe, image)}
     paths.update(run_image_pipelines(smi, pipe))
@@ -3476,7 +3864,14 @@ def main() -> int:
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(run_wan(smi))
+    wan_paths, pipe = run_wan(smi)
+    paths.update(wan_paths)
+    paths.update(run_wan_v2v(smi, pipe))
+    pipe.transformer = None  # phase 19 keeps phase 17's UMT5-XXL and VAE
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(run_wan_i2v(smi, pipe))
+    del pipe
     gc.collect()
     torch.cuda.empty_cache()
     paths["training"] = run_training(smi)

@@ -19,6 +19,11 @@ _EXPORTS = {
     "FluxPipeline": "diffusers_tpu_torch.pipelines.flux.pipeline_flux",
     "StableDiffusion3Pipeline": "diffusers_tpu_torch.pipelines.stable_diffusion_3",
     "WanPipeline": "diffusers_tpu_torch.pipelines.wan",
+    "WanImageToVideoPipeline": "diffusers_tpu_torch.pipelines.wan",
+    "WanVideoToVideoPipeline": "diffusers_tpu_torch.pipelines.wan",
+    "CLIPVisionModel": "diffusers_tpu_torch.models.text_encoders.clip",
+    "CLIPVisionModelWithProjection": "diffusers_tpu_torch.models.text_encoders.clip",
+    "VideoProcessor": "diffusers_tpu_torch.video_processor",
     "WanTransformer3DModel": "diffusers_tpu_torch.models.transformers.transformer_wan",
     "AutoencoderKLWan": "diffusers_tpu_torch.models.autoencoders.autoencoder_kl_wan",
     "UMT5EncoderModel": "diffusers_tpu_torch.models.text_encoders.t5",

@@ -11,15 +11,19 @@ a flat [C] gamma, as the JAX package writes it, is reshaped on load).
 A causal conv pads 2 p_t zero frames before the stream. A temporal upsample
 never lets frame 0 into its doubling `time_conv` (upstream's "Rep" rule); a
 temporal downsample keeps frame 0 and runs its stride-2 `time_conv` over
-the whole stream. `encode` runs the whole sequence at once, as JAX does.
-`decode` runs as upstream diffusers does, in causal temporal chunks: latent
-frame 0 gives 1 video frame and each later one 4, and a `CausalCache`
-carries the last `CACHE_T` = 2 input frames of every causal conv from one
-chunk to the next (upstream's `feat_cache`), so no activation of a
-full-length decode (96 channels x 81 frames x 480 x 832 at the last stage,
-beyond 2^31 elements) ever exists at once. Every other op is per frame, so
-the chunked decode is the same function as JAX's whole-sequence one
-(tests/test_torch_wan.py holds them together).
+the whole stream. `encode` and `decode` run as upstream diffusers does, in
+causal temporal chunks, and a `CausalCache` carries the last `CACHE_T` = 2
+input frames of every causal conv from one chunk to the next (upstream's
+`feat_cache`), so no activation of a full-length video (96 channels x 81
+frames x 480 x 832 at the first and last stages, beyond 2^31 elements) ever
+exists at once. The encode takes frame 0, then 4 frames a chunk (one latent
+frame each); a temporal downsample carries the previous chunk's last frame
+and runs its stride-2 `time_conv` over that frame and the chunk, which is
+JAX's `concat([x0, conv_t(x, k=3, s=2)])` window by window. The decode takes
+one latent frame a chunk (1 video frame, then 4 each). Every other op is per
+frame, so both are the same functions as JAX's whole-sequence ones
+(tests/test_torch_wan.py and tests/test_torch_wan_i2v.py hold them
+together).
 
 The mid-block attention is single-headed over the pixels of each frame at
 head_dim = the channel width, on the `native` backend as JAX forces it
@@ -66,9 +70,11 @@ class WanCausalConv3d(Conv3d):
 
 
 class CausalCache:
-    """The carries of a chunked decode: for each causal conv, the last CACHE_T
-    frames of its input stream so far; the temporal upsamples whose first
-    frame has passed."""
+    """The carries of a chunked encode or decode: for each causal conv, the
+    last CACHE_T frames of its input stream so far (fewer while the stream
+    is shorter: upstream's ``cache_x.shape[2] < 2`` case); for each temporal
+    downsample's `time_conv`, the last frame of its input so far; the
+    temporal upsamples whose first frame has passed."""
 
     def __init__(self):
         self.frames = {}
@@ -81,6 +87,18 @@ class CausalCache:
             carry = torch.cat([prev[:, :, -1:], carry], dim=2)
         self.frames[conv] = carry.clone()
         return conv(x, prev)
+
+    def downsample(self, time_conv: WanCausalConv3d, x: torch.Tensor) -> torch.Tensor:
+        """The stride-2 temporal downsample of a chunk: frame 0 of the stream
+        passes through (and the first chunk's later frames, if any, take the
+        whole-sequence rule); a later chunk runs `time_conv` over the previous
+        chunk's last frame and its own frames. Exact while every later chunk
+        has an even number of frames."""
+        prev = self.frames.get(time_conv)
+        self.frames[time_conv] = x[:, :, -1:].clone()
+        if prev is not None:
+            return time_conv(torch.cat([prev, x], dim=2))
+        return x[:, :, :1] if x.shape[2] == 1 else torch.cat([x[:, :, :1], time_conv(x)], dim=2)
 
 
 def _causal(conv: WanCausalConv3d, x: torch.Tensor, cache: Optional[CausalCache]) -> torch.Tensor:
@@ -144,7 +162,7 @@ class WanResample(nn.Module):
             raise ValueError(f"unknown resample mode {mode}")
 
     def forward(self, x: torch.Tensor, cache: Optional[CausalCache] = None) -> torch.Tensor:
-        """x [B, C, T, H, W]. With `cache`, x is a chunk of a decode."""
+        """x [B, C, T, H, W]. With `cache`, x is a chunk of an encode or a decode."""
         b, c, t, h, w = x.shape
         if self.mode == "upsample3d":
             first = cache is None or self not in cache.started  # frame 0 of the stream is in this chunk
@@ -159,11 +177,11 @@ class WanResample(nn.Module):
             else:
                 x = head
             t = x.shape[2]
-        if self.mode == "downsample3d" and cache is not None:
-            raise NotImplementedError("a chunked temporal downsample is not ported (encode runs whole sequences)")
         y = self.resample(x.transpose(1, 2).reshape(b * t, c, h, w))
         x = y.reshape(b, t, *y.shape[1:]).transpose(1, 2)
         if self.mode == "downsample3d":
+            if cache is not None:
+                return cache.downsample(self.time_conv, x)
             x = torch.cat([x[:, :, :1], self.time_conv(x)], dim=2)  # frame 0, then stride-2 windows
         return x
 
@@ -193,7 +211,8 @@ class WanAttentionBlock(nn.Module):
         self.to_qkv = Conv2d(dim, dim * 3, kernel_size=1)
         self.proj = Conv2d(dim, dim, kernel_size=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cache: Optional[CausalCache] = None) -> torch.Tensor:
+        """x [B, C, T, H, W]; each frame on its own, so a chunk needs no `cache`."""
         b, c, t, h, w = x.shape
         y = self.to_qkv(self.norm(x.transpose(1, 2).reshape(b * t, c, h, w)))
         q, k, v = y.reshape(b * t, 3 * c, h * w).transpose(1, 2)[:, :, None].chunk(3, dim=-1)  # [BT, HW, 1, C]
@@ -236,12 +255,12 @@ class WanEncoder3d(nn.Module):
         self.norm_out = WanRMSNorm(dims[-1], images=False)
         self.conv_out = WanCausalConv3d(dims[-1], z_dim, 3, padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv_in(x)
+    def forward(self, x: torch.Tensor, cache: Optional[CausalCache] = None) -> torch.Tensor:
+        x = _causal(self.conv_in, x, cache)
         for block in self.down_blocks:
-            x = block(x)
-        x = self.mid_block(x)
-        return self.conv_out(F.silu(self.norm_out(x)))
+            x = block(x, cache)
+        x = self.mid_block(x, cache)
+        return _causal(self.conv_out, F.silu(self.norm_out(x)), cache)
 
 
 class WanUpBlock(nn.Module):
@@ -308,6 +327,8 @@ class AutoencoderKLWan(ModelMixin, ConfigMixin):
         if is_residual or patch_size is not None:
             raise NotImplementedError("the Wan 2.2 residual VAE is not ported (nor in the JAX package)")
         self.clip_output = clip_output
+        # video frames an encode chunk takes after frame 0: one latent frame's worth
+        self.encode_chunk = 2 ** sum(bool(d) for d in list(temperal_downsample)[:len(dim_mult) - 1])
         self.encoder = WanEncoder3d(in_channels=in_channels, dim=base_dim, z_dim=z_dim * 2, dim_mult=dim_mult,
                                     num_res_blocks=num_res_blocks, attn_scales=attn_scales,
                                     temperal_downsample=temperal_downsample)
@@ -319,8 +340,16 @@ class AutoencoderKLWan(ModelMixin, ConfigMixin):
 
     def encode(self, x: torch.Tensor, return_dict: bool = True):
         """x [B, C, T, H, W] in [-1, 1] -> the posterior over [B, 2 z, T', H', W']
-        moments, the whole sequence at once."""
-        posterior = DiagonalGaussianDistribution(self.quant_conv(self.encoder(x)))
+        moments, T' = 1 + (T - 1) / `encode_chunk`: frame 0, then
+        `encode_chunk` frames (4 in Wan's VAE) a chunk. T - 1 must be a
+        multiple of `encode_chunk`."""
+        t, n = x.shape[2], self.encode_chunk
+        if (t - 1) % n:
+            raise ValueError(f"AutoencoderKLWan.encode takes 1 + {n} k frames, got {t}")
+        cache = CausalCache()
+        bounds = [(0, 1)] + [(i, i + n) for i in range(1, t, n)]
+        moments = torch.cat([self.encoder(x[:, :, i:j], cache) for i, j in bounds], dim=2)
+        posterior = DiagonalGaussianDistribution(self.quant_conv(moments))
         return posterior if return_dict else (posterior,)
 
     def decode(self, z: torch.Tensor, return_dict: bool = True):

@@ -52,6 +52,8 @@ _CLASS_REGISTRY: Dict[str, str] = {
     "DDPMScheduler": "diffusers_tpu_torch.schedulers.scheduling_ddpm.DDPMScheduler",
     "CLIPTextModel": "diffusers_tpu_torch.models.text_encoders.clip.CLIPTextModel",
     "CLIPTextModelWithProjection": "diffusers_tpu_torch.models.text_encoders.clip.CLIPTextModelWithProjection",
+    "CLIPVisionModel": "diffusers_tpu_torch.models.text_encoders.clip.CLIPVisionModel",
+    "CLIPVisionModelWithProjection": "diffusers_tpu_torch.models.text_encoders.clip.CLIPVisionModelWithProjection",
     "T5EncoderModel": "diffusers_tpu_torch.models.text_encoders.t5.T5EncoderModel",
     "UMT5EncoderModel": "diffusers_tpu_torch.models.text_encoders.t5.UMT5EncoderModel",
 }
@@ -96,8 +98,10 @@ class DiffusionPipeline(ConfigMixin):
             else:
                 library = "diffusers_tpu_torch"
                 cls_name = module.__class__.__name__
-                if cls_name.endswith("Tokenizer") or cls_name.endswith("TokenizerFast"):
+                if cls_name.endswith(("Tokenizer", "TokenizerFast", "ImageProcessor", "ImageProcessorPil")):
                     library = "transformers"
+                    # transformers 5 picks an image processor's backend when it loads one: record the public name
+                    cls_name = cls_name.removesuffix("Pil")
                 register_dict = {name: (library, cls_name)}
             self.register_to_config(**register_dict)
             setattr(self, name, module)

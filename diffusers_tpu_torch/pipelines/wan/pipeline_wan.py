@@ -181,6 +181,18 @@ class WanPipeline(DiffusionPipeline, FreeInitMixin):
         return denoise_loop_with_callback(forward_cb, self.scheduler, latents, state, state.timesteps, self,
                                           callback, cb_tensors, cache_cfg=self._cache_config)
 
+    @torch.no_grad()
+    def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
+        """Final latents -> float32 frames [B, F, H, W, C] in [0, 1]: de-normalised
+        with the VAE's `latents_mean` / `latents_std` when it has them, then
+        the VAE's chunked decode."""
+        lm, ls = self.vae.config.get("latents_mean"), self.vae.config.get("latents_std")
+        if lm is not None and ls is not None:  # latents / (1 / std) + mean
+            latents = (latents * torch.tensor(ls, device=latents.device).reshape(1, -1, 1, 1, 1)
+                       + torch.tensor(lm, device=latents.device).reshape(1, -1, 1, 1, 1))
+        video = self.vae.decode(latents.to(self.vae.dtype)).sample
+        return (video.float() / 2 + 0.5).clamp(0, 1).permute(0, 2, 3, 4, 1).cpu().numpy()
+
     # ------------------------------------------------------------ __call__
     @torch.no_grad()
     def __call__(
@@ -227,15 +239,7 @@ class WanPipeline(DiffusionPipeline, FreeInitMixin):
             else:
                 latents = self._denoise(latents, prompt_embeds, negative_embeds, rope, state, guidance_scale)
 
-        if output_type == "latent":
-            video = latents
-        else:
-            lm, ls = self.vae.config.get("latents_mean"), self.vae.config.get("latents_std")
-            if lm is not None and ls is not None:  # latents / (1 / std) + mean
-                latents = (latents * torch.tensor(ls, device=device).reshape(1, -1, 1, 1, 1)
-                           + torch.tensor(lm, device=device).reshape(1, -1, 1, 1, 1))
-            video = self.vae.decode(latents.to(self.vae.dtype)).sample
-            video = (video.float() / 2 + 0.5).clamp(0, 1).permute(0, 2, 3, 4, 1).cpu().numpy()
+        video = latents if output_type == "latent" else self.decode_latents(latents)
         if not return_dict:
             return (video,)
         return WanPipelineOutput(frames=video)

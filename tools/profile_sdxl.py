@@ -1,22 +1,25 @@
 """Where the port's main paths (SDXL, Flux.1-dev, SD3.5 Medium, Wan 2.1
-text-to-video, SDXL-UNet training) spend device time, on one CUDA card.
+text-to-video and image-to-video, SDXL-UNet training) spend device time, on
+one CUDA card.
 
-    python3 tools/profile_sdxl.py [--model sdxl|flux|sd3|wan|train] [--out DIR]
+    python3 tools/profile_sdxl.py [--model sdxl|flux|sd3|wan|wan_i2v|train] [--out DIR]
 
 Builds the full-width pipeline of `chip_smoke.py` (random weights from a
-seed, made on the card: SDXL, SD3.5 Medium and Wan2.1-T2V-1.3B bf16;
-Flux.1-dev with the w8a8 transformer), warms it up with one request (Wan: of
-2 steps), then:
+seed, made on the card: SDXL, SD3.5 Medium, Wan2.1-T2V-1.3B and
+Wan2.1-I2V-14B-480P bf16; Flux.1-dev with the w8a8 transformer), warms it
+up with one request (Wan: of 2 steps; Wan I2V: of 1), then:
 
   * times one denoiser forward (the SDXL UNet at b=2, one CFG step; the Flux,
     SD3 and Wan transformers at the request's shapes: Wan's is one batch-1
-    call over 32,760 tokens) with CUDA events, profiler off (mean of 10, or 3
-    for Flux and Wan);
+    call over 32,760 tokens, the 14B's with the 257 CLIP tokens too) with
+    CUDA events, profiler off (mean of 10, or 3 for Flux and Wan);
   * traces one such forward with `torch.profiler` (CPU + CUDA activities)
     and sums device time by kernel group;
   * times one request (SDXL: 30 steps, CFG 5.0; Flux: 28 steps, guidance
     3.5; SD3.5 Medium: 28 steps, CFG 7.0, the server's defaults; Wan: 480 x
-    832, 81 frames, 50 steps, CFG 5.0) on the host clock, profiler off, then traces one; for SDXL, the same again for the
+    832, 81 frames, 50 steps, CFG 5.0; Wan I2V: the same frames from an
+    image, `chip_smoke.WAN_I2V_STEPS` steps) on the host clock, profiler off,
+    then traces one; for SDXL, the same again for the
     headline request of bench.py, with the TaylorSeer cache of
     `chip_smoke.sdxl_cached_requests` (5 of 30 steps call the UNet); for
     SD3.5 Medium, the same again for a request of two prompts, the batch
@@ -184,6 +187,31 @@ def _wan(torch):
             "Wan transformer forward b=1 (32,760 tokens, 512 text tokens)", 3)
 
 
+def _wan_i2v(torch):
+    """Wan2.1-I2V-14B-480P as `chip_smoke.py` phase 19 builds it (the 14B on
+    the meta device, filled on the card; CLIP ViT-H/14; UMT5-XXL and the
+    VAE), its request from a synthetic image, and one transformer call."""
+    import numpy as np
+
+    base = chip_smoke._build_wan_pipeline(chip_smoke.WAN_1_3B, chip_smoke.WAN_VAE, chip_smoke.UMT5_XXL, "cuda",
+                                          torch.bfloat16)
+    base.transformer = None
+    pipe = chip_smoke._build_wan_i2v_pipeline(base, chip_smoke.WAN_I2V_14B, chip_smoke.CLIP_VIT_H)
+    image = np.round(255 * chip_smoke.synthetic_video(1, chip_smoke.WAN_HEIGHT, chip_smoke.WAN_WIDTH)[0])
+    request = dict(image=image.astype(np.uint8), prompt=chip_smoke.WAN_PROMPT,
+                   negative_prompt=chip_smoke.WAN_NEGATIVE, height=chip_smoke.WAN_HEIGHT,
+                   width=chip_smoke.WAN_WIDTH, num_frames=chip_smoke.WAN_FRAMES,
+                   num_inference_steps=chip_smoke.WAN_I2V_STEPS, guidance_scale=chip_smoke.WAN_GUIDANCE,
+                   max_sequence_length=chip_smoke.WAN_TEXT_LEN, output_type="np")
+    seen = {}
+    hook = pipe.transformer.register_forward_pre_hook(
+        lambda mod, args, kwargs: seen.update(args=args, kwargs=kwargs), with_kwargs=True)
+    pipe(**dict(request, num_inference_steps=1), generator=torch.Generator(device="cuda").manual_seed(0))
+    hook.remove()
+    return (pipe, request, lambda: pipe.transformer(*seen["args"], **seen["kwargs"]),
+            "Wan2.1-I2V-14B transformer forward b=1 (32,760 tokens, 512 text + 257 CLIP tokens)", 3)
+
+
 def profile_train(torch, smi: str, out) -> int:
     """One SDXL-UNet train step at 1024 px, batch 1: phase times and a trace."""
     import numpy as np
@@ -242,7 +270,7 @@ def profile_train(torch, smi: str, out) -> int:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", choices=("sdxl", "flux", "sd3", "wan", "train"), default="sdxl")
+    parser.add_argument("--model", choices=("sdxl", "flux", "sd3", "wan", "wan_i2v", "train"), default="sdxl")
     parser.add_argument("--out", type=Path, default=None, help="directory for profile_<model>.json")
     args = parser.parse_args()
     smi = chip_smoke.setup()
@@ -252,15 +280,17 @@ def main() -> int:
     if args.model == "train":
         return profile_train(torch, smi, args.out)
 
-    build = {"sdxl": _sdxl, "flux": _flux, "sd3": _sd3, "wan": _wan}[args.model]
+    build = {"sdxl": _sdxl, "flux": _flux, "sd3": _sd3, "wan": _wan, "wan_i2v": _wan_i2v}[args.model]
     pipe, request, forward, forward_title, forward_iters = build(torch)
 
     def run_request(**overrides):
         pipe(**dict(request, **overrides), generator=torch.Generator(device="cuda").manual_seed(chip_smoke.SEED))
         torch.cuda.synchronize()
 
-    # warm-up: cuDNN/cuBLAS heuristics, kernel build (a Wan request of 2 steps runs every shape of one of 50)
-    run_request(**({"num_inference_steps": 2} if args.model == "wan" else {}))
+    # warm-up: cuDNN/cuBLAS heuristics, kernel build (a Wan request of 2 steps runs every shape of one of 50;
+    # `_wan_i2v` already ran one of 1)
+    if args.model != "wan_i2v":
+        run_request(**({"num_inference_steps": 2} if args.model == "wan" else {}))
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.no_grad():
