@@ -3,7 +3,7 @@ H100: builds the port's hand-written kernels from this checkout, holds each
 against its plain PyTorch version at the shapes of the main paths, checks the
 port on the card against the port on the CPU at a small size (every cache
 config and callback, the image-conditioned pipelines, the SD3 pipelines and
-the Wan pipelines included), then
+the Wan pipelines, VACE, Animate and SkyReels-V2 included), then
 drives the main paths through their public entry points, with random weights
 made from a seed on the card:
 
@@ -49,6 +49,16 @@ made from a seed on the card:
     cross attention in each block); then first-last-frame (Wan2.1-FLF2V's
     514-token image table) and Wan 2.2's two experts (boundary 0.9) at
     full width with the depth cut to 2 blocks;
+  * the rest of the Wan family on phase 17's UMT5-XXL and VAE: Wan-VACE at
+    Wan2.1-VACE-1.3B's widths and depth (30 blocks and 15 VACE blocks) through
+    `WanVACEPipeline.__call__`, one 480 x 832 x 81 request with a synthetic
+    control video and mask (CFG as one batch-2 call a step, K1 90 a call);
+    Wan2.2-Animate-14B at full width cut to 10 blocks (the motion encoder at
+    512 px, the face encoder, two face adapters; a CLIP ViT-H/14) through
+    `WanAnimatePipeline.__call__` at 720 x 1280: two 77-frame segments in
+    animate mode, then one replace segment; SkyReels-V2-T2V-14B-540P at full
+    width cut to 2 blocks through `SkyReelsV2Pipeline.__call__`, one 544 x
+    960 x 97 request (51,000 tokens);
   * pipelines from disk (phase 18): SDXL written with `save_pretrained` and
     read back with `StableDiffusionXLPipeline.from_pretrained(dir,
     dtype=torch.bfloat16)`, one request; SD3.5 Medium given real tokenizers
@@ -380,6 +390,43 @@ SMALL_CLIP_VISION = dict(hidden_size=64, intermediate_size=128, num_hidden_layer
 SMALL_WAN_I2V = dict(SMALL_WAN, in_channels=36, image_dim=64, added_kv_proj_dim=128)
 SMALL_WAN_FLF = dict(SMALL_WAN_I2V, pos_embed_seq_len=514)
 SMALL_WAN_EXPERT = dict(SMALL_WAN, in_channels=36)
+
+# phase 20: Wan-VACE, Wan-AI/Wan2.1-VACE-1.3B-diffusers: the 1.3B's widths and depth (30 blocks) with 15 VACE
+# blocks at layers 0, 2, ..., 28 and 96 control channels (2 x 16 latent + 8 x 8 mask); phase 17's UMT5-XXL and
+# VAE; 480 x 832 x 81 with a synthetic control video and mask, CFG 5.0 as one batch-2 call a step, WAN_VACE_STEPS
+# steps (the cut)
+WAN_VACE_1_3B = dict(WAN_1_3B, vace_layers=list(range(0, 30, 2)), vace_in_channels=96)
+WAN_VACE_STEPS = 3
+WAN_VACE_K1_PER_CALL = (30 + 15) * 2
+WAN_VACE_BATCH2_SELF_ATTENTION = (2, WAN_TOKENS, 12, 128)
+WAN_VACE_Q_CHUNK = 1024
+# phase 21: Wan2.2-Animate-14B (Wan-AI/Wan2.2-Animate-14B-Diffusers): I2V-14B's widths (40 x 128 heads, ffn 13824,
+# 36 input channels, the CLIP image branch) with the motion encoder at 512 px, the face encoder (4 heads of 1024)
+# and a face adapter every 5 blocks; cut to WAN_ANIMATE_LAYERS blocks (two adapters); phase 17's UMT5-XXL and VAE,
+# a CLIP ViT-H/14; 720 x 1280, 77-frame segments: two of them over a 153-frame pose and face video in animate
+# mode, then one in replace mode, WAN_ANIMATE_STEPS steps each (75,600 tokens: 21 latent frames of 45 x 80 patches)
+WAN_ANIMATE_LAYERS = 10
+WAN_ANIMATE_14B = dict(WAN_I2V_14B, latent_channels=16, num_layers=WAN_ANIMATE_LAYERS, inject_face_latents_blocks=5)
+WAN_ANIMATE_HEIGHT, WAN_ANIMATE_WIDTH, WAN_ANIMATE_SEGMENT = 720, 1280, 77
+WAN_ANIMATE_STEPS = 1
+WAN_ANIMATE_TOKENS = 21 * 45 * 80
+WAN_ANIMATE_K1_PER_CALL = WAN_ANIMATE_LAYERS * 3 + WAN_ANIMATE_LAYERS // 5
+WAN_ANIMATE_SELF_ATTENTION = (1, WAN_ANIMATE_TOKENS, 40, 128)
+# phase 22: SkyReels-V2-T2V-14B-540P (Skywork/SkyReels-V2-T2V-14B-540P-Diffusers): the Wan 14B widths (40 x 128
+# heads, ffn 13824), one frame a block, no fps injection (the class defaults), cut to WAN_CUT_LAYERS blocks; phase
+# 17's UMT5-XXL and VAE; UniPC with flow shift 8.0; 544 x 960 x 97 (51,000 tokens), CFG 6.0, SKYREELS_STEPS steps
+SKYREELS_14B = dict(WAN_1_3B, num_attention_heads=40, ffn_dim=13824, num_layers=WAN_CUT_LAYERS)
+SKYREELS_UNIPC = dict(WAN_UNIPC, flow_shift=8.0)
+SKYREELS_HEIGHT, SKYREELS_WIDTH, SKYREELS_FRAMES = 544, 960, 97
+SKYREELS_STEPS, SKYREELS_GUIDANCE = 3, 6.0
+SKYREELS_TOKENS = 25 * 34 * 60
+SKYREELS_SELF_ATTENTION = (1, SKYREELS_TOKENS, 40, 128)
+# phase 10f: small VACE, Animate and SkyReels-V2 on phase 10d's widths
+SMALL_WAN_VACE = dict(SMALL_WAN, vace_layers=[0, 1], vace_in_channels=2 * 16 + 8 * 8)
+SMALL_ANIMATE = dict(SMALL_WAN_I2V, latent_channels=16, motion_encoder_size=32, motion_style_dim=64, motion_dim=8,
+                     motion_encoder_dim=64, face_encoder_hidden_dim=32, face_encoder_num_heads=2,
+                     inject_face_latents_blocks=1, motion_encoder_channel_sizes={"4": 64, "8": 64, "16": 64, "32": 32})
+SMALL_SKYREELS_CAUSAL = dict(SMALL_WAN, num_frame_per_block=2, inject_sample_info=True)
 
 # phase 18c: Flux.1-dev at full width, depth cut to 2 dual and 4 single blocks (every distinct Linear shape of
 # the 500), T5-XXL at full width with 2 layers; CLIP-L and the VAE whole. Its transformer is saved in bf16 and
@@ -801,6 +848,11 @@ def check_kernels():
         ("Wan 14B cross 32760 x 512 d=128", (1, WAN_TOKENS, 40, 128), 512, {}, True),
         ("Wan 14B image cross 32760 x 257 d=128", (1, WAN_TOKENS, 40, 128), 257, {}, True),
         ("Wan FLF image cross 32760 x 514 d=128", (1, WAN_TOKENS, 40, 128), 514, {}, True),
+        # Wan2.2-Animate-14B at 720 x 1280: the face adapter, each of 21 latent frames' 3,600 tokens over that
+        # frame's 5 motion tokens (one ragged kv tile)
+        ("Animate face cross (21, 3600) x 5 d=128", (21, 3600, 40, 128), 5, {}, True),
+        # SkyReels-V2 with 2 frames a block: the bool block-causal keep-mask (4 frames of 96 tokens)
+        ("SkyReels block-causal bool mask 384, d=128", (1, 384, 2, 128), 384, {"mask": "block_causal"}, False),
         ("causal 300 (ragged)", (1, 300, 2, 64), 300, {"is_causal": True}, False),
         ("additive mask 200 x 333, d=128", (1, 200, 2, 128), 333, {"mask": True}, False),
         ("fp16 d=128 500 x 700", (1, 500, 3, 128), 700, {"dtype": torch.float16}, False),
@@ -822,6 +874,12 @@ def check_kernels():
         elif opt.get("mask") == "row":  # every logit of row 5 below NEG_INF: NaN out, -inf LSE (JAX's rule)
             mask = torch.zeros((b, 1, sq, sk), device=dev)
             mask[:, :, 5, :] = torch.finfo(torch.float32).min
+        elif opt.get("mask") == "block_causal":  # SkyReelsV2Transformer3DModel.causal_mask of a (4, 8, 12) grid
+            from diffusers_tpu_torch.models.transformers.transformer_skyreels_v2 import SkyReelsV2Transformer3DModel
+
+            with torch.device("meta"):
+                sky = SkyReelsV2Transformer3DModel(num_attention_heads=2, num_layers=0, num_frame_per_block=2)
+            mask = torch.from_numpy(sky.causal_mask(4, 8, 12).copy()).to(dev)
         elif opt.get("mask"):
             mask = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=dev) < 0.3, -1e4, 0.0)
         causal = opt.get("is_causal", False)
@@ -878,8 +936,10 @@ def check_kernels():
                 raise AssertionError(f"flash_attention_fwd's LSE of the ragged last q tile is wrong on {label}")
         if timed:
             # controls: outputs of a partly wrong kernel must break the bound
-            t0 = (sk // 2) // 64 * 64  # 64 keys from the middle
-            keep = torch.cat([torch.arange(t0, device=dev), torch.arange(min(t0 + 64, sk), sk, device=dev)])
+            t0 = (sk // 2) // 64 * 64  # 64 keys from the middle (one key of a single short kv tile)
+            drop = 64 if sk > 64 else 1
+            t0 = t0 if sk > 64 else sk // 2
+            keep = torch.cat([torch.arange(t0, device=dev), torch.arange(min(t0 + drop, sk), sk, device=dev)])
             dropped = flash_attention_full(q, k[:, keep], v[:, keep])
             misscaled = out.clone()
             misscaled[:, ::64] *= 1 + 2.0**-5  # every 64th query row 3% off
@@ -930,17 +990,22 @@ def check_kernels():
     if not routed:
         raise AssertionError("flash_attention does not route a causal call at untiled lengths to native")
 
-    for shape, chunk in ((WAN_SELF_ATTENTION, WAN_Q_CHUNK), (WAN_14B_SELF_ATTENTION, WAN_14B_Q_CHUNK)):
-        wan_self = check_k1_wan_self(randn, shape, chunk)
+    for shape, chunk, iters in ((WAN_SELF_ATTENTION, WAN_Q_CHUNK, 10), (WAN_14B_SELF_ATTENTION, WAN_14B_Q_CHUNK, 10),
+                                (WAN_VACE_BATCH2_SELF_ATTENTION, WAN_VACE_Q_CHUNK, 5),
+                                (SKYREELS_SELF_ATTENTION, WAN_14B_Q_CHUNK, 3),
+                                (WAN_ANIMATE_SELF_ATTENTION, WAN_14B_Q_CHUNK, 3)):
+        wan_self = check_k1_wan_self(randn, shape, chunk, iters)
         cases.append(wan_self)
         k1_errs.append(wan_self["max_abs_err_vs_f32"])
     RESULTS["kernel_cases"] = cases
     return {"flash_attention_fwd": (max(k1_errs + [lse_err]), k1_times["Flux joint 4608 d=128"])}
 
 
-def check_k1_wan_self(randn, shape, chunk):
+def check_k1_wan_self(randn, shape, chunk, iters=10):
     """Phase 3, Wan's self attention: K1 at `shape` ((1, 32760, 12, 128) for
-    the 1.3B model, (1, 32760, 40, 128) for the 14B), bf16, held to
+    the 1.3B model, (1, 32760, 40, 128) for the 14B, (2, 32760, 12, 128) for
+    VACE's CFG batch, (1, 51000, 40, 128) for SkyReels-V2 at 544 x 960 x 97,
+    (1, 75600, 40, 128) for Animate at 720 x 1280), bf16, held to
     `attention_bounds` over every query row and every head, `chunk` query
     rows at a time (the plain version of the whole would hold an h x 32760²
     f32 logit matrix, 51.5 GB at 12 heads); the ragged last q tile's 120 rows
@@ -954,7 +1019,7 @@ def check_k1_wan_self(randn, shape, chunk):
     from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full, flash_attention_plain
 
     b, sq, h, d = shape
-    label = f"Wan self {sq} x {h} heads d={d}"
+    label = f"Wan self {sq} x {h} heads d={d}" + (f", batch {b}" if b > 1 else "")
     q, k, v = randn(b, sq, h, d, scale=2.0), randn(b, sq, h, d), randn(b, sq, h, d)
     out, lse = flash_attention_full(q, k, v, return_lse=True)
     torch.cuda.synchronize()
@@ -982,8 +1047,8 @@ def check_k1_wan_self(randn, shape, chunk):
     tail_err = float((lse[:, :, tail:] - torch.logsumexp(logits, dim=-1)).abs().max())
     flops = 4.0 * b * h * sq * sq * d
     bms, by = bound_ms(2 * 4 * q.numel(), flops, PEAK_BF16_FLOPS)
-    ms = (time_ms(lambda: flash_attention_full(q, k, v), iters=10) + time_ms(lambda: flash_attention_full(q, k, v),
-                                                                             iters=10)) / 2
+    ms = (time_ms(lambda: flash_attention_full(q, k, v), iters=iters)
+          + time_ms(lambda: flash_attention_full(q, k, v), iters=iters)) / 2
     plain_ms = time_ms(lambda: [flash_attention_plain(q[:, i:i + chunk], k, v)
                                 for i in range(0, sq, chunk)], iters=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -993,11 +1058,11 @@ def check_k1_wan_self(randn, shape, chunk):
            "max_share_of_bound_vs_f32": used32, "max_share_of_bound_vs_plain_same_dtype": used16,
            "ragged_tail_rows": sq - tail, "ragged_tail_lse_err": tail_err, "controls_share_of_bound": controls,
            "ms": ms, "plain_ms": plain_ms, "plain": f"chunked, {chunk} query rows a call",
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=10),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=iters),
            "bound_ms": bms, "bound_by": by, "tflops": flops / ms / 1e9, "share_of_time_bound": bms / ms,
-           "device_ms": graph_ms(lambda: flash_attention_full(q, k, v), iters=5),
-           "library_device_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=5),
-           "host_us_per_call": host_us(lambda: flash_attention_full(q, k, v), iters=5)}
+           "device_ms": graph_ms(lambda: flash_attention_full(q, k, v), iters=min(iters, 5)),
+           "library_device_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=min(iters, 5)),
+           "host_us_per_call": host_us(lambda: flash_attention_full(q, k, v), iters=min(iters, 5))}
     log(f"[K1] {label} (every query row of every head, {chunk} rows at a time): err vs f32 "
         f"{err32:.3e}, vs plain {err16:.3e}; share of the per-element bound {used32:.3f} / {used16:.3f}; ragged last q "
         f"tile ({sq - tail} rows): LSE err {tail_err:.3e} (tol 1e-3); controls {controls}; kernel {ms:.3f} ms "
@@ -1301,6 +1366,12 @@ def check_flash_bwd():
         elif opt.get("mask") == "row":
             mask = torch.zeros((b, 1, sq, sk), device=dev)
             mask[:, :, 5, :] = torch.finfo(torch.float32).min
+        elif opt.get("mask") == "block_causal":  # SkyReelsV2Transformer3DModel.causal_mask of a (4, 8, 12) grid
+            from diffusers_tpu_torch.models.transformers.transformer_skyreels_v2 import SkyReelsV2Transformer3DModel
+
+            with torch.device("meta"):
+                sky = SkyReelsV2Transformer3DModel(num_attention_heads=2, num_layers=0, num_frame_per_block=2)
+            mask = torch.from_numpy(sky.causal_mask(4, 8, 12).copy()).to(dev)
         elif opt.get("mask"):
             mask = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=dev) < 0.3, -1e4, 0.0)
         causal = opt.get("is_causal", False)
@@ -2084,16 +2155,17 @@ def _module_launches(module):
     from diffusers_tpu_torch.models.transformers.transformer_flux import FluxAttention
     from diffusers_tpu_torch.models.transformers.transformer_sd3 import JointAttention
     from diffusers_tpu_torch.models.transformers.transformer_wan import WanAttention
+    from diffusers_tpu_torch.models.transformers.transformer_wan_animate import WanAnimateFaceBlockCrossAttention
     from diffusers_tpu_torch.ops.cuda.flash_attention import HEAD_DIMS
     from diffusers_tpu_torch.ops.module import GroupNorm, W8A8Linear
 
     mods = list(module.modules())
     w8a8 = sum(isinstance(m, W8A8Linear) and m.in_features % 128 == 0 and m.out_features % 128 == 0 for m in mods)
+    attentions = (Attention, FluxAttention, JointAttention, WanAttention, WanAnimateFaceBlockCrossAttention)
     return _launches(group_norm=sum(isinstance(m, GroupNorm) for m in mods), w8a8_matmul=w8a8,
                      w8a8_quantize_rows=w8a8,
                      flash_attention_fwd=sum((1 + (isinstance(m, WanAttention) and m.added_kv_proj_dim is not None))
-                                             * (isinstance(m, (Attention, FluxAttention, JointAttention, WanAttention))
-                                                and m.dim_head in HEAD_DIMS) for m in mods))
+                                             * (isinstance(m, attentions) and m.dim_head in HEAD_DIMS) for m in mods))
 
 
 def _request_seconds(call):
@@ -3093,7 +3165,8 @@ def _wan_random_model(cls, cfg, device, dtype, seed):
     allocated unit by unit (`materialize_`), so that no float32 copy of a
     14B transformer exists; a parameter of the model itself (the Wan
     transformer's `scale_shift_table`) is drawn as its module draws it,
-    randn / sqrt(dim)."""
+    randn / sqrt(dim), and one of a module that `materialize_` splits into
+    its children by that module's `reset_parameters`."""
     import torch
     from torch import nn
 
@@ -3108,6 +3181,13 @@ def _wan_random_model(cls, cfg, device, dtype, seed):
     for name, p in list(model.named_parameters(recurse=False)):
         if p.is_meta:
             setattr(model, name, nn.Parameter((torch.randn(p.shape, device=device) / p.shape[-1] ** 0.5).to(dtype)))
+    for module in model.modules():  # a module that holds a list keeps its own parameters (Animate's motion basis)
+        left = [(n, p) for n, p in module.named_parameters(recurse=False) if p.is_meta]
+        for name, p in left:
+            setattr(module, name, nn.Parameter(torch.empty(p.shape, device=device)))
+        if left:
+            module.reset_parameters()
+            module.to(dtype)
     return model.eval()
 
 
@@ -3409,6 +3489,357 @@ def run_wan_i2v(smi: str, base):
     RESULTS["wan_i2v"] = {"card": smi, "frames": WAN_FRAMES, "height": WAN_HEIGHT, "width": WAN_WIDTH,
                           "guidance_scale": WAN_GUIDANCE, "text_tokens": WAN_TEXT_LEN, **results}
     return paths
+
+
+# ------------------------------------------------------------------ phases 10f, 20-22: the rest of the Wan family
+
+
+def _wan_family_pipeline(kind, base, transformer_cfg, seed, clip_cfg=None):
+    """A `WanVACEPipeline` ("vace"), `WanAnimatePipeline` ("animate") or
+    `SkyReelsV2Pipeline` ("skyreels") on `base`'s (a WanPipeline's)
+    tokenizer, UMT5 and VAE, on its device and in its dtype, with a random
+    transformer (and, for Animate, a CLIP vision tower of `clip_cfg`) from
+    `seed`."""
+    from diffusers_tpu_torch import (
+        CLIPVisionModel,
+        SkyReelsV2Pipeline,
+        SkyReelsV2Transformer3DModel,
+        UniPCMultistepScheduler,
+        WanAnimatePipeline,
+        WanAnimateTransformer3DModel,
+        WanVACEPipeline,
+        WanVACETransformer3DModel,
+    )
+
+    device, dtype = base.device, base.vae.dtype
+    pipe_cls, model_cls, unipc = {"vace": (WanVACEPipeline, WanVACETransformer3DModel, WAN_UNIPC),
+                                  "animate": (WanAnimatePipeline, WanAnimateTransformer3DModel, WAN_UNIPC),
+                                  "skyreels": (SkyReelsV2Pipeline, SkyReelsV2Transformer3DModel, SKYREELS_UNIPC)}[kind]
+    parts = dict(tokenizer=base.tokenizer, text_encoder=base.text_encoder, vae=base.vae,
+                 scheduler=UniPCMultistepScheduler(**unipc),
+                 transformer=_wan_random_model(model_cls, transformer_cfg, device, dtype, seed))
+    if kind == "animate":
+        parts["image_encoder"] = _wan_random_model(CLIPVisionModel, clip_cfg, device, dtype, seed + 1)
+    return pipe_cls(**parts, device=device)
+
+
+def _box_mask(frames: int, height: int, width: int):
+    """float32 [1, 1, frames, H, W]: ones on the middle half of each side (the region to edit or replace)."""
+    import numpy as np
+
+    mask = np.zeros((1, 1, frames, height, width), np.float32)
+    mask[..., height // 4:3 * height // 4, width // 4:3 * width // 4] = 1
+    return mask
+
+
+def _moving_frames(frames: int, height: int, width: int, step: int):
+    """`frames` float32 HWC frames in [0, 1]: one synthetic frame, rolled
+    `step` pixels further along its rows each frame (cheap on the host at
+    720p)."""
+    import numpy as np
+
+    base = synthetic_video(1, height, width)[0]
+    return [np.roll(base, step * t, axis=1) for t in range(frames)]
+
+
+def small_wan_family_cases():
+    """Phase 10f's requests: (label, a function that builds the pipeline on
+    the CPU in float32, call keyword arguments, transformer calls a step:
+    VACE's CFG is one batch-2 call, the others' two batch-1 calls). Each
+    call of a build function draws the same weights from SEED."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    def base():
+        return _build_wan_pipeline(SMALL_WAN, SMALL_WAN_VAE, SMALL_UMT5, "cpu", torch.float32)
+
+    video = synthetic_video(9, 64, 64)
+    control = np.ascontiguousarray(video.transpose(3, 0, 1, 2)[None] * 2 - 1)  # [1, 3, 9, 64, 64] in [-1, 1]
+    latents = torch.from_numpy(np.random.RandomState(SEED).randn(1, 16, 3, 8, 8).astype(np.float32))
+    common = dict(prompt=WAN_PROMPT, negative_prompt=WAN_NEGATIVE, height=64, width=64, output_type="np")
+    vace = dict(common, num_frames=9, num_inference_steps=SAMPLE_ROUND_TRIP_STEPS, guidance_scale=WAN_GUIDANCE,
+                max_sequence_length=64, latents=latents)
+    masked = dict(vace, video=control, mask=_box_mask(9, 64, 64))
+    anim = dict(common, image=Image.fromarray(np.round(255 * video[0]).astype(np.uint8)), pose_video=control,
+                face_video=np.ascontiguousarray(control[..., ::2, ::2]), segment_frame_length=5,
+                num_inference_steps=2, guidance_scale=WAN_GUIDANCE, max_sequence_length=WAN_TEXT_LEN,
+                latents=latents)
+    box = np.repeat(_box_mask(1, 64, 64)[0, 0, 0][..., None], 3, axis=2)
+    replace = dict(anim, mode="replace", background_video=list(video[::-1]), mask_video=[box] * 9)
+    sky = dict(common, num_frames=9, num_inference_steps=SAMPLE_ROUND_TRIP_STEPS, guidance_scale=SKYREELS_GUIDANCE,
+               max_sequence_length=64, latents=latents)
+    vace_build = lambda: _wan_family_pipeline("vace", base(), SMALL_WAN_VACE, SEED + 1)  # noqa: E731
+    anim_build = lambda: _wan_family_pipeline("animate", base(), SMALL_ANIMATE, SEED + 2,  # noqa: E731
+                                              SMALL_CLIP_VISION)
+    return (
+        ("vace_t2v", vace_build, vace, 1),
+        ("vace_masked_video", vace_build, dict(masked, conditioning_scale=0.8), 1),
+        ("vace_scale_list", vace_build, dict(masked, conditioning_scale=[1.2, 0.5]), 1),
+        ("animate_two_segments", anim_build, anim, 2),
+        ("replace_two_segments", anim_build, replace, 2),
+        ("skyreels", lambda: _wan_family_pipeline("skyreels", base(), SMALL_WAN, SEED + 3), sky, 2),
+    )
+
+
+def check_small_wan_family(device: str = "cuda"):
+    """Phase 10f: small VACE (dense text-to-video, a masked video, a
+    per-layer scale list), Animate (animate and replace, two 5-frame
+    segments over a 9-frame pose video) and SkyReels-V2 pipelines on phase
+    10d's widths, on the card (bf16, kernels) against the CPU (f32, plain
+    versions; held to JAX by tests/test_torch_wan_vace.py,
+    test_torch_wan_animate.py and test_torch_skyreels.py) at phase 7's
+    tolerance on the [0, 1] video, each step's K1 launches held to the
+    module counts; then two SkyReels-V2 transformer calls, 2 frames a block
+    with fps (the bool keep-mask through K1) and diffusion forcing ([1, 4]
+    timesteps), card against CPU relative to the output's magnitude. Also
+    the card's QR (cuSOLVER) of the Animate motion basis against the CPU's
+    (LAPACK), which the port uses."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch import SkyReelsV2Transformer3DModel
+
+    tol = 0.05  # phase 7: bf16 on the card against f32 on the CPU, on the [0, 1] video
+    results = {}
+    for label, build, call, calls_per_step in small_wan_family_cases():
+        sides = [build(), build().to(device=torch.device(device), dtype=torch.bfloat16)]
+        videos = []
+        for pipe in sides:  # the CPU, then the card
+            reset_launches()
+            with StepLaunches(pipe, pipe.transformer) as steps:
+                videos.append(pipe(generator=torch.Generator().manual_seed(SEED), **call).frames)
+        ref, out = videos
+        err = float(np.abs(out - ref).max())
+        per_call = _module_launches(pipe.transformer)  # K1 twice a block (3 times with CLIP), once an adapter
+        expected = [{k: calls_per_step * v for k, v in per_call.items()}] * len(steps.timesteps)
+        results[label] = row = {"max_abs_err": err, "tol": tol, "launches": read_launches(),
+                                "steps": len(steps.timesteps), "transformer_calls": len(steps.batches),
+                                "transformer_batches": sorted(set(steps.batches))}
+        log(f"[ref-wan-family] small {label}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol {tol}); launches "
+            f"{row['launches']}; {row['transformer_calls']} transformer calls over {row['steps']} steps")
+        if not (out.shape == ref.shape and out.shape[2:] == (64, 64, 3) and np.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"small {label}: the card disagrees with the CPU ({out.shape}, {err})")
+        _check_steps(f"small {label}", steps.per_step, expected, steps.after, _launches())
+    if not (results["animate_two_segments"]["steps"] == 4 and results["vace_t2v"]["transformer_batches"] == [2]):
+        raise AssertionError(f"small Wan family: segments or CFG batches wrong: {results}")
+
+    rng = np.random.RandomState(SEED)
+    x = torch.from_numpy(rng.randn(1, 16, 4, 8, 8).astype(np.float32))
+    ehs = torch.from_numpy(rng.randn(1, 64, 64).astype(np.float32))
+    for label, cfg, t, kw in (("skyreels_causal_fps", SMALL_SKYREELS_CAUSAL, torch.tensor([500.0]), {"fps": [1]}),
+                              ("skyreels_diffusion_forcing", SMALL_WAN, torch.tensor([[100.0, 300.0, 500.0, 700.0]]),
+                               {"enable_diffusion_forcing": True})):
+        cpu = _wan_random_model(SkyReelsV2Transformer3DModel, cfg, "cpu", torch.float32, SEED + 4)
+        card = _wan_random_model(SkyReelsV2Transformer3DModel, cfg, "cpu", torch.float32, SEED + 4).to(
+            device=device, dtype=torch.bfloat16)
+        with torch.no_grad():
+            ref = cpu(x, t, ehs, **kw).sample
+            reset_launches()
+            out = card(x.to(device, torch.bfloat16), t.to(device), ehs.to(device, torch.bfloat16), **kw).sample
+        out = out.float().cpu()
+        launches = read_launches()
+        err = float((out - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+        results[label] = {"max_rel_err": err, "tol": tol, "launches": launches}
+        log(f"[ref-wan-family] small {label} transformer call, card bf16 vs CPU f32: max |diff| / max(1, |ref|) "
+            f"{err:.3e} (tol {tol}); launches {launches}")
+        if not (torch.isfinite(out).all() and err <= tol and launches == _module_launches(card)):
+            raise AssertionError(f"small {label}: the card disagrees with the CPU ({err}, {launches})")
+
+    basis = torch.randn(512, 20, generator=torch.Generator().manual_seed(SEED)) + 1e-8
+    q_cpu = torch.linalg.qr(basis)[0]
+    q_card = torch.linalg.qr(basis.to(device))[0].cpu()
+    same_signs = bool((torch.sign((q_cpu * q_card).sum(0)) > 0).all())
+    results["qr_512x20"] = {"max_abs_diff_card_vs_cpu": float((q_cpu - q_card).abs().max()),
+                            "same_column_signs": same_signs}
+    log(f"[ref-wan-family] Animate's motion basis QR (512 x 20, f32): cuSOLVER vs LAPACK max |diff| "
+        f"{results['qr_512x20']['max_abs_diff_card_vs_cpu']:.3e}, same column signs {same_signs} (the port runs "
+        f"it on the host)")
+    RESULTS["small_wan_family"] = results
+
+
+def run_wan_vace(smi: str, base):
+    """Phase 20: Wan2.1-VACE-1.3B at its published widths and depth
+    (WAN_VACE_1_3B: 30 blocks, 15 VACE blocks at layers 0, 2, ..., 28; made
+    on the card, bf16) on phase 17's UMT5-XXL and VAE: one 480 x 832,
+    81-frame request with a synthetic control video and a box mask, CFG 5.0
+    as one batch-2 call a step, WAN_VACE_STEPS steps, 512 text tokens,
+    through `WanVACEPipeline.__call__`. K1 exactly 90 a call. Recorded: the
+    two chunked control encodes, each transformer call and the decode on
+    CUDA events, seconds a video, peak memory."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = _wan_family_pipeline("vace", base, WAN_VACE_1_3B, SEED + 4)
+    torch.cuda.synchronize()
+    build_s, resident_gb = time.perf_counter() - t0, torch.cuda.memory_allocated() / 1e9
+    tr = pipe.transformer
+    per_call = _module_launches(tr)
+    n_params = sum(p.numel() for p in tr.parameters())
+    if per_call["flash_attention_fwd"] != WAN_VACE_K1_PER_CALL:
+        raise AssertionError(f"the VACE transformer counts {per_call} launches a call, expected K1 90")
+    video = synthetic_video(WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH)
+    control = np.ascontiguousarray(video.transpose(3, 0, 1, 2)[None] * 2 - 1)
+    reset_launches()
+    spans = CudaSpans({"transformer": tr, "text_encoder": pipe.text_encoder},
+                      {"vae_encode": (pipe.vae, "encode"), "vae_decode": (pipe.vae, "decode")})
+    with StepLaunches(pipe, tr) as steps, spans:
+        frames, seconds, peak_gb = _request_seconds(lambda: pipe(
+            WAN_PROMPT, WAN_NEGATIVE, video=control, mask=_box_mask(WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH),
+            conditioning_scale=1.0, height=WAN_HEIGHT, width=WAN_WIDTH, num_frames=WAN_FRAMES,
+            num_inference_steps=WAN_VACE_STEPS, guidance_scale=WAN_GUIDANCE, max_sequence_length=WAN_TEXT_LEN,
+            generator=torch.Generator(device="cuda").manual_seed(SEED)).frames)
+    ms = spans.ms()
+    launches = read_launches()
+    _check_steps("wan vace", steps.per_step, [per_call] * WAN_VACE_STEPS, steps.after, _launches())
+    if not (frames.shape == (1, WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH, 3) and np.isfinite(frames).all()
+            and steps.batches == [2] * WAN_VACE_STEPS and len(ms["vae_encode"]) == 2
+            and launches["flash_attention_fwd"] == WAN_VACE_K1_PER_CALL * WAN_VACE_STEPS):
+        raise AssertionError(f"wan vace: frames {frames.shape}, batches {steps.batches}, launches {launches}")
+    row = {"card": smi, "build_seconds": build_s, "resident_gb": resident_gb, "parameters": n_params,
+           "k1_per_call": per_call["flash_attention_fwd"], "steps": WAN_VACE_STEPS, "seconds_per_video": seconds,
+           "peak_memory_gb": peak_gb, "launches": launches, "transformer_ms_per_call": ms["transformer"],
+           "transformer_ms_mean": float(np.mean(ms["transformer"])),
+           "control_encode_seconds": [x / 1e3 for x in ms["vae_encode"]],
+           "umt5_encode_seconds": sum(ms["text_encoder"]) / 1e3, "vae_decode_seconds": sum(ms["vae_decode"]) / 1e3,
+           "frames_mean": float(frames.mean()), "frames_std": float(frames.std())}
+    log(f"[wan-vace] {smi}: Wan2.1-VACE-1.3B ({n_params / 1e9:.3f} B, built in {build_s:.1f} s, {resident_gb:.1f} GB "
+        f"resident): {seconds:.2f} s a video ({WAN_FRAMES} x {WAN_HEIGHT} x {WAN_WIDTH}, {WAN_VACE_STEPS} steps), "
+        f"transformer calls at batch 2 of {row['transformer_ms_mean']:.1f} ms (CUDA events; "
+        f"{[round(x, 1) for x in ms['transformer']]}), control encodes "
+        f"{[round(x, 2) for x in row['control_encode_seconds']]} s, UMT5 {row['umt5_encode_seconds']:.3f} s, decode "
+        f"{row['vae_decode_seconds']:.2f} s, peak memory {peak_gb:.1f} GB; launches {launches}")
+    RESULTS["wan_vace"] = row
+    return {"wan_vace": launches}
+
+
+def run_wan_animate(smi: str, base):
+    """Phase 21: Wan2.2-Animate-14B at its published widths cut to
+    WAN_ANIMATE_LAYERS blocks (two face adapters; the motion encoder at 512
+    px, the face encoder; made on the card, bf16) with a CLIP ViT-H/14 on
+    phase 17's UMT5-XXL and VAE, through `WanAnimatePipeline.__call__` at
+    720 x 1280: two 77-frame segments over a 153-frame pose and face video
+    in animate mode, then one replace segment with a background video and a
+    box mask; WAN_ANIMATE_STEPS steps a segment, CFG 5.0, 512 text tokens.
+    K1 held to 30 + 2 a call. Recorded: each transformer call, the motion
+    and face encoders, the VAE encodes (pose, conditioning, reference), the
+    decodes, CLIP and UMT5 on CUDA events; seconds a request; peak
+    memory."""
+    import gc
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = _wan_family_pipeline("animate", base, WAN_ANIMATE_14B, SEED + 5, CLIP_VIT_H)
+    torch.cuda.synchronize()
+    build_s, resident_gb = time.perf_counter() - t0, torch.cuda.memory_allocated() / 1e9
+    tr = pipe.transformer
+    per_call = _module_launches(tr)
+    n_params = {"transformer": sum(p.numel() for p in tr.parameters()),
+                "motion_encoder": sum(p.numel() for p in tr.motion_encoder.parameters()),
+                "face_encoder": sum(p.numel() for p in tr.face_encoder.parameters()),
+                "image_encoder": sum(p.numel() for p in pipe.image_encoder.parameters())}
+    if per_call["flash_attention_fwd"] != WAN_ANIMATE_K1_PER_CALL:
+        raise AssertionError(f"the Animate transformer counts {per_call} launches a call, expected "
+                             f"K1 {WAN_ANIMATE_K1_PER_CALL}")
+    h, w, seg = WAN_ANIMATE_HEIGHT, WAN_ANIMATE_WIDTH, WAN_ANIMATE_SEGMENT
+    n_frames = 2 * seg - 1  # two segments sharing one conditioning frame
+    pose = _moving_frames(n_frames, h, w, 8)
+    face = _moving_frames(n_frames, 512, 512, 4)
+    image = Image.fromarray(np.round(255 * pose[0]).astype(np.uint8))
+    box = np.repeat(_box_mask(1, h, w)[0, 0, 0][..., None], 3, axis=2)
+    request = dict(image=image, prompt=WAN_PROMPT, negative_prompt=WAN_NEGATIVE, height=h, width=w,
+                   segment_frame_length=seg, num_inference_steps=WAN_ANIMATE_STEPS, guidance_scale=WAN_GUIDANCE,
+                   max_sequence_length=WAN_TEXT_LEN)
+    cases = (("animate", 2, dict(pose_video=pose, face_video=face, mode="animate")),
+             ("replace", 1, dict(pose_video=pose[:seg], face_video=face[:seg], mode="replace",
+                                 background_video=pose[::-1][:seg], mask_video=[box] * seg)))
+    results, paths = {}, {}
+    for label, segments, call in cases:
+        reset_launches()
+        spans = CudaSpans({"transformer": tr, "motion_encoder": tr.motion_encoder, "face_encoder": tr.face_encoder,
+                           "image_encoder": pipe.image_encoder, "text_encoder": pipe.text_encoder},
+                          {"vae_encode": (pipe.vae, "encode"), "vae_decode": (pipe.vae, "decode")})
+        with StepLaunches(pipe, tr) as steps, spans:
+            frames, seconds, peak_gb = _request_seconds(lambda: pipe(
+                generator=torch.Generator(device="cuda").manual_seed(SEED), **request, **call).frames)
+        ms = spans.ms()
+        launches = read_launches()
+        n_steps = segments * WAN_ANIMATE_STEPS
+        step_k1 = _launches(flash_attention_fwd=2 * WAN_ANIMATE_K1_PER_CALL)
+        _check_steps(f"wan animate {label}", steps.per_step, [step_k1] * n_steps, steps.after, _launches())
+        want = len(call["pose_video"])
+        if not (frames.shape == (1, want, h, w, 3) and np.isfinite(frames).all()
+                and len(ms["transformer"]) == 2 * n_steps and len(ms["motion_encoder"]) == 2 * segments):
+            raise AssertionError(f"wan animate {label}: frames {frames.shape}, {len(ms['transformer'])} calls, "
+                                 f"{len(ms['motion_encoder'])} motion encodes")
+        row = {"segments": segments, "frames": want, "steps_per_segment": WAN_ANIMATE_STEPS,
+               "seconds_per_video": seconds, "peak_memory_gb": peak_gb, "launches": launches,
+               "transformer_ms_per_call": ms["transformer"], "transformer_ms_mean": float(np.mean(ms["transformer"])),
+               "motion_encoder_ms": ms["motion_encoder"], "face_encoder_ms": ms["face_encoder"],
+               "vae_encode_ms": ms["vae_encode"], "vae_decode_ms": ms["vae_decode"],
+               "clip_encode_ms": ms["image_encoder"], "umt5_encode_ms": ms["text_encoder"],
+               "frames_mean": float(frames.mean()), "frames_std": float(frames.std())}
+        results[label] = row
+        log(f"[wan-animate] {smi}: {label}: {seconds:.2f} s for {want} frames of {h} x {w} ({segments} segments x "
+            f"{WAN_ANIMATE_STEPS} steps), transformer calls (75,600 tokens) of {row['transformer_ms_mean']:.1f} ms "
+            f"(CUDA events; {[round(x, 1) for x in ms['transformer']]}), motion encoder "
+            f"{[round(x, 1) for x in ms['motion_encoder']]} ms (77 faces at 512 px), face encoder "
+            f"{[round(x, 2) for x in ms['face_encoder']]} ms, VAE encodes {[round(x) for x in ms['vae_encode']]} ms, "
+            f"decodes {[round(x) for x in ms['vae_decode']]} ms, CLIP {[round(x, 1) for x in ms['image_encoder']]} "
+            f"ms, peak memory {peak_gb:.1f} GB; launches {launches}")
+        paths[f"wan_animate_{label}"] = launches
+        del frames, spans, steps
+        gc.collect()
+    RESULTS["wan_animate"] = {"card": smi, "height": h, "width": w, "segment_frames": seg, "build_seconds": build_s,
+                              "resident_gb": resident_gb, "parameters": n_params,
+                              "k1_per_call": per_call["flash_attention_fwd"], **results}
+    return paths
+
+
+def run_skyreels(smi: str, base):
+    """Phase 22: SkyReels-V2-T2V-14B-540P at its published widths cut to
+    WAN_CUT_LAYERS blocks (made on the card, bf16) on phase 17's UMT5-XXL
+    and VAE, through `SkyReelsV2Pipeline.__call__`: one 544 x 960, 97-frame
+    request (51,000 tokens), SKYREELS_STEPS steps, CFG 6.0 as two batch-1
+    calls a step, 512 text tokens. Recorded: each transformer call, UMT5 and
+    the 97-frame decode apart on CUDA events; seconds; peak memory."""
+    import numpy as np
+    import torch
+
+    pipe = _wan_family_pipeline("skyreels", base, SKYREELS_14B, SEED + 7)
+    tr = pipe.transformer
+    per_call = _module_launches(tr)
+    reset_launches()
+    spans = CudaSpans({"transformer": tr, "text_encoder": pipe.text_encoder}, {"vae_decode": (pipe.vae, "decode")})
+    with StepLaunches(pipe, tr) as steps, spans:
+        frames, seconds, peak_gb = _request_seconds(lambda: pipe(
+            WAN_PROMPT, WAN_NEGATIVE, height=SKYREELS_HEIGHT, width=SKYREELS_WIDTH, num_frames=SKYREELS_FRAMES,
+            num_inference_steps=SKYREELS_STEPS, guidance_scale=SKYREELS_GUIDANCE, max_sequence_length=WAN_TEXT_LEN,
+            generator=torch.Generator(device="cuda").manual_seed(SEED)).frames)
+    ms = spans.ms()
+    launches = read_launches()
+    _check_steps("skyreels", steps.per_step, [{k: 2 * v for k, v in per_call.items()}] * SKYREELS_STEPS, steps.after,
+                 _launches())
+    if not (frames.shape == (1, SKYREELS_FRAMES, SKYREELS_HEIGHT, SKYREELS_WIDTH, 3) and np.isfinite(frames).all()
+            and per_call["flash_attention_fwd"] == 2 * WAN_CUT_LAYERS):
+        raise AssertionError(f"skyreels: frames {frames.shape}, K1 {per_call} a call")
+    row = {"card": smi, "layers": WAN_CUT_LAYERS, "steps": SKYREELS_STEPS, "seconds_per_video": seconds,
+           "peak_memory_gb": peak_gb, "launches": launches, "k1_per_call": per_call["flash_attention_fwd"],
+           "transformer_ms_per_call": ms["transformer"], "transformer_ms_mean": float(np.mean(ms["transformer"])),
+           "umt5_encode_seconds": sum(ms["text_encoder"]) / 1e3, "vae_decode_seconds": sum(ms["vae_decode"]) / 1e3,
+           "frames_mean": float(frames.mean()), "frames_std": float(frames.std())}
+    log(f"[skyreels] {smi}: SkyReels-V2 14B widths, {WAN_CUT_LAYERS} blocks: {seconds:.2f} s a video "
+        f"({SKYREELS_FRAMES} x {SKYREELS_HEIGHT} x {SKYREELS_WIDTH}, {SKYREELS_STEPS} steps), transformer calls "
+        f"(51,000 tokens) of {row['transformer_ms_mean']:.1f} ms (CUDA events), UMT5 {row['umt5_encode_seconds']:.3f} "
+        f"s, the 97-frame decode {row['vae_decode_seconds']:.2f} s, peak memory {peak_gb:.1f} GB; launches {launches}")
+    RESULTS["skyreels"] = row
+    return {"skyreels": launches}
 
 
 # ------------------------------------------------------------------ phase 18: pipelines from disk
@@ -3842,6 +4273,7 @@ def main() -> int:
     check_small_sd3()
     check_small_wan()
     check_small_wan_i2v()
+    check_small_wan_family()
     sdxl, pipe, image = run_pipeline(smi)
     paths = {"sdxl": sdxl, **run_sdxl_cached(smi, pipe, image)}
     paths.update(run_image_pipelines(smi, pipe))
@@ -3867,10 +4299,17 @@ def main() -> int:
     wan_paths, pipe = run_wan(smi)
     paths.update(wan_paths)
     paths.update(run_wan_v2v(smi, pipe))
-    pipe.transformer = None  # phase 19 keeps phase 17's UMT5-XXL and VAE
+    paths.update(run_wan_vace(smi, pipe))
+    pipe.transformer = None  # phases 19-22 keep phase 17's UMT5-XXL and VAE
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(run_wan_i2v(smi, pipe))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(run_wan_animate(smi, pipe))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(run_skyreels(smi, pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()

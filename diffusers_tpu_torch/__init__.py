@@ -21,10 +21,16 @@ _EXPORTS = {
     "WanPipeline": "diffusers_tpu_torch.pipelines.wan",
     "WanImageToVideoPipeline": "diffusers_tpu_torch.pipelines.wan",
     "WanVideoToVideoPipeline": "diffusers_tpu_torch.pipelines.wan",
+    "WanVACEPipeline": "diffusers_tpu_torch.pipelines.wan",
+    "WanAnimatePipeline": "diffusers_tpu_torch.pipelines.wan",
+    "SkyReelsV2Pipeline": "diffusers_tpu_torch.pipelines.skyreels_v2",
     "CLIPVisionModel": "diffusers_tpu_torch.models.text_encoders.clip",
     "CLIPVisionModelWithProjection": "diffusers_tpu_torch.models.text_encoders.clip",
     "VideoProcessor": "diffusers_tpu_torch.video_processor",
     "WanTransformer3DModel": "diffusers_tpu_torch.models.transformers.transformer_wan",
+    "WanVACETransformer3DModel": "diffusers_tpu_torch.models.transformers.transformer_wan_vace",
+    "WanAnimateTransformer3DModel": "diffusers_tpu_torch.models.transformers.transformer_wan_animate",
+    "SkyReelsV2Transformer3DModel": "diffusers_tpu_torch.models.transformers.transformer_skyreels_v2",
     "AutoencoderKLWan": "diffusers_tpu_torch.models.autoencoders.autoencoder_kl_wan",
     "UMT5EncoderModel": "diffusers_tpu_torch.models.text_encoders.t5",
     "UniPCMultistepScheduler": "diffusers_tpu_torch.schedulers",

@@ -3,9 +3,11 @@ BasicTransformerBlock.
 
 Port of the SDXL- and Flux-path classes of
 `diffusers_tpu/models/attention_blocks.py` (`GELUProj` `:35`, `GEGLU` `:48`,
-`FeedForward` `:103` with its ``gelu``, ``gelu-approximate`` and ``geglu``
-routes, `BasicTransformerBlock` `:141`, the layer_norm variant). Submodule names (norm1/attn1/norm2/attn2/norm3/
-ff.net.0.proj/ff.net.2) match the reference state-dict keys.
+`LinearActivation` `:83`, `FeedForward` `:103` with its ``gelu``,
+``gelu-approximate``, ``geglu`` and ``linear-silu`` routes,
+`BasicTransformerBlock` `:141`, the layer_norm variant). Submodule names
+(norm1/attn1/norm2/attn2/norm3/ff.net.0.proj/ff.net.2) match the reference
+state-dict keys.
 """
 
 from __future__ import annotations
@@ -44,6 +46,17 @@ class GEGLU(nn.Module):
         return h * F.gelu(gate)
 
 
+class LinearActivation(nn.Module):
+    """Linear + SiLU (SkyReels-V2's fps projection)."""
+
+    def __init__(self, dim_in: int, dim_out: int, bias: bool = True):
+        super().__init__()
+        self.proj = Linear(dim_in, dim_out, use_bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.proj(x))
+
+
 class FeedForward(nn.Module):
     def __init__(
         self,
@@ -62,6 +75,8 @@ class FeedForward(nn.Module):
         elif activation_fn in ("gelu", "gelu-approximate"):
             act = GELUProj(dim, inner_dim, approximate="tanh" if activation_fn == "gelu-approximate" else "none",
                            bias=bias)
+        elif activation_fn == "linear-silu":
+            act = LinearActivation(dim, inner_dim, bias=bias)
         else:
             raise NotImplementedError(f"activation_fn {activation_fn!r} is not ported yet")
         # net.0 = act, net.1 = dropout slot (no-op), net.2 = out linear

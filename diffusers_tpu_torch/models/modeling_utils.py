@@ -344,6 +344,10 @@ def _leaf_to_torch(module: nn.Module, name: str, array: np.ndarray):
         return "weight", array.T
     if isinstance(module, W8A8Linear) and name == "kernel_scale_w8a8":
         return "weight_scale", array
+    if hasattr(module, "jax_leaf_to_torch"):  # a layer that keeps its own JAX layout (Animate's MotionConv2d)
+        return module.jax_leaf_to_torch(name, array)
+    if isinstance(module, nn.Conv1d) and name == "kernel":  # KIO -> OIK
+        return "weight", array.transpose(2, 1, 0)
     if isinstance(module, nn.Conv2d) and name == "kernel":  # HWIO -> OIHW
         return "weight", array.transpose(3, 2, 0, 1)
     if isinstance(module, nn.Conv3d) and name == "kernel":  # DHWIO -> OIDHW

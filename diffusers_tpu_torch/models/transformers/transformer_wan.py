@@ -15,6 +15,14 @@ the affine `norm2` takes its weights in float32, so a bf16 model on the card
 gets no mixed-dtype call. Attention goes through the dispatch layer, so on
 the card both attentions of a block are kernel K1 at head_dim 128.
 
+The block also takes the two paths SkyReels-V2 needs (JAX `:225-236`): an
+`attention_mask` for its self attention (a bool keep-mask reaches K1 as an
+additive float32 mask) and a modulation per token, `temb` [B, 6, N, D];
+`wan_output` is the head the Wan-family models share (a `temb` per token
+too). VACE, Animate and SkyReels-V2 build on these blocks
+(`transformer_wan_vace.py`, `transformer_wan_animate.py`,
+`transformer_skyreels_v2.py`).
+
 The caches: Pyramid Attention Broadcast (`pab_compute`, `pab_cache` from
 `init_pab_cache`): on a broadcast step no block runs its self attention (nor
 its projections) and each reuses its cached output; FirstBlockCache
@@ -107,7 +115,11 @@ class WanAttention(nn.Module):
         return kv, image_kv
 
     def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: Optional[torch.Tensor] = None,
-                rotary_emb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                rotary_emb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`attention_mask` (a bool keep-mask or an additive one, broadcast to
+        [B, H, Sq, Sk]) applies to the text or self keys, not to the
+        image-context keys, as in JAX."""
         b = hidden_states.shape[0]
         q = self._heads(self.norm_q(self.to_q(hidden_states)))
         if encoder_hidden_states is None:
@@ -117,7 +129,7 @@ class WanAttention(nn.Module):
             (k, v), image_kv = self._context_kv(encoder_hidden_states)
         if rotary_emb is not None:
             q, k = apply_rotary_emb(q, *rotary_emb), apply_rotary_emb(k, *rotary_emb)
-        out = dispatch_attention_fn(q, k, v).reshape(b, -1, self.inner_dim).to(q.dtype)
+        out = dispatch_attention_fn(q, k, v, attn_mask=attention_mask).reshape(b, -1, self.inner_dim).to(q.dtype)
         if image_kv is not None:
             out = out + dispatch_attention_fn(q, *image_kv).reshape(b, -1, self.inner_dim).to(out.dtype)
         return self.to_out[0](out)
@@ -224,16 +236,21 @@ class WanTransformerBlock(nn.Module):
         with torch.no_grad():
             self.scale_shift_table.normal_().div_(self.dim**0.5)
 
-    def forward(self, hidden_states, encoder_hidden_states, temb, rotary_emb, pab=None):
+    def forward(self, hidden_states, encoder_hidden_states, temb, rotary_emb, pab=None, attention_mask=None):
         """The block's output; with `pab=(compute, cached)`, (output, the self
         attention's output in use), `cached` standing in on a step that does
-        not compute."""
-        mods = (self.scale_shift_table.float() + temb.float()).chunk(6, dim=1)  # each [B, 1, D]
+        not compute. `temb` is [B, 6, D], or [B, 6, N, D] for a modulation per
+        token (SkyReels-V2's diffusion forcing, JAX `:225-236`);
+        `attention_mask` goes to the self attention."""
+        if temb.ndim == 3:
+            mods = (self.scale_shift_table.float() + temb.float()).chunk(6, dim=1)  # each [B, 1, D]
+        else:
+            mods = (self.scale_shift_table.float()[:, :, None] + temb.float()).unbind(1)  # each [B, N, D]
         shift_msa, scale_msa, gate_msa, c_shift_msa, c_scale_msa, c_gate_msa = mods
         dtype = hidden_states.dtype
 
         norm_h = (self.norm1(hidden_states.float()) * (1 + scale_msa) + shift_msa).to(dtype)
-        attn_out = self.attn1(norm_h, None, rotary_emb) if pab is None or pab[0] else pab[1]
+        attn_out = (self.attn1(norm_h, None, rotary_emb, attention_mask) if pab is None or pab[0] else pab[1])
         hidden_states = (hidden_states.float() + attn_out.float() * gate_msa).to(dtype)
 
         norm_h = hidden_states if self.norm2 is None else _layer_norm_f32(hidden_states.float(), self.norm2).to(dtype)
@@ -244,7 +261,32 @@ class WanTransformerBlock(nn.Module):
         return (hidden_states, attn_out) if pab is not None else hidden_states
 
 
-class WanTransformer3DModel(ModelMixin, ConfigMixin):
+class WanRotaryMixin:
+    """`rotary_tables` for a Wan-family model with a `rope` (WanRotaryPosEmbed)."""
+
+    def rotary_tables(self, latents: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(cos, sin) of RoPE for `latents` [B, C, F, H, W], on their device."""
+        cos, sin = self.rope(*latents.shape[2:])
+        return cos.to(latents.device), sin.to(latents.device)
+
+
+def wan_output(model: nn.Module, x: torch.Tensor, temb: torch.Tensor, grid: Tuple[int, int, int]) -> torch.Tensor:
+    """The Wan models' head: `norm_out` modulated by `model.scale_shift_table`
+    + `temb` in float32 (`temb` [B, D], or [B, N, D] a token), `proj_out`,
+    then the tokens of the (frame, row, column) `grid` unpatchified to [B, C,
+    F, H, W]."""
+    if temb.ndim == 2:
+        shift, scale = (model.scale_shift_table.float() + temb.float()[:, None]).chunk(2, dim=1)  # [B, 1, D]
+    else:
+        shift, scale = (model.scale_shift_table.float()[:, :, None] + temb.float()[:, None]).unbind(1)  # [B, N, D]
+    x = (model.norm_out(x.float()) * (1 + scale) + shift).to(x.dtype)
+    x = model.proj_out(x)
+    (ppf, pph, ppw), (p_t, p_h, p_w), c = grid, model.config.patch_size, model.out_channels
+    x = x.reshape(x.shape[0], ppf, pph, ppw, p_t, p_h, p_w, c).permute(0, 7, 1, 4, 2, 5, 3, 6)
+    return x.reshape(x.shape[0], c, ppf * p_t, pph * p_h, ppw * p_w)
+
+
+class WanTransformer3DModel(WanRotaryMixin, ModelMixin, ConfigMixin):
     @register_to_config
     def __init__(
         self,
@@ -282,11 +324,6 @@ class WanTransformer3DModel(ModelMixin, ConfigMixin):
         self.norm_out = LayerNorm(inner_dim, eps=eps, use_scale=False, use_bias=False)
         self.proj_out = Linear(inner_dim, self.out_channels * math.prod(patch_size))
         self.scale_shift_table = nn.Parameter(torch.randn(1, 2, inner_dim) / inner_dim**0.5)
-
-    def rotary_tables(self, latents: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(cos, sin) of RoPE for `latents` [B, C, F, H, W], on their device."""
-        cos, sin = self.rope(*latents.shape[2:])
-        return cos.to(latents.device), sin.to(latents.device)
 
     def forward(
         self,
@@ -327,11 +364,7 @@ class WanTransformer3DModel(ModelMixin, ConfigMixin):
         else:
             x = self.run_blocks(x, context_tokens, timestep_proj, rotary_emb)
 
-        shift, scale = (self.scale_shift_table.float() + temb.float()[:, None]).chunk(2, dim=1)  # [B, 1, D]
-        x = (self.norm_out(x.float()) * (1 + scale) + shift).to(x.dtype)
-        x = self.proj_out(x)
-        x = x.reshape(b, ppf, pph, ppw, p_t, p_h, p_w, self.out_channels).permute(0, 7, 1, 4, 2, 5, 3, 6)
-        output = x.reshape(b, self.out_channels, ppf * p_t, pph * p_h, ppw * p_w)
+        output = wan_output(self, x, temb, (ppf, pph, ppw))
         if extra is not None:  # the cache's new state beside the sample
             return (output, extra) if not return_dict else (Transformer3DModelOutput(sample=output), extra)
         return Transformer3DModelOutput(sample=output) if return_dict else (output,)

@@ -1,13 +1,13 @@
 """Leaf layers as torch modules in torch layouts.
 
 Port of `diffusers_tpu/ops/module.py` (`Linear` with its w8a8 branch
-`:145-150`, `Conv2d`, `Conv3d` `:245`, `GroupNorm` `:476-510`, `LayerNorm`,
+`:145-150`, `Conv2d`, `Conv3d` `:245`, `Conv1d` `:296`, `GroupNorm` `:476-510`, `LayerNorm`,
 `RMSNorm` `:542-567`, `Embedding`, `get_activation`). The JAX package keeps
 parameters in an external pytree in TPU layouts (``kernel`` [in, out], HWIO,
 ``scale``); here they live on the modules under torch's names and layouts
-(``weight`` [out, in], OIHW, OIDHW), so `state_dict()` keys equal upstream
-diffusers' and the JAX package's torch-layout keys. Activations are NCHW
-(NCDHW for 3-D).
+(``weight`` [out, in], OIK, OIHW, OIDHW), so `state_dict()` keys equal
+upstream diffusers' and the JAX package's torch-layout keys. Activations are
+NCHW (NCL for 1-D, NCDHW for 3-D; JAX's `Conv1d` takes NLC).
 
 The constructors keep the JAX signatures (``use_bias`` and friends), so model
 code reads the same in both packages.
@@ -80,6 +80,24 @@ class Conv2d(nn.Conv2d):
             in_channels, out_channels, kernel_size, stride=stride, padding=padding,
             dilation=dilation, groups=groups, bias=use_bias,
         )
+
+
+class Conv1d(nn.Conv1d):
+    """1D convolution over NCL activations; weight OIK (JAX keeps KIO)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: int = 3,
+        stride: int = 1,
+        padding: int = 0,
+        dilation: int = 1,
+        groups: int = 1,
+        use_bias: bool = True,
+    ):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding,
+                         dilation=dilation, groups=groups, bias=use_bias)
 
 
 class Conv3d(nn.Conv3d):

@@ -44,6 +44,12 @@ _CLASS_REGISTRY: Dict[str, str] = {
     "FluxTransformer2DModel": "diffusers_tpu_torch.models.transformers.transformer_flux.FluxTransformer2DModel",
     "SD3Transformer2DModel": "diffusers_tpu_torch.models.transformers.transformer_sd3.SD3Transformer2DModel",
     "WanTransformer3DModel": "diffusers_tpu_torch.models.transformers.transformer_wan.WanTransformer3DModel",
+    "WanVACETransformer3DModel":
+        "diffusers_tpu_torch.models.transformers.transformer_wan_vace.WanVACETransformer3DModel",
+    "WanAnimateTransformer3DModel":
+        "diffusers_tpu_torch.models.transformers.transformer_wan_animate.WanAnimateTransformer3DModel",
+    "SkyReelsV2Transformer3DModel":
+        "diffusers_tpu_torch.models.transformers.transformer_skyreels_v2.SkyReelsV2Transformer3DModel",
     "AutoencoderKLWan": "diffusers_tpu_torch.models.autoencoders.autoencoder_kl_wan.AutoencoderKLWan",
     "EulerDiscreteScheduler": "diffusers_tpu_torch.schedulers.scheduling_euler_discrete.EulerDiscreteScheduler",
     "FlowMatchEulerDiscreteScheduler":

@@ -17,6 +17,7 @@ cached request also differs from the port's dense latents by more than
 schedule.
 """
 
+import types
 import zlib
 
 import jax
@@ -82,6 +83,48 @@ class MaskTokenizer:
         out.input_ids = np.array(ids, dtype=np.int64)
         out.attention_mask = (out.input_ids != 0).astype(np.int64)
         return out
+
+
+class JitReference:
+    """A JAX module whose sub-calls that JAX's Wan pipelines make outside
+    their jitted loops (the VAE's `encode(...).mode()` and `decode(...).sample`,
+    a vision tower's hidden states, Animate's `encode_face_motion`) run
+    under `jax.jit`: the same functions, compiled once a shape instead of
+    dispatched op by op. Anything else is the module's own."""
+
+    def __init__(self, module):
+        self._module = module
+        self._encode = jax.jit(lambda p, x: module.encode(p, x).mode())
+        self._decode = jax.jit(lambda p, z: module.decode(p, z).sample)
+        self._hidden = jax.jit(lambda p, x: tuple(module(p, x, output_hidden_states=True).hidden_states))
+        self._face = jax.jit(lambda p, x: module.encode_face_motion(p, x))
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+    def __call__(self, params, *args, **kwargs):
+        if kwargs == {"output_hidden_states": True} and len(args) == 1:
+            return types.SimpleNamespace(hidden_states=self._hidden(params, *args))
+        return self._module(params, *args, **kwargs)
+
+    def encode(self, params, x):
+        z = self._encode(params, x)
+        return types.SimpleNamespace(mode=lambda: z)
+
+    def decode(self, params, z):
+        return types.SimpleNamespace(sample=self._decode(params, z))
+
+    def encode_face_motion(self, params, x):
+        return self._face(params, x)
+
+
+def jit_reference(jpipe, names=("vae", "image_encoder", "transformer")):
+    """`jpipe` with its components `names` wrapped in `JitReference`."""
+    for name in names:
+        part = getattr(jpipe, name, None)
+        if part is not None and part[0] is not None:
+            setattr(jpipe, name, (JitReference(part[0]), part[1]))
+    return jpipe
 
 
 def build():

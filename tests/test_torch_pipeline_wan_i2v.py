@@ -36,6 +36,7 @@ The divergences from JAX (ROADMAP C3/C4), each shown on both sides:
 
 import json
 import zlib
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -70,6 +71,7 @@ from diffusers_tpu_torch.models.text_encoders.clip import OPENAI_CLIP_MEAN, OPEN
 from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
 from diffusers_tpu_torch.utils import torch_utils
 from test_torch_pipeline_cache import _parts
+from test_torch_pipeline_wan import jit_reference
 
 torch.set_num_threads(1)
 
@@ -129,8 +131,8 @@ def build_i2v(transformer_cfg=WAN_I2V, seed=0):
                                      ("text_encoder", JaxUMT5, UMT5EncoderModel, UMT5),
                                      ("transformer", JaxWan, WanTransformer3DModel, transformer_cfg),
                                      ("image_encoder", JaxCLIPVision, CLIPVisionModel, CLIP)], seed=seed)
-    jpipe = JaxI2V(tokenizer=MaskTokenizer(), scheduler=JaxUniPC(**UNIPC), image_processor=clip_processor(),
-                   **jax_parts)
+    jpipe = jit_reference(JaxI2V(tokenizer=MaskTokenizer(), scheduler=JaxUniPC(**UNIPC),
+                                 image_processor=clip_processor(), **jax_parts))
     tpipe = WanImageToVideoPipeline(tokenizer=MaskTokenizer(), scheduler=UniPCMultistepScheduler(**UNIPC),
                                     image_processor=clip_processor(), device="cpu", **torch_parts)
     return jpipe, tpipe
@@ -141,8 +143,8 @@ def build_two_experts(boundary_ratio=0.5):
                                      ("text_encoder", JaxUMT5, UMT5EncoderModel, UMT5),
                                      ("transformer", JaxWan, WanTransformer3DModel, EXPERT),
                                      ("transformer_2", JaxWan, WanTransformer3DModel, EXPERT)], seed=3)
-    jpipe = JaxI2V(tokenizer=MaskTokenizer(), scheduler=JaxUniPC(**UNIPC), boundary_ratio=boundary_ratio,
-                   **jax_parts)
+    jpipe = jit_reference(JaxI2V(tokenizer=MaskTokenizer(), scheduler=JaxUniPC(**UNIPC),
+                                 boundary_ratio=boundary_ratio, **jax_parts))
     tpipe = WanImageToVideoPipeline(tokenizer=MaskTokenizer(), scheduler=UniPCMultistepScheduler(**UNIPC),
                                     boundary_ratio=boundary_ratio, device="cpu", **torch_parts)
     return jpipe, tpipe
@@ -154,7 +156,7 @@ def build_v2v(vae_cfg=VAE):
     jax_parts, torch_parts = _parts([("vae", JaxVAE, AutoencoderKLWan, vae_cfg),
                                      ("text_encoder", JaxUMT5, UMT5EncoderModel, UMT5),
                                      ("transformer", JaxWan, WanTransformer3DModel, WAN)], seed=4)
-    jpipe = JaxV2V(tokenizer=MaskTokenizer(), scheduler=JaxUniPC(**UNIPC), **jax_parts)
+    jpipe = jit_reference(JaxV2V(tokenizer=MaskTokenizer(), scheduler=JaxUniPC(**UNIPC), **jax_parts))
     tpipe = WanVideoToVideoPipeline(tokenizer=MaskTokenizer(), scheduler=UniPCMultistepScheduler(**UNIPC),
                                     device="cpu", **torch_parts)
     return jpipe, tpipe
@@ -419,8 +421,19 @@ def _v2v_composed(jpipe, noise, steps=V2V_STEPS, strength=STRENGTH, text_len=TXT
     ls = jnp.asarray(vae.config.latents_std).reshape(1, -1, 1, 1, 1)
     latents = jpipe.scheduler.add_noise(state, (init - lm) / ls, jnp.asarray(noise), timesteps[:1])
     cos, sin = transformer.rope(*latents.shape[2:])
-    return np.asarray(jpipe._denoise(t_params, latents, pe, ne, cos, sin, timesteps, state, guidance_scale=guidance,
-                                     do_cfg=True))
+    denoise = jpipe._jit("composed_denoise", partial(jpipe._denoise, guidance_scale=guidance, do_cfg=True),
+                         static=(guidance,))  # JAX's own per-pipeline jit cache, keyed by the cache config too
+    return np.asarray(denoise(t_params, latents, pe, ne, cos, sin, timesteps, state))
+
+
+@pytest.fixture(scope="module")
+def jax_v2v_request(v2v):
+    """JAX's own V2V request (strength 0.6, 5 steps, key 0), made once for
+    the tests that read it."""
+    jpipe, _ = v2v
+    return np.asarray(jpipe(PROMPT, video=VIDEO, strength=STRENGTH, num_inference_steps=V2V_STEPS,
+                            max_sequence_length=TXT_LEN, output_type="latent", key=jax.random.PRNGKey(0),
+                            **V2V_CALL).frames)
 
 
 @pytest.fixture(scope="module")
@@ -462,16 +475,14 @@ def test_v2v_matches_upstream_rule_from_jax_parts(v2v, v2v_noise, monkeypatch):
     assert float(np.abs(frames - ref_frames).max()) <= ATOL
 
 
-def test_jax_v2v_steps_the_head_of_the_ladder(v2v, v2v_noise):
+def test_jax_v2v_steps_the_head_of_the_ladder(v2v, v2v_noise, jax_v2v_request):
     """(d), JAX's side: JAX's V2V is the composed rule with the whole ladder
     from step index 0, so it ends at sigma[S - t_start] > 0, not at 0, and
     differs from upstream's rule."""
     jpipe, _ = v2v
     _, noise_key = jax.random.split(jax.random.PRNGKey(0))
     noise = np.array(jax_randn(v2v_noise.shape, key=noise_key, dtype=jnp.float32))
-    ref = np.asarray(jpipe(PROMPT, video=VIDEO, strength=STRENGTH, num_inference_steps=V2V_STEPS,
-                           max_sequence_length=TXT_LEN, output_type="latent", key=jax.random.PRNGKey(0),
-                           **V2V_CALL).frames)
+    ref = jax_v2v_request
     head = _v2v_composed(jpipe, noise, cut=False)
     upstream = _v2v_composed(jpipe, noise)
     assert float(np.abs(ref - head).max()) <= 1e-5
@@ -518,14 +529,14 @@ def test_v2v_caches_match_jax(v2v, v2v_noise, monkeypatch, name):
     assert float(np.abs(out - ref).max()) <= ATOL, float(np.abs(out - ref).max())
 
 
-def test_v2v_refuses_what_jax_v2v_does_not_honour(v2v, v2v_noise, monkeypatch):
+def test_v2v_refuses_what_jax_v2v_does_not_honour(v2v, v2v_noise, monkeypatch, jax_v2v_request):
     """FasterCache runs dense in JAX's V2V (its schedule is made only in
     `WanPipeline.__call__`) and PAB raises there; the port raises TypeError
     on both, and ValueError under FreeInit (which JAX's V2V ignores)."""
     jpipe, tpipe = v2v
     kwargs = dict(V2V_CALL, video=VIDEO, num_inference_steps=V2V_STEPS, strength=STRENGTH,
                   max_sequence_length=TXT_LEN, output_type="latent", key=jax.random.PRNGKey(0))
-    dense = np.asarray(jpipe(PROMPT, **kwargs).frames)
+    dense = jax_v2v_request
     jpipe.enable_cache(jhooks.FasterCacheConfig(unconditional_batch_skip_range=2,
                                                 unconditional_batch_timestep_skip_range=(-1, 1000)))
     try:
@@ -551,7 +562,7 @@ def test_v2v_refuses_what_jax_v2v_does_not_honour(v2v, v2v_noise, monkeypatch):
         tpipe.disable_free_init()
 
 
-def test_jax_v2v_fixture_vae_never_downsamples_in_time(v2v):
+def test_jax_v2v_fixture_vae_never_downsamples_in_time(v2v, jax_v2v_request):
     """(e) tests/test_wan_variants.py::test_wan_video2video's VAE
     (`dim_mult=[1, 2]`, `temperal_downsample=[False, True]`) keeps 5 frames
     where its `scale_factor_temporal=2` promises 3, so JAX's V2V raises on
@@ -561,13 +572,13 @@ def test_jax_v2v_fixture_vae_never_downsamples_in_time(v2v):
     bad = dict(VAE, base_dim=16, temperal_downsample=(False, True))
     jm, params = _parts([("vae", JaxVAE, AutoencoderKLWan, bad)], seed=0)[0]["vae"]
     assert jm.encode(params, jnp.zeros((1, 3, 5, 16, 16))).mode().shape[2] == 5
-    jbad = JaxV2V(tokenizer=MaskTokenizer(), text_encoder=jpipe.text_encoder, transformer=jpipe.transformer,
-                  vae=(jm, params), scheduler=JaxUniPC(**UNIPC))
+    jbad = jit_reference(JaxV2V(tokenizer=MaskTokenizer(), text_encoder=jpipe.text_encoder,
+                                transformer=jpipe.transformer, vae=(jm, params), scheduler=JaxUniPC(**UNIPC)), ("vae",))
     kwargs = dict(V2V_CALL, video=VIDEO, strength=STRENGTH, num_inference_steps=V2V_STEPS,
                   max_sequence_length=TXT_LEN, output_type="latent", key=jax.random.PRNGKey(0))
     with pytest.raises(TypeError, match="add got incompatible shapes|Incompatible shapes"):
         jbad(PROMPT, **kwargs)
-    assert np.isfinite(np.asarray(jpipe(PROMPT, **kwargs).frames)).all()
+    assert np.isfinite(jax_v2v_request).all()  # the module's consistent VAE: JAX's V2V runs
     with pytest.raises(ValueError, match="takes 1 \\+ 2 k frames"):
         tpipe.vae.encode(torch.zeros(1, 3, 4, 16, 16))
 
