@@ -3,7 +3,8 @@ H100: builds the port's hand-written kernels from this checkout, holds each
 against its plain PyTorch version at the shapes of the main paths, checks the
 port on the card against the port on the CPU at a small size (every cache
 config and callback, the image-conditioned pipelines, the SD3 pipelines and
-the Wan pipelines, VACE, Animate and SkyReels-V2 included), then
+the Wan pipelines, VACE, Animate and SkyReels-V2, the SD 1.x pipelines, the
+T2I-Adapter and each IP-Adapter head included), then
 drives the main paths through their public entry points, with random weights
 made from a seed on the card:
 
@@ -59,6 +60,17 @@ made from a seed on the card:
     animate mode, then one replace segment; SkyReels-V2-T2V-14B-540P at full
     width cut to 2 blocks through `SkyReelsV2Pipeline.__call__`, one 544 x
     960 x 97 request (51,000 tokens);
+  * the rest of the SD slice: Stable Diffusion 1.5 at its published widths
+    (phase 23) through `StableDiffusionPipeline.__call__`, 512 px, CFG 7.5:
+    one PNDM request (50 steps), one DDIM request, img2img, a 9-channel
+    inpaint and one T2I-Adapter request (TencentARC/t2iadapter_canny_sd15v2's
+    widths) from a synthetic edge map (kernel K4; its heads of 40, 80 and
+    160 run `native`); IP-Adapter Plus and base on phase 11's SDXL (phase
+    12c; h94/IP-Adapter's SDXL widths, a CLIP ViT-H/14), one 1024 px request
+    each (K1 also in the 70 image cross attentions and the resampler), then
+    the adapter unloaded and phase 11's image again, bit-equal; whole and
+    tiled decodes of 1024 and 2048 px latents on Flux's VAE and one Flux
+    request with tiling on (phase 13b);
   * pipelines from disk (phase 18): SDXL written with `save_pretrained` and
     read back with `StableDiffusionXLPipeline.from_pretrained(dir,
     dtype=torch.bfloat16)`, one request; SD3.5 Medium given real tokenizers
@@ -246,6 +258,22 @@ GN_VAE_ENCODE = (
     ((1, 128, 1024, 1024), True, 4), ((1, 128, 512, 512), True, 1), ((1, 256, 512, 512), True, 3),
     ((1, 256, 256, 256), True, 1), ((1, 512, 256, 256), True, 3), ((1, 512, 128, 128), True, 9),
     ((1, 512, 16384), False, 1),
+)
+# K4's GroupNorm calls in one SD 1.5 UNet call at 512 px and b=2 (61) and in one VAE decode to 512 px (30: SD 1.5's
+# decoder, and each 512 px tile of a tiled Flux decode, whose decoder has the same widths); phase 23 holds the
+# UNet's table to the calls a UNet call makes
+GN_SD15_UNET_CALL = (
+    ((2, 320, 64, 64), True, 8), ((2, 320, 64, 64), False, 5), ((2, 640, 64, 64), True, 2),
+    ((2, 960, 64, 64), True, 1), ((2, 320, 32, 32), True, 1), ((2, 640, 32, 32), True, 6),
+    ((2, 640, 32, 32), False, 5), ((2, 960, 32, 32), True, 1), ((2, 1280, 32, 32), True, 1),
+    ((2, 1920, 32, 32), True, 1), ((2, 640, 16, 16), True, 1), ((2, 1280, 16, 16), True, 6),
+    ((2, 1280, 16, 16), False, 5), ((2, 1920, 16, 16), True, 1), ((2, 2560, 16, 16), True, 2),
+    ((2, 1280, 8, 8), True, 11), ((2, 1280, 8, 8), False, 1), ((2, 2560, 8, 8), True, 3),
+)
+GN_VAE_DECODE_512 = (
+    ((1, 512, 64, 64), True, 10), ((1, 512, 4096), False, 1), ((1, 512, 128, 128), True, 6),
+    ((1, 512, 256, 256), True, 1), ((1, 256, 256, 256), True, 5), ((1, 256, 512, 512), True, 1),
+    ((1, 128, 512, 512), True, 6),
 )
 TRAIN_STEPS = 5
 
@@ -437,6 +465,80 @@ T5_CUT = dict(T5_XXL, num_layers=2)
 FLUX_CUT_W8A8 = 2 * 14 + 4 * 6 + 6
 SAMPLE_ROUND_TRIP_STEPS = 4  # phase 18d: the small pipelines' requests
 DISK_MARGIN = 2e9  # bytes kept free beyond what a phase-18 directory takes
+
+# phase 23: Stable Diffusion 1.5 at stable-diffusion-v1-5/stable-diffusion-v1-5's published widths: unet/config.json
+# (block_out_channels (320, 640, 1280, 1280), 2 layers a block, attention_head_dim 8: 8 heads of d = 40, 80, 160,
+# 1x1-conv proj_in / proj_out, cross_attention_dim 768; 859.5 M parameters), text_encoder/config.json (CLIP-L:
+# 12 layers, 768 wide, quick_gelu; 123 M), vae/config.json (SDXL's VAE widths, scaling_factor 0.18215) and
+# scheduler/scheduler_config.json (PNDM, skip_prk_steps); 512 px, 50 steps, CFG 7.5. DDIM is the usual swap (the
+# PNDM config's numbers, clip_sample off). The inpainting UNet is stable-diffusion-v1-5/stable-diffusion-inpainting's
+# (the same widths, 9 input channels); the T2I-Adapter TencentARC/t2iadapter_canny_sd15v2's config.json
+SD15_UNET = dict(
+    sample_size=64, in_channels=4, out_channels=4,
+    down_block_types=("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",),
+    up_block_types=("UpBlock2D",) + ("CrossAttnUpBlock2D",) * 3, block_out_channels=(320, 640, 1280, 1280),
+    layers_per_block=2, attention_head_dim=8, cross_attention_dim=768, use_linear_projection=False,
+)
+SD15_UNET_PARAMETERS = 859_520_964
+SD15_VAE = dict(SDXL_VAE, sample_size=512, scaling_factor=0.18215)
+SD15_PNDM = dict(beta_start=0.00085, beta_end=0.012, beta_schedule="scaled_linear", skip_prk_steps=True,
+                 set_alpha_to_one=False, steps_offset=1)
+SD15_DDIM = dict(beta_start=0.00085, beta_end=0.012, beta_schedule="scaled_linear", clip_sample=False,
+                 set_alpha_to_one=False, steps_offset=1)
+SD15_STEPS = 50
+SD15_DDIM_STEPS = 10  # the cut: the DDIM request tests the scheduler swap, not the step count
+SD15_GUIDANCE = 7.5
+SD15_RESOLUTION = 512
+SD15_PROMPT = "a photograph of an astronaut riding a horse"
+SD15_IMG2IMG_STRENGTH = 0.75
+SD15_INPAINT_STRENGTH = 1.0
+T2I_CANNY_SD15 = dict(in_channels=1, channels=(320, 640, 1280, 1280), num_res_blocks=2, downscale_factor=8,
+                      adapter_type="full_adapter")
+# SD 1.5's attentions at 512 px under CFG (b=2): (label, q shape, kv length, launches a UNet call). Its heads of
+# 40, 80 and 160 are not K1's (HEAD_DIMS), so they run `native` (JAX's rule: d % 64 == 0); phase 23 times each
+# against SDPA for ROADMAP B1.1
+SD15_ATTENTION = (
+    ("self 4096 d=40", (2, 4096, 8, 40), 4096, 5), ("cross 4096 x 77 d=40", (2, 4096, 8, 40), 77, 5),
+    ("self 1024 d=80", (2, 1024, 8, 80), 1024, 5), ("cross 1024 x 77 d=80", (2, 1024, 8, 80), 77, 5),
+    ("self 256 d=160", (2, 256, 8, 160), 256, 5), ("cross 256 x 77 d=160", (2, 256, 8, 160), 77, 5),
+    ("mid self 64 d=160", (2, 64, 8, 160), 64, 1), ("mid cross 64 x 77 d=160", (2, 64, 8, 160), 77, 1),
+)
+# CLIP ViT-H/14's attention (16 heads of 80 over 257 tokens, 32 layers): `native`, once an image encode
+VIT_H_ATTENTION = ("ViT-H self 257 d=80", (1, 257, 16, 80), 257, 32)
+
+# phase 12c: IP-Adapter on phase 11's SDXL, h94/IP-Adapter's sdxl_models: ip-adapter-plus_sdxl_vit-h (the resampler
+# over ViT-H's penultimate states: 1280 wide, depth 4, 20 heads of 64, 16 queries, output 2048) and
+# ip-adapter_sdxl_vit-h (ImageProjection 1024 -> 4 x 2048); to_k_ip / to_v_ip [inner, 2048] for all 70 attn2 layers;
+# the CLIP ViT-H/14 tower with its 1024-wide projection; 1024 px, 30 Euler steps, CFG 5.0
+CLIP_VIT_H_PROJ = dict(CLIP_VIT_H, projection_dim=1024)
+IP_PLUS_SDXL = dict(hidden_dims=1280, depth=4, heads=20, num_queries=16)
+IP_SDXL_CROSS_ATTENTIONS = 70
+IP_PLUS_RESAMPLER_ATTENTIONS = 4
+# the K1 shapes it adds (phase 3): the IP cross attention at both attn2 levels over 4 (base) and 16 (Plus) image
+# tokens, and the resampler's attention (the latents over [257 ViT-H tokens ; 16 latents]) at the CFG batch
+IP_K1_CASES = (
+    ("IP-Adapter cross 4096 x 4 d=64 (base)", (2, 4096, 10, 64), 4, {}, True),
+    ("IP-Adapter cross 1024 x 4 d=64 (base)", (2, 1024, 20, 64), 4, {}, True),
+    ("IP-Adapter cross 4096 x 16 d=64 (Plus)", (2, 4096, 10, 64), 16, {}, True),
+    ("IP-Adapter cross 1024 x 16 d=64 (Plus)", (2, 1024, 20, 64), 16, {}, True),
+    ("IP-Adapter Plus resampler 16 x 273 d=64", (2, 16, 20, 64), 273, {}, True),
+)
+
+# phase 13b: VAE tiling on phase 13's Flux VAE: whole and tiled decodes of a 1024 px and a 2048 px latent (512 px
+# tiles), then one Flux request with tiling on, its steps cut to FLUX_TILED_STEPS (the decode is what it tests)
+VAE_TILE = 512
+FLUX_TILED_STEPS = 4
+
+# phase 10g: the SD slice on small components, card bf16 against CPU f32: an SD-shaped UNet (1x1-conv projections, no
+# added embedding; heads of 64 and 128, so K1 runs on the card), phase 7's VAE and CLIP, a small T2I-Adapter and a
+# small CLIP vision tower with its projection (224 px, 257 tokens)
+SMALL_SD_UNET = dict(
+    sample_size=16, in_channels=4, out_channels=4, down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+    up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), block_out_channels=(64, 128), layers_per_block=1,
+    attention_head_dim=1, cross_attention_dim=32, use_linear_projection=False,
+)
+SMALL_T2I_ADAPTER = dict(in_channels=1, channels=(64, 128), num_res_blocks=1, downscale_factor=2)
+SMALL_VISION_PROJ = dict(SMALL_CLIP_VISION, projection_dim=48)
 
 RESULTS = {}
 
@@ -859,6 +961,7 @@ def check_kernels():
         ("mask -inf over the first 160 keys of every other row, d=128", (2, 300, 2, 128), 333, {"mask": "hide"},
          False),
         ("mask finfo.min over every key of one query row", (1, 128, 1, 64), 128, {"mask": "row"}, False),
+        *IP_K1_CASES,
     ]
     k1_errs, k1_times = [], {}
     for label, qshape, sk, opt, timed in attn_cases:
@@ -1078,8 +1181,11 @@ def check_k1_wan_self(randn, shape, chunk, iters=10):
 
 def check_group_norm():
     """Phase 4: K4 against its plain version at every GroupNorm of an SDXL
-    UNet call and a VAE decode (`GN_UNET_CALL`, `GN_VAE_DECODE`), and at the
-    VAE encoder's two shapes that the decoder lacks (`GN_VAE_ENCODE`), bf16: one
+    UNet call and a VAE decode (`GN_UNET_CALL`, `GN_VAE_DECODE`), at the
+    VAE encoder's two shapes that the decoder lacks (`GN_VAE_ENCODE`), and at
+    every GroupNorm of an SD 1.5 UNet call at 512 px and of a 512 px decode
+    (`GN_SD15_UNET_CALL`, `GN_VAE_DECODE_512`: SD 1.5's, and each tile of a
+    tiled decode), bf16: one
     bf16 ulp at the reference's largest magnitude against the f32 plain
     version and the bf16 one, two launches bit-identical, one launch a call.
     Controls (one case of each regime): a launch that leaves one partial out
@@ -1106,10 +1212,11 @@ def check_group_norm():
     sms = sm_count(0)
     cases, max_err, controlled = [], 0.0, set()
     sums = {where: {k: 0.0 for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")}
-            for where in ("UNet", "VAE")}
+            for where in ("UNet", "VAE", "SD UNet", "VAE 512")}
     decoder_shapes = {(shape, silu) for shape, silu, _ in GN_VAE_DECODE}
     encode_only = tuple(row for row in GN_VAE_ENCODE if row[:2] not in decoder_shapes)
-    for where, table in (("UNet", GN_UNET_CALL), ("VAE", GN_VAE_DECODE), ("VAE encode", encode_only)):
+    for where, table in (("UNet", GN_UNET_CALL), ("VAE", GN_VAE_DECODE), ("VAE encode", encode_only),
+                         ("SD UNet", GN_SD15_UNET_CALL), ("VAE 512", GN_VAE_DECODE_512)):
         for shape, silu, launches in table:
             c = shape[1]
             x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.5).to(torch.bfloat16)
@@ -1178,9 +1285,13 @@ def check_group_norm():
             del x, out
             torch.cuda.empty_cache()
     assert sum(n for _, _, n in GN_UNET_CALL) == 46 and controlled == {False, True} and len(encode_only) == 2
+    assert sum(n for _, _, n in GN_SD15_UNET_CALL) == 61 and sum(n for _, _, n in GN_VAE_DECODE_512) == 30
     RESULTS["group_norm_cases"] = cases
     RESULTS["group_norm_per_unet_call"], RESULTS["group_norm_per_vae_decode"] = sums["UNet"], sums["VAE"]
-    for where, what in (("UNet", "one SDXL UNet call at b=2 (46 launches)"), ("VAE", "one VAE decode (30 launches)")):
+    RESULTS["group_norm_per_sd15_unet_call"], RESULTS["group_norm_per_vae_decode_512"] = sums["SD UNet"], sums["VAE 512"]
+    for where, what in (("UNet", "one SDXL UNet call at b=2 (46 launches)"), ("VAE", "one VAE decode (30 launches)"),
+                        ("SD UNet", "one SD 1.5 UNet call at b=2, 512 px (61 launches)"),
+                        ("VAE 512", "one VAE decode to 512 px, or one 512 px tile (30 launches)")):
         t = sums[where]
         log(f"[K4] {what}: device {t['device_ms']:.3f} ms (bound {t['bound_ms']:.3f} ms), F.group_norm(+F.silu) "
             f"device {t['library_device_ms']:.3f} ms; events {t['ms']:.3f} ms, plain {t['plain_ms']:.2f} ms, library "
@@ -2148,7 +2259,8 @@ def _module_launches(module):
     GroupNorms and attentions once: K4 per GroupNorm, K1 per attention at a
     head dim the kernel takes (the others run `native`; a Wan cross
     attention with an image branch launches twice: the text, then the image
-    tokens), and K5 with its row quantization per w8a8 Linear whose K and N
+    tokens; a UNet cross attention with IP-Adapters once more for each
+    adapter whose scale is not 0), and K5 with its row quantization per w8a8 Linear whose K and N
     are multiples of 128 (the others take the dequantized matmul, as in
     JAX)."""
     from diffusers_tpu_torch.models.attention import Attention
@@ -2162,10 +2274,18 @@ def _module_launches(module):
     mods = list(module.modules())
     w8a8 = sum(isinstance(m, W8A8Linear) and m.in_features % 128 == 0 and m.out_features % 128 == 0 for m in mods)
     attentions = (Attention, FluxAttention, JointAttention, WanAttention, WanAnimateFaceBlockCrossAttention)
+
+    def calls(m):  # a Wan image branch or a loaded IP-Adapter (one a nonzero scale) adds calls
+        if isinstance(m, WanAttention):
+            return 1 + (m.added_kv_proj_dim is not None)
+        if isinstance(m, Attention) and m.to_k_ip is not None:
+            return 1 + sum(scale != 0 for scale in m.ip_adapter_scale)
+        return 1
+
     return _launches(group_norm=sum(isinstance(m, GroupNorm) for m in mods), w8a8_matmul=w8a8,
                      w8a8_quantize_rows=w8a8,
-                     flash_attention_fwd=sum((1 + (isinstance(m, WanAttention) and m.added_kv_proj_dim is not None))
-                                             * (isinstance(m, attentions) and m.dim_head in HEAD_DIMS) for m in mods))
+                     flash_attention_fwd=sum(calls(m) * (isinstance(m, attentions) and m.dim_head in HEAD_DIMS)
+                                             for m in mods))
 
 
 def _request_seconds(call):
@@ -3842,6 +3962,570 @@ def run_skyreels(smi: str, base):
     return {"skyreels": launches}
 
 
+# ------------------------------------------------------------------ phases 10g, 12c, 13b, 23: the rest of the SD slice
+
+
+def ip_adapter_checkpoint(kind: str, unet, image_dim: int, seed: int, device="cpu", dtype=None, hidden_dims=64,
+                          depth=2, heads=1, num_queries=4):
+    """An IP-Adapter checkpoint for `unet` in h94/IP-Adapter's key layout,
+    random from `seed` on `device`: ``{"image_proj": {...}, "ip_adapter":
+    {"{2n+1}.to_{k,v}_ip.weight": ...}}``, one K/V pair a cross attention in
+    the reference's down -> up -> mid order. `kind`: "base" (ImageProjection,
+    4 tokens over a `image_dim`-wide projected embedding), "plus" (the
+    resampler over `image_dim`-wide patch states), "full" (FeedForward +
+    LayerNorm over the patch states) or "faceid" (over a `image_dim`-wide id
+    embedding, mult 2, 4 tokens)."""
+    import torch
+
+    from diffusers_tpu_torch.loaders.ip_adapter import cross_attentions
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = unet.config.cross_attention_dim
+
+    def w(*shape, std=0.02):
+        return (torch.randn(shape, generator=gen, device=device) * std).to(dtype or torch.float32)
+
+    def norm(prefix, n):
+        return {f"{prefix}.weight": 1 + w(n), f"{prefix}.bias": w(n)}
+
+    if kind == "base":
+        proj = {"proj.weight": w(4 * c, image_dim), "proj.bias": w(4 * c), **norm("norm", c)}
+    elif kind == "full":
+        proj = {"proj.0.weight": w(image_dim, image_dim), "proj.0.bias": w(image_dim), "proj.2.weight": w(c, image_dim),
+                "proj.2.bias": w(c), **norm("proj.3", c)}
+    elif kind == "faceid":
+        proj = {"proj.0.weight": w(2 * image_dim, image_dim), "proj.0.bias": w(2 * image_dim),
+                "proj.2.weight": w(4 * c, 2 * image_dim), "proj.2.bias": w(4 * c), **norm("norm", c)}
+    else:
+        h = hidden_dims
+        proj = {"latents": w(1, num_queries, h, std=h**-0.5), "proj_in.weight": w(h, image_dim), "proj_in.bias": w(h),
+                "proj_out.weight": w(c, h), "proj_out.bias": w(c), **norm("norm_out", c)}
+        for n in range(depth):
+            proj.update({**norm(f"layers.{n}.0.norm1", h), **norm(f"layers.{n}.0.norm2", h),
+                         f"layers.{n}.0.to_q.weight": w(h, h), f"layers.{n}.0.to_kv.weight": w(2 * h, h),
+                         f"layers.{n}.0.to_out.weight": w(h, h), **norm(f"layers.{n}.1.0", h),
+                         f"layers.{n}.1.1.weight": w(4 * h, h), f"layers.{n}.1.3.weight": w(h, 4 * h)})
+        assert h == 64 * heads
+    ip = {}
+    for n, attn in enumerate(cross_attentions(unet)):
+        ip[f"{2 * n + 1}.to_k_ip.weight"] = w(attn.inner_dim, c, std=0.05)
+        ip[f"{2 * n + 1}.to_v_ip.weight"] = w(attn.inner_dim, c, std=0.05)
+    return {"image_proj": proj, "ip_adapter": ip}
+
+
+def _build_sd(unet_cfg, vae_cfg, clip_cfg, device, dtype, vision_cfg=None):
+    """A StableDiffusionPipeline (PNDM) with random weights from SEED on
+    `device`, and a CLIP vision tower with its projection when `vision_cfg`
+    is given."""
+    import torch
+
+    from diffusers_tpu_torch.models.autoencoders.autoencoder_kl import AutoencoderKL
+    from diffusers_tpu_torch.models.text_encoders.clip import CLIPTextModel, CLIPVisionModelWithProjection
+    from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
+    from diffusers_tpu_torch.pipelines.stable_diffusion import StableDiffusionPipeline
+    from diffusers_tpu_torch.schedulers import PNDMScheduler
+
+    torch.manual_seed(SEED)
+    with torch.device(device):
+        unet, vae, te = UNet2DConditionModel(**unet_cfg), AutoencoderKL(**vae_cfg), CLIPTextModel(**clip_cfg)
+        vision = CLIPVisionModelWithProjection(**vision_cfg) if vision_cfg else None
+    kwargs = {} if device == "cuda" else {"device": device}
+    pipe = StableDiffusionPipeline(vae=vae, text_encoder=te, tokenizer=StandInTokenizer(), unet=unet,
+                                   scheduler=PNDMScheduler(**SD15_PNDM), image_encoder=vision, **kwargs)
+    return pipe.to(dtype=dtype)
+
+
+def small_sd_cases():
+    """Phase 10g's cases: (label, pipeline name, request kwargs, IP-Adapters
+    to load as (kind, image width) or None, their scales)."""
+    image, mask, edges = synthetic_inputs(32)
+    prompt_image = (synthetic_inputs(224)[0] * 255).round().astype("uint8")
+    vision_w, vision_proj = SMALL_VISION_PROJ["hidden_size"], SMALL_VISION_PROJ["projection_dim"]
+    return (
+        ("sd_pndm", "sd", dict(), None, None),
+        ("sd_ddim", "sd_ddim", dict(), None, None),
+        ("sd_img2img", "img2img", dict(image=image, strength=0.6), None, None),
+        ("sd_inpaint_9ch", "inpaint_9ch", dict(image=image, mask_image=mask), None, None),
+        ("sd_inpaint_4ch", "inpaint_4ch", dict(image=image, mask_image=mask, strength=0.8), None, None),
+        ("sd_t2i_adapter", "adapter", dict(image=edges[..., :1], adapter_conditioning_scale=0.8), None, None),
+        ("sd_ip_base", "sd", dict(ip_adapter_image=prompt_image), [("base", vision_proj)], None),
+        ("sd_ip_plus", "sd", dict(ip_adapter_image=prompt_image), [("plus", vision_w)], None),
+        ("sd_ip_full", "sd", dict(ip_adapter_image=prompt_image), [("full", vision_w)], None),
+        ("sd_ip_faceid", "sd", dict(ip_adapter_image_embeds="faceid"), [("faceid", 40)], None),
+        ("sd_ip_two_adapters", "sd", dict(ip_adapter_image=[prompt_image, prompt_image]),
+         [("base", vision_proj), ("plus", vision_w)], [0.7, 0.5]),
+        ("sd_ip_scale_0", "sd", dict(ip_adapter_image=prompt_image), [("plus", vision_w)], 0.0),
+        ("sdxl_ip_base", "sdxl", dict(ip_adapter_image=prompt_image), [("base", vision_proj)], None),
+        ("sdxl_ip_plus", "sdxl", dict(ip_adapter_image=prompt_image), [("plus", vision_w)], None),
+    )
+
+
+def check_small_sd(device: str = "cuda"):
+    """Phase 10g: the SD slice on small components, on the card (bf16,
+    kernels) against the CPU (f32, plain versions; held to JAX by
+    tests/test_torch_stable_diffusion.py, test_torch_ip_adapter.py and
+    test_torch_t2i_adapter.py), with phase 7's tolerance: SD text-to-image
+    with PNDM and DDIM, img2img, inpaint with the 9- and the 4-channel UNet,
+    the T2I-Adapter pipeline, and SD and SDXL with each IP-Adapter head (base,
+    Plus, Full, FaceID), two adapters at once and scale 0. Each 4 steps; both
+    sides draw from one CPU generator seeded alike. Scale 0 must give the
+    image without the adapter bit for bit on each side."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.models.adapter import T2IAdapter
+    from diffusers_tpu_torch.models.text_encoders.clip import CLIPVisionModelWithProjection
+    from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
+    from diffusers_tpu_torch.pipelines.stable_diffusion import (
+        StableDiffusionImg2ImgPipeline,
+        StableDiffusionInpaintPipeline,
+        StableDiffusionPipeline,
+    )
+    from diffusers_tpu_torch.pipelines.t2i_adapter import StableDiffusionAdapterPipeline
+    from diffusers_tpu_torch.schedulers import DDIMScheduler
+
+    sides = []
+    for dev in ("cpu", device):
+        base = _build_sd(SMALL_SD_UNET, SMALL_VAE, SMALL_CLIP, "cpu", torch.float32, SMALL_VISION_PROJ)
+        sdxl = _build_pipeline(SMALL_UNET, SMALL_VAE, SMALL_CLIP, SMALL_CLIP, "cpu", torch.float32)
+        torch.manual_seed(SEED + 1)
+        unet9 = UNet2DConditionModel(**dict(SMALL_SD_UNET, in_channels=9))
+        adapter = T2IAdapter(**SMALL_T2I_ADAPTER)
+        vision = CLIPVisionModelWithProjection(**SMALL_VISION_PROJ)
+        parts = dict(base.components, device="cpu")
+        pipes = {"sd": base, "sd_ddim": StableDiffusionPipeline(**dict(parts, scheduler=DDIMScheduler(**SD15_DDIM))),
+                 "img2img": StableDiffusionImg2ImgPipeline(**parts),
+                 "inpaint_9ch": StableDiffusionInpaintPipeline(**dict(parts, unet=unet9)),
+                 "inpaint_4ch": StableDiffusionInpaintPipeline(**parts),
+                 "adapter": StableDiffusionAdapterPipeline(base.vae, base.text_encoder, base.tokenizer, base.unet,
+                                                           adapter, base.scheduler, device="cpu"),
+                 "sdxl": type(sdxl)(**dict(sdxl.components, image_encoder=vision, device="cpu"))}
+        for pipe in pipes.values():
+            pipe.to(device=torch.device(dev), dtype=torch.float32 if not sides else torch.bfloat16)
+        sides.append(pipes)
+    latents = torch.from_numpy(np.random.RandomState(SEED).randn(1, 4, 16, 16).astype(np.float32))
+    tol = 0.05  # phase 7: bf16 on the card against f32 on the CPU, on the [0, 1] image
+    results = {}
+    for label, pipe_name, kwargs, adapters, scale in small_sd_cases():
+        images, launches = [], None
+        for pipes in sides:  # the CPU, then the card
+            pipe = pipes[pipe_name]
+            call = dict(kwargs)
+            if adapters:
+                pipe.load_ip_adapter([ip_adapter_checkpoint(kind, pipe.unet, width, SEED + i)
+                                      for i, (kind, width) in enumerate(adapters)])
+                if scale is not None:
+                    pipe.set_ip_adapter_scale(scale)
+                if call.get("ip_adapter_image_embeds") == "faceid":
+                    ids = torch.from_numpy(np.random.RandomState(SEED).randn(1, 1, 40).astype(np.float32))
+                    call["ip_adapter_image_embeds"] = [torch.cat([torch.zeros_like(ids), ids])]
+            if pipe_name not in ("img2img", "inpaint_9ch", "inpaint_4ch", "adapter"):
+                call["latents"] = latents
+            reset_launches()
+            images.append(pipe(SD15_PROMPT, num_inference_steps=4, guidance_scale=SD15_GUIDANCE,
+                               generator=torch.Generator().manual_seed(SEED), output_type="np", **call).images)
+            launches = read_launches()
+            if scale == 0.0:  # every adapter at scale 0 is skipped: the plain request, bit for bit
+                plain_kwargs = {k: v for k, v in call.items() if not k.startswith("ip_adapter")}
+                pipe.unload_ip_adapter()
+                plain = pipe(SD15_PROMPT, num_inference_steps=4, guidance_scale=SD15_GUIDANCE,
+                             generator=torch.Generator().manual_seed(SEED), output_type="np", **plain_kwargs).images
+                if not np.array_equal(plain, images[-1]):
+                    raise AssertionError(f"small {label}: scale 0 differs from the request without the adapter")
+            elif adapters:
+                pipe.unload_ip_adapter()
+        ref, out = images
+        err = float(np.abs(out - ref).max())
+        results[label] = {"max_abs_err": err, "mean_abs_err": float(np.abs(out - ref).mean()), "tol": tol,
+                          "launches": launches}
+        log(f"[ref-sd] small {label}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol {tol}); launches {launches}")
+        if not (out.shape == ref.shape == (1, 32, 32, 3) and np.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"small {label}: the card disagrees with the CPU")
+        if min(launches["flash_attention_fwd"], launches["group_norm"]) <= 0:
+            raise AssertionError(f"small {label} on the card missed a kernel: {launches}")
+    RESULTS["small_sd"] = results
+
+
+def _held_request(smi, label, pipeline, steps, per_step, first_extra, after, **kwargs):
+    """One request through `pipeline` with each step's launches held to
+    `per_step` (plus `first_extra` at the first step: what runs before the
+    loop) and what follows the last step to `after` (`StepLaunches`); the
+    latents going into the decode must be finite. Returns (images, seconds,
+    peak GB, launches)."""
+    import torch
+
+    latents_seen = []
+    decoder = pipeline.vae.decoder
+    hook = decoder.register_forward_pre_hook(lambda m, a: latents_seen.append(a[0]))
+    reset_launches()
+    try:
+        with StepLaunches(pipeline, pipeline.unet) as counted:
+            images, seconds, peak_gb = _request_seconds(lambda: pipeline(**kwargs).images)
+    finally:
+        hook.remove()
+    launches = read_launches()
+    if not latents_seen or not all(bool(torch.isfinite(z).all()) for z in latents_seen):
+        raise AssertionError(f"{label}: non-finite latents")
+    expected = [dict(per_step) for _ in range(steps)]
+    for k, v in first_extra.items():
+        expected[0][k] += v
+    _check_steps(label, counted.per_step, expected, counted.after, after)
+    log(f"[{label}] {smi}: {seconds:.3f} s/request, {steps} UNet calls, peak {peak_gb:.1f} GB; launches {launches} "
+        f"(K1 {per_step['flash_attention_fwd']} and K4 {per_step['group_norm']} a step, as the modules count)")
+    return images, seconds, peak_gb, launches
+
+
+def _attention_costs(table, iters=10):
+    """`native` attention (the path SD 1.5's and ViT-H's heads take) against
+    SDPA at each (label, q shape, kv length, calls) of `table`, bf16: device
+    time (CUDA graph) each, and their sums over the calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusers_tpu_torch.ops.attention import _native_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows, total_native, total_sdpa = [], 0.0, 0.0
+    for label, (b, sq, h, d), sk, calls in table:
+        q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        native_ms = graph_ms(lambda: _native_attention(q, k, v), iters=iters)
+        sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=iters)
+        err = float((_native_attention(q, k, v).float() - F.scaled_dot_product_attention(qt, kt, vt).transpose(
+            1, 2).float()).abs().max())
+        bms, by = bound_ms(2 * (q.numel() * 2 + k.numel() + v.numel()), 4.0 * b * h * sq * sk * d, PEAK_BF16_FLOPS)
+        rows.append({"case": label, "q": [b, sq, h, d], "sk": sk, "calls": calls, "native_device_ms": native_ms,
+                     "sdpa_device_ms": sdpa_ms, "bound_ms": bms, "bound_by": by, "max_abs_diff_native_vs_sdpa": err})
+        total_native += calls * native_ms
+        total_sdpa += calls * sdpa_ms
+        log(f"[native] {label}: native {native_ms:.4f} ms, SDPA {sdpa_ms:.4f} ms, bound {bms:.4f} ms ({by}), x{calls}; "
+            f"|native - SDPA| {err:.2e}")
+        del q, k, v, qt, kt, vt
+    return rows, total_native, total_sdpa
+
+
+def run_sd15(smi: str):
+    """Phase 23: Stable Diffusion 1.5 at its published widths (made on the
+    card, bf16) through `StableDiffusionPipeline.__call__`: one 512 px
+    text-to-image request with PNDM (50 steps: 51 UNet calls, PLMS repeats
+    one timestep), one with DDIM (SD15_DDIM_STEPS: 10), img2img at strength
+    0.75, then inpaint with
+    the 9-channel inpainting UNet at strength 1.0, then one T2I-Adapter
+    request (TencentARC/t2iadapter_canny_sd15v2's widths) from a synthetic
+    edge map, the adapter's forward timed apart. Each step's launches are
+    held to the modules' counts: K4 61 a UNet call, K1 0 (heads of 40, 80
+    and 160 run `native`; the count is printed, so a change of the rule
+    shows); the UNet's GroupNorm calls are held to `GN_SD15_UNET_CALL`. The
+    time of one UNet call and of its attentions (CUDA events), and each SD
+    attention shape `native` against SDPA (ROADMAP B1.1). Returns the
+    launches by path."""
+    import collections
+    import gc
+
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.models.adapter import T2IAdapter
+    from diffusers_tpu_torch.models.attention import Attention
+    from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
+    from diffusers_tpu_torch.ops.module import GroupNorm
+    from diffusers_tpu_torch.pipelines.stable_diffusion import (
+        StableDiffusionImg2ImgPipeline,
+        StableDiffusionInpaintPipeline,
+        StableDiffusionPipeline,
+    )
+    from diffusers_tpu_torch.pipelines.t2i_adapter import StableDiffusionAdapterPipeline
+    from diffusers_tpu_torch.schedulers import DDIMScheduler, PNDMScheduler
+
+    t0 = time.perf_counter()
+    pipe = _build_sd(SD15_UNET, SD15_VAE, CLIP_L, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = {name: sum(p.numel() for p in getattr(pipe, name).parameters())
+                for name in ("unet", "text_encoder", "vae")}
+    log(f"[sd15] built SD 1.5 at full width on the card in {time.perf_counter() - t0:.1f} s: "
+        f"{ {k: f'{v / 1e6:.1f} M' for k, v in n_params.items()} }")
+    if n_params["unet"] != SD15_UNET_PARAMETERS:
+        raise AssertionError(f"the SD 1.5 UNet has {n_params['unet']} parameters, expected {SD15_UNET_PARAMETERS}")
+    unet_call, encode, decode = (_module_launches(m) for m in (pipe.unet, pipe.vae.encoder, pipe.vae.decoder))
+    if unet_call["flash_attention_fwd"] != 0 or unet_call["group_norm"] != 61:
+        raise AssertionError(f"the SD 1.5 UNet's modules count {unet_call}, expected K1 0 and K4 61")
+    image, mask, edges = synthetic_inputs(SD15_RESOLUTION)
+    out, paths = {}, {}
+    common = dict(prompt=SD15_PROMPT, guidance_scale=SD15_GUIDANCE, output_type="pil")
+
+    def request(label, pipeline, steps, per_step, first_extra, **kwargs):
+        images, seconds, peak_gb, launches = _held_request(
+            smi, label, pipeline, steps, per_step, first_extra, decode, **common,
+            generator=torch.Generator(device="cuda").manual_seed(SEED), **kwargs)
+        result = np.asarray(images[0])
+        if result.shape != (SD15_RESOLUTION, SD15_RESOLUTION, 3) or result.dtype != np.uint8:
+            raise AssertionError(f"{label}: bad uint8 image {result.shape} {result.dtype}")
+        out[label] = {"card": smi, "seconds_per_request": seconds, "peak_memory_gb": peak_gb, "unet_calls": steps,
+                      "launches": launches, "image_mean": float(result.mean())}
+        paths[label] = launches
+        return result
+
+    # the UNet's GroupNorm calls, and the time of one call and of its attentions, on CUDA events
+    seen = collections.Counter()
+    hooks = [m.register_forward_pre_hook(lambda mod, args, kw: seen.update([(tuple(args[0].shape),
+                                                                             bool(kw.get("apply_silu")))]),
+                                         with_kwargs=True) for m in pipe.unet.modules() if isinstance(m, GroupNorm)]
+    spans = []
+
+    def attn_start(mod, args):
+        spans.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
+        spans[-1][0].record()
+
+    dev = torch.device("cuda")
+    sample = torch.randn(2, 4, 64, 64, device=dev, dtype=torch.bfloat16)
+    ehs = torch.randn(2, 77, 768, device=dev, dtype=torch.bfloat16)
+    t = torch.tensor(500.0, device=dev)
+    with torch.no_grad():
+        pipe.unet(sample, t, ehs)
+    for h in hooks:
+        h.remove()
+    if dict(seen) != {(shape, silu): n for shape, silu, n in GN_SD15_UNET_CALL}:
+        raise AssertionError(f"the SD 1.5 UNet's GroupNorm calls {dict(seen)} are not GN_SD15_UNET_CALL")
+    attns = [m for m in pipe.unet.modules() if isinstance(m, Attention)]
+    hooks = [m.register_forward_pre_hook(attn_start) for m in attns]
+    hooks += [m.register_forward_hook(lambda mod, args, o: spans[-1][1].record()) for m in attns]
+    with torch.no_grad():
+        unet_ms = time_ms(lambda: pipe.unet(sample, t, ehs), iters=5)
+    for h in hooks:
+        h.remove()
+    torch.cuda.synchronize()
+    attn_ms = sum(a.elapsed_time(b) for a, b in spans) / (len(spans) / len(attns))
+    costs, native_total, sdpa_total = _attention_costs(SD15_ATTENTION)
+    vit_costs, vit_native, vit_sdpa = _attention_costs((VIT_H_ATTENTION,))
+    log(f"[sd15] {smi}: UNet call b=2 512 px {unet_ms:.2f} ms (CUDA events), its {len(attns)} attentions "
+        f"{attn_ms:.2f} ms of it ({100 * attn_ms / unet_ms:.0f}%); native attention a UNet call (device, summed over "
+        f"shapes) {native_total:.2f} ms, SDPA {sdpa_total:.2f} ms; ViT-H's native attention an encode "
+        f"{vit_native:.2f} ms, SDPA {vit_sdpa:.2f} ms")
+    out["unet_call"] = {"card": smi, "unet_forward_b2_ms": unet_ms, "attention_ms": attn_ms,
+                        "attention_share": attn_ms / unet_ms, "native_attention_device_ms": native_total,
+                        "sdpa_device_ms": sdpa_total, "attention_cases": costs, "vit_h_attention": vit_costs,
+                        "vit_h_native_device_ms": vit_native, "vit_h_sdpa_device_ms": vit_sdpa,
+                        "parameters": n_params, "group_norm_calls": len(list(seen.elements()))}
+
+    with CudaSpans(modules={"text_encoder": pipe.text_encoder, "unet": pipe.unet, "vae_decode": pipe.vae.decoder}) \
+            as spans_t2i:
+        request("sd15_pndm", pipe, SD15_STEPS + 1, unet_call, {}, num_inference_steps=SD15_STEPS)
+    span_ms = spans_t2i.ms()
+    out["sd15_pndm"].update({f"{k}_ms": v for k, v in span_ms.items()})
+    log(f"[sd15] PNDM request: text {sum(span_ms['text_encoder']):.1f} ms, UNet {sum(span_ms['unet']):.1f} ms over "
+        f"{len(span_ms['unet'])} calls (mean {np.mean(span_ms['unet']):.2f}), decode {sum(span_ms['vae_decode']):.1f} ms")
+    ddim = StableDiffusionPipeline(**dict(pipe.components, scheduler=DDIMScheduler(**SD15_DDIM)))
+    request("sd15_ddim", ddim, SD15_DDIM_STEPS, unet_call, {}, num_inference_steps=SD15_DDIM_STEPS)
+    img2img = StableDiffusionImg2ImgPipeline(**dict(pipe.components, scheduler=PNDMScheduler(**SD15_PNDM)))
+    state = img2img.scheduler.set_timesteps(SD15_STEPS)
+    keep = len(state.timesteps) - (SD15_STEPS - min(int(SD15_STEPS * SD15_IMG2IMG_STRENGTH), SD15_STEPS))
+    request("sd15_img2img", img2img, keep, unet_call, encode, num_inference_steps=SD15_STEPS, image=image,
+            strength=SD15_IMG2IMG_STRENGTH)
+
+    torch.manual_seed(SEED + 1)
+    with torch.device("cuda"):
+        unet9 = UNet2DConditionModel(**dict(SD15_UNET, in_channels=9)).to(torch.bfloat16)
+    inpaint = StableDiffusionInpaintPipeline(**dict(pipe.components, unet=unet9,
+                                                    scheduler=PNDMScheduler(**SD15_PNDM)))
+    request("sd15_inpaint_9ch", inpaint, SD15_STEPS + 1, _module_launches(unet9),
+            {k: 2 * v for k, v in encode.items()}, num_inference_steps=SD15_STEPS, image=image, mask_image=mask,
+            strength=SD15_INPAINT_STRENGTH)
+    del inpaint, unet9
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(SEED + 2)
+    with torch.device("cuda"):
+        adapter = T2IAdapter(**T2I_CANNY_SD15).to(torch.bfloat16)
+    n_adapter = sum(p.numel() for p in adapter.parameters())
+    t2i = StableDiffusionAdapterPipeline(pipe.vae, pipe.text_encoder, pipe.tokenizer, pipe.unet, adapter,
+                                         PNDMScheduler(**SD15_PNDM))
+    adapter_in = _module_launches(adapter)
+    request("sd15_t2i_adapter", t2i, SD15_STEPS + 1, unet_call, adapter_in, num_inference_steps=SD15_STEPS,
+            image=edges[..., :1])
+    control = t2i._control(edges[..., :1])
+    with torch.no_grad():
+        adapter_ms = time_ms(lambda: adapter(control), iters=10)
+    out["sd15_t2i_adapter"].update(adapter_forward_ms=adapter_ms, adapter_parameters=n_adapter)
+    log(f"[sd15] {smi}: T2I-Adapter ({n_adapter / 1e6:.1f} M parameters) forward {adapter_ms:.2f} ms once a request "
+        f"(CUDA events), against {out['sd15_t2i_adapter']['seconds_per_request']:.3f} s a request")
+    RESULTS["sd15"] = out
+    return paths
+
+
+def run_sdxl_ip_adapter(smi: str, pipe, dense_image):
+    """Phase 12c: IP-Adapter on phase 11's full-width SDXL pipeline, with a
+    CLIP ViT-H/14 and its projection (made on the card, bf16): the Plus
+    adapter (ip-adapter-plus_sdxl_vit-h's widths) written as a safetensors
+    file in h94/IP-Adapter's key layout and loaded with
+    `pipe.load_ip_adapter(path)`, one 1024 px request (30 Euler steps, CFG
+    5.0) from a synthetic image; then the base adapter
+    (ip-adapter_sdxl_vit-h's widths), one request; then `unload_ip_adapter()`
+    and phase 11's request again, bit-equal to phase 11's image. Each step's
+    launches are held to the modules' counts: a UNet call with an adapter
+    launches K1 140 + 70 (the image cross attentions) + 4 for Plus (the
+    resampler's attentions run inside the UNet call, as in JAX); the ViT-H
+    encode none (heads of 80 run `native`). The CLIP encode, the resampler
+    and the UNet calls are timed apart (CUDA events). Returns the launches by
+    path."""
+    import gc
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.models.modeling_utils import save_safetensors
+    from diffusers_tpu_torch.models.text_encoders.clip import CLIPVisionModelWithProjection
+    from diffusers_tpu_torch.pipelines.stable_diffusion_xl import StableDiffusionXLPipeline
+    from diffusers_tpu_torch.schedulers import EulerDiscreteScheduler
+
+    torch.manual_seed(SEED + 3)
+    with torch.device("cuda"):
+        vision = CLIPVisionModelWithProjection(**CLIP_VIT_H_PROJ).to(torch.bfloat16)
+    ip_pipe = StableDiffusionXLPipeline(**dict(pipe.components, image_encoder=vision,
+                                               scheduler=EulerDiscreteScheduler(**EULER)))
+    base_call, decode = _module_launches(pipe.unet), _module_launches(pipe.vae.decoder)
+    prompt_image = (synthetic_inputs(RESOLUTION)[0] * 255).round().astype(np.uint8)
+    out, paths = {}, {}
+
+    plus = ip_adapter_checkpoint("plus", pipe.unet, CLIP_VIT_H["hidden_size"], SEED + 4, "cuda", torch.bfloat16,
+                                 **IP_PLUS_SDXL)
+    flat = {f"{group}.{k}": v for group in plus for k, v in plus[group].items()}
+    nbytes = sum(v.numel() * v.element_size() for v in flat.values())
+    directory = _scratch_dir("ip_adapter", nbytes)
+    try:
+        path = os.path.join(directory, "ip-adapter-plus_sdxl_vit-h.safetensors")
+        t0 = time.perf_counter()
+        save_safetensors(flat, path)
+        write_s = time.perf_counter() - t0
+        del plus, flat
+        _, load_s, _ = _request_seconds(lambda: ip_pipe.load_ip_adapter(path))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    log(f"[ip] Plus adapter: {nbytes / 1e9:.2f} GB written in {write_s:.1f} s, loaded onto the card in {load_s:.1f} s")
+
+    for label, extra in (("sdxl_ip_plus", IP_SDXL_CROSS_ATTENTIONS + IP_PLUS_RESAMPLER_ATTENTIONS),
+                         ("sdxl_ip_base", IP_SDXL_CROSS_ATTENTIONS)):
+        if label == "sdxl_ip_base":
+            ip_pipe.load_ip_adapter(ip_adapter_checkpoint("base", pipe.unet, CLIP_VIT_H_PROJ["projection_dim"],
+                                                          SEED + 5, "cuda", torch.bfloat16))
+        per_step = _module_launches(pipe.unet)
+        if per_step["flash_attention_fwd"] != base_call["flash_attention_fwd"] + extra:
+            raise AssertionError(f"{label}: a UNet call counts {per_step}, expected K1 "
+                                 f"{base_call['flash_attention_fwd']} + {extra}")
+        encode = _module_launches(vision)
+        modules = {"clip_encode": vision, "unet": pipe.unet}
+        if label == "sdxl_ip_plus":
+            modules["resampler"] = pipe.unet.encoder_hid_proj
+        with CudaSpans(modules=modules) as spans:
+            images, seconds, peak_gb, launches = _held_request(
+                smi, label, ip_pipe, STEPS, per_step, encode, decode, prompt=PROMPTS[0], height=RESOLUTION,
+                width=RESOLUTION, num_inference_steps=STEPS, guidance_scale=GUIDANCE, ip_adapter_image=prompt_image,
+                generator=torch.Generator(device="cuda").manual_seed(SEED), output_type="pil")
+        span_ms = spans.ms()
+        result = np.asarray(images[0])
+        if result.shape != (RESOLUTION, RESOLUTION, 3):
+            raise AssertionError(f"{label}: bad image {result.shape}")
+        out[label] = {"card": smi, "seconds_per_request": seconds, "peak_memory_gb": peak_gb, "launches": launches,
+                      "k1_per_unet_call": per_step["flash_attention_fwd"], "vit_h_encode_launches": encode,
+                      "image_cosine_to_dense": _image_cosine(result, dense_image),
+                      **{f"{k}_ms": v for k, v in span_ms.items()}}
+        paths[label] = launches
+        log(f"[ip] {label}: K1 {per_step['flash_attention_fwd']} a UNet call, ViT-H encodes "
+            f"{[round(x, 2) for x in span_ms['clip_encode']]} ms"
+            + (f", resampler {np.mean(span_ms['resampler']):.3f} ms a UNet call" if "resampler" in span_ms else "")
+            + f", UNet {np.mean(span_ms['unet']):.1f} ms a call; cosine to phase 11's image "
+            f"{out[label]['image_cosine_to_dense']:.4f}")
+
+    ip_pipe.unload_ip_adapter()
+    if _module_launches(pipe.unet) != base_call or pipe.unet.encoder_hid_proj is not None:
+        raise AssertionError("unload_ip_adapter left IP-Adapter modules on the UNet")
+    images, seconds, _ = _request_seconds(lambda: pipe(
+        PROMPTS[0], height=RESOLUTION, width=RESOLUTION, num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+        generator=torch.Generator(device="cuda").manual_seed(SEED), output_type="pil").images)
+    equal = bool(np.array_equal(np.asarray(images[0]), dense_image))
+    out["after_unload"] = {"seconds_per_request": seconds, "bit_equal_to_phase_11": equal}
+    log(f"[ip] after unload_ip_adapter(): phase 11's request bit-equal to phase 11's image: {equal}")
+    if not equal:
+        raise AssertionError("after unload_ip_adapter() the SDXL request differs from phase 11's image")
+    del ip_pipe, vision
+    gc.collect()
+    torch.cuda.empty_cache()
+    RESULTS["sdxl_ip_adapter"] = out
+    return paths
+
+
+def run_vae_tiling(smi: str, pipe):
+    """Phase 13b: VAE tiling on phase 13's Flux VAE: a 1024 px and a 2048 px
+    latent decoded whole and with `tiled_decode` in 512 px tiles (each tile
+    a decode through the same K4 path: 30 launches a tile), each timed and
+    its peak memory above what was allocated before it printed (the whole
+    2048 px decode's mid-block attention runs `native` at d=512 over 65,536
+    tokens); the tiled decode against the whole one as the cosine of the
+    images; then one Flux request with `vae.enable_tiling()` through
+    `FluxPipeline.__call__` (FLUX_TILED_STEPS steps), its decode's launches
+    held to the tiles'. Returns the launches by path."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    vae = pipe.vae
+    vae.enable_tiling(VAE_TILE)
+    tile_decode = _module_launches(vae.decoder)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    out, paths = {}, {}
+    for px in (1024, 2048):
+        z = torch.randn((1, 16, px // 8, px // 8), generator=gen, device="cuda").to(torch.bfloat16)
+        decoded = {}
+        for mode in ("whole", "tiled"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            reset_launches()
+            with torch.no_grad():
+                sample, seconds, peak_gb = _request_seconds(
+                    lambda: (vae.tiled_decode(z) if mode == "tiled" else vae.decode(z)).sample)
+            launches = read_launches()
+            rows = len(range(0, z.shape[2], int(vae.tile_latent_min_size * (1 - vae.tile_overlap_factor))))
+            tiles = rows * rows if mode == "tiled" else 1
+            if launches["group_norm"] != tiles * tile_decode["group_norm"] or not bool(torch.isfinite(sample).all()):
+                raise AssertionError(f"{px} px {mode} decode: {launches} for {tiles} tiles, or non-finite")
+            decoded[mode] = sample
+            label = f"vae_decode_{px}_{mode}"
+            out[label] = {"card": smi, "seconds": seconds, "peak_above_before_gb": peak_gb - before / 1e9,
+                          "tiles": tiles, "launches": launches}
+            paths[label] = launches
+            log(f"[tiling] {smi}: {px} px {mode} decode ({tiles} tile{'s' if tiles > 1 else ''}): {seconds:.3f} s, "
+                f"peak {peak_gb - before / 1e9:.1f} GB above what was allocated before; K4 {launches['group_norm']}")
+        a, b = (decoded[m].float().flatten() for m in ("whole", "tiled"))
+        out[f"vae_decode_{px}_tiled"]["cosine_to_whole"] = float(torch.dot(a, b) / (a.norm() * b.norm()))
+        del decoded, z, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    images, seconds, peak_gb = _request_seconds(lambda: pipe(
+        FLUX_PROMPT, height=RESOLUTION, width=RESOLUTION, num_inference_steps=FLUX_TILED_STEPS,
+        guidance_scale=FLUX_GUIDANCE, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        max_sequence_length=FLUX_MAX_SEQUENCE_LENGTH, output_type="pil").images)
+    launches = read_launches()
+    vae.disable_tiling()
+    image = np.asarray(images[0])
+    if image.shape != (RESOLUTION, RESOLUTION, 3) or launches["group_norm"] != 9 * tile_decode["group_norm"]:
+        raise AssertionError(f"the tiled Flux request: image {image.shape}, launches {launches} (expected K4 "
+                             f"{9 * tile_decode['group_norm']}: 9 tiles)")
+    out["flux_tiled"] = {"card": smi, "seconds_per_request": seconds, "steps": FLUX_TILED_STEPS, "peak_memory_gb": peak_gb,
+                         "launches": launches, "image_mean": float(image.mean())}
+    paths["flux_tiled"] = launches
+    log(f"[tiling] {smi}: Flux request with tiling ({FLUX_TILED_STEPS} steps): {seconds:.3f} s, peak {peak_gb:.1f} GB, "
+        f"launches {launches}")
+    RESULTS["vae_tiling"] = out
+    return paths
+
+
 # ------------------------------------------------------------------ phase 18: pipelines from disk
 
 
@@ -4250,6 +4934,16 @@ def run_small_round_trips(smi: str):
     return {"small_round_trips": launches}
 
 
+def timed(fn, *args):
+    """`fn(*args)`, its wall time logged and kept in RESULTS["phase_seconds"]
+    under the function's name."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    seconds = RESULTS.setdefault("phase_seconds", {})[fn.__name__] = time.perf_counter() - t0
+    log(f"[phase] {fn.__name__}: {seconds:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", type=Path, default=None, help="directory for chip_smoke.json")
@@ -4260,60 +4954,66 @@ def main() -> int:
 
     import torch
 
-    build_kernels()
-    summary = check_kernels()
-    summary.update(check_group_norm())
-    summary.update(check_w8a8())
-    summary.update(check_flash_bwd())
-    check_small_reference()
-    check_small_flux_reference()
-    check_small_training()
-    check_small_caches()
-    check_small_image_pipelines()
-    check_small_sd3()
-    check_small_wan()
-    check_small_wan_i2v()
-    check_small_wan_family()
-    sdxl, pipe, image = run_pipeline(smi)
-    paths = {"sdxl": sdxl, **run_sdxl_cached(smi, pipe, image)}
-    paths.update(run_image_pipelines(smi, pipe))
-    paths.update(run_sdxl_from_disk(smi, pipe, image))
+    timed(build_kernels)
+    summary = timed(check_kernels)
+    summary.update(timed(check_group_norm))
+    summary.update(timed(check_w8a8))
+    summary.update(timed(check_flash_bwd))
+    timed(check_small_reference)
+    timed(check_small_flux_reference)
+    timed(check_small_training)
+    timed(check_small_caches)
+    timed(check_small_image_pipelines)
+    timed(check_small_sd3)
+    timed(check_small_wan)
+    timed(check_small_wan_i2v)
+    timed(check_small_wan_family)
+    timed(check_small_sd)
+    sdxl, pipe, image = timed(run_pipeline, smi)
+    paths = {"sdxl": sdxl, **timed(run_sdxl_cached, smi, pipe, image)}
+    paths.update(timed(run_image_pipelines, smi, pipe))
+    paths.update(timed(run_sdxl_ip_adapter, smi, pipe, image))
+    paths.update(timed(run_sdxl_from_disk, smi, pipe, image))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    flux, pipe, image = run_flux_pipeline(smi)
-    paths.update(flux=flux, **run_flux_cached(smi, pipe, image))
+    paths.update(timed(run_sd15, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    flux, pipe, image = timed(run_flux_pipeline, smi)
+    paths.update(flux=flux, **timed(run_flux_cached, smi, pipe, image))
+    paths.update(timed(run_vae_tiling, smi, pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(run_flux_w8a8_on_load(smi))
+    paths.update(timed(run_flux_w8a8_on_load, smi))
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(run_small_round_trips(smi))
-    sd3_paths, pipe = run_sd3_served(smi)
+    paths.update(timed(run_small_round_trips, smi))
+    sd3_paths, pipe = timed(run_sd3_served, smi)
     paths.update(sd3_paths)
-    paths.update(run_sd3_from_disk(smi, pipe))
+    paths.update(timed(run_sd3_from_disk, smi, pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    wan_paths, pipe = run_wan(smi)
+    wan_paths, pipe = timed(run_wan, smi)
     paths.update(wan_paths)
-    paths.update(run_wan_v2v(smi, pipe))
-    paths.update(run_wan_vace(smi, pipe))
+    paths.update(timed(run_wan_v2v, smi, pipe))
+    paths.update(timed(run_wan_vace, smi, pipe))
     pipe.transformer = None  # phases 19-22 keep phase 17's UMT5-XXL and VAE
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(run_wan_i2v(smi, pipe))
+    paths.update(timed(run_wan_i2v, smi, pipe))
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(run_wan_animate(smi, pipe))
+    paths.update(timed(run_wan_animate, smi, pipe))
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(run_skyreels(smi, pipe))
+    paths.update(timed(run_skyreels, smi, pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    paths["training"] = run_training(smi)
+    paths["training"] = timed(run_training, smi)
     RESULTS["launches_by_path"] = paths
 
     meta = {

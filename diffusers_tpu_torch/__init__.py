@@ -16,6 +16,14 @@ __version__ = "0.1.0"
 _EXPORTS = {
     "DiffusionPipeline": "diffusers_tpu_torch.pipelines.pipeline_utils",
     "StableDiffusionXLPipeline": "diffusers_tpu_torch.pipelines.stable_diffusion_xl",
+    "StableDiffusionPipeline": "diffusers_tpu_torch.pipelines.stable_diffusion",
+    "StableDiffusionImg2ImgPipeline": "diffusers_tpu_torch.pipelines.stable_diffusion",
+    "StableDiffusionInpaintPipeline": "diffusers_tpu_torch.pipelines.stable_diffusion",
+    "StableDiffusionAdapterPipeline": "diffusers_tpu_torch.pipelines.t2i_adapter",
+    "T2IAdapter": "diffusers_tpu_torch.models.adapter",
+    "MultiAdapter": "diffusers_tpu_torch.models.adapter",
+    "PNDMScheduler": "diffusers_tpu_torch.schedulers",
+    "DDIMScheduler": "diffusers_tpu_torch.schedulers",
     "FluxPipeline": "diffusers_tpu_torch.pipelines.flux.pipeline_flux",
     "StableDiffusion3Pipeline": "diffusers_tpu_torch.pipelines.stable_diffusion_3",
     "WanPipeline": "diffusers_tpu_torch.pipelines.wan",

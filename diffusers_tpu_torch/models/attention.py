@@ -1,9 +1,17 @@
 """Attention module.
 
-Port of `diffusers_tpu/models/attention.py` (`Attention` `:22-195`) without
-PAG, SEG and IP-Adapter, which wait for their pipelines. Submodule names
-(to_q/to_k/to_v/to_out.0/group_norm/norm_cross) match the reference
-state-dict keys. `text_kv` is the slot of `hooks.generic_cache.text_kv_cache`
+Port of `diffusers_tpu/models/attention.py` (`Attention` `:22-195`) with
+its IP-Adapter branch (`:176-188`) and without PAG and SEG, which wait for
+their pipelines. Submodule names (to_q/to_k/to_v/to_out.0/group_norm/
+norm_cross) match the reference state-dict keys.
+
+IP-Adapter: `loaders.ip_adapter.load_ip_adapter` gives a cross attention
+`to_k_ip` / `to_v_ip` (one bias-free Linear per adapter) and
+`ip_adapter_scale`; a call with `ip_hidden_states` (one [B, images, tokens,
+D] tensor per adapter) adds ``scale * attention(q, to_k_ip(ip),
+to_v_ip(ip))`` for each adapter whose scale is not 0. JAX pins that
+attention to ``backend="native"``; the port routes it by the automatic rule,
+so on the card its 64- and 128-wide heads run kernel K1 (ROADMAP C3). `text_kv` is the slot of `hooks.generic_cache.text_kv_cache`
 (TextKVCacheConfig): while it is not None, the K/V projections of an
 `encoder_hidden_states` tensor are computed once and reused for as long as
 the module is called with that same tensor.
@@ -11,7 +19,7 @@ the module is called with that same tensor.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -72,6 +80,8 @@ class Attention(nn.Module):
         if not pre_only:
             self.to_out = nn.ModuleList([Linear(self.inner_dim, self.out_dim, use_bias=out_bias)])
         self.text_kv = None
+        self.to_k_ip = self.to_v_ip = None
+        self.ip_adapter_scale = None
 
     def _cross_kv(self, encoder_hidden_states: torch.Tensor):
         if self.text_kv and self.text_kv[0] is encoder_hidden_states:
@@ -87,6 +97,7 @@ class Attention(nn.Module):
         hidden_states: torch.Tensor,
         encoder_hidden_states: Optional[torch.Tensor] = None,
         attention_mask: Optional[torch.Tensor] = None,
+        ip_hidden_states: Optional[List[torch.Tensor]] = None,
     ) -> torch.Tensor:
         residual = hidden_states
         b, s, _ = hidden_states.shape
@@ -111,6 +122,16 @@ class Attention(nn.Module):
 
         attn = dispatch_attention_fn(query, key, value, attn_mask=attention_mask, scale=self.scale)
         attn = attn.reshape(b, s, self.heads * self.dim_head)
+        if ip_hidden_states is not None and self.to_k_ip is not None:
+            scales = self.ip_adapter_scale or [1.0] * len(ip_hidden_states)
+            for i, ip in enumerate(ip_hidden_states):
+                if scales[i] == 0:
+                    continue
+                ip = ip.reshape(b, -1, ip.shape[-1])  # [B, images x tokens, D]
+                ip_key = self.to_k_ip[i](ip).reshape(b, -1, self.heads, self.dim_head)
+                ip_value = self.to_v_ip[i](ip).reshape(b, -1, self.heads, self.dim_head)
+                ip_attn = dispatch_attention_fn(query, ip_key, ip_value, scale=self.scale)
+                attn = attn + scales[i] * ip_attn.reshape(b, s, self.heads * self.dim_head)
         if self.pre_only:
             return attn
 

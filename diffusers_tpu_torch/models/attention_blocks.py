@@ -140,6 +140,11 @@ class BasicTransformerBlock(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         encoder_attention_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        # IP-Adapter: the UNet passes (text states, [image tokens per adapter])
+        ip_hidden_states = None
+        if isinstance(encoder_hidden_states, tuple):
+            encoder_hidden_states, ip_hidden_states = encoder_hidden_states
+
         # 1. self attention
         attn_output = self.attn1(
             self.norm1(hidden_states),
@@ -154,6 +159,7 @@ class BasicTransformerBlock(nn.Module):
                 self.norm2(hidden_states),
                 encoder_hidden_states=encoder_hidden_states,
                 attention_mask=encoder_attention_mask,
+                ip_hidden_states=ip_hidden_states,
             )
             hidden_states = attn_output + hidden_states
 

@@ -5,7 +5,9 @@ Port of the SDXL- and Flux-path classes of `diffusers_tpu/models/embeddings.py`
 `apply_rotary_emb` `:175`, `AttentionPooling` `:200`, `TextTimeEmbedding`
 `:242`, `PixArtAlphaTextProjection` `:260`, `CombinedTimestepTextProjEmbeddings`
 `:282`, `CombinedTimestepGuidanceTextProjEmbeddings` `:298`,
-`get_1d_rotary_pos_embed_np` `:318`, `FluxPosEmbed` `:353`). The sinusoidal
+`get_1d_rotary_pos_embed_np` `:318`, `FluxPosEmbed` `:353`), and the UNet's
+`encoder_hid_proj` heads `ImageProjection` `:560` and `TextImageProjection`
+`:578` (the IP-Adapter base head is the same `ImageProjection`). The sinusoidal
 table math runs in float32 regardless of parameter dtype; the RoPE tables are
 computed on the host in float64, as in JAX (and the reference).
 """
@@ -145,6 +147,38 @@ class TextTimeEmbedding(nn.Module):
         hidden_states = self.pool(hidden_states)
         hidden_states = self.proj(hidden_states)
         return self.norm2(hidden_states)
+
+
+class ImageProjection(nn.Module):
+    """Image embed -> `num_image_text_embeds` cross-attention tokens: one
+    Linear, then LayerNorm over each token (Kandinsky 2.2's
+    ``encoder_hid_dim_type="image_proj"``, IP-Adapter's base head)."""
+
+    def __init__(self, image_embed_dim: int = 768, cross_attention_dim: int = 768, num_image_text_embeds: int = 32):
+        super().__init__()
+        self.num_image_text_embeds = num_image_text_embeds
+        self.image_embeds = Linear(image_embed_dim, num_image_text_embeds * cross_attention_dim)
+        self.norm = LayerNorm(cross_attention_dim)
+
+    def forward(self, image_embeds: torch.Tensor) -> torch.Tensor:
+        x = self.image_embeds(image_embeds)
+        return self.norm(x.reshape(image_embeds.shape[0], self.num_image_text_embeds, -1))
+
+
+class TextImageProjection(nn.Module):
+    """Text + image embeds -> joint cross-attention tokens, the image's first
+    (Kandinsky 2.1's ``encoder_hid_dim_type="text_image_proj"``)."""
+
+    def __init__(self, text_embed_dim: int = 1024, image_embed_dim: int = 768, cross_attention_dim: int = 768,
+                 num_image_text_embeds: int = 10):
+        super().__init__()
+        self.num_image_text_embeds = num_image_text_embeds
+        self.image_embeds = Linear(image_embed_dim, num_image_text_embeds * cross_attention_dim)
+        self.text_proj = Linear(text_embed_dim, cross_attention_dim)
+
+    def forward(self, text_embeds: torch.Tensor, image_embeds: torch.Tensor) -> torch.Tensor:
+        image_text = self.image_embeds(image_embeds).reshape(text_embeds.shape[0], self.num_image_text_embeds, -1)
+        return torch.cat([image_text, self.text_proj(text_embeds)], dim=1)
 
 
 def apply_rotary_emb(x: torch.Tensor, freqs_cos: torch.Tensor, freqs_sin: torch.Tensor) -> torch.Tensor:

@@ -396,3 +396,27 @@ def clip_image_preprocess(images, device=None, size: int = 224, crop_size: Tuple
     mean = torch.tensor(image_mean, dtype=torch.float32, device=x.device).reshape(1, -1, 1, 1)
     std = torch.tensor(image_std, dtype=torch.float32, device=x.device).reshape(1, -1, 1, 1)
     return (x - mean) / std
+
+
+def clip_processor_numbers(processor) -> dict:
+    """`clip_image_preprocess`'s keyword arguments from a transformers
+    `CLIPImageProcessor` (a dict or an object with attributes), or
+    Wan2.1-I2V-14B-480P's (OpenAI CLIP's at 224 px) when it is None."""
+    if processor is None:
+        return dict(size=224, crop_size=(224, 224), image_mean=OPENAI_CLIP_MEAN, image_std=OPENAI_CLIP_STD,
+                    rescale_factor=1 / 255)
+
+    def get(obj, key):
+        return obj[key] if isinstance(obj, dict) else getattr(obj, key)
+
+    off = [flag for flag in ("do_resize", "do_center_crop", "do_rescale", "do_normalize")
+           if not getattr(processor, flag, True)]
+    if off or int(getattr(processor, "resample", 3)) != 3:
+        raise NotImplementedError(f"{type(processor).__name__}: only the bicubic resize, centre crop, rescale and "
+                                  f"normalisation of CLIP's processor are ported (off: {off}, resample "
+                                  f"{getattr(processor, 'resample', None)})")
+    crop = processor.crop_size
+    return dict(size=int(get(processor.size, "shortest_edge")),
+                crop_size=(int(get(crop, "height")), int(get(crop, "width"))),
+                image_mean=tuple(processor.image_mean), image_std=tuple(processor.image_std),
+                rescale_factor=float(processor.rescale_factor))

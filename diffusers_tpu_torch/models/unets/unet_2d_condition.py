@@ -1,13 +1,24 @@
-"""UNet2DConditionModel — the SD-family conditional UNet, SDXL path.
+"""UNet2DConditionModel — the SD-family conditional UNet (SD 1.5, SDXL).
 
 Port of `diffusers_tpu/models/unets/unet_2d_condition.py`: text
 cross-attention, the SDXL ``text_time`` additional embedding (and the
 ``text`` one), LCM's `time_cond_proj_dim`. Public I/O is NCHW, as in JAX
 (`:325`, `:497`); inside, the port stays NCHW (the JAX model goes NHWC).
 ControlNet residuals (`down_block_additional_residuals`,
-`mid_block_additional_residual`, JAX `:452-472`) arrive NCHW and are added
-as they are. Class embeddings, `encoder_hid_proj` variants, T2I-Adapter's
-`down_intrablock_additional_residuals` and FreeU wait.
+`mid_block_additional_residual`, JAX `:452-472`) and T2I-Adapter features
+(`down_intrablock_additional_residuals`, JAX `:425-461`: one a
+cross-attention down block, after its last layer; a down block without
+cross attention or the mid block takes the next one where its shape
+matches) arrive NCHW and are added as they are.
+
+`encoder_hid_proj` (JAX `:130-157`, `:394-418`) follows
+``encoder_hid_dim_type``: ``text_proj`` (a Linear over the text states),
+``text_image_proj`` and ``image_proj`` (Kandinsky's heads, reading
+``added_cond_kwargs["image_embeds"]``), or ``ip_image_proj``, filled after
+construction by `loaders.ip_adapter.load_ip_adapter` with a
+`MultiIPAdapterImageProjection`: then the blocks get ``(text states, [image
+tokens per adapter])`` as `encoder_hidden_states`. Class embeddings and FreeU
+wait.
 """
 
 from __future__ import annotations
@@ -22,7 +33,9 @@ from torch import nn
 from ...configuration_utils import ConfigMixin, register_to_config
 from ...ops.module import Conv2d, GroupNorm, get_activation
 from ...utils import BaseOutput
-from ..embeddings import TextTimeEmbedding, TimestepEmbedding, Timesteps
+from ...ops.module import Linear
+from ..embeddings import ImageProjection, TextImageProjection, TextTimeEmbedding, TimestepEmbedding, Timesteps
+from ..ip_adapter import MultiIPAdapterImageProjection
 from ..modeling_utils import ModelMixin
 from .unet_2d_blocks import get_down_block, get_up_block
 from .unet_2d_condition_blocks import UNetMidBlock2DCrossAttn
@@ -74,6 +87,7 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
         transformer_layers_per_block: Union[int, Tuple[int, ...]] = 1,
         reverse_transformer_layers_per_block: Optional[Tuple] = None,
         encoder_hid_dim: Optional[int] = None,
+        encoder_hid_dim_type: Optional[str] = None,
         attention_head_dim: Union[int, Tuple[int, ...]] = 8,
         num_attention_heads: Optional[Union[int, Tuple[int, ...]]] = None,
         use_linear_projection: bool = False,
@@ -114,6 +128,22 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
             post_act_fn=timestep_post_act,
             cond_proj_dim=time_cond_proj_dim,
         )
+
+        if encoder_hid_dim_type is None and encoder_hid_dim is not None:
+            encoder_hid_dim_type = "text_proj"
+        if encoder_hid_dim_type == "text_proj":
+            self.encoder_hid_proj = Linear(encoder_hid_dim, cross_attention_dims[0])
+        elif encoder_hid_dim_type == "text_image_proj":
+            self.encoder_hid_proj = TextImageProjection(text_embed_dim=encoder_hid_dim,
+                                                        image_embed_dim=cross_attention_dims[0],
+                                                        cross_attention_dim=cross_attention_dims[0])
+        elif encoder_hid_dim_type == "image_proj":
+            self.encoder_hid_proj = ImageProjection(image_embed_dim=encoder_hid_dim,
+                                                    cross_attention_dim=cross_attention_dims[0])
+        elif encoder_hid_dim_type in (None, "ip_image_proj"):  # ip_image_proj: set by the IP-Adapter loader
+            self.encoder_hid_proj = None
+        else:
+            raise NotImplementedError(f"encoder_hid_dim_type {encoder_hid_dim_type} is not ported yet")
 
         if addition_embed_type == "text":
             text_time_embedding_from_dim = encoder_hid_dim if encoder_hid_dim is not None else cross_attention_dims[0]
@@ -236,6 +266,7 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
         encoder_attention_mask: Optional[torch.Tensor] = None,
         down_block_additional_residuals: Optional[Tuple[torch.Tensor, ...]] = None,
         mid_block_additional_residual: Optional[torch.Tensor] = None,
+        down_intrablock_additional_residuals: Optional[Tuple[torch.Tensor, ...]] = None,
         return_dict: bool = True,
     ) -> Union[UNet2DConditionOutput, tuple]:
         if self.config.center_input_sample:
@@ -264,6 +295,22 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
         if self.time_embed_act is not None:
             emb = self.time_embed_act(emb)
 
+        if self.encoder_hid_proj is not None:
+            hid_type = self.config.encoder_hid_dim_type
+            if isinstance(self.encoder_hid_proj, MultiIPAdapterImageProjection):
+                if added_cond_kwargs is None or "image_embeds" not in added_cond_kwargs:
+                    raise ValueError("an IP-Adapter is loaded: pass added_cond_kwargs={'image_embeds': [...]}")
+                image_embeds = self.encoder_hid_proj(added_cond_kwargs["image_embeds"])
+                encoder_hidden_states = (encoder_hidden_states, image_embeds)
+            elif hid_type in ("text_image_proj", "image_proj"):
+                if added_cond_kwargs is None or "image_embeds" not in added_cond_kwargs:
+                    raise ValueError(f"encoder_hid_dim_type {hid_type!r} requires added_cond_kwargs with image_embeds")
+                image_embeds = added_cond_kwargs["image_embeds"]
+                encoder_hidden_states = (self.encoder_hid_proj(encoder_hidden_states, image_embeds)
+                                         if hid_type == "text_image_proj" else self.encoder_hid_proj(image_embeds))
+            else:
+                encoder_hidden_states = self.encoder_hid_proj(encoder_hidden_states)
+
         # boolean/int [B, K] text mask -> additive bias broadcastable over [B, H, Q, K]
         if encoder_attention_mask is not None and encoder_attention_mask.ndim == 2:
             encoder_attention_mask = ((1 - encoder_attention_mask.to(sample.dtype)) * -10000.0)[:, None, None, :]
@@ -271,7 +318,8 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
         # 2. pre-process
         sample = self.conv_in(sample)
 
-        # 3. down
+        # 3. down, with the T2I-Adapter features (NCHW), one a block
+        intrablock = list(down_intrablock_additional_residuals or ())
         down_block_res_samples = (sample,)
         for block in self.down_blocks:
             if block.has_cross_attention:
@@ -281,9 +329,13 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
                     encoder_hidden_states=encoder_hidden_states,
                     attention_mask=attention_mask,
                     encoder_attention_mask=encoder_attention_mask,
+                    additional_residual=intrablock.pop(0) if intrablock else None,
                 )
             else:
                 sample, res_samples = block(sample, temb=emb)
+                if intrablock and sample.shape == intrablock[0].shape:
+                    sample = sample + intrablock.pop(0)
+                    res_samples = res_samples[:-1] + (sample,)
             down_block_res_samples += res_samples
 
         # 3.5 ControlNet residuals
@@ -292,7 +344,9 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
                 r + cr for r, cr in zip(down_block_res_samples, down_block_additional_residuals)
             )
 
-        # 4. mid
+        # 4. mid: a feature left over at the mid block's size joins here
+        if intrablock and self.mid_block is not None and sample.shape == intrablock[0].shape:
+            sample = sample + intrablock.pop(0)
         if self.mid_block is not None:
             sample = self.mid_block(
                 sample,

@@ -2,7 +2,9 @@
 
 Port of `diffusers_tpu/models/unets/unet_2d_condition_blocks.py`
 (`CrossAttnDownBlock2D`, `UNetMidBlock2DCrossAttn`, `CrossAttnUpBlock2D`), on
-NCHW activations. FreeU waits for its utilities.
+NCHW activations; `CrossAttnDownBlock2D` adds a T2I-Adapter feature
+(`additional_residual`) after its last (resnet, attention) pair, as JAX
+`:106-110` does. FreeU waits for its utilities.
 """
 
 from __future__ import annotations
@@ -89,9 +91,11 @@ class CrossAttnDownBlock2D(nn.Module):
         encoder_hidden_states: Optional[torch.Tensor] = None,
         attention_mask: Optional[torch.Tensor] = None,
         encoder_attention_mask: Optional[torch.Tensor] = None,
+        additional_residual: Optional[torch.Tensor] = None,
     ):
         output_states = ()
-        for resnet, attn in zip(self.resnets, self.attentions):
+        n = len(self.resnets)
+        for i, (resnet, attn) in enumerate(zip(self.resnets, self.attentions)):
             hidden_states = resnet(hidden_states, temb)
             hidden_states = attn(
                 hidden_states,
@@ -99,6 +103,8 @@ class CrossAttnDownBlock2D(nn.Module):
                 attention_mask=attention_mask,
                 encoder_attention_mask=encoder_attention_mask,
             )
+            if i == n - 1 and additional_residual is not None:
+                hidden_states = hidden_states + additional_residual
             output_states += (hidden_states,)
         if self.add_downsample:
             hidden_states = self.downsamplers[0](hidden_states)

@@ -87,7 +87,10 @@ class FluxPipeline(DiffusionPipeline):
             transformer=transformer,
             scheduler=scheduler,
         )
-        self._register_image_encoder(image_encoder, feature_extractor)
+        if image_encoder is not None or feature_extractor is not None:
+            raise NotImplementedError("FluxPipeline: image_encoder / feature_extractor (Flux's IP-Adapter) are not "
+                                      "ported yet (ROADMAP A4.1)")
+        self.register_modules(image_encoder=None, feature_extractor=None)
         self.vae_scale_factor = 2 ** (len(self.vae.config.block_out_channels) - 1) if vae is not None else 8
         self.tokenizer_max_length = 77
         self.default_sample_size = 128
@@ -300,7 +303,9 @@ class FluxPipeline(DiffusionPipeline):
             z = self._unpack_latents(latents, height, width, self.vae_scale_factor) / self.vae.config.scaling_factor
             if self.vae.config.get("shift_factor") is not None:
                 z = z + self.vae.config.shift_factor
-            decoded = self.vae.decode(z.to(self.vae.dtype)).sample
+            z = z.to(self.vae.dtype)
+            # JAX `:444-447`: a VAE with tiling on decodes 512 px tiles, bounding the decode's memory to one tile's
+            decoded = (self.vae.tiled_decode(z) if self.vae.use_tiling else self.vae.decode(z)).sample
             if output_type == "np":
                 image = postprocess_np(decoded)
             elif output_type == "pil":

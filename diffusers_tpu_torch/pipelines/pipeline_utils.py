@@ -56,6 +56,9 @@ _CLASS_REGISTRY: Dict[str, str] = {
         "diffusers_tpu_torch.schedulers.scheduling_flow_match_euler_discrete.FlowMatchEulerDiscreteScheduler",
     "UniPCMultistepScheduler": "diffusers_tpu_torch.schedulers.scheduling_unipc_multistep.UniPCMultistepScheduler",
     "DDPMScheduler": "diffusers_tpu_torch.schedulers.scheduling_ddpm.DDPMScheduler",
+    "PNDMScheduler": "diffusers_tpu_torch.schedulers.scheduling_pndm.PNDMScheduler",
+    "DDIMScheduler": "diffusers_tpu_torch.schedulers.scheduling_ddim.DDIMScheduler",
+    "T2IAdapter": "diffusers_tpu_torch.models.adapter.T2IAdapter",
     "CLIPTextModel": "diffusers_tpu_torch.models.text_encoders.clip.CLIPTextModel",
     "CLIPTextModelWithProjection": "diffusers_tpu_torch.models.text_encoders.clip.CLIPTextModelWithProjection",
     "CLIPVisionModel": "diffusers_tpu_torch.models.text_encoders.clip.CLIPVisionModel",
@@ -96,6 +99,8 @@ class DiffusionPipeline(ConfigMixin):
 
     config_name = PIPELINE_CONFIG_NAME
     _optional_components: list = []
+    # components a published model_index.json may name that the port does not have: loaded as None
+    _unported_components: tuple = ()
 
     def register_modules(self, **kwargs):
         for name, module in kwargs.items():
@@ -113,13 +118,18 @@ class DiffusionPipeline(ConfigMixin):
             setattr(self, name, module)
 
     def _register_image_encoder(self, image_encoder, feature_extractor) -> None:
-        """Register SDXL's and Flux's optional IP-Adapter components, which
-        published model_index.json files list as ``[null, null]``; one that
-        is not None raises, as IP-Adapter is not ported."""
-        if image_encoder is not None or feature_extractor is not None:
-            raise NotImplementedError(f"{type(self).__name__}: image_encoder / feature_extractor (IP-Adapter) are "
-                                      "not ported yet (ROADMAP A4.1)")
-        self.register_modules(image_encoder=None, feature_extractor=None)
+        """Register the optional IP-Adapter components (published
+        model_index.json files list them as ``[null, null]`` or name a CLIP
+        vision tower and a `CLIPImageProcessor`): `image_encoder` must be the
+        port's `CLIPVisionModelWithProjection` (or None); `feature_extractor`
+        a transformers CLIP image processor whose numbers
+        `clip_image_preprocess` takes (or None)."""
+        from ..models.text_encoders.clip import CLIPVisionModelWithProjection
+
+        if image_encoder is not None and not isinstance(image_encoder, CLIPVisionModelWithProjection):
+            raise TypeError(f"{type(self).__name__}: image_encoder must be a CLIPVisionModelWithProjection, got "
+                            f"{type(image_encoder).__name__}")
+        self.register_modules(image_encoder=image_encoder, feature_extractor=feature_extractor)
 
     @classmethod
     def _component_names(cls) -> set:
@@ -147,7 +157,8 @@ class DiffusionPipeline(ConfigMixin):
         used as it is and not loaded (``tokenizer=...`` needs no
         `transformers`); a ``[null, null]`` entry loads as None; a plain
         entry (``force_zeros_for_empty_prompt``) passes through; an entry
-        the constructor does not take is dropped; `_optional_components`
+        the constructor does not take is dropped, and one of
+        `_unported_components` (SD's ``safety_checker``) loads as None; `_optional_components`
         missing from the file are None. Models and text encoders load with
         `ModelMixin.from_pretrained(dtype=, variant=, quantization_config=)`
         (`quantization_config` is a `PipelineQuantizationConfig`, read per
@@ -189,6 +200,10 @@ class DiffusionPipeline(ConfigMixin):
                 init_kwargs[name] = value  # plain config flag (e.g. force_zeros_for_empty_prompt)
                 continue
             if value[0] is None:
+                init_kwargs[name] = None
+                continue
+            if name in cls._unported_components:
+                logger.warning(f"{cls.__name__}.from_pretrained: {name} ({value[1]}) is not ported; loaded as None")
                 init_kwargs[name] = None
                 continue
             component_cls, kind = resolve_component_class(*value)

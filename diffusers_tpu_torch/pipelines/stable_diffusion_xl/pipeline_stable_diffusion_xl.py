@@ -20,9 +20,17 @@ request. `callback_on_step_end` runs the loop of
 the VAE encode of an input image and the decode are shared with the
 image-conditioned pipelines (img2img, inpaint, ControlNet). Every random draw
 goes through `utils.torch_utils.randn_tensor`. `from_pretrained` (the base
-class's) loads it from a saved directory; `image_encoder` and
-`feature_extractor` are registered as the published `model_index.json`
-lists them, ``[null, null]``, and raise if given, as IP-Adapter waits.
+class's) loads it from a saved directory.
+
+IP-Adapter (`loaders.ip_adapter.IPAdapterPipelineMixin`): after
+`load_ip_adapter(path)`, `ip_adapter_image` (encoded by `image_encoder`, a
+`CLIPVisionModelWithProjection`) or `ip_adapter_image_embeds` (one tensor
+per adapter, the negative half first under CFG) conditions every UNet call
+through ``added_cond_kwargs["image_embeds"]``. As in JAX (`:189`, `:389`),
+FasterCache is not applied to a request with image embeds (it runs uncached);
+TaylorSeer, MagCache and TextKV are. On the callback path the image embeds
+follow the text: once a callback drops the CFG batch, the UNet gets their
+positive half.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import torch
 from ...hooks.faster_cache import FasterCacheConfig, faster_cache_apply, faster_cache_schedules, init_faster_cache_state
 from ...hooks.generic_cache import TextKVCacheConfig, denoise_loop, denoise_loop_with_callback, text_kv_cache
 from ...image_processor import VaeImageProcessor
+from ...loaders.ip_adapter import IPAdapterPipelineMixin, match_batch
 from ...utils import BaseOutput, torch_utils
 from ..pipeline_utils import DiffusionPipeline
 
@@ -46,7 +55,7 @@ class StableDiffusionXLPipelineOutput(BaseOutput):
     images: Union[List, np.ndarray, torch.Tensor]
 
 
-class StableDiffusionXLPipeline(DiffusionPipeline):
+class StableDiffusionXLPipeline(DiffusionPipeline, IPAdapterPipelineMixin):
     _optional_components = ["image_encoder", "feature_extractor"]
     _supported_cache_configs = (
         "FasterCacheConfig", "TaylorSeerCacheConfig", "MagCacheConfig", "TextKVCacheConfig",
@@ -173,17 +182,21 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
         return StableDiffusionXLPipelineOutput(images=image)
 
     # ------------------------------------------------------------- denoise
-    def _unet(self, latent_input, t, prompt_embeds, text_embeds, time_ids):
-        return self.unet(latent_input, t, encoder_hidden_states=prompt_embeds,
-                         added_cond_kwargs={"text_embeds": text_embeds, "time_ids": time_ids}).sample
+    def _unet(self, latent_input, t, prompt_embeds, text_embeds, time_ids, image_embeds=None):
+        cond = {"text_embeds": text_embeds, "time_ids": time_ids}
+        if image_embeds is not None:
+            cond["image_embeds"] = image_embeds
+        return self.unet(latent_input, t, encoder_hidden_states=prompt_embeds, added_cond_kwargs=cond).sample
 
-    def _noise(self, state, t, t_device, latents, prompt_embeds, text_embeds, time_ids, guidance_scale):
+    def _noise(self, state, t, t_device, latents, prompt_embeds, text_embeds, time_ids, guidance_scale,
+               image_embeds=None):
         """One step's noise prediction; with CFG (the embeddings hold twice
         the latents' batch, uncond first) the two halves are combined."""
         cfg = prompt_embeds.shape[0] == 2 * latents.shape[0]
         latent_input = torch.cat([latents, latents], dim=0) if cfg else latents
         latent_input = self.scheduler.scale_model_input(state, latent_input, t)
-        noise_pred = self._unet(latent_input, t_device, prompt_embeds, text_embeds, time_ids)
+        noise_pred = self._unet(latent_input, t_device, prompt_embeds, text_embeds, time_ids,
+                                match_batch(image_embeds, prompt_embeds.shape[0]))
         if cfg:
             uncond, text = noise_pred.chunk(2, dim=0)
             noise_pred = uncond + guidance_scale * (text - uncond)
@@ -197,19 +210,19 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
 
     @torch.no_grad()
     def _denoise(self, prompt_embeds, add_text_embeds, add_time_ids, latents, guidance_scale,
-                 num_inference_steps, do_cfg):
+                 num_inference_steps, do_cfg, image_embeds=None):
         scheduler = self.scheduler
         state, latents, timesteps_device = self._start(latents, num_inference_steps)
         cache_cfg = self._cache_config
         if isinstance(cache_cfg, FasterCacheConfig):
-            if do_cfg:
+            if do_cfg and image_embeds is None:
                 return self._denoise_faster_cache(prompt_embeds, add_text_embeds, add_time_ids, latents,
                                                   guidance_scale, state, timesteps_device, cache_cfg)
-            cache_cfg = None  # FasterCache caches the uncond branch: nothing to do without CFG
+            cache_cfg = None  # FasterCache caches the uncond branch: not without CFG, nor with an image prompt
 
         def forward(latents, i, t):
             return self._noise(state, t, timesteps_device[i], latents, prompt_embeds, add_text_embeds, add_time_ids,
-                               guidance_scale)
+                               guidance_scale, image_embeds)
 
         text_kv = text_kv_cache(self.unet) if isinstance(cache_cfg, TextKVCacheConfig) else contextlib.nullcontext()
         with text_kv:
@@ -217,7 +230,7 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
 
     @torch.no_grad()
     def _denoise_with_callback(self, prompt_embeds, add_text_embeds, add_time_ids, latents, guidance_scale,
-                               num_inference_steps, callback):
+                               num_inference_steps, callback, image_embeds=None):
         """The loop that fires `callback_on_step_end` after each scheduler
         step. It reads the conditioning and the guidance scale from the
         callback's tensors every step and detects CFG by batch shape, so
@@ -226,7 +239,7 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
 
         def forward_cb(latents, i, t, cb):
             return self._noise(state, t, timesteps_device[i], latents, cb["prompt_embeds"], cb["add_text_embeds"],
-                               cb["add_time_ids"], cb["guidance_scale"])
+                               cb["add_time_ids"], cb["guidance_scale"], image_embeds)
 
         cb_tensors = {"prompt_embeds": prompt_embeds, "add_text_embeds": add_text_embeds,
                       "add_time_ids": add_time_ids, "guidance_scale": guidance_scale}
@@ -272,6 +285,8 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
         num_images_per_prompt: int = 1,
         generator: Optional[torch.Generator] = None,
         latents: Optional[torch.Tensor] = None,
+        ip_adapter_image=None,
+        ip_adapter_image_embeds: Optional[List[torch.Tensor]] = None,
         original_size: Optional[Tuple[int, int]] = None,
         crops_coords_top_left: Tuple[int, int] = (0, 0),
         target_size: Optional[Tuple[int, int]] = None,
@@ -286,7 +301,9 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
         shown "latents", "prompt_embeds", "add_text_embeds", "add_time_ids"
         and "guidance_scale" after each step, and may return replacements
         (`callback_on_step_end_tensor_inputs` is accepted for API parity;
-        every tensor is shown). It cannot be combined with a cache."""
+        every tensor is shown). It cannot be combined with a cache.
+        `ip_adapter_image` / `ip_adapter_image_embeds`: the image prompt of a
+        loaded IP-Adapter (see the module's docstring)."""
         height = height or self.default_sample_size * self.vae_scale_factor
         width = width or self.default_sample_size * self.vae_scale_factor
         original_size = original_size or (height, width)
@@ -302,11 +319,13 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
         if latents is None:
             latents = torch_utils.randn_tensor(shape, generator, device)
         latents = latents.to(device=device, dtype=dtype)
+        image_embeds = self._image_embeds(ip_adapter_image, ip_adapter_image_embeds, batch_size, do_cfg)
 
         if callback_on_step_end is not None:
             latents = self._denoise_with_callback(prompt_embeds, add_text_embeds, add_time_ids, latents,
-                                                  guidance_scale, num_inference_steps, callback_on_step_end)
+                                                  guidance_scale, num_inference_steps, callback_on_step_end,
+                                                  image_embeds)
         else:
             latents = self._denoise(prompt_embeds, add_text_embeds, add_time_ids, latents, guidance_scale,
-                                    num_inference_steps, do_cfg)
+                                    num_inference_steps, do_cfg, image_embeds)
         return self._output(latents, output_type, return_dict)

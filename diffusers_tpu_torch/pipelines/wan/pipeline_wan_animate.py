@@ -40,13 +40,13 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from ...models.text_encoders.clip import clip_image_preprocess
+from ...models.text_encoders.clip import clip_image_preprocess, clip_processor_numbers
 from ...models.transformers.transformer_wan import TEXT_CONTEXT_LENGTH
 from ...utils import torch_utils
 from ...video_processor import VideoProcessor
 from ..pipeline_utils import DiffusionPipeline
 from .pipeline_wan import WanPipeline, WanPipelineOutput
-from .pipeline_wan_i2v import WanImageToVideoPipeline, _clip_numbers
+from .pipeline_wan_i2v import WanImageToVideoPipeline
 from .pipeline_wan_vace import nearest_indices
 
 
@@ -72,7 +72,7 @@ class WanAnimatePipeline(DiffusionPipeline):
     def encode_image(self, image) -> torch.Tensor:
         """The CLIP vision tower's penultimate hidden states [N, tokens, D]."""
         encoder = self.image_encoder
-        pixels = clip_image_preprocess(image, device=encoder.device, **_clip_numbers(self.image_processor))
+        pixels = clip_image_preprocess(image, device=encoder.device, **clip_processor_numbers(self.image_processor))
         return encoder(pixels.to(encoder.dtype), output_hidden_states=True).hidden_states[-2]
 
     def _latent_stats(self, device):

@@ -38,37 +38,13 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from ...models.text_encoders.clip import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD, clip_image_preprocess
+from ...models.text_encoders.clip import clip_image_preprocess, clip_processor_numbers
 from ...models.transformers.transformer_wan import TEXT_CONTEXT_LENGTH
 from ...utils import logging, torch_utils
 from ..pipeline_utils import DiffusionPipeline
 from .pipeline_wan import WanPipeline, WanPipelineOutput
 
 logger = logging.get_logger(__name__)
-
-
-def _clip_numbers(processor) -> dict:
-    """`clip_image_preprocess`'s keyword arguments from a transformers
-    `CLIPImageProcessor` (a dict or an object with attributes), or
-    Wan2.1-I2V-14B-480P's when it is None."""
-    if processor is None:
-        return dict(size=224, crop_size=(224, 224), image_mean=OPENAI_CLIP_MEAN, image_std=OPENAI_CLIP_STD,
-                    rescale_factor=1 / 255)
-
-    def get(obj, key):
-        return obj[key] if isinstance(obj, dict) else getattr(obj, key)
-
-    off = [flag for flag in ("do_resize", "do_center_crop", "do_rescale", "do_normalize")
-           if not getattr(processor, flag, True)]
-    if off or int(getattr(processor, "resample", 3)) != 3:
-        raise NotImplementedError(f"{type(processor).__name__}: only the bicubic resize, centre crop, rescale and "
-                                  f"normalisation of CLIP's processor are ported (off: {off}, resample "
-                                  f"{getattr(processor, 'resample', None)})")
-    crop = processor.crop_size
-    return dict(size=int(get(processor.size, "shortest_edge")),
-                crop_size=(int(get(crop, "height")), int(get(crop, "width"))),
-                image_mean=tuple(processor.image_mean), image_std=tuple(processor.image_std),
-                rescale_factor=float(processor.rescale_factor))
 
 
 def _to_pixels(image, height: int, width: int, device) -> torch.Tensor:
@@ -113,7 +89,7 @@ class WanImageToVideoPipeline(DiffusionPipeline):
         """The CLIP vision tower's penultimate hidden states [N, tokens, D] of
         `image` (one image or a list), preprocessed on the encoder's device."""
         encoder = self.image_encoder
-        pixels = clip_image_preprocess(image, device=encoder.device, **_clip_numbers(self.image_processor))
+        pixels = clip_image_preprocess(image, device=encoder.device, **clip_processor_numbers(self.image_processor))
         return encoder(pixels.to(encoder.dtype), output_hidden_states=True).hidden_states[-2]
 
     @torch.no_grad()

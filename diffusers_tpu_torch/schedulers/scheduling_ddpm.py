@@ -25,11 +25,11 @@ from ..utils import BaseOutput
 from .scheduling_utils import (
     KarrasDiffusionSchedulers,
     SchedulerMixin,
-    broadcast_to_left,
     index_for_timestep,
     make_beta_schedule,
     make_spaced_timesteps,
     rescale_zero_terminal_snr,
+    sqrt_alpha_terms,
 )
 
 
@@ -244,20 +244,12 @@ class DDPMScheduler(SchedulerMixin, ConfigMixin):
             return (pred_prev_sample, pred_original_sample)
         return DDPMSchedulerOutput(prev_sample=pred_prev_sample, pred_original_sample=pred_original_sample, state=state)
 
-    def _sqrt_alphas(self, state: DDPMSchedulerState, sample: torch.Tensor, timesteps):
-        """(sqrt(a_t), sqrt(1 - a_t)) per batch element, broadcast over
-        `sample`: the table is cast to the sample's dtype first, as in JAX."""
-        alphas_cumprod = state.alphas_cumprod.to(device=sample.device, dtype=sample.dtype)
-        timesteps = torch.as_tensor(timesteps, device=sample.device)
-        acp = alphas_cumprod[timesteps]
-        return broadcast_to_left(acp**0.5, sample.ndim), broadcast_to_left((1 - acp) ** 0.5, sample.ndim)
-
     def add_noise(self, state: DDPMSchedulerState, original_samples, noise, timesteps):
-        sqrt_alpha_prod, sqrt_one_minus = self._sqrt_alphas(state, original_samples, timesteps)
+        sqrt_alpha_prod, sqrt_one_minus = sqrt_alpha_terms(state.alphas_cumprod, original_samples, timesteps)
         return sqrt_alpha_prod * original_samples + sqrt_one_minus * noise
 
     def get_velocity(self, state: DDPMSchedulerState, sample, noise, timesteps):
-        sqrt_alpha_prod, sqrt_one_minus = self._sqrt_alphas(state, sample, timesteps)
+        sqrt_alpha_prod, sqrt_one_minus = sqrt_alpha_terms(state.alphas_cumprod, sample, timesteps)
         return sqrt_alpha_prod * noise - sqrt_one_minus * sample
 
     def __len__(self):

@@ -157,6 +157,16 @@ def broadcast_to_left(x: torch.Tensor, ndim: int) -> torch.Tensor:
     return x.reshape(x.shape + (1,) * (ndim - x.ndim))
 
 
+def sqrt_alpha_terms(alphas_cumprod, sample: torch.Tensor, timesteps):
+    """(sqrt(a_t), sqrt(1 - a_t)) of a cumulative-alpha table (a tensor or
+    numpy array) at `timesteps`, one per batch element, broadcast over
+    `sample`: the table is cast to the sample's dtype first, as in JAX (the
+    `add_noise` and `get_velocity` of DDPM, DDIM and PNDM)."""
+    acp = torch.as_tensor(alphas_cumprod).to(device=sample.device, dtype=sample.dtype)
+    acp = acp[torch.as_tensor(timesteps, device=sample.device)]
+    return broadcast_to_left(acp**0.5, sample.ndim), broadcast_to_left((1 - acp) ** 0.5, sample.ndim)
+
+
 def index_for_timestep(timesteps: torch.Tensor, timestep) -> int:
     """Position of `timestep` in the (descending) inference schedule. The
     schedule lives on the host, so this never waits for the device."""

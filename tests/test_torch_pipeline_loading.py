@@ -326,7 +326,7 @@ def test_loader_error_paths(tmp_path, monkeypatch):
         DiffusionPipeline.from_pretrained(tmp_path / "pipe", device="cpu", custom_pipeline="pipeline.py")
     with pytest.raises(TypeError, match="torch_dtype"):
         StableDiffusionXLPipeline.from_pretrained(tmp_path / "pipe", device="cpu", torch_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="A4.1"):
+    with pytest.raises(TypeError, match="CLIPVisionModelWithProjection"):
         StableDiffusionXLPipeline.from_pretrained(tmp_path / "pipe", device="cpu", image_encoder=object(), **tokenizers)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
