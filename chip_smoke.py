@@ -4,7 +4,8 @@ against its plain PyTorch version at the shapes of the main paths, checks the
 port on the card against the port on the CPU at a small size (every cache
 config and callback, the image-conditioned pipelines, the SD3 pipelines and
 the Wan pipelines, VACE, Animate and SkyReels-V2, the SD 1.x pipelines, the
-T2I-Adapter and each IP-Adapter head included), then
+T2I-Adapter, each IP-Adapter head and the Flux family with the int4 Linear
+included), then
 drives the main paths through their public entry points, with random weights
 made from a seed on the card:
 
@@ -25,6 +26,15 @@ made from a seed on the card:
     `FluxPipeline.__call__` (kernels K5 with its row quantization, K1 at
     head_dim 128, K4); then one request each with TaylorSeer,
     FirstBlockCache, Pyramid Attention Broadcast and MagCache;
+  * the rest of the Flux family at FLUX.1-dev's full width (phase 13c), on
+    the same pipeline at 1024 px: img2img, inpaint, Kontext with a 1024 px
+    reference (28 steps; K1 at 8,704 tokens), Kontext inpaint, ControlNet at
+    InstantX/FLUX.1-dev-Controlnet-Canny's widths (plain, img2img, inpaint)
+    and its Union form, Redux (SigLIP so400m and the Redux encoder feeding a
+    request), bench.py's int4 T5-XXL (quantized in place on the card; its
+    bytes, encode time and embeds beside the bf16 tower's, one request),
+    then FLUX.1-Fill-dev (28 steps) and FLUX.1-Canny-dev (Control, its
+    img2img and inpaint) at full depth;
   * SD3.5 Medium: its published widths (24 layers, 13 dual-attention, 24 x
     64 heads; CLIP-L, bigG, T5-XXL; the 16-channel VAE) served by the
     port's HTTP server (`diffusers_tpu_torch.serving.server`, seed 0) at its
@@ -529,6 +539,50 @@ IP_K1_CASES = (
 VAE_TILE = 512
 FLUX_TILED_STEPS = 4
 
+# phase 8b: the Flux family on small components, card bf16 against CPU f32: phase 8's SMALL_FLUX pipeline (its VAE has
+# vae_scale_factor 2), a Fill transformer (64 + 64 + 4 x 2^2 = 144 input channels) and a Control one (128), a ControlNet
+# of 1 dual and 1 single block, plain and Union (its residual projections made random so the residuals act), all w8a8
+# by SMALL_FLUX_MIN_WEIGHT_SIZE; a small SigLIP (2 heads of 64, so K1 runs on the card) with a Redux encoder into T5's
+# 256; an int4 Linear and SMALL_T5 quantized by bench.py's int4 rule at 2^15 elements
+SMALL_FLUX_FILL = dict(SMALL_FLUX, in_channels=144, out_channels=64)
+SMALL_FLUX_CONTROL = dict(SMALL_FLUX, in_channels=128, out_channels=64)
+SMALL_FLUX_CONTROLNET = dict(SMALL_FLUX, num_layers=1, num_single_layers=1)
+SMALL_SIGLIP = dict(hidden_size=128, intermediate_size=256, num_hidden_layers=2, num_attention_heads=2, image_size=56,
+                    patch_size=14)
+SMALL_REDUX = dict(redux_dim=128, txt_in_features=256)
+SMALL_FAMILY_STEPS = 4
+
+# phase 13c: the rest of the Flux family at full width on phase 13's FLUX.1-dev pipeline (the w8a8 transformer, CLIP-L,
+# T5-XXL, the VAE). Published configs: black-forest-labs/FLUX.1-Fill-dev's transformer (FLUX.1-dev's widths,
+# in_channels 384, out_channels 64), FLUX.1-Canny-dev's (in_channels 128, out_channels 64), FLUX.1-Kontext-dev's
+# (FLUX.1-dev's config: the dev transformer serves), InstantX/FLUX.1-dev-Controlnet-Canny's ControlNet (5 dual and 10
+# single blocks at 24 x 128, guidance embeds) and InstantX/FLUX.1-dev-Controlnet-Union's (the same, num_mode 10), each
+# w8a8 by bench.py's rule; Redux: google/siglip-so400m-patch14-384's vision tower (1152 wide, 27 layers, 16 heads of 72,
+# MLP 4304, 384 px in patches of 14: 729 tokens) and black-forest-labs/FLUX.1-Redux-dev's ReduxImageEncoder(1152, 4096).
+# Kontext (1024 px with a 1024 px reference: 512 + 4096 + 4096 = 8,704 tokens) and Fill run their published 28 steps;
+# the other requests are cut to 4 transformer calls (img2img and inpaint at strength 0.6 of 7 steps)
+FLUX_FILL_DEV = dict(FLUX_DEV, in_channels=384, out_channels=64)
+FLUX_CANNY_DEV = dict(FLUX_DEV, in_channels=128, out_channels=64)
+FLUX_CONTROLNET_CANNY = dict(guidance_embeds=True, num_layers=5, num_single_layers=10)
+FLUX_CONTROLNET_UNION = dict(FLUX_CONTROLNET_CANNY, num_mode=10)
+SIGLIP_SO400M = dict(hidden_size=1152, intermediate_size=4304, num_hidden_layers=27, num_attention_heads=16,
+                     image_size=384, patch_size=14)
+REDUX_DEV = dict(redux_dim=1152, txt_in_features=4096)
+KONTEXT_STEPS = 28
+KONTEXT_GUIDANCE = 2.5
+FILL_STEPS = 28
+FILL_GUIDANCE = 30.0
+FAMILY_CUT_STEPS = 4
+FAMILY_STRENGTH = 0.6
+FAMILY_STRENGTH_STEPS = 7  # int(7 x 0.6) = 4 transformer calls
+UNION_MODE = 0  # the Union ControlNet's canny mode
+KONTEXT_JOINT_ATTENTION = (1, 512 + 4096 + 4096, 24, 128)
+SIGLIP_ATTENTION = ("SigLIP so400m self 729 d=72", (1, 729, 16, 72), 729, 27)
+# w8a8 (M, K, N, launches a step) of one Kontext step at 1024 px with a 1024 px reference: FLUX_W8A8_SHAPES with the
+# 8,192 image tokens in the dual blocks and the 8,704 joint tokens in the single blocks
+KONTEXT_W8A8_SHAPES = tuple(((2 * m if m == 4096 else m + 4096 if m == 4608 else m), k, n, c)
+                            for m, k, n, c in FLUX_W8A8_SHAPES)
+
 # phase 10g: the SD slice on small components, card bf16 against CPU f32: an SD-shaped UNet (1x1-conv projections, no
 # added embedding; heads of 64 and 128, so K1 runs on the card), phase 7's VAE and CLIP, a small T2I-Adapter and a
 # small CLIP vision tower with its projection (224 px, 257 tokens)
@@ -932,6 +986,8 @@ def check_kernels():
     attn_cases = [
         # (label, q shape, kv length, options, timed)
         ("Flux joint 4608 d=128", (1, 4608, 24, 128), 4608, {}, True),
+        # FLUX.1-Kontext-dev at 1024 px with a 1024 px reference: 512 text + 4096 target + 4096 reference tokens
+        ("Flux Kontext joint 8704 d=128", KONTEXT_JOINT_ATTENTION, KONTEXT_JOINT_ATTENTION[1], {}, True),
         ("self 4096 (UNet level 2)", (2, 4096, 10, 64), 4096, {}, True),
         ("self 1024 (UNet level 3)", (2, 1024, 20, 64), 1024, {}, True),
         ("cross 4096 x 77 (UNet level 2)", (2, 4096, 10, 64), 77, {}, True),
@@ -1303,9 +1359,9 @@ def check_group_norm():
 
 def check_w8a8():
     """Phase 5: K5 and its row quantization against their plain versions at
-    every Flux.1-dev w8a8 shape, bf16, with a skipped-K-tile control; times of
-    kernel, plain version and the nearest library calls, summed over one
-    denoise step's launches."""
+    every Flux.1-dev w8a8 shape and every Kontext one (M up to 8,704), bf16,
+    with a skipped-K-tile control; times of kernel, plain version and the
+    nearest library calls, summed over one denoise step's launches of each."""
     import torch
 
     from diffusers_tpu_torch.ops.cuda._build import sm_count
@@ -1324,7 +1380,10 @@ def check_w8a8():
     step = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bf16_matmul_ms", "bound_ms",
                              "q_ms", "q_plain_ms", "q_bound_ms", "device_ms", "library_device_ms")}
     max_err = 0.0
-    for m, k, n, per_step in FLUX_W8A8_SHAPES:
+    shapes = list(dict.fromkeys((m, k, n) for m, k, n, _ in FLUX_W8A8_SHAPES + KONTEXT_W8A8_SHAPES))
+    flux_per_step = {(m, k, n): c for m, k, n, c in FLUX_W8A8_SHAPES}
+    for m, k, n in shapes:
+        per_step = flux_per_step.get((m, k, n), 0)
         x = (torch.randn(m, k, generator=gen, device=dev) * 2).to(torch.bfloat16)
         w = torch.randn(n, k, generator=gen, device=dev) / k**0.5
         qw, ws = quantize_kernel_int8(w)
@@ -1394,9 +1453,19 @@ def check_w8a8():
                            ("q_plain_ms", q_plain_ms), ("q_bound_ms", q_bms), ("device_ms", device_ms),
                            ("library_device_ms", library_device_ms)):
             step[key] += per_step * value
-    assert sum(s[3] for s in FLUX_W8A8_SHAPES) == FLUX_W8A8_PER_STEP
+    assert sum(s[3] for s in FLUX_W8A8_SHAPES) == sum(s[3] for s in KONTEXT_W8A8_SHAPES) == FLUX_W8A8_PER_STEP
     RESULTS["w8a8_cases"] = cases
     RESULTS["w8a8_per_denoise_step"] = step
+    # one Kontext step (phase 13c): the same 500 launches at 8,192 image and 8,704 joint tokens
+    by_shape = {(row["m"], row["k"], row["n"]): row for row in cases}
+    kontext = {key: sum(c * by_shape[(m, k, n)][key] for m, k, n, c in KONTEXT_W8A8_SHAPES)
+               for key in ("ms", "plain_ms", "int_mm_epilogue_ms", "bound_ms", "device_ms", "quantize_ms",
+                           "quantize_bound_ms")}
+    RESULTS["w8a8_per_kontext_step"] = kontext
+    log(f"[K5] one Kontext denoise step ({FLUX_W8A8_PER_STEP} launches, M up to 8,704): kernel {kontext['ms']:.2f} ms "
+        f"(device {kontext['device_ms']:.2f} ms), plain {kontext['plain_ms']:.1f} ms, _int_mm+epilogue "
+        f"{kontext['int_mm_epilogue_ms']:.2f} ms, bound {kontext['bound_ms']:.2f} ms; quantize_rows "
+        f"{kontext['quantize_ms']:.2f} ms (bound {kontext['quantize_bound_ms']:.2f} ms)")
     log(f"[K5] one Flux.1-dev denoise step ({FLUX_W8A8_PER_STEP} launches): kernel {step['ms']:.2f} ms, plain "
         f"{step['plain_ms']:.1f} ms, _int_mm+epilogue {step['library_ms']:.2f} ms, bf16 matmul "
         f"{step['bf16_matmul_ms']:.2f} ms, bound {step['bound_ms']:.2f} ms; device time (CUDA graphs) kernel "
@@ -4526,6 +4595,423 @@ def run_vae_tiling(smi: str, pipe):
     return paths
 
 
+# ------------------------------------------------------------------ the Flux family (phases 8b, 13c)
+
+
+def _small_family_pipelines(device: str, dtype):
+    """Phase 8b's pipelines, by label: SMALL_FLUX's pipeline and the family's
+    pipelines on its components, the family's extra models from fixed seeds,
+    built in float32 on the CPU (the same int8 weights on both sides), then
+    moved to `device` in `dtype`."""
+    import torch
+
+    from diffusers_tpu_torch.models.controlnets.controlnet_flux import FluxControlNetModel
+    from diffusers_tpu_torch.models.text_encoders.siglip import SiglipVisionModel
+    from diffusers_tpu_torch.models.transformers.transformer_flux import FluxTransformer2DModel
+    from diffusers_tpu_torch.pipelines import flux
+    from diffusers_tpu_torch.quantizers import quantize_w8a8
+
+    base = _build_flux_pipeline(SMALL_FLUX, SMALL_FLUX_MIN_WEIGHT_SIZE, SMALL_FLUX_VAE, SMALL_FLUX_CLIP, SMALL_T5,
+                                "cpu", torch.float32)
+    extra = {}
+    for i, (name, cls, cfg) in enumerate((
+            ("fill", FluxTransformer2DModel, SMALL_FLUX_FILL), ("control", FluxTransformer2DModel, SMALL_FLUX_CONTROL),
+            ("controlnet", FluxControlNetModel, SMALL_FLUX_CONTROLNET),
+            ("union", FluxControlNetModel, dict(SMALL_FLUX_CONTROLNET, num_mode=10)),
+            ("siglip", SiglipVisionModel, SMALL_SIGLIP), ("redux", flux.ReduxImageEncoder, SMALL_REDUX))):
+        torch.manual_seed(SEED + 10 + i)
+        model = cls(**cfg)
+        if isinstance(model, FluxControlNetModel):  # random residual projections, so the residuals act
+            for lin in (*model.controlnet_blocks, *model.controlnet_single_blocks, model.controlnet_x_embedder):
+                lin.reset_parameters()
+        if name in ("fill", "control", "controlnet", "union"):
+            quantize_w8a8(model, SMALL_FLUX_MIN_WEIGHT_SIZE)
+        extra[name] = model.eval()
+    parts = dict(base.components, device="cpu")
+    pipes = {"flux": base}
+    for label, cls in (("img2img", flux.FluxImg2ImgPipeline), ("inpaint", flux.FluxInpaintPipeline),
+                       ("kontext", flux.FluxKontextPipeline), ("kontext_inpaint", flux.FluxKontextInpaintPipeline)):
+        pipes[label] = cls(**parts)
+    pipes["fill"] = flux.FluxFillPipeline(**dict(parts, transformer=extra["fill"]))
+    for label, cls in (("control", flux.FluxControlPipeline), ("control_img2img", flux.FluxControlImg2ImgPipeline),
+                       ("control_inpaint", flux.FluxControlInpaintPipeline)):
+        pipes[label] = cls(**dict(parts, transformer=extra["control"]))
+    for label, cls, net in (("controlnet", flux.FluxControlNetPipeline, "controlnet"),
+                            ("controlnet_union", flux.FluxControlNetPipeline, "union"),
+                            ("controlnet_img2img", flux.FluxControlNetImg2ImgPipeline, "controlnet"),
+                            ("controlnet_inpaint", flux.FluxControlNetInpaintPipeline, "controlnet")):
+        pipes[label] = cls(**parts, controlnet=extra[net])
+    pipes["redux"] = flux.FluxPriorReduxPipeline(  # with the text encoders: CLIP's pooled embeds fit SMALL_FLUX
+        image_encoder=extra["siglip"], image_embedder=extra["redux"], text_encoder=base.text_encoder,
+        tokenizer=base.tokenizer, text_encoder_2=base.text_encoder_2, tokenizer_2=base.tokenizer_2, device="cpu")
+    for pipe in pipes.values():
+        pipe.to(device=torch.device(device), dtype=dtype)
+    return pipes
+
+
+def _check_int4_on_card(device: str):
+    """Phase 8b's int4 part: an `Int4Linear` on the card (bf16) against its
+    plain dequantize-then-matmul in float32 on the same inputs, element by
+    element within 2^-8 (|x| |w| + |ref|) (bf16's rounding of the dequantized
+    weight and of the output); then SMALL_T5 quantized by bench.py's int4
+    rule at 2^15 elements, the card bf16 against the CPU f32 (cosine)."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.ops.module import Int4Linear
+    from diffusers_tpu_torch.quantizers import dequantize_int4, quantize_int4, quantize_int4_linears
+    from diffusers_tpu_torch.models.text_encoders.t5 import T5EncoderModel
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    lin = torch.nn.Sequential(torch.nn.Linear(4096, 1280))
+    with torch.no_grad():
+        lin[0].weight.copy_(torch.randn(1280, 4096, generator=gen) * 4096**-0.5)
+    quantize_int4_linears(lin, ["0"], group_size=128)
+    q = lin[0].to(device=device, dtype=torch.bfloat16)
+    assert isinstance(q, Int4Linear)
+    x = torch.randn(333, 4096, generator=gen).to(device=device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        out = q(x)
+    w32 = dequantize_int4(q.weight, q.weight_scale, torch.float32, 4096)
+    ref = x.float() @ w32.T + q.bias.float()
+    bound = 2.0**-8 * (x.float().abs() @ w32.abs().T + ref.abs()) + 2.0**-8 * q.bias.float().abs()
+    share = float(((out.float() - ref).abs() / bound).max())
+    resident = q.weight.numel() + 4 * q.weight_scale.numel()
+
+    sides = []
+    for dev, dtype in (("cpu", torch.float32), (device, torch.bfloat16)):
+        torch.manual_seed(SEED + 21)
+        t5 = quantize_int4(T5EncoderModel(**SMALL_T5), min_weight_size=2**15, group_size=128)
+        t5.to(device=dev, dtype=dtype)
+        ids = torch.from_numpy(np.random.RandomState(SEED).randint(0, 32128, (1, 64))).to(dev)
+        with torch.no_grad():
+            sides.append(t5(ids).last_hidden_state.float().cpu())
+    a, b = (t.flatten() for t in sides)
+    cosine = float(torch.dot(a, b) / (a.norm() * b.norm()))
+    n_int4 = sum(isinstance(m, Int4Linear) for m in t5.modules())
+    RESULTS["small_int4"] = {"linear_share_of_bound": share, "linear_resident_bytes": resident,
+                             "t5_int4_linears": n_int4, "t5_cosine_card_vs_cpu": cosine,
+                             "t5_max_abs_diff": float((a - b).abs().max())}
+    log(f"[ref-flux-family] Int4Linear 4096 -> 1280 (group 128) on the card bf16 vs its plain "
+        f"dequantize-then-matmul in f32: share of the per-element bound {share:.3f}; {resident} bytes resident (bf16 weight: "
+        f"{2 * 4096 * 1280}); int4 SMALL_T5 ({n_int4} Int4Linears) card bf16 vs CPU f32: cosine {cosine:.6f}, max "
+        f"|diff| {RESULTS['small_int4']['t5_max_abs_diff']:.3e} (cosine > 0.999)")
+    if not (share <= 1.0 and cosine > 0.999 and n_int4 == 2 * 7):
+        raise AssertionError("the int4 Linear or the int4 T5 on the card disagrees with its plain version")
+
+
+def check_small_flux_family(device: str = "cuda"):
+    """Phase 8b: the Flux family on the card (bf16, kernels) against the CPU
+    (f32, plain versions; held to JAX by tests/test_torch_flux_family.py,
+    test_torch_controlnet_flux.py, test_torch_flux_redux.py and
+    test_torch_int4.py): img2img, inpaint, Fill, Kontext, Kontext inpaint,
+    Control with its img2img and inpaint, ControlNet plain, Union, img2img
+    and inpaint, each SMALL_FAMILY_STEPS steps at 64 px (Kontext with a 64 px
+    reference), and Redux's embeds (the prompt's and the image's) fed to
+    SMALL_FLUX's pipeline; both sides
+    draw from one CPU generator seeded alike. Phase 8's tolerance; every
+    forward kernel must launch on each card request (Redux's SigLIP runs K1
+    at head_dim 64). Then the int4 Linear and T5 (`_check_int4_on_card`)."""
+    import numpy as np
+    import torch
+
+    sides = [_small_family_pipelines("cpu", torch.float32), _small_family_pipelines(device, torch.bfloat16)]
+    image, mask, edges = synthetic_inputs(64)
+    reference = synthetic_inputs(64)[0][::-1].copy()
+    latents = torch.from_numpy(np.random.RandomState(SEED).randn(1, 256, 64).astype(np.float32))
+    hw = dict(height=64, width=64)
+    cases = (
+        ("img2img", dict(image=image, strength=0.75)),
+        ("inpaint", dict(image=image, mask_image=mask, strength=0.75)),
+        ("fill", dict(image=image, mask_image=mask, latents=latents, guidance_scale=FILL_GUIDANCE)),
+        ("kontext", dict(image=reference, latents=latents, guidance_scale=KONTEXT_GUIDANCE)),
+        ("kontext_inpaint", dict(image=image, mask_image=mask, image_reference=reference)),
+        ("control", dict(control_image=edges, latents=latents, **hw)),
+        ("control_img2img", dict(image=image, control_image=edges, strength=0.75)),
+        ("control_inpaint", dict(image=image, control_image=edges, mask_image=mask, strength=0.75)),
+        ("controlnet", dict(control_image=edges, latents=latents, controlnet_conditioning_scale=0.7, **hw)),
+        ("controlnet_union", dict(control_image=edges, latents=latents, control_mode=UNION_MODE, **hw)),
+        ("controlnet_img2img", dict(image=image, control_image=edges, strength=0.75)),
+        ("controlnet_inpaint", dict(image=image, mask_image=mask, control_image=edges, strength=0.75)),
+        ("redux", dict(latents=latents, **hw)),
+    )
+    tol = 0.05  # phase 8's limit on the [0, 1] image
+    pixels = torch.from_numpy(np.random.RandomState(SEED + 1).rand(1, 3, 56, 56).astype(np.float32) * 2 - 1)
+    results = {}
+    for label, kwargs in cases:
+        images = []
+        for pipes in sides:
+            reset_launches()
+            run = dict(kwargs, num_inference_steps=SMALL_FAMILY_STEPS, max_sequence_length=64, output_type="np",
+                       generator=torch.Generator().manual_seed(SEED))
+            if label == "redux":  # the image's embeds stand in for the prompt's
+                embeds = pipes["redux"](pixels, prompt=FLUX_PROMPT)
+                run.update(prompt_embeds=embeds.prompt_embeds, pooled_prompt_embeds=embeds.pooled_prompt_embeds)
+                images.append(pipes["flux"](**run).images)
+            else:
+                images.append(pipes[label](FLUX_PROMPT, **run).images)
+            launches = read_launches()
+        ref, out = images
+        err = float(np.abs(out - ref).max())
+        results[label] = {"max_abs_err": err, "mean_abs_err": float(np.abs(out - ref).mean()), "tol": tol,
+                          "launches": launches}
+        log(f"[ref-flux-family] small {label}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol {tol}); launches "
+            f"{launches}")
+        if not (out.shape == ref.shape == (1, 64, 64, 3) and np.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"small Flux {label}: the card disagrees with the CPU")
+        if min(launches[name] for name in ("flash_attention_fwd", "group_norm", "w8a8_matmul",
+                                           "w8a8_quantize_rows")) <= 0:
+            raise AssertionError(f"small Flux {label} on the card missed a kernel: {launches}")
+    RESULTS["small_flux_family"] = results
+    _check_int4_on_card(device)
+
+
+def _flux_random_model(cls, cfg, seed, device="cuda"):
+    """A w8a8 model of `cls` (a Flux transformer or ControlNet) at full width
+    with random bf16 weights from `seed`, allocated on the card one unit at a
+    time, every Linear of >= 2^20 elements quantized as it is made (bench.py's
+    rule); a ControlNet's residual projections random like the rest."""
+    import torch
+
+    from diffusers_tpu_torch.models.modeling_utils import materialize_
+    from diffusers_tpu_torch.quantizers import quantize_w8a8
+
+    torch.manual_seed(seed)
+    with torch.device("meta"):
+        model = cls(**cfg)
+    materialize_(model, device, torch.bfloat16, lambda unit: quantize_w8a8(unit, W8A8_MIN_WEIGHT_SIZE))
+    return model.eval()
+
+
+def _sum_launches(*terms):
+    """The launch dict of `count x module launches` summed over (count, dict) terms."""
+    return _launches(**{name: sum(n * d[name] for n, d in terms) for name in launch_counters()})
+
+
+def _family_request(smi, label, pipe, calls, encodes, controlnet=None, **kwargs):
+    """One 1024 px request of a Flux-family pipeline: host seconds ending in a
+    synchronize, each transformer and ControlNet call, the VAE encodes and
+    the decode on CUDA events, peak memory; the launches held to `calls`
+    transformer (and ControlNet) calls, `encodes` VAE encodes and one decode
+    by the modules' counts; the uint8 image finite and of its size."""
+    import numpy as np
+    import torch
+
+    modules = {"transformer": pipe.transformer, "encode": pipe.vae.encoder, "decode": pipe.vae.decoder}
+    terms = [(calls, _module_launches(pipe.transformer)), (encodes, _module_launches(pipe.vae.encoder)),
+             (1, _module_launches(pipe.vae.decoder))]
+    if controlnet is not None:
+        modules["controlnet"] = controlnet
+        terms.append((calls, _module_launches(controlnet)))
+    expected = _sum_launches(*terms)
+    seen = []
+    hook = pipe.vae.decoder.register_forward_pre_hook(lambda m, a: seen.append(bool(torch.isfinite(a[0]).all())))
+    reset_launches()
+    try:
+        with CudaSpans(modules=modules) as spans:
+            images, seconds, peak_gb = _request_seconds(lambda: pipe(
+                generator=torch.Generator(device=pipe.device).manual_seed(SEED),
+                max_sequence_length=FLUX_MAX_SEQUENCE_LENGTH, output_type="pil", **kwargs).images)
+    finally:
+        hook.remove()
+    launches = read_launches()
+    ms = spans.ms()
+    image = np.asarray(images[0])
+    if image.shape != (RESOLUTION, RESOLUTION, 3) or image.dtype != np.uint8 or seen != [True]:
+        raise AssertionError(f"{label}: image {image.shape} {image.dtype}, finite latents into the decode {seen}")
+    if len(ms["transformer"]) != calls or len(ms["encode"]) != encodes or launches != expected:
+        raise AssertionError(f"{label}: {len(ms['transformer'])} transformer calls (expected {calls}), "
+                             f"{len(ms['encode'])} encodes (expected {encodes}), launches {launches} (expected "
+                             f"{expected})")
+    row = {"card": smi, "seconds_per_request": seconds, "transformer_calls": calls,
+           "transformer_ms_per_call": sum(ms["transformer"]) / calls, "encode_ms": ms["encode"],
+           "decode_ms": ms["decode"][0], "peak_memory_gb": peak_gb, "launches": launches,
+           "image_mean": float(image.mean())}
+    if controlnet is not None:
+        row["controlnet_ms_per_call"] = sum(ms["controlnet"]) / calls
+    log(f"[flux-family] {label} {smi}: {seconds:.3f} s/request ({calls} transformer calls, "
+        f"{row['transformer_ms_per_call']:.1f} ms a call"
+        + (f"; ControlNet {row['controlnet_ms_per_call']:.1f} ms a call" if controlnet is not None else "")
+        + f"; VAE encode {', '.join(f'{t:.1f} ms' for t in ms['encode']) or 'none'}, decode {row['decode_ms']:.1f} ms; "
+        f"CUDA "
+        f"events), peak {peak_gb:.1f} GB; launches K1 {launches['flash_attention_fwd']}, K4 {launches['group_norm']}, "
+        f"K5 {launches['w8a8_matmul']} (as the modules count)")
+    return row, launches
+
+
+def run_flux_family(smi: str, pipe):
+    """Phase 13c: the rest of the Flux family at full width through each
+    pipeline's `__call__` at 1024 px, on phase 13's FLUX.1-dev components
+    (random weights from SEED; synthetic image, mask and edge map):
+    img2img and inpaint (strength 0.6); Kontext with a 1024 px reference
+    (KONTEXT_STEPS steps, guidance 2.5: K1 at 8,704 tokens) and Kontext
+    inpaint; ControlNet at InstantX's Canny widths, plain, img2img and
+    inpaint, and its Union form; Redux (SigLIP so400m and the Redux encoder,
+    their embeds into a FLUX.1-dev request); then T5-XXL quantized to int4
+    in place on the card by bench.py's rule (resident bytes, a 512-token
+    encode's time and its embeds beside the bf16 tower's) and one FLUX.1-dev
+    request with it; then, each after freeing the transformer before it,
+    FLUX.1-Fill-dev (FILL_STEPS steps, guidance 30) and FLUX.1-Canny-dev
+    (Control: text-to-image, img2img, inpaint). Each request's launches are
+    held to its module counts. Returns the launches by path; the pipeline is
+    left with the int4 T5 and no transformer."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.models.controlnets.controlnet_flux import FluxControlNetModel
+    from diffusers_tpu_torch.models.text_encoders.siglip import SiglipVisionModel
+    from diffusers_tpu_torch.models.transformers.transformer_flux import FluxTransformer2DModel
+    from diffusers_tpu_torch.ops.module import Int4Linear
+    from diffusers_tpu_torch.pipelines import flux
+    from diffusers_tpu_torch.quantizers import quantize_int4
+
+    image, mask, edges = synthetic_inputs(RESOLUTION)
+    reference = np.ascontiguousarray(image[::-1])
+    out, paths = {}, {}
+    prompt = dict(prompt=FLUX_PROMPT)
+    cut = dict(num_inference_steps=FAMILY_STRENGTH_STEPS, strength=FAMILY_STRENGTH)
+
+    def request(label, cls, calls, encodes, controlnet=None, **kwargs):
+        extra = {} if controlnet is None else {"controlnet": controlnet}
+        sibling = cls.from_pipe(pipe, **extra)
+        out[label], paths[label] = _family_request(smi, label, sibling, calls, encodes, controlnet, **kwargs)
+
+    request("flux_img2img", flux.FluxImg2ImgPipeline, 4, 1, image=image, **prompt, **cut)
+    request("flux_inpaint", flux.FluxInpaintPipeline, 4, 1, image=image, mask_image=mask, **prompt, **cut)
+    request("flux_kontext", flux.FluxKontextPipeline, KONTEXT_STEPS, 1, image=reference, height=RESOLUTION,
+            width=RESOLUTION, num_inference_steps=KONTEXT_STEPS, guidance_scale=KONTEXT_GUIDANCE, **prompt)
+    request("flux_kontext_inpaint", flux.FluxKontextInpaintPipeline, FAMILY_CUT_STEPS, 1, image=image,
+            mask_image=mask, num_inference_steps=FAMILY_CUT_STEPS, guidance_scale=KONTEXT_GUIDANCE, **prompt)
+
+    for label, cfg, seed in (("controlnet", FLUX_CONTROLNET_CANNY, SEED + 30),
+                             ("controlnet_union", FLUX_CONTROLNET_UNION, SEED + 31)):
+        t0 = time.perf_counter()
+        cn = _flux_random_model(FluxControlNetModel, cfg, seed, pipe.device)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in cn.parameters())
+        log(f"[flux-family] built the {label} ({cfg}) at full width, w8a8, in {time.perf_counter() - t0:.1f} s: "
+            f"{n_params / 1e9:.3f} B parameters")
+        if label == "controlnet":
+            request("flux_controlnet", flux.FluxControlNetPipeline, FAMILY_CUT_STEPS, 1, controlnet=cn,
+                    control_image=edges, controlnet_conditioning_scale=0.7, height=RESOLUTION, width=RESOLUTION,
+                    num_inference_steps=FAMILY_CUT_STEPS, **prompt)
+            request("flux_controlnet_img2img", flux.FluxControlNetImg2ImgPipeline, 4, 2, controlnet=cn, image=image,
+                    control_image=edges, controlnet_conditioning_scale=0.7, **prompt, **cut)
+            request("flux_controlnet_inpaint", flux.FluxControlNetInpaintPipeline, 4, 2, controlnet=cn, image=image,
+                    mask_image=mask, control_image=edges, controlnet_conditioning_scale=0.7, **prompt, **cut)
+        else:
+            request("flux_controlnet_union", flux.FluxControlNetPipeline, FAMILY_CUT_STEPS, 1, controlnet=cn,
+                    control_image=edges, control_mode=UNION_MODE, height=RESOLUTION, width=RESOLUTION,
+                    num_inference_steps=FAMILY_CUT_STEPS, **prompt)
+        out[f"{label}_parameters"] = n_params
+        del cn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # Redux: SigLIP so400m's 729 tokens through the Redux encoder, appended to 512 zero T5 tokens
+    torch.manual_seed(SEED + 32)
+    with torch.device(pipe.device):
+        siglip = SiglipVisionModel(**SIGLIP_SO400M).to(torch.bfloat16).eval()
+        embedder = flux.ReduxImageEncoder(**REDUX_DEV).to(torch.bfloat16).eval()
+    redux = flux.FluxPriorReduxPipeline(image_encoder=siglip, image_embedder=embedder, device=pipe.device)
+    size = SIGLIP_SO400M["image_size"]
+    tokens = 512 + (size // SIGLIP_SO400M["patch_size"]) ** 2
+    pixels = torch.from_numpy(np.ascontiguousarray(synthetic_inputs(size)[0].transpose(2, 0, 1)[None]) * 2 - 1)
+    reset_launches()
+    with CudaSpans(modules={"siglip": siglip, "redux_encoder": embedder}) as spans:
+        embeds, redux_s, _ = _request_seconds(lambda: redux(pixels))
+    redux_launches = read_launches()
+    redux_ms = spans.ms()
+    if (embeds.prompt_embeds.shape != (1, tokens, REDUX_DEV["txt_in_features"])
+            or not bool(torch.isfinite(embeds.prompt_embeds).all())):
+        raise AssertionError(f"Redux embeds {tuple(embeds.prompt_embeds.shape)} or non-finite")
+    native = _attention_costs([SIGLIP_ATTENTION])
+    out["redux_embeds"] = {"seconds": redux_s, "siglip_ms": redux_ms["siglip"][0],
+                           "redux_encoder_ms": redux_ms["redux_encoder"][0], "launches": redux_launches,
+                           "siglip_parameters": sum(p.numel() for p in siglip.parameters()),
+                           "siglip_attention_native_vs_sdpa": native[0]}
+    log(f"[flux-family] Redux {smi}: {redux_s:.3f} s (SigLIP so400m {redux_ms['siglip'][0]:.1f} ms, Redux encoder "
+        f"{redux_ms['redux_encoder'][0]:.1f} ms; CUDA events); launches {redux_launches} (heads of 72: `native`); its "
+        f"27 attentions `native` {native[1]:.3f} ms, SDPA {native[2]:.3f} ms (device time)")
+    request("flux_redux", flux.FluxPipeline, FAMILY_CUT_STEPS, 0, prompt_embeds=embeds.prompt_embeds,
+            pooled_prompt_embeds=embeds.pooled_prompt_embeds, height=RESOLUTION, width=RESOLUTION,
+            num_inference_steps=FAMILY_CUT_STEPS, guidance_scale=FLUX_GUIDANCE)
+    del redux, siglip, embedder, embeds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bench.py's int4 T5-XXL: the pipeline's bf16 tower quantized in place on the card
+    t5 = pipe.text_encoder_2
+    ids = pipe._ids(pipe.tokenizer_2, [FLUX_PROMPT], FLUX_MAX_SEQUENCE_LENGTH)
+
+    def tower_bytes():
+        return sum(t.numel() * t.element_size() for t in (*t5.parameters(), *t5.buffers()))
+
+    with torch.no_grad():
+        bf16_embeds = t5(ids).last_hidden_state
+        bf16_ms = time_ms(lambda: t5(ids), iters=5)
+    bf16_bytes, before = tower_bytes(), torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    quantize_int4(t5, min_weight_size=W8A8_MIN_WEIGHT_SIZE, group_size=128)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed_gb = (before - torch.cuda.memory_allocated()) / 1e9
+    with torch.no_grad():
+        int4_embeds = t5(ids).last_hidden_state
+        int4_ms = time_ms(lambda: t5(ids), iters=5)
+    a, b = bf16_embeds.float().flatten(), int4_embeds.float().flatten()
+    int4 = {"card": smi, "bf16_bytes": bf16_bytes, "int4_bytes": tower_bytes(), "freed_gb": freed_gb,
+            "int4_linears": sum(isinstance(m, Int4Linear) for m in t5.modules()), "quantize_seconds": quantize_s,
+            "bf16_encode_ms": bf16_ms, "int4_encode_ms": int4_ms, "max_abs_diff": float((a - b).abs().max()),
+            "bf16_max_abs": float(a.abs().max()), "cosine": float(torch.dot(a, b) / (a.norm() * b.norm()))}
+    out["t5_xxl_int4"] = int4
+    log(f"[flux-family] T5-XXL int4 (bench.py's rule, {int4['int4_linears']} Int4Linears, group 128) {smi}: resident "
+        f"{int4['int4_bytes'] / 1e9:.3f} GB against the bf16 tower's {bf16_bytes / 1e9:.3f} GB "
+        f"({freed_gb:.3f} GB freed); "
+        f"a 512-token encode {int4_ms:.1f} ms (bf16 {bf16_ms:.1f} ms; CUDA events); prompt embeds max |diff| "
+        f"{int4['max_abs_diff']:.3e} (bf16 max |x| {int4['bf16_max_abs']:.3e}), cosine {int4['cosine']:.6f}; "
+        f"quantized in {quantize_s:.1f} s")
+    # random weights: int4's error (about a tenth of a group's rms a weight) compounds over the 24 layers, so the
+    # cosine is reported and held only to > 0.5, which a wrong nibble or group order breaks (cosine near 0)
+    if not (int4["int4_linears"] == t5.config.num_layers * 7 and int4["cosine"] > 0.5
+            and bool(torch.isfinite(b).all())):
+        raise AssertionError(f"the int4 T5-XXL: {int4}")
+    del bf16_embeds, int4_embeds, a, b
+    request("flux_t5_int4", flux.FluxPipeline, FAMILY_CUT_STEPS, 0, height=RESOLUTION, width=RESOLUTION,
+            num_inference_steps=FAMILY_CUT_STEPS, guidance_scale=FLUX_GUIDANCE, **prompt)
+
+    # Fill, then Canny (Control), each built after the transformer before it is freed
+    for label, cfg, seed in (("fill", FLUX_FILL_DEV, SEED + 33), ("canny", FLUX_CANNY_DEV, SEED + 34)):
+        pipe.transformer = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pipe.transformer = _flux_random_model(FluxTransformer2DModel, cfg, seed, pipe.device)
+        torch.cuda.synchronize()
+        out[f"{label}_build_seconds"] = time.perf_counter() - t0
+        log(f"[flux-family] built the {label} transformer (in_channels {cfg['in_channels']}) at full width and depth, "
+            f"w8a8, in {out[f'{label}_build_seconds']:.1f} s; {torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+        if label == "fill":
+            request("flux_fill", flux.FluxFillPipeline, FILL_STEPS, 1, image=image, mask_image=mask,
+                    num_inference_steps=FILL_STEPS, guidance_scale=FILL_GUIDANCE, **prompt)
+        else:
+            request("flux_control", flux.FluxControlPipeline, FAMILY_CUT_STEPS, 1, control_image=edges,
+                    height=RESOLUTION, width=RESOLUTION, num_inference_steps=FAMILY_CUT_STEPS, **prompt)
+            request("flux_control_img2img", flux.FluxControlImg2ImgPipeline, 4, 2, image=image, control_image=edges,
+                    **prompt, **cut)
+            request("flux_control_inpaint", flux.FluxControlInpaintPipeline, 4, 2, image=image, control_image=edges,
+                    mask_image=mask, **prompt, **cut)
+    pipe.transformer = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    RESULTS["flux_family"] = out
+    return paths
+
+
 # ------------------------------------------------------------------ phase 18: pipelines from disk
 
 
@@ -4961,6 +5447,7 @@ def main() -> int:
     summary.update(timed(check_flash_bwd))
     timed(check_small_reference)
     timed(check_small_flux_reference)
+    timed(check_small_flux_family)
     timed(check_small_training)
     timed(check_small_caches)
     timed(check_small_image_pipelines)
@@ -4983,6 +5470,7 @@ def main() -> int:
     flux, pipe, image = timed(run_flux_pipeline, smi)
     paths.update(flux=flux, **timed(run_flux_cached, smi, pipe, image))
     paths.update(timed(run_vae_tiling, smi, pipe))
+    paths.update(timed(run_flux_family, smi, pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()

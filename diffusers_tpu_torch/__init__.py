@@ -25,6 +25,23 @@ _EXPORTS = {
     "PNDMScheduler": "diffusers_tpu_torch.schedulers",
     "DDIMScheduler": "diffusers_tpu_torch.schedulers",
     "FluxPipeline": "diffusers_tpu_torch.pipelines.flux.pipeline_flux",
+    "FluxImg2ImgPipeline": "diffusers_tpu_torch.pipelines.flux",
+    "FluxInpaintPipeline": "diffusers_tpu_torch.pipelines.flux",
+    "FluxFillPipeline": "diffusers_tpu_torch.pipelines.flux",
+    "FluxKontextPipeline": "diffusers_tpu_torch.pipelines.flux",
+    "FluxKontextInpaintPipeline": "diffusers_tpu_torch.pipelines.flux",
+    "FluxControlPipeline": "diffusers_tpu_torch.pipelines.flux",
+    "FluxControlImg2ImgPipeline": "diffusers_tpu_torch.pipelines.flux",
+    "FluxControlInpaintPipeline": "diffusers_tpu_torch.pipelines.flux",
+    "FluxControlNetPipeline": "diffusers_tpu_torch.pipelines.flux",
+    "FluxControlNetImg2ImgPipeline": "diffusers_tpu_torch.pipelines.flux",
+    "FluxControlNetInpaintPipeline": "diffusers_tpu_torch.pipelines.flux",
+    "FluxPriorReduxPipeline": "diffusers_tpu_torch.pipelines.flux",
+    "ReduxImageEncoder": "diffusers_tpu_torch.pipelines.flux",
+    "FluxTransformer2DModel": "diffusers_tpu_torch.models.transformers.transformer_flux",
+    "FluxControlNetModel": "diffusers_tpu_torch.models.controlnets.controlnet_flux",
+    "FluxMultiControlNetModel": "diffusers_tpu_torch.models.controlnets.controlnet_flux",
+    "SiglipVisionModel": "diffusers_tpu_torch.models.text_encoders.siglip",
     "StableDiffusion3Pipeline": "diffusers_tpu_torch.pipelines.stable_diffusion_3",
     "WanPipeline": "diffusers_tpu_torch.pipelines.wan",
     "WanImageToVideoPipeline": "diffusers_tpu_torch.pipelines.wan",

@@ -3,7 +3,9 @@ from the JAX package.
 
 Port of the layout rules of `diffusers_tpu/models/modeling_utils.py`
 (`_leaf_convert_to_torch` `:86-99`), extended to the w8a8 Linear branch
-(int8 ``kernel`` + ``kernel_scale_w8a8``) and RMSNorm's ``scale``, of
+(int8 ``kernel`` + ``kernel_scale_w8a8``), the group-wise int4 branch
+(nibble-packed ``kernel`` + ``kernel_scale_int4``, both transposed) and
+RMSNorm's ``scale``, of
 `ModelMixin.save_pretrained` (`:526-560`): `config.json` plus
 `diffusion_pytorch_model[.variant].safetensors`, sharded with its
 `.index.json` above `max_shard_size`, and of `ModelMixin.from_pretrained`
@@ -13,8 +15,9 @@ layout: the text encoders read and write transformers' (`model.safetensors`,
 or `model-0000i-of-0000n.safetensors` shards with
 `model.safetensors.index.json`) and keep only the keys of their encoder, as
 the JAX text encoders' `from_pretrained` do. `quantization_config` quantizes
-on load: the Linears the config selects (`quantizers.quantize.w8a8_linear_names`,
-JAX's rule) become `W8A8Linear`s on the meta model, and each float weight is
+on load: the Linears the config selects (`quantizers.quantize.w8a8_linear_names`
+or `int4_linear_names`, JAX's rules) become `W8A8Linear`s or `Int4Linear`s
+on the meta model, and each float weight is
 quantized on the device as it arrives.
 
 The safetensors files are read and written with the standard library (an
@@ -37,9 +40,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.module import RMSNorm, W8A8Linear
+from ..ops.module import Int4Linear, RMSNorm, W8A8Linear
 from ..quantizers.auto import resolve_quantization_config
-from ..quantizers.quantize import quantize_kernel_int8, replace_with_w8a8, w8a8_linear_names
+from ..quantizers.quantization_config import Int4WeightOnlyConfig
+from ..quantizers.quantize import (
+    int4_linear_names,
+    quantize_kernel_int4,
+    quantize_kernel_int8,
+    replace_with_int4,
+    replace_with_w8a8,
+    w8a8_linear_names,
+)
 
 CONFIG_NAME = "config.json"
 SAFETENSORS_WEIGHTS_NAME = "diffusion_pytorch_model.safetensors"
@@ -261,7 +272,10 @@ class ModelMixin(nn.Module):
         w8a8 become `W8A8Linear`s before any tensor is read; a float weight
         is cast to `dtype` and quantized on `device` as it arrives
         (`quantize_kernel_int8`), and an int8 weight with its `weight_scale`
-        (the port's own w8a8 save) loads as it is. The other configs raise
+        (the port's own w8a8 save) loads as it is. `Int4WeightOnlyConfig`
+        does the same with `Int4Linear`s (JAX's int4 rule,
+        `quantize_kernel_int4` at the config's ``group_size``). The int8 and
+        fp8 weight-only configs raise
         `NotImplementedError`, as do `gguf_file` and `mesh`. The default
         device is the card: without one this raises; pass ``device="cpu"``
         to load on the CPU."""
@@ -282,7 +296,10 @@ class ModelMixin(nn.Module):
         with torch.device("meta"):
             model = cls.from_config(cls.load_config(model_path), **kwargs)
         quantized = []
-        if quantization_config is not None:
+        if isinstance(quantization_config, Int4WeightOnlyConfig):
+            quantized = int4_linear_names(model, quantization_config)
+            replace_with_int4(model, quantized, quantization_config.group_size)
+        elif quantization_config is not None:
             quantized = w8a8_linear_names(model, quantization_config)
             replace_with_w8a8(model, quantized)
         expected = model.state_dict(keep_vars=True)
@@ -311,18 +328,24 @@ class ModelMixin(nn.Module):
                 target = expected[key]
                 module_name, _, leaf = key.rpartition(".")
                 module = model.get_submodule(module_name)
-                if (tensor.shape != target.shape and leaf in getattr(module, "reshape_on_load", ())
+                target_shape = target.shape
+                if isinstance(module, Int4Linear) and leaf == "weight" and module_name in on_arrival:
+                    target_shape = (module.out_features, module.in_features)  # the float weight, packed below
+                if (tensor.shape != target_shape and leaf in getattr(module, "reshape_on_load", ())
                         and tensor.numel() == target.numel()):
-                    tensor = tensor.reshape(target.shape)  # e.g. WanRMSNorm.gamma as the JAX package writes it
-                if tensor.shape != target.shape:
+                    tensor = tensor.reshape(target_shape)  # e.g. WanRMSNorm.gamma as the JAX package writes it
+                if tensor.shape != target_shape:
                     raise ValueError(f"{cls.__name__}.from_pretrained: {key} has shape {tuple(tensor.shape)} in "
-                                     f"{f}, the model expects {tuple(target.shape)}")
+                                     f"{f}, the model expects {tuple(target_shape)}")
                 cast = dtype if dtype is not None and tensor.is_floating_point() else tensor.dtype
-                if isinstance(module, W8A8Linear) and leaf == "weight_scale":
-                    cast = torch.float32  # the f32 epilogue scale, whatever `dtype` is
+                if isinstance(module, (W8A8Linear, Int4Linear)) and leaf == "weight_scale":
+                    cast = torch.float32  # the f32 scales, whatever `dtype` is
                 value = tensor.to(device=device, dtype=cast, copy=True)
-                if isinstance(module, W8A8Linear) and leaf == "weight":
-                    if module_name in on_arrival:
+                if isinstance(module, (W8A8Linear, Int4Linear)) and leaf == "weight":
+                    if module_name in on_arrival and isinstance(module, Int4Linear):
+                        value, module._buffers["weight_scale"] = quantize_kernel_int4(
+                            value, quantization_config.group_size)
+                    elif module_name in on_arrival:
                         value, module._buffers["weight_scale"] = quantize_kernel_int8(value)
                     elif value.dtype != torch.int8:
                         raise ValueError(f"{cls.__name__}.from_pretrained: {key} is {value.dtype} beside a "
@@ -344,6 +367,8 @@ def _leaf_to_torch(module: nn.Module, name: str, array: np.ndarray):
         return "weight", array.T
     if isinstance(module, W8A8Linear) and name == "kernel_scale_w8a8":
         return "weight_scale", array
+    if isinstance(module, Int4Linear) and name in ("kernel", "kernel_scale_int4"):  # [.., out] -> [out, ..]
+        return ("weight" if name == "kernel" else "weight_scale"), array.T
     if hasattr(module, "jax_leaf_to_torch"):  # a layer that keeps its own JAX layout (Animate's MotionConv2d)
         return module.jax_leaf_to_torch(name, array)
     if isinstance(module, nn.Conv1d) and name == "kernel":  # KIO -> OIK
@@ -375,6 +400,11 @@ def load_jax_params(module: nn.Module, tree: Dict[Any, Any]) -> nn.Module:
                 if "kernel_scale_w8a8" in v and isinstance(child, nn.Linear):
                     with torch.device(child.weight.device):
                         child = W8A8Linear(child.in_features, child.out_features, use_bias=child.bias is not None)
+                    setattr(mod, str(k), child)
+                elif "kernel_scale_int4" in v and isinstance(child, nn.Linear):
+                    with torch.device(child.weight.device):
+                        child = Int4Linear(child.in_features, child.out_features, np.shape(v["kernel_scale_int4"])[0],
+                                           use_bias=child.bias is not None)
                     setattr(mod, str(k), child)
                 walk(child, v, f"{prefix}{k}.")
                 continue

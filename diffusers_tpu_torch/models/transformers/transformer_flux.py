@@ -14,13 +14,20 @@ forwards of `diffusers_tpu_torch.hooks` share. Pyramid Attention Broadcast
 attention or its q/k/v/out projections, and each block reuses its cached
 attention output.
 
-Left for later: the `scan_blocks` path and ControlNet residuals.
+ControlNet residuals (JAX `:392-409`): `controlnet_block_samples` is added
+after each dual block, sample ``i // ceil(num_layers / len(samples))`` (the
+interval rule) or, with `controlnet_blocks_repeat` (an XLabs ControlNet),
+sample ``i % len(samples)``; `controlnet_single_block_samples` after each
+single block by the interval rule, to the image tokens the block returns.
+
+Left for later: the `scan_blocks` path.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -237,13 +244,25 @@ class FluxTransformer2DModel(ModelMixin, ConfigMixin):
             image_rotary_emb = (cos.to(hidden_states.device), sin.to(hidden_states.device))
         return hidden_states, context, temb, image_rotary_emb
 
-    def run_blocks(self, hidden_states, context, temb, image_rotary_emb, first: int = 0):
-        """The dual blocks from index `first`, then the single blocks:
-        (hidden, context)."""
-        for block in self.transformer_blocks[first:]:
+    def run_blocks(self, hidden_states, context, temb, image_rotary_emb, first: int = 0,
+                   controlnet_block_samples: Optional[Sequence[torch.Tensor]] = None,
+                   controlnet_single_block_samples: Optional[Sequence[torch.Tensor]] = None,
+                   controlnet_blocks_repeat: bool = False):
+        """The dual blocks from index `first`, then the single blocks, each
+        followed by its ControlNet residual when samples are given (module
+        docstring): (hidden, context)."""
+        n_dual, n_single = len(self.transformer_blocks), len(self.single_transformer_blocks)
+        for i in range(first, n_dual):
+            context, hidden_states = self.transformer_blocks[i](hidden_states, context, temb, image_rotary_emb)
+            if controlnet_block_samples is not None:
+                n = len(controlnet_block_samples)
+                j = i % n if controlnet_blocks_repeat else i // math.ceil(n_dual / n)
+                hidden_states = hidden_states + controlnet_block_samples[j]
+        for i, block in enumerate(self.single_transformer_blocks):
             context, hidden_states = block(hidden_states, context, temb, image_rotary_emb)
-        for block in self.single_transformer_blocks:
-            context, hidden_states = block(hidden_states, context, temb, image_rotary_emb)
+            if controlnet_single_block_samples is not None:
+                hidden_states = hidden_states + controlnet_single_block_samples[
+                    i // math.ceil(n_single / len(controlnet_single_block_samples))]
         return hidden_states, context
 
     def project_out(self, hidden_states, temb):
@@ -263,6 +282,9 @@ class FluxTransformer2DModel(ModelMixin, ConfigMixin):
         pab_compute: Optional[bool] = None,  # PAB: recompute attention this step?
         pab_cache: Optional[dict] = None,  # stacked per-block attention outputs (hooks/pyramid_attention_broadcast.py)
         context: Optional[torch.Tensor] = None,  # context_embedder(encoder_hidden_states), if the caller has it
+        controlnet_block_samples: Optional[Sequence[torch.Tensor]] = None,  # residuals after the dual blocks
+        controlnet_single_block_samples: Optional[Sequence[torch.Tensor]] = None,  # ... after the single blocks
+        controlnet_blocks_repeat: bool = False,  # dual residuals by i % n (XLabs) instead of the interval rule
         return_dict: bool = True,
     ) -> Union[Transformer2DModelOutput, tuple]:
         hidden_states, context, temb, image_rotary_emb = self.embed(
@@ -286,7 +308,10 @@ class FluxTransformer2DModel(ModelMixin, ConfigMixin):
                     pab_cache["single_attn"][i].copy_(a)
             return self.project_out(hidden_states, temb), pab_cache
 
-        hidden_states, _ = self.run_blocks(hidden_states, context, temb, image_rotary_emb)
+        hidden_states, _ = self.run_blocks(hidden_states, context, temb, image_rotary_emb,
+                                           controlnet_block_samples=controlnet_block_samples,
+                                           controlnet_single_block_samples=controlnet_single_block_samples,
+                                           controlnet_blocks_repeat=controlnet_blocks_repeat)
         output = self.project_out(hidden_states, temb)
         if not return_dict:
             return (output,)

@@ -1,7 +1,8 @@
 """Leaf layers as torch modules in torch layouts.
 
 Port of `diffusers_tpu/ops/module.py` (`Linear` with its w8a8 branch
-`:145-150`, `Conv2d`, `Conv3d` `:245`, `Conv1d` `:296`, `GroupNorm` `:476-510`, `LayerNorm`,
+`:145-150`, its group-wise int4 branch `:151-158`, `Conv2d`, `Conv3d` `:245`,
+`Conv1d` `:296`, `GroupNorm` `:476-510`, `LayerNorm`,
 `RMSNorm` `:542-567`, `Embedding`, `get_activation`). The JAX package keeps
 parameters in an external pytree in TPU layouts (``kernel`` [in, out], HWIO,
 ``scale``); here they live on the modules under torch's names and layouts
@@ -60,6 +61,44 @@ class W8A8Linear(nn.Module):
 
     def extra_repr(self) -> str:
         return f"in_features={self.in_features}, out_features={self.out_features}, bias={self.bias is not None}"
+
+
+class Int4Linear(nn.Module):
+    """The group-wise int4 weight-only branch of `Linear` (JAX params
+    ``kernel`` nibble-packed int8 [ceil(in/2), out] + ``kernel_scale_int4``
+    f32 [groups, out]): ``weight`` int8 [out, ceil(in/2)], two input columns
+    a byte (column 2j in the low nibble, 2j + 1 in the high), and
+    ``weight_scale`` f32 [out, groups], one scale per group of
+    ``in / groups`` inputs. Each call unpacks and scales the weight in x's
+    dtype (`quantizers.quantize.dequantize_int4`, JAX's op order) and takes
+    one matmul; the dequantized weight lives only for that call. A dtype cast
+    of the module casts the bias alone."""
+
+    def __init__(self, in_features: int, out_features: int, groups: int = 1, use_bias: bool = True):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = nn.Parameter(torch.zeros(out_features, (in_features + 1) // 2, dtype=torch.int8),
+                                   requires_grad=False)
+        self.register_buffer("weight_scale", torch.ones(out_features, groups, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ..quantizers.quantize import dequantize_int4
+
+        weight = dequantize_int4(self.weight, self.weight_scale, x.dtype, self.in_features)
+        return F.linear(x, weight, None if self.bias is None else self.bias.to(x.dtype))
+
+    def _apply(self, fn, recurse=True):
+        scale = self.weight_scale
+        super()._apply(fn, recurse)
+        if self.weight_scale.dtype != torch.float32:  # a dtype cast: keep the f32 scales as they are
+            self.weight_scale = scale.to(device=self.weight_scale.device)
+        return self
+
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, out_features={self.out_features}, "
+                f"groups={self.weight_scale.shape[1]}, bias={self.bias is not None}")
 
 
 class Conv2d(nn.Conv2d):

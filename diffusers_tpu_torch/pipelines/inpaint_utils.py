@@ -1,8 +1,9 @@
 """Mask and strength helpers of the image-conditioned pipelines.
 
 Port of `diffusers_tpu/pipelines/inpaint_utils.py` (`as_mask_array`,
-`resize_mask_nearest`, `repeat_to_batch`, `check_strength_and_schedule`).
-Host-side numpy, except `repeat_to_batch`, which also takes tensors. PIL is
+`resize_mask_nearest`, `repeat_to_batch`, `prepare_packed_mask`,
+`check_strength_and_schedule`). Host-side numpy, except `repeat_to_batch`,
+which also takes tensors, and `prepare_packed_mask`, which returns one. PIL is
 imported only when a PIL mask is passed.
 """
 
@@ -55,6 +56,15 @@ def repeat_to_batch(x, batch_size: int, what: str = "input"):
     if isinstance(x, torch.Tensor):
         return x.repeat_interleave(reps, dim=0)
     return np.repeat(x, reps, axis=0)
+
+
+def prepare_packed_mask(mask: np.ndarray, batch_size: int, num_channels_latents: int, lh: int, lw: int,
+                        pack_fn) -> torch.Tensor:
+    """A binary NCHW pixel mask -> nearest resize to the latent size ->
+    repeated over the latent channels and up to `batch_size` -> `pack_fn`
+    (Flux's 2 x 2 packing): a float32 tensor on the CPU."""
+    m = np.repeat(resize_mask_nearest(mask, lh, lw), num_channels_latents, axis=1)
+    return pack_fn(torch.from_numpy(np.ascontiguousarray(repeat_to_batch(m, batch_size, what="mask"))))
 
 
 def check_strength_and_schedule(strength: float, timesteps) -> None:

@@ -41,6 +41,8 @@ _CLASS_REGISTRY: Dict[str, str] = {
     "UNet2DConditionModel": "diffusers_tpu_torch.models.unets.unet_2d_condition.UNet2DConditionModel",
     "AutoencoderKL": "diffusers_tpu_torch.models.autoencoders.autoencoder_kl.AutoencoderKL",
     "ControlNetModel": "diffusers_tpu_torch.models.controlnets.controlnet.ControlNetModel",
+    "FluxControlNetModel": "diffusers_tpu_torch.models.controlnets.controlnet_flux.FluxControlNetModel",
+    "ReduxImageEncoder": "diffusers_tpu_torch.pipelines.flux.modeling_flux.ReduxImageEncoder",
     "FluxTransformer2DModel": "diffusers_tpu_torch.models.transformers.transformer_flux.FluxTransformer2DModel",
     "SD3Transformer2DModel": "diffusers_tpu_torch.models.transformers.transformer_sd3.SD3Transformer2DModel",
     "WanTransformer3DModel": "diffusers_tpu_torch.models.transformers.transformer_wan.WanTransformer3DModel",
@@ -65,6 +67,7 @@ _CLASS_REGISTRY: Dict[str, str] = {
     "CLIPVisionModelWithProjection": "diffusers_tpu_torch.models.text_encoders.clip.CLIPVisionModelWithProjection",
     "T5EncoderModel": "diffusers_tpu_torch.models.text_encoders.t5.T5EncoderModel",
     "UMT5EncoderModel": "diffusers_tpu_torch.models.text_encoders.t5.UMT5EncoderModel",
+    "SiglipVisionModel": "diffusers_tpu_torch.models.text_encoders.siglip.SiglipVisionModel",
 }
 
 # loaded with transformers' own from_pretrained (host-side preprocessing; JAX `_TOKENIZER_CLASSES`)
@@ -72,7 +75,7 @@ _TOKENIZER_CLASSES = {
     "CLIPTokenizer", "CLIPTokenizerFast", "T5Tokenizer", "T5TokenizerFast", "AutoTokenizer",
     "GemmaTokenizer", "GemmaTokenizerFast", "Qwen2Tokenizer", "Qwen2TokenizerFast",
     "CLIPImageProcessor", "CLIPFeatureExtractor", "Gemma3Processor", "Qwen2VLProcessor",
-    "ByT5Tokenizer", "XLMRobertaTokenizer", "XLMRobertaTokenizerFast",
+    "ByT5Tokenizer", "XLMRobertaTokenizer", "XLMRobertaTokenizerFast", "SiglipImageProcessor",
 }
 
 

@@ -6,4 +6,16 @@ from .quantization_config import (
     Int8WeightOnlyConfig,
     QuantizationConfig,
 )
-from .quantize import quantize_kernel_int8, quantize_linears, quantize_w8a8, w8a8_linear_names
+from .quantize import (
+    dequantize_int4,
+    int4_linear_names,
+    pack_int4_rows,
+    quantize_int4,
+    quantize_int4_linears,
+    quantize_kernel_int4,
+    quantize_kernel_int8,
+    quantize_linears,
+    quantize_w8a8,
+    unpack_int4_rows,
+    w8a8_linear_names,
+)

@@ -3,9 +3,10 @@
 The port's own copy of `diffusers_tpu/quantizers/quantization_config.py`
 (`:17-77`): the same four dataclasses, fields and defaults, so a config
 written for one package means the same in the other. What the port does
-with each is in `quantize.py`: `Int8DynamicActConfig` (w8a8, kernel K5)
-quantizes on load; the weight-only configs and the per-tensor ``impl="xla"``
-path raise until they are ported (ROADMAP A6.1, A6.2).
+with each is in `quantize.py`: `Int8DynamicActConfig` (w8a8, kernel K5) and
+`Int4WeightOnlyConfig` (group-wise int4, `Int4Linear`) quantize on load; the
+int8 and fp8 weight-only configs and the per-tensor ``impl="xla"`` path
+raise until they are ported (ROADMAP A6.2).
 """
 
 from __future__ import annotations

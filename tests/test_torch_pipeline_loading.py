@@ -272,13 +272,17 @@ class _WithConv(ModelMixin, ConfigMixin):
 
 
 @pytest.mark.parametrize("config, item", [
-    (Int8WeightOnlyConfig(), "A6.2"), (Fp8WeightOnlyConfig(), "A6.2"), (Int4WeightOnlyConfig(), "A6.1"),
+    (Int8WeightOnlyConfig(), "A6.2"), (Fp8WeightOnlyConfig(), "A6.2"), (Int4WeightOnlyConfig(), None),
     (Int8DynamicActConfig(impl="xla"), "A6.2"), ("conv", "A6.2"),
 ], ids=["int8-weight-only", "fp8-weight-only", "int4-weight-only", "w8a8-xla", "w8a8-conv"])
 def test_unported_quantization_configs_raise(tmp_path, config, item):
     model = _WithConv(conv_in=512 if config == "conv" else 8)  # fan_in 4608 x 256 out: JAX's int8 conv gate
     model.save_pretrained(tmp_path)
     config = Int8DynamicActConfig() if config == "conv" else config
+    if item is None:  # int4 is ported (ROADMAP A6.1): the Linear loads as an Int4Linear, the conv as it is
+        loaded = _WithConv.from_pretrained(tmp_path, device="cpu", quantization_config=config)
+        assert type(loaded.proj).__name__ == "Int4Linear" and isinstance(loaded.conv, torch.nn.Conv2d)
+        return
     with pytest.raises(NotImplementedError, match=item):
         _WithConv.from_pretrained(tmp_path, device="cpu", quantization_config=config)
     assert len(w8a8_linear_names(_WithConv(), Int8DynamicActConfig())) == 1  # the 8-channel conv is left alone
