@@ -4,8 +4,8 @@ against its plain PyTorch version at the shapes of the main paths, checks the
 port on the card against the port on the CPU at a small size (every cache
 config and callback, the image-conditioned pipelines, the SD3 pipelines and
 the Wan pipelines, VACE, Animate and SkyReels-V2, the SD 1.x pipelines, the
-T2I-Adapter, each IP-Adapter head and the Flux family with the int4 Linear
-included), then
+T2I-Adapter, each IP-Adapter head, the Flux family with the int4 Linear
+included, and the SD, SDXL, Union and SD3 ControlNet pipelines), then
 drives the main paths through their public entry points, with random weights
 made from a seed on the card:
 
@@ -81,6 +81,19 @@ made from a seed on the card:
     the adapter unloaded and phase 11's image again, bit-equal; whole and
     tiled decodes of 1024 and 2048 px latents on Flux's VAE and one Flux
     request with tiling on (phase 13b);
+  * the ControlNet family (phase 24; each request warmed up once, then
+    timed on CUDA events, a denoiser and a ControlNet call timed apart): on
+    phase 11's SDXL, ControlNet img2img (0.3) and inpaint (0.99), then
+    ControlNet-Union (xinsir/controlnet-union-sdxl-1.0's layout) text-to-
+    image, img2img and inpaint and two Union nets as a
+    MultiControlNetUnionModel; on phase 23's SD 1.5, a ControlNet at
+    lllyasviel/control_v11p_sd15_canny's widths, text-to-image, img2img,
+    inpaint and two nets as a Multi-ControlNet; on phase 16's SD3.5 Medium,
+    the SD3 ControlNet built by `SD3ControlNetModel.from_transformer` (12
+    joint blocks with the base's dual attention), 28 steps (kernels K1, K4;
+    SD 1.5's heads run `native`); one request of each family first runs 4
+    steps on the kernels and on the plain routes on the card, the two images
+    within 0.05;
   * pipelines from disk (phase 18): SDXL written with `save_pretrained` and
     read back with `StableDiffusionXLPipeline.from_pretrained(dir,
     dtype=torch.bfloat16)`, one request; SD3.5 Medium given real tokenizers
@@ -121,6 +134,7 @@ with f32 weights. float32 references run in full float32: this script sets
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -593,6 +607,46 @@ SMALL_SD_UNET = dict(
 )
 SMALL_T2I_ADAPTER = dict(in_channels=1, channels=(64, 128), num_res_blocks=1, downscale_factor=2)
 SMALL_VISION_PROJ = dict(SMALL_CLIP_VISION, projection_dim=48)
+
+# phase 10h: the ControlNet family on small components, card bf16 against CPU f32: phase 10g's SD pipeline with an
+# SD-shaped ControlNet (SMALL_SD_UNET's down half: heads of 64 and 128, so K1 runs; its conditioning embedding halves
+# the image, as SMALL_VAE does), phase 10b's SDXL pipeline with SMALL_CONTROLNET and a Union net of its widths (the
+# union transformer 64 wide, 8 heads; its zero-initialised spatial_ch_projs made random so the fusion acts), and phase
+# 10c's SD3.5-style pipeline with a ControlNet by the from_transformer rule (2 blocks, residual projections and
+# pos_embed_input made random so the residuals act)
+SMALL_SD_CONTROLNET = dict(
+    in_channels=4, down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"), block_out_channels=(64, 128),
+    layers_per_block=1, attention_head_dim=1, cross_attention_dim=32, use_linear_projection=False,
+    conditioning_embedding_out_channels=(16, 32),
+)
+SMALL_UNION = dict(SMALL_CONTROLNET, num_control_type=6, num_trans_channel=64, num_trans_head=8, num_proj_channel=64)
+SMALL_SD3_CONTROLNET_LAYERS = 2
+SMALL_CONTROLNET_STEPS = 4
+# phase 24: the ControlNet family at full width. SD 1.5: lllyasviel/control_v11p_sd15_canny's config.json (the SD 1.5
+# UNet's down half: (320, 640, 1280, 1280), 8 heads of 40/80/160, cross_attention_dim 768, conditioning channels
+# (16, 32, 96, 256); 361 M parameters) on phase 23's pipeline, 512 px, PNDM 50 steps, CFG 7.5; img2img and inpaint at
+# phase 23's strengths; one Multi-ControlNet request with two such nets. SDXL: phase 12b's SDXL_CONTROLNET on phase 11's
+# pipeline, img2img at 0.3 and inpaint at 0.99, 1024 px, 30 steps, CFG 5.0. ControlNet-Union:
+# xinsir/controlnet-union-sdxl-1.0's layout, SDXL_CONTROLNET's widths with the union fields at their defaults
+# (6 control types, a 320-wide transformer of 1 layer with 8 heads, projection 320), text-to-image, img2img (0.3) and
+# inpaint (0.99), and one MultiControlNetUnion request with two nets (canny on the edge map, depth on the image). SD3:
+# the joint-block kind (InstantX's layout) built from phase 16's SD3.5 Medium transformer by the from_transformer rule
+# (JAX's default of 12 blocks, no extra conditioning channel; upstream's rule, so the blocks keep the base's dual
+# attention and qk RMSNorm), its residual projections and pos_embed_input random from SEED; 1024 px, 28 steps,
+# CFG 7.0. Every request runs once at CONTROLNET_WARMUP_STEPS as a warm-up, then is timed on CUDA events; one request
+# of each family (SD 1.5 text-to-image, SDXL inpaint, Union text-to-image, SD3) runs its warm-up twice, on the kernels
+# and on the plain routes on the card, and holds the two images together
+SD15_CONTROLNET = dict(
+    in_channels=4, down_block_types=("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",),
+    block_out_channels=(320, 640, 1280, 1280), layers_per_block=2, attention_head_dim=8, cross_attention_dim=768,
+    use_linear_projection=False, conditioning_embedding_out_channels=(16, 32, 96, 256),
+)
+SDXL_UNION = dict(SDXL_CONTROLNET, num_control_type=6, num_trans_channel=320, num_trans_head=8, num_trans_layer=1,
+                  num_proj_channel=320)
+UNION_CANNY, UNION_DEPTH = 3, 1  # xinsir's task indices
+SD3_CONTROLNET_LAYERS = 12
+SD15_CONTROLNET_SCALE = 1.0
+CONTROLNET_WARMUP_STEPS = 4
 
 RESULTS = {}
 
@@ -4289,7 +4343,7 @@ def run_sd15(smi: str):
     shows); the UNet's GroupNorm calls are held to `GN_SD15_UNET_CALL`. The
     time of one UNet call and of its attentions (CUDA events), and each SD
     attention shape `native` against SDPA (ROADMAP B1.1). Returns the
-    launches by path."""
+    launches by path and the pipeline (phase 24a runs on it)."""
     import collections
     import gc
 
@@ -4421,7 +4475,7 @@ def run_sd15(smi: str):
     log(f"[sd15] {smi}: T2I-Adapter ({n_adapter / 1e6:.1f} M parameters) forward {adapter_ms:.2f} ms once a request "
         f"(CUDA events), against {out['sd15_t2i_adapter']['seconds_per_request']:.3f} s a request")
     RESULTS["sd15"] = out
-    return paths
+    return paths, pipe
 
 
 def run_sdxl_ip_adapter(smi: str, pipe, dense_image):
@@ -5420,6 +5474,520 @@ def run_small_round_trips(smi: str):
     return {"small_round_trips": launches}
 
 
+# ------------------------------------------------------------------ the ControlNet family (phases 10h, 24)
+def _random_residuals(net, seed: int):
+    """Make a ControlNet's zero-initialised parts random (a Union net's
+    `spatial_ch_projs`; an SD3 net's residual projections and
+    `pos_embed_input`), so what they gate acts."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    names = ("spatial_ch_projs", "controlnet_blocks", "pos_embed_input")
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.startswith(names):
+                noise = 0.02 * torch.randn(p.shape, generator=gen, device="cpu")
+                p.copy_(noise.to(device=p.device, dtype=p.dtype))
+    return net
+
+
+def _small_controlnet_pipelines():
+    """Phase 10h's pipelines on the CPU in float32, by label."""
+    import torch
+
+    from diffusers_tpu_torch.models.controlnets import ControlNetModel, ControlNetUnionModel, SD3ControlNetModel
+    from diffusers_tpu_torch.pipelines.controlnet import (
+        StableDiffusionControlNetImg2ImgPipeline,
+        StableDiffusionControlNetInpaintPipeline,
+        StableDiffusionControlNetPipeline,
+        StableDiffusionXLControlNetImg2ImgPipeline,
+        StableDiffusionXLControlNetInpaintPipeline,
+        StableDiffusionXLControlNetUnionImg2ImgPipeline,
+        StableDiffusionXLControlNetUnionInpaintPipeline,
+        StableDiffusionXLControlNetUnionPipeline,
+    )
+    from diffusers_tpu_torch.pipelines.controlnet_sd3 import StableDiffusion3ControlNetPipeline
+
+    sd = _build_sd(SMALL_SD_UNET, SMALL_VAE, SMALL_CLIP, "cpu", torch.float32)
+    sdxl = _build_pipeline(SMALL_UNET, SMALL_VAE, SMALL_CLIP, SMALL_CLIP, "cpu", torch.float32)
+    sd3 = _build_sd3_pipeline(SMALL_SD35, SMALL_SD3_VAE, SMALL_SD3_CLIP, SMALL_SD3_CLIP, SMALL_T5, "cpu",
+                              torch.float32)
+    torch.manual_seed(SEED + 3)
+    sd_nets = [ControlNetModel(**SMALL_SD_CONTROLNET) for _ in range(2)]
+    xl_net = ControlNetModel(**SMALL_CONTROLNET)
+    unions = [_random_residuals(ControlNetUnionModel(**SMALL_UNION), SEED + i) for i in range(2)]
+    sd3_net = _random_residuals(SD3ControlNetModel.from_transformer(
+        sd3.transformer, num_layers=SMALL_SD3_CONTROLNET_LAYERS, num_extra_conditioning_channels=0), SEED)
+    sd_parts, xl_parts = dict(sd.components, device="cpu"), dict(sdxl.components, device="cpu")
+    return {
+        "sd": StableDiffusionControlNetPipeline(**sd_parts, controlnet=sd_nets[0]),
+        "sd_multi": StableDiffusionControlNetPipeline(**sd_parts, controlnet=sd_nets),
+        "sd_img2img": StableDiffusionControlNetImg2ImgPipeline(**sd_parts, controlnet=sd_nets[0]),
+        "sd_inpaint": StableDiffusionControlNetInpaintPipeline(**sd_parts, controlnet=sd_nets[0]),
+        "sdxl_img2img": StableDiffusionXLControlNetImg2ImgPipeline(**xl_parts, controlnet=xl_net),
+        "sdxl_inpaint": StableDiffusionXLControlNetInpaintPipeline(**xl_parts, controlnet=xl_net),
+        "union": StableDiffusionXLControlNetUnionPipeline(**xl_parts, controlnet=unions[0]),
+        "union_img2img": StableDiffusionXLControlNetUnionImg2ImgPipeline(**xl_parts, controlnet=unions[0]),
+        "union_inpaint": StableDiffusionXLControlNetUnionInpaintPipeline(**xl_parts, controlnet=unions[0]),
+        "multi_union": StableDiffusionXLControlNetUnionPipeline(**xl_parts, controlnet=unions),
+        "sd3": StableDiffusion3ControlNetPipeline(**dict(sd3.components, device="cpu"), controlnet=sd3_net),
+    }
+
+
+def small_controlnet_cases():
+    """Phase 10h's cases: (label, pipeline, guidance scale, request kwargs)."""
+    import numpy as np
+    import torch
+
+    image, mask, edges = synthetic_inputs(32)
+    latents = torch.from_numpy(np.random.RandomState(SEED).randn(1, 4, 16, 16).astype(np.float32))
+    latents16 = torch.from_numpy(np.random.RandomState(SEED).randn(1, 16, 16, 16).astype(np.float32))
+    union = dict(control_image=[edges, image], control_mode=[UNION_CANNY, UNION_DEPTH],
+                 controlnet_conditioning_scale=0.7)
+    return (
+        ("sd_controlnet", "sd", SD15_GUIDANCE, dict(image=edges, latents=latents, controlnet_conditioning_scale=0.8)),
+        ("sd_controlnet_guess_mode", "sd", SD15_GUIDANCE, dict(image=edges, latents=latents, guess_mode=True)),
+        ("sd_multi_controlnet", "sd_multi", SD15_GUIDANCE,
+         dict(image=[edges, image], latents=latents, controlnet_conditioning_scale=[0.8, 0.5])),
+        ("sd_controlnet_img2img", "sd_img2img", SD15_GUIDANCE, dict(image=image, control_image=edges, strength=0.6)),
+        ("sd_controlnet_inpaint", "sd_inpaint", SD15_GUIDANCE, dict(image=image, mask_image=mask, control_image=edges)),
+        ("sdxl_controlnet_img2img", "sdxl_img2img", GUIDANCE, dict(image=image, control_image=edges, strength=0.6)),
+        ("sdxl_controlnet_inpaint", "sdxl_inpaint", GUIDANCE,
+         dict(image=image, mask_image=mask, control_image=edges)),
+        ("union", "union", GUIDANCE, dict(union, latents=latents)),
+        ("union_guess_mode", "union", GUIDANCE, dict(union, latents=latents, guess_mode=True)),
+        ("union_img2img", "union_img2img", GUIDANCE, dict(union, image=image, strength=0.6)),
+        ("union_inpaint", "union_inpaint", GUIDANCE, dict(union, image=image, mask_image=mask)),
+        ("multi_union", "multi_union", GUIDANCE,
+         dict(control_image=[edges, [edges, image]], control_mode=[UNION_CANNY, [UNION_CANNY, UNION_DEPTH]],
+              controlnet_conditioning_scale=[0.8, 0.5], latents=latents)),
+        ("sd3_controlnet", "sd3", SD3_GUIDANCE, dict(control_image=image, controlnet_conditioning_scale=0.7,
+                                                     latents=latents16, max_sequence_length=16)),
+    )
+
+
+def check_small_controlnets(device: str = "cuda"):
+    """Phase 10h: the ControlNet family on small components, on the card
+    (bf16, kernels) against the CPU (f32, plain versions; held to JAX by
+    tests/test_torch_controlnet_sd.py, test_torch_controlnet_union.py and
+    test_torch_controlnet_sd3.py), with phase 7's tolerance on the [0, 1]
+    image: SD ControlNet text-to-image (plain, guess mode, two nets),
+    img2img and inpaint; SDXL ControlNet img2img and inpaint; the Union
+    pipelines (text-to-image plain and in guess mode, img2img, inpaint, two
+    Union nets); the SD3 ControlNet pipeline. Each 4 steps, both sides from
+    one CPU generator seeded alike. Then the Union net and an SD3
+    single-block net (no pos_embed, fed patch tokens) at model level, card
+    bf16 against CPU f32, within 2% of the reference's largest value."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.models.controlnets import SD3ControlNetModel
+
+    sides = []
+    for dev in ("cpu", device):
+        pipes = _small_controlnet_pipelines()
+        for pipe in pipes.values():
+            pipe.to(device=torch.device(dev), dtype=torch.float32 if dev == "cpu" else torch.bfloat16)
+        sides.append(pipes)
+    tol = 0.05  # phase 7: bf16 on the card against f32 on the CPU, on the [0, 1] image
+    results = {}
+    for label, name, guidance, kwargs in small_controlnet_cases():
+        images = []
+        for pipes in sides:  # the CPU, then the card
+            reset_launches()
+            images.append(pipes[name](PROMPTS[0], num_inference_steps=SMALL_CONTROLNET_STEPS,
+                                      guidance_scale=guidance, generator=torch.Generator().manual_seed(SEED),
+                                      output_type="np", **kwargs).images)
+            launches = read_launches()
+        ref, out = images
+        err = float(np.abs(out - ref).max())
+        results[label] = {"max_abs_err": err, "mean_abs_err": float(np.abs(out - ref).mean()), "tol": tol,
+                          "launches": launches}
+        log(f"[ref-controlnet] small {label}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol {tol}); launches "
+            f"{launches}")
+        if not (out.shape == ref.shape == (1, 32, 32, 3) and np.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"small {label}: the card disagrees with the CPU")
+        if min(launches["flash_attention_fwd"], launches["group_norm"]) <= 0:
+            raise AssertionError(f"small {label} on the card missed a kernel: {launches}")
+
+    # model level: the Union net (two tasks), and an SD3 single-block net fed patch tokens
+    gen = torch.Generator().manual_seed(SEED)
+    union_cpu, union_card = sides[0]["union"].controlnet, sides[1]["union"].controlnet
+    x, ehs = torch.randn(2, 4, 16, 16, generator=gen), torch.randn(2, 77, 64, generator=gen)
+    conds = [torch.rand(2, 3, 32, 32, generator=gen) for _ in range(2)]
+    mask = torch.zeros(2, SMALL_UNION["num_control_type"])
+    mask[:, [UNION_CANNY, UNION_DEPTH]] = 1
+    added = {"text_embeds": torch.randn(2, 32, generator=gen), "time_ids": torch.tensor([[32., 32, 0, 0, 32, 32]] * 2)}
+
+    def union_call(net, dev):
+        to = {"device": dev, "dtype": net.dtype}
+        return net(x.to(**to), 500.0, ehs.to(**to), [c.to(**to) for c in conds], control_type=mask.to(dev),
+                   control_type_idx=[UNION_CANNY, UNION_DEPTH], conditioning_scale=0.7,
+                   added_cond_kwargs={"text_embeds": added["text_embeds"].to(**to),
+                                      "time_ids": added["time_ids"].to(dev)}, return_dict=False)
+
+    torch.manual_seed(SEED + 5)
+    single = _random_residuals(SD3ControlNetModel(**dict(
+        SMALL_SD3, num_layers=2, joint_attention_dim=None, use_pos_embed=False)), SEED)
+    tokens = torch.randn(2, 64, 128, generator=gen)
+    cond16 = torch.randn(2, 16, 16, 16, generator=gen)
+    pooled, t = torch.randn(2, 128, generator=gen), torch.tensor([700.0, 300.0])
+
+    def single_call(net, dev):
+        to = {"device": dev, "dtype": net.dtype}
+        return net(tokens.to(**to), cond16.to(**to), conditioning_scale=0.8, pooled_projections=pooled.to(**to),
+                   timestep=t.to(dev), return_dict=False)[0]
+
+    with torch.no_grad():
+        union_ref = union_call(union_cpu, "cpu")
+        reset_launches()
+        union_out = union_call(union_card, device)
+        union_launches = read_launches()
+        single_ref = single_call(single, "cpu")
+        single_card = single.to(device=device, dtype=union_card.dtype)
+        reset_launches()
+        single_out = single_call(single_card, device)
+        single_launches = read_launches()
+    for label, ref, out, launches, k1 in (
+            ("union model", [*union_ref[0], union_ref[1]], [*union_out[0], union_out[1]], union_launches, True),
+            ("sd3 single-block model", single_ref, single_out, single_launches, True)):
+        err = max(float((o.float().cpu() - r).abs().max()) for o, r in zip(out, ref))
+        scale = max(float(r.abs().max()) for r in ref)
+        results[label] = {"max_abs_err": err, "ref_max_abs": scale, "tol": 0.02 * scale, "launches": launches}
+        log(f"[ref-controlnet] small {label}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol 2% of "
+            f"{scale:.3e}); launches {launches}")
+        if not err <= 0.02 * scale or not all(bool(torch.isfinite(o).all()) for o in out):
+            raise AssertionError(f"small {label}: the card disagrees with the CPU")
+        if k1 and launches["flash_attention_fwd"] <= 0:
+            raise AssertionError(f"small {label} on the card missed K1: {launches}")
+    RESULTS["small_controlnets"] = results
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """Inside, the card runs no kernel: attention takes the `native` backend
+    and GroupNorm its plain version (`group_norm_plain`), both in the
+    tensors' own dtype with f32 statistics, as the kernels compute."""
+    from diffusers_tpu_torch.ops import module
+    from diffusers_tpu_torch.ops.attention import attention_backend
+    from diffusers_tpu_torch.ops.cuda.group_norm import group_norm_plain
+
+    kernel, module.group_norm = module.group_norm, group_norm_plain
+    try:
+        with attention_backend("native"):
+            yield
+    finally:
+        module.group_norm = kernel
+
+
+@contextlib.contextmanager
+def in_float32(pipeline):
+    """Inside, every float parameter and buffer of the pipeline's modules is
+    float32; after, each is back in its own dtype (bf16 -> f32 -> bf16 is
+    exact)."""
+    import torch
+
+    tensors = [t for m in pipeline.components.values() if isinstance(m, torch.nn.Module)
+               for t in (*m.parameters(), *m.buffers()) if t.is_floating_point()]
+    dtypes = [t.dtype for t in tensors]
+    for t in tensors:
+        t.data = t.data.float()
+    try:
+        yield
+    finally:
+        for t, dtype in zip(tensors, dtypes):
+            t.data = t.data.to(dtype)
+
+
+PLAIN_CHECK_RATIO = 2.0  # the kernels' error against the f32 run, at most this times the plain bf16 run's
+
+
+def _plain_route_check(label, pipeline, per_step, kwargs):
+    """The warm-up request (CONTROLNET_WARMUP_STEPS steps, its own generator
+    seeded with SEED) three times on the card: on the kernels (bf16), on the
+    plain routes (`plain_routes`, bf16) and on the plain routes in float32
+    (`in_float32`). The kernels' [0, 1] image must be as close to the f32
+    image as the plain bf16 one is: its max and mean |diff| to it at most
+    PLAIN_CHECK_RATIO times the plain bf16 image's. The kernels of
+    `per_step` must launch in the first run and none in the others.
+    Returns the record."""
+    import numpy as np
+    import torch
+
+    images, launches = [], []
+    for route, f32 in ((contextlib.nullcontext, False), (plain_routes, False), (plain_routes, True)):
+        reset_launches()
+        with route(), in_float32(pipeline) if f32 else contextlib.nullcontext():
+            images.append(np.asarray(pipeline(**dict(
+                kwargs, num_inference_steps=CONTROLNET_WARMUP_STEPS, output_type="np",
+                generator=torch.Generator(device="cuda").manual_seed(SEED))).images, np.float32))
+        torch.cuda.synchronize()
+        launches.append(read_launches())
+    kernels, plain, f32 = images
+    errs = {name: (float(np.abs(a - b).max()), float(np.abs(a - b).mean()))
+            for name, a, b in (("kernels_vs_plain", kernels, plain), ("kernels_vs_f32", kernels, f32),
+                               ("plain_vs_f32", plain, f32))}
+    record = {"steps": CONTROLNET_WARMUP_STEPS, "ratio_tol": PLAIN_CHECK_RATIO, "kernel_launches": launches[0],
+              "plain_launches": launches[1], "f32_launches": launches[2],
+              **{f"{name}_{stat}": v for name, pair in errs.items() for stat, v in zip(("max", "mean"), pair)}}
+    log(f"[controlnet] {label}: {CONTROLNET_WARMUP_STEPS} steps, [0, 1] image max / mean |diff|: kernels vs plain "
+        "bf16 {:.3e} / {:.3e}, kernels vs plain f32 {:.3e} / {:.3e}, plain bf16 vs plain f32 {:.3e} / {:.3e} (the "
+        "kernels' at most {}x the plain's); launches {} on the kernels".format(
+            *errs["kernels_vs_plain"], *errs["kernels_vs_f32"], *errs["plain_vs_f32"], PLAIN_CHECK_RATIO, launches[0]))
+    finite = all(np.isfinite(im).all() and im.shape == f32.shape for im in images)
+    if not (finite and all(k <= PLAIN_CHECK_RATIO * p for k, p in zip(errs["kernels_vs_f32"], errs["plain_vs_f32"]))):
+        raise AssertionError(f"{label}: the kernels are further from the f32 plain run than the plain bf16 run: {errs}")
+    if any(launches[0][k] <= 0 for k, n in per_step.items() if n > 0) or any(launches[1].values()) or \
+            any(launches[2].values()):
+        raise AssertionError(f"{label}: a kernel of the steps not launched on the kernels, or one launched on the "
+                             f"plain routes: {launches}")
+    return record
+
+
+def _timed_request(smi, label, pipeline, steps, per_step, first_extra, after, denoiser=None, plain_check=False,
+                   **kwargs):
+    """One request after a warm-up of CONTROLNET_WARMUP_STEPS steps (its own
+    generator; with `plain_check`, the warm-up is `_plain_route_check`): each
+    step's launches held to `per_step` (plus `first_extra` at the first
+    step), the decode's to `after`, the latents going into the decode
+    finite; its time on CUDA events and on the host clock, its peak
+    memory, and the mean time of a denoiser call and of a ControlNet call
+    within it (CUDA events). `denoiser` is the module the steps call (the
+    UNet unless given). Returns (images, record)."""
+    import numpy as np
+    import torch
+
+    denoiser = denoiser if denoiser is not None else pipeline.unet
+    plain = None
+    if plain_check:
+        plain = _plain_route_check(label, pipeline, per_step, kwargs)
+    else:
+        pipeline(**dict(kwargs, num_inference_steps=CONTROLNET_WARMUP_STEPS, output_type="latent",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED)))
+    latents_seen = []
+    hook = pipeline.vae.decoder.register_forward_pre_hook(lambda m, a: latents_seen.append(a[0]))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    reset_launches()
+    try:
+        with StepLaunches(pipeline, denoiser) as counted, \
+                CudaSpans(modules={"denoiser": denoiser, "controlnet": pipeline.controlnet}) as spans:
+            start.record()
+            images, seconds, peak_gb = _request_seconds(lambda: pipeline(**kwargs).images)
+            end.record()
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    span_ms = {k: float(np.mean(v)) for k, v in spans.ms().items()}
+    launches = read_launches()
+    if not latents_seen or not all(bool(torch.isfinite(z).all()) for z in latents_seen):
+        raise AssertionError(f"{label}: non-finite latents")
+    expected = [dict(per_step) for _ in range(steps)]
+    for k, v in first_extra.items():
+        expected[0][k] += v
+    _check_steps(label, counted.per_step, expected, counted.after, after)
+    event_s = start.elapsed_time(end) / 1e3
+    log(f"[controlnet] {smi}: {label}: {event_s:.3f} s/request on CUDA events ({seconds:.3f} s host), {steps} steps, "
+        f"peak {peak_gb:.1f} GB; a denoiser call {span_ms['denoiser']:.1f} ms, a ControlNet call "
+        f"{span_ms['controlnet']:.1f} ms; launches {launches} (K1 {per_step['flash_attention_fwd']} and K4 "
+        f"{per_step['group_norm']} a step, as the modules count)")
+    return images, {"card": smi, "seconds_per_request": event_s, "host_seconds": seconds, "peak_memory_gb": peak_gb,
+                    "steps": steps, "launches": launches, "k1_per_step": per_step["flash_attention_fwd"],
+                    "k4_per_step": per_step["group_norm"], "denoiser_call_ms": span_ms["denoiser"],
+                    "controlnet_call_ms": span_ms["controlnet"], "plain_route_check": plain}
+
+
+def _check_image(label, images, size):
+    import numpy as np
+
+    result = np.asarray(images[0])
+    if result.shape != (size, size, 3) or result.dtype != np.uint8:
+        raise AssertionError(f"{label}: bad uint8 image {result.shape} {result.dtype}")
+    return float(result.mean())
+
+
+def _n_params(*models) -> int:
+    return sum(p.numel() for m in models for p in m.parameters())
+
+
+def run_sd15_controlnet(smi: str, pipe):
+    """Phase 24a: the SD 1.5 ControlNet pipelines at full width on phase
+    23's pipeline (its CLIP-L, UNet and VAE): a ControlNet at
+    lllyasviel/control_v11p_sd15_canny's widths (made on the card, bf16),
+    512 px, PNDM 50 steps (51 calls), CFG 7.5: text-to-image from the edge
+    map, img2img (0.75) and inpaint (1.0, the 4-channel UNet), then two such
+    nets as a Multi-ControlNet (the edge map and the image). Each step's
+    launches are held to the modules' counts (K1 0: heads of 40, 80 and 160
+    run `native`); text-to-image's warm-up is held to the plain routes on the
+    card (`_plain_route_check`). Returns the launches by path."""
+    import gc
+
+    import torch
+
+    from diffusers_tpu_torch.models.controlnets import ControlNetModel
+    from diffusers_tpu_torch.pipelines.controlnet import (
+        StableDiffusionControlNetImg2ImgPipeline,
+        StableDiffusionControlNetInpaintPipeline,
+        StableDiffusionControlNetPipeline,
+    )
+    from diffusers_tpu_torch.schedulers import PNDMScheduler
+
+    torch.manual_seed(SEED + 11)
+    with torch.device("cuda"):
+        nets = [ControlNetModel(**SD15_CONTROLNET).to(torch.bfloat16) for _ in range(2)]
+    unet_call, encode, decode = (_module_launches(m) for m in (pipe.unet, pipe.vae.encoder, pipe.vae.decoder))
+    cn_call = _module_launches(nets[0])
+    image, mask, edges = synthetic_inputs(SD15_RESOLUTION)
+    parts = dict(pipe.components)
+    out, paths = {}, {}
+
+    def request(label, cls, controlnet, steps, first_extra, **kwargs):
+        pipeline = cls(**dict(parts, controlnet=controlnet, scheduler=PNDMScheduler(**SD15_PNDM)))
+        n_nets = len(controlnet) if isinstance(controlnet, list) else 1
+        per_step = {k: unet_call[k] + n_nets * cn_call[k] for k in unet_call}
+        images, record = _timed_request(
+            smi, label, pipeline, steps, per_step, first_extra, decode, prompt=SD15_PROMPT,
+            guidance_scale=SD15_GUIDANCE, num_inference_steps=SD15_STEPS,
+            generator=torch.Generator(device="cuda").manual_seed(SEED), output_type="pil", **kwargs)
+        record.update(image_mean=_check_image(label, images, SD15_RESOLUTION),
+                      controlnet_parameters=_n_params(*([controlnet] if n_nets == 1 else controlnet)))
+        out[label], paths[label] = record, record["launches"]
+
+    state = PNDMScheduler(**SD15_PNDM).set_timesteps(SD15_STEPS)
+    keep = len(state.timesteps) - (SD15_STEPS - min(int(SD15_STEPS * SD15_IMG2IMG_STRENGTH), SD15_STEPS))
+    request("sd15_controlnet", StableDiffusionControlNetPipeline, nets[0], SD15_STEPS + 1, {}, image=edges,
+            controlnet_conditioning_scale=SD15_CONTROLNET_SCALE, plain_check=True)
+    request("sd15_controlnet_img2img", StableDiffusionControlNetImg2ImgPipeline, nets[0], keep, encode, image=image,
+            control_image=edges, strength=SD15_IMG2IMG_STRENGTH)
+    request("sd15_controlnet_inpaint", StableDiffusionControlNetInpaintPipeline, nets[0], SD15_STEPS + 1, encode,
+            image=image, mask_image=mask, control_image=edges, strength=SD15_INPAINT_STRENGTH)
+    request("sd15_multi_controlnet", StableDiffusionControlNetPipeline, nets, SD15_STEPS + 1, {},
+            image=[edges, image], controlnet_conditioning_scale=[SD15_CONTROLNET_SCALE, 0.5])
+    log(f"[controlnet] SD 1.5 ControlNet: {_n_params(nets[0]) / 1e6:.1f} M parameters, "
+        f"K1 {cn_call['flash_attention_fwd']} and K4 {cn_call['group_norm']} a call")
+    RESULTS["sd15_controlnet"] = out
+    del nets
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def run_sdxl_controlnets(smi: str, pipe):
+    """Phase 24b: on phase 11's full-width SDXL pipeline, 1024 px, CFG 5.0,
+    30 Euler steps: ControlNet img2img (0.3) and inpaint (0.99) with
+    SDXL_CONTROLNET (made on the card), then ControlNet-Union
+    (xinsir/controlnet-union-sdxl-1.0's layout) text-to-image on the edge map
+    (canny), img2img and inpaint at the same strengths, and two Union nets as
+    a MultiControlNetUnionModel (canny on the edge map, depth on the image).
+    Each step's launches are held to the modules' counts; the warm-ups of
+    ControlNet inpaint and Union text-to-image are held to the plain routes
+    on the card (`_plain_route_check`). Returns the launches by path."""
+    import gc
+
+    import torch
+
+    from diffusers_tpu_torch.models.controlnets import ControlNetModel, ControlNetUnionModel
+    from diffusers_tpu_torch.pipelines.controlnet import (
+        StableDiffusionXLControlNetImg2ImgPipeline,
+        StableDiffusionXLControlNetInpaintPipeline,
+        StableDiffusionXLControlNetUnionImg2ImgPipeline,
+        StableDiffusionXLControlNetUnionInpaintPipeline,
+        StableDiffusionXLControlNetUnionPipeline,
+    )
+    from diffusers_tpu_torch.schedulers import EulerDiscreteScheduler
+
+    torch.manual_seed(SEED + 12)
+    with torch.device("cuda"):
+        controlnet = ControlNetModel(**SDXL_CONTROLNET).to(torch.bfloat16)
+    unet_call, encode, decode = (_module_launches(m) for m in (pipe.unet, pipe.vae.encoder, pipe.vae.decoder))
+    image, mask, edges = synthetic_inputs(RESOLUTION)
+    parts = {k: v for k, v in pipe.components.items() if k not in ("image_encoder", "feature_extractor")}
+    out, paths = {}, {}
+
+    def request(label, cls, net, steps, first_extra, **kwargs):
+        pipeline = cls(**dict(parts, controlnet=net, scheduler=EulerDiscreteScheduler(**EULER)))
+        nets = net if isinstance(net, list) else [net]
+        cn_calls = [_module_launches(n) for n in nets]
+        per_step = {k: unet_call[k] + sum(c[k] for c in cn_calls) for k in unet_call}
+        images, record = _timed_request(
+            smi, label, pipeline, steps, per_step, first_extra, decode, prompt=PROMPTS[0], guidance_scale=GUIDANCE,
+            num_inference_steps=STEPS, generator=torch.Generator(device="cuda").manual_seed(SEED), output_type="pil",
+            **kwargs)
+        record.update(image_mean=_check_image(label, images, RESOLUTION), controlnet_parameters=_n_params(*nets))
+        out[label], paths[label] = record, record["launches"]
+
+    img2img_steps, inpaint_steps = int(STEPS * IMG2IMG_STRENGTH), int(STEPS * INPAINT_STRENGTH)
+    request("sdxl_controlnet_img2img", StableDiffusionXLControlNetImg2ImgPipeline, controlnet, img2img_steps, encode,
+            image=image, control_image=edges, strength=IMG2IMG_STRENGTH,
+            controlnet_conditioning_scale=CONTROLNET_SCALE)
+    request("sdxl_controlnet_inpaint", StableDiffusionXLControlNetInpaintPipeline, controlnet, inpaint_steps, encode,
+            image=image, mask_image=mask, control_image=edges, strength=INPAINT_STRENGTH,
+            controlnet_conditioning_scale=CONTROLNET_SCALE, plain_check=True)
+    del controlnet
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.device("cuda"):
+        unions = [_random_residuals(ControlNetUnionModel(**SDXL_UNION).to(torch.bfloat16), SEED + i)
+                  for i in range(2)]
+    union = dict(control_image=[edges], control_mode=[UNION_CANNY], controlnet_conditioning_scale=CONTROLNET_SCALE)
+    request("union", StableDiffusionXLControlNetUnionPipeline, unions[0], STEPS, {}, plain_check=True, **union)
+    request("union_img2img", StableDiffusionXLControlNetUnionImg2ImgPipeline, unions[0], img2img_steps, encode,
+            image=image, strength=IMG2IMG_STRENGTH, **union)
+    request("union_inpaint", StableDiffusionXLControlNetUnionInpaintPipeline, unions[0], inpaint_steps, encode,
+            image=image, mask_image=mask, strength=INPAINT_STRENGTH, **union)
+    request("multi_union", StableDiffusionXLControlNetUnionPipeline, unions, STEPS, {},
+            control_image=[[edges], [image]], control_mode=[[UNION_CANNY], [UNION_DEPTH]],
+            controlnet_conditioning_scale=[CONTROLNET_SCALE, CONTROLNET_SCALE])
+    log(f"[controlnet] SDXL ControlNet-Union: {_n_params(unions[0]) / 1e9:.3f} B parameters a net")
+    RESULTS["sdxl_controlnets"] = out
+    del unions
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def run_sd3_controlnet(smi: str, pipe):
+    """Phase 24c: the SD3 ControlNet on phase 16's SD3.5 Medium pipeline:
+    the joint-block kind built by `SD3ControlNetModel.from_transformer`
+    (SD3_CONTROLNET_LAYERS blocks, no extra conditioning channel), its
+    residual projections and `pos_embed_input` random from SEED, through
+    `StableDiffusion3ControlNetPipeline.__call__` at 1024 px, 28 steps, CFG
+    7.0, from the synthetic image as the control image, its warm-up held to
+    the plain routes on the card (`_plain_route_check`). Each step's launches
+    are held to the transformer's and the ControlNet's module counts (the
+    control image's VAE encode booked to the first step). Returns the
+    launches by path."""
+    import gc
+
+    import torch
+
+    from diffusers_tpu_torch.models.controlnets import SD3ControlNetModel
+    from diffusers_tpu_torch.pipelines.controlnet_sd3 import StableDiffusion3ControlNetPipeline
+
+    t0 = time.perf_counter()
+    controlnet = _random_residuals(SD3ControlNetModel.from_transformer(
+        pipe.transformer, num_layers=SD3_CONTROLNET_LAYERS, num_extra_conditioning_channels=0), SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pipeline = StableDiffusion3ControlNetPipeline(**pipe.components, controlnet=controlnet)
+    per_step = {k: a + b for (k, a), b in zip(_module_launches(pipe.transformer).items(),
+                                              _module_launches(controlnet).values())}
+    image, _, _ = synthetic_inputs(RESOLUTION)
+    images, record = _timed_request(
+        smi, "sd3_controlnet", pipeline, SD3_STEPS, per_step, _module_launches(pipe.vae.encoder),
+        _module_launches(pipe.vae.decoder), denoiser=pipe.transformer, plain_check=True, prompt=SD3_PROMPTS[0],
+        control_image=image, controlnet_conditioning_scale=0.7, guidance_scale=SD3_GUIDANCE,
+        num_inference_steps=SD3_STEPS, generator=torch.Generator(device="cuda").manual_seed(SEED), output_type="pil")
+    record.update(image_mean=_check_image("sd3_controlnet", images, RESOLUTION),
+                  controlnet_parameters=_n_params(controlnet), from_transformer_seconds=build_s)
+    log(f"[controlnet] SD3 ControlNet by from_transformer ({SD3_CONTROLNET_LAYERS} blocks, "
+        f"{record['controlnet_parameters'] / 1e9:.3f} B parameters) in {build_s:.2f} s")
+    RESULTS["sd3_controlnet"] = record
+    del pipeline, controlnet
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sd3_controlnet": record["launches"]}
+
+
 def timed(fn, *args):
     """`fn(*args)`, its wall time logged and kept in RESULTS["phase_seconds"]
     under the function's name."""
@@ -5456,15 +6024,20 @@ def main() -> int:
     timed(check_small_wan_i2v)
     timed(check_small_wan_family)
     timed(check_small_sd)
+    timed(check_small_controlnets)
     sdxl, pipe, image = timed(run_pipeline, smi)
     paths = {"sdxl": sdxl, **timed(run_sdxl_cached, smi, pipe, image)}
     paths.update(timed(run_image_pipelines, smi, pipe))
     paths.update(timed(run_sdxl_ip_adapter, smi, pipe, image))
     paths.update(timed(run_sdxl_from_disk, smi, pipe, image))
+    paths.update(timed(run_sdxl_controlnets, smi, pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(timed(run_sd15, smi))
+    sd15_paths, pipe = timed(run_sd15, smi)
+    paths.update(sd15_paths)
+    paths.update(timed(run_sd15_controlnet, smi, pipe))
+    del pipe
     gc.collect()
     torch.cuda.empty_cache()
     flux, pipe, image = timed(run_flux_pipeline, smi)
@@ -5481,6 +6054,7 @@ def main() -> int:
     sd3_paths, pipe = timed(run_sd3_served, smi)
     paths.update(sd3_paths)
     paths.update(timed(run_sd3_from_disk, smi, pipe))
+    paths.update(timed(run_sd3_controlnet, smi, pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()

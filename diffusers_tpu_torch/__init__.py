@@ -20,6 +20,22 @@ _EXPORTS = {
     "StableDiffusionImg2ImgPipeline": "diffusers_tpu_torch.pipelines.stable_diffusion",
     "StableDiffusionInpaintPipeline": "diffusers_tpu_torch.pipelines.stable_diffusion",
     "StableDiffusionAdapterPipeline": "diffusers_tpu_torch.pipelines.t2i_adapter",
+    "StableDiffusionControlNetPipeline": "diffusers_tpu_torch.pipelines.controlnet",
+    "StableDiffusionControlNetImg2ImgPipeline": "diffusers_tpu_torch.pipelines.controlnet",
+    "StableDiffusionControlNetInpaintPipeline": "diffusers_tpu_torch.pipelines.controlnet",
+    "StableDiffusionXLControlNetPipeline": "diffusers_tpu_torch.pipelines.controlnet",
+    "StableDiffusionXLControlNetImg2ImgPipeline": "diffusers_tpu_torch.pipelines.controlnet",
+    "StableDiffusionXLControlNetInpaintPipeline": "diffusers_tpu_torch.pipelines.controlnet",
+    "StableDiffusionXLControlNetUnionPipeline": "diffusers_tpu_torch.pipelines.controlnet",
+    "StableDiffusionXLControlNetUnionImg2ImgPipeline": "diffusers_tpu_torch.pipelines.controlnet",
+    "StableDiffusionXLControlNetUnionInpaintPipeline": "diffusers_tpu_torch.pipelines.controlnet",
+    "StableDiffusion3ControlNetPipeline": "diffusers_tpu_torch.pipelines.controlnet_sd3",
+    "ControlNetModel": "diffusers_tpu_torch.models.controlnets",
+    "ControlNetUnionModel": "diffusers_tpu_torch.models.controlnets",
+    "MultiControlNetModel": "diffusers_tpu_torch.models.controlnets",
+    "MultiControlNetUnionModel": "diffusers_tpu_torch.models.controlnets",
+    "SD3ControlNetModel": "diffusers_tpu_torch.models.controlnets",
+    "SD3MultiControlNetModel": "diffusers_tpu_torch.models.controlnets",
     "T2IAdapter": "diffusers_tpu_torch.models.adapter",
     "MultiAdapter": "diffusers_tpu_torch.models.adapter",
     "PNDMScheduler": "diffusers_tpu_torch.schedulers",

@@ -186,22 +186,28 @@ class ControlNetModel(ModelMixin, ConfigMixin):
     ) -> Union[ControlNetOutput, tuple]:
         if self.config.controlnet_conditioning_channel_order == "bgr":
             controlnet_cond = torch.flip(controlnet_cond, dims=[1])
+        emb = self._time_embedding(sample, timestep, added_cond_kwargs)
+        sample = self.conv_in(sample) + self.controlnet_cond_embedding(controlnet_cond)
+        return self._residuals(sample, emb, encoder_hidden_states, conditioning_scale, guess_mode, return_dict)
 
+    def _time_embedding(self, sample, timestep, added_cond_kwargs):
+        """The timestep embedding, plus SDXL's ``text_time`` micro-conditioning."""
         timesteps = torch.as_tensor(timestep, device=sample.device)
         if timesteps.ndim == 0:
             timesteps = timesteps[None]
         timesteps = timesteps.expand(sample.shape[0])
         emb = self.time_embedding(self.time_proj(timesteps).to(sample.dtype))
-
         if self.config.addition_embed_type == "text_time":
             text_embeds = added_cond_kwargs["text_embeds"]
             time_embeds = self.add_time_proj(added_cond_kwargs["time_ids"].reshape(-1))
             time_embeds = time_embeds.reshape(text_embeds.shape[0], -1)
             add_embeds = torch.cat([text_embeds.float(), time_embeds], dim=-1).to(sample.dtype)
             emb = emb + self.add_embedding(add_embeds)
+        return emb
 
-        sample = self.conv_in(sample) + self.controlnet_cond_embedding(controlnet_cond)
-
+    def _residuals(self, sample, emb, encoder_hidden_states, conditioning_scale, guess_mode, return_dict):
+        """The down and mid blocks from the conditioned `sample`, their 1x1
+        output convs, the scales (guess mode's ramp) and global pooling."""
         down_block_res_samples = (sample,)
         for block in self.down_blocks:
             if block.has_cross_attention:

@@ -334,7 +334,9 @@ class PatchEmbed(nn.Module):
     (384² x 1536 for SD3.5 Medium, 0.9 GB) to crop the centre of it; the
     port computes only the crop a call needs (`get_2d_sincos_pos_embed` with
     `crop`), the same values, and keeps it in a per-shape cache on the
-    call's device and dtype: no parameter and no state-dict entry."""
+    call's device and dtype: no parameter and no state-dict entry. With
+    ``pos_embed_type=None`` (the SD3 ControlNet's conditioning embed) the
+    tokens get no positions."""
 
     def __init__(
         self,
@@ -346,8 +348,12 @@ class PatchEmbed(nn.Module):
         bias: bool = True,
         interpolation_scale: float = 1,
         pos_embed_max_size: Optional[int] = None,
+        pos_embed_type: Optional[str] = "sincos",
     ):
         super().__init__()
+        if pos_embed_type not in ("sincos", None):
+            raise ValueError(f"unsupported pos_embed_type {pos_embed_type}")
+        self.pos_embed_type = pos_embed_type
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.pos_embed_max_size = pos_embed_max_size
@@ -373,6 +379,8 @@ class PatchEmbed(nn.Module):
     def forward(self, latent: torch.Tensor) -> torch.Tensor:
         """latent [B, C, H, W] -> tokens [B, (H / p) (W / p), D]."""
         x = self.proj(latent).flatten(2).transpose(1, 2)
+        if self.pos_embed_type is None:
+            return x
         h, w = latent.shape[-2] // self.patch_size, latent.shape[-1] // self.patch_size
         key = (h, w, x.device, x.dtype)
         if key not in self._pos_cache:

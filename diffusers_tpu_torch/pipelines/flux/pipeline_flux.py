@@ -95,10 +95,8 @@ class FluxPipeline(DiffusionPipeline):
             transformer=transformer,
             scheduler=scheduler,
         )
-        if image_encoder is not None or feature_extractor is not None:
-            raise NotImplementedError("FluxPipeline: image_encoder / feature_extractor (Flux's IP-Adapter) are not "
-                                      "ported yet (ROADMAP A4.1)")
-        self.register_modules(image_encoder=None, feature_extractor=None)
+        # registered and never read, as in JAX (which has no Flux IP-Adapter)
+        self.register_modules(image_encoder=image_encoder, feature_extractor=feature_extractor)
         self.vae_scale_factor = 2 ** (len(self.vae.config.block_out_channels) - 1) if vae is not None else 8
         self.image_processor = VaeImageProcessor(vae_scale_factor=self.vae_scale_factor * 2)
         self.tokenizer_max_length = 77

@@ -41,6 +41,8 @@ _CLASS_REGISTRY: Dict[str, str] = {
     "UNet2DConditionModel": "diffusers_tpu_torch.models.unets.unet_2d_condition.UNet2DConditionModel",
     "AutoencoderKL": "diffusers_tpu_torch.models.autoencoders.autoencoder_kl.AutoencoderKL",
     "ControlNetModel": "diffusers_tpu_torch.models.controlnets.controlnet.ControlNetModel",
+    "ControlNetUnionModel": "diffusers_tpu_torch.models.controlnets.controlnet_union.ControlNetUnionModel",
+    "SD3ControlNetModel": "diffusers_tpu_torch.models.controlnets.controlnet_sd3.SD3ControlNetModel",
     "FluxControlNetModel": "diffusers_tpu_torch.models.controlnets.controlnet_flux.FluxControlNetModel",
     "ReduxImageEncoder": "diffusers_tpu_torch.pipelines.flux.modeling_flux.ReduxImageEncoder",
     "FluxTransformer2DModel": "diffusers_tpu_torch.models.transformers.transformer_flux.FluxTransformer2DModel",
