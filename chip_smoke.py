@@ -94,6 +94,20 @@ made from a seed on the card:
     SD 1.5's heads run `native`); one request of each family first runs 4
     steps on the kernels and on the plain routes on the card, the two images
     within 0.05;
+  * the other quantized layers and the rest of the SD family: phase 5b
+    holds the per-tensor int8 routes (the Linear and the im2col conv on
+    K5's GEMM, K and N padded) to their plain versions bit for bit at
+    SDXL's shapes; phase 12d quantizes a copy of phase 11's UNet with
+    `Int8DynamicActConfig()` (131 per-row Linears and 40 int8 convs: K5
+    171 a UNet call) and answers phase 11's request with it, then runs one
+    UNet call each under `impl="xla"`, `Int8WeightOnlyConfig` and
+    `Fp8WeightOnlyConfig`; phase 12e runs SDXL InstructPix2Pix at 768 px
+    with an 8-channel SDXL UNet (triple CFG); phase 23b runs, on phase 23's
+    SD 1.5 components, InstructPix2Pix at 512 px, LCM at 768 px (4 steps),
+    TCD (4 steps, eta 0.3) and the x4 upscaler at its published widths from
+    128 to 512 px (its UNet's noise-level class embeddings; K1 at its heads
+    of 64 and 128); step counts cut where marked (`IP2P_STEPS`,
+    `UPSCALE_STEPS`); phase 10i runs all of them small, card against CPU;
   * pipelines from disk (phase 18): SDXL written with `save_pretrained` and
     read back with `StableDiffusionXLPipeline.from_pretrained(dir,
     dtype=torch.bfloat16)`, one request; SD3.5 Medium given real tokenizers
@@ -527,6 +541,64 @@ SD15_ATTENTION = (
     ("self 256 d=160", (2, 256, 8, 160), 256, 5), ("cross 256 x 77 d=160", (2, 256, 8, 160), 77, 5),
     ("mid self 64 d=160", (2, 64, 8, 160), 64, 1), ("mid cross 64 x 77 d=160", (2, 64, 8, 160), 77, 1),
 )
+# phase 5b: the per-tensor int8 routes (`ops/int8.py`) on K5's GEMM at SDXL's shapes, 1024 px, CFG (b=2): the
+# per-tensor Linear at the level-3 feed-forward's (8,192 rows = 2 x 64 x 64 tokens, 1,280 -> 10,240), the int8 conv at
+# the level-1 3x3 (2, 320, 128, 128) -> 320 (K = 2,880 and N = 320 both padded to 128) and the level-3 3x3
+# (2, 1280, 32, 32) -> 1,280. (label, kind, input shape, N, kernel size)
+INT8_ROUTE_CASES = (
+    ("per-tensor Linear (8192, 1280 -> 10240)", "linear", (8192, 1280), 10240, None),
+    ("conv (2, 320, 128, 128) 3x3 -> 320", "conv", (2, 320, 128, 128), 320, 3),
+    ("conv (2, 1280, 32, 32) 3x3 -> 1280", "conv", (2, 1280, 32, 32), 1280, 3),
+)
+# phase 12d: SDXL under `Int8DynamicActConfig()` (JAX's rule at its default min_weight_size 4096): 131 Linears per
+# row (60 x (1280 -> 10240), 60 x (5120 -> 1280), 10 x (2560 -> 640), 1 x (2816 -> 1280)) and 40 int8 convs, so K5
+# runs 171 times a UNet call (131 of them after a row quantization); the other three configs run one UNet call each
+SDXL_W8A8_LINEARS, SDXL_INT8_CONVS = 131, 40
+# phase 12e: SDXL InstructPix2Pix (diffusers/sdxl-instructpix2pix-768's layout: SDXL's UNet with 8 input channels, its
+# Euler scheduler) at 768 px on phase 11's VAE and text towers, guidance 3.0 and image guidance 1.5 (triple CFG: one
+# batch-3 UNet call a step), IP2P_STEPS of the published default 100 (the cut)
+IP2P_STEPS = 10
+IP2P_RESOLUTION_XL = 768
+IP2P_GUIDANCE, IP2P_IMAGE_GUIDANCE = 3.0, 1.5
+# phase 23b, on phase 23's SD 1.5 components: InstructPix2Pix at timbrooks/instruct-pix2pix's widths (SD 1.5's UNet
+# with 8 input channels; the Euler scheduler at SD 1.5's betas for its Euler ancestral one, which the port lacks) at
+# 512 px, guidance 7.5, image guidance 1.5, IP2P_STEPS of 100; LCM at SimianLuo/LCM_Dreamshaper_v7's widths (SD 1.5's
+# UNet with time_cond_proj_dim 256; LCMScheduler, 50 original steps) at 768 px, 4 steps (the published default),
+# guidance 8.5; TCD on SD 1.5's UNet (TCD ships as a LoRA on it) at 512 px, 4 steps, eta 0.3; the x4 upscaler at
+# stabilityai/stable-diffusion-x4-upscaler's widths (its UNet: block_out_channels (256, 512, 512, 1024), 8 heads,
+# cross attention 1024, 1,000 noise-level classes, only_cross_attention (True, True, True, False) by block (the
+# first block has no attention), 7 input channels; its OpenCLIP-H text tower, 23 layers of 1,024; its 3-block VAE,
+# scaling 0.08333; a DDPM low_res_scheduler and a v-prediction DDIM), 128 px -> 512 px, noise level 20, guidance
+# 9.0, UPSCALE_STEPS of 75
+LCM_UNET = dict(SD15_UNET, time_cond_proj_dim=256)
+LCM_SCHEDULER = dict(beta_start=0.00085, beta_end=0.012, beta_schedule="scaled_linear", original_inference_steps=50)
+LCM_STEPS, LCM_RESOLUTION, LCM_GUIDANCE = 4, 768, 8.5
+TCD_STEPS, TCD_ETA = 4, 0.3
+UPSCALE_UNET = dict(
+    sample_size=128, in_channels=7, out_channels=4,
+    down_block_types=("DownBlock2D",) + ("CrossAttnDownBlock2D",) * 3,
+    up_block_types=("CrossAttnUpBlock2D",) * 3 + ("UpBlock2D",), block_out_channels=(256, 512, 512, 1024),
+    layers_per_block=2, attention_head_dim=8, cross_attention_dim=1024, use_linear_projection=True,
+    num_class_embeds=1000, only_cross_attention=(True, True, True, False),
+)
+UPSCALE_VAE = dict(in_channels=3, out_channels=3, down_block_types=("DownEncoderBlock2D",) * 3,
+                   up_block_types=("UpDecoderBlock2D",) * 3, block_out_channels=(128, 256, 512), latent_channels=4,
+                   layers_per_block=2, sample_size=256, scaling_factor=0.08333)
+CLIP_H_TEXT = dict(vocab_size=49408, hidden_size=1024, intermediate_size=4096, num_hidden_layers=23,
+                   num_attention_heads=16, projection_dim=512, hidden_act="gelu")
+UPSCALE_DDIM = dict(beta_start=0.00085, beta_end=0.012, beta_schedule="scaled_linear", clip_sample=False,
+                    set_alpha_to_one=False, steps_offset=1, prediction_type="v_prediction")
+UPSCALE_DDPM = dict(beta_start=0.0001, beta_end=0.02, beta_schedule="scaled_linear")
+UPSCALE_STEPS, UPSCALE_LOW_RES, UPSCALE_GUIDANCE, UPSCALE_NOISE_LEVEL = 10, 128, 9.0, 20
+# phase 10i: the new modules on small components, card bf16 against CPU f32: an SDXL-shaped UNet that JAX's gates
+# quantize (a 2,560-wide time embedding: its linear_2 and every time_emb_proj have K = 2,560; 320-channel 3x3 convs of
+# fan-in 2,880; heads of 64) under each config, and the InstructPix2Pix, upscaler, LCM and TCD pipelines
+SMALL_Q_UNET = dict(SMALL_UNET, block_out_channels=(64, 320), attention_head_dim=(1, 5), time_embedding_dim=2560)
+# bf16 on the card against bf16 on the CPU, as a share of the output's largest magnitude: the kernels' bf16 rounding
+# moves some activations across a per-tensor quantization step, each flip worth a step times a weight (measured on an
+# NVIDIA H100 80GB HBM3 at 700 W: 0.048 w8a8, 0.040 per tensor, 0.018 int8 and fp8 weight-only)
+SMALL_Q_TOL = 0.1
+
 # CLIP ViT-H/14's attention (16 heads of 80 over 257 tokens, 32 layers): `native`, once an image encode
 VIT_H_ATTENTION = ("ViT-H self 257 d=80", (1, 257, 16, 80), 257, 32)
 
@@ -2385,17 +2457,20 @@ def _module_launches(module):
     tokens; a UNet cross attention with IP-Adapters once more for each
     adapter whose scale is not 0), and K5 with its row quantization per w8a8 Linear whose K and N
     are multiples of 128 (the others take the dequantized matmul, as in
-    JAX)."""
+    JAX), and K5 alone per per-tensor int8 Linear and per group of an int8
+    conv (any shape: their operands are padded)."""
     from diffusers_tpu_torch.models.attention import Attention
     from diffusers_tpu_torch.models.transformers.transformer_flux import FluxAttention
     from diffusers_tpu_torch.models.transformers.transformer_sd3 import JointAttention
     from diffusers_tpu_torch.models.transformers.transformer_wan import WanAttention
     from diffusers_tpu_torch.models.transformers.transformer_wan_animate import WanAnimateFaceBlockCrossAttention
     from diffusers_tpu_torch.ops.cuda.flash_attention import HEAD_DIMS
-    from diffusers_tpu_torch.ops.module import GroupNorm, W8A8Linear
+    from diffusers_tpu_torch.ops.module import GroupNorm, Int8Conv2d, Int8PerTensorLinear, W8A8Linear
 
     mods = list(module.modules())
-    w8a8 = sum(isinstance(m, W8A8Linear) and m.in_features % 128 == 0 and m.out_features % 128 == 0 for m in mods)
+    w8a8 = sum(type(m) is W8A8Linear and m.in_features % 128 == 0 and m.out_features % 128 == 0 for m in mods)
+    per_tensor = sum(isinstance(m, Int8PerTensorLinear) for m in mods) + sum(
+        m.groups for m in mods if isinstance(m, Int8Conv2d))
     attentions = (Attention, FluxAttention, JointAttention, WanAttention, WanAnimateFaceBlockCrossAttention)
 
     def calls(m):  # a Wan image branch or a loaded IP-Adapter (one a nonzero scale) adds calls
@@ -2405,7 +2480,7 @@ def _module_launches(module):
             return 1 + sum(scale != 0 for scale in m.ip_adapter_scale)
         return 1
 
-    return _launches(group_norm=sum(isinstance(m, GroupNorm) for m in mods), w8a8_matmul=w8a8,
+    return _launches(group_norm=sum(isinstance(m, GroupNorm) for m in mods), w8a8_matmul=w8a8 + per_tensor,
                      w8a8_quantize_rows=w8a8,
                      flash_attention_fwd=sum(calls(m) * (isinstance(m, attentions) and m.dim_head in HEAD_DIMS)
                                              for m in mods))
@@ -5988,6 +6063,453 @@ def run_sd3_controlnet(smi: str, pipe):
     return {"sd3_controlnet": record["launches"]}
 
 
+def check_int8_routes():
+    """Phase 5b: the per-tensor int8 routes (`ops/int8.py`) on K5's GEMM at
+    INT8_ROUTE_CASES, bf16: each route held to its plain version (the same
+    function without padding or im2col, the int8 sum exact in float64) bit
+    for bit, with K5's skipped-K-tile control through the route failing;
+    the route's time (quantization, im2col, GEMM, slice), its GEMM's alone,
+    the plain version's, `torch._int_mm` + the same epilogue on the same
+    int8 operands, and a bf16 `F.linear` / `F.conv2d` of the dequantized
+    weight; the bound of the function (int8 operations at 1,979 TOP/s, or
+    x read, the weight read and the output written at 3.35 TB/s)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusers_tpu_torch.ops import int8 as routes
+    from diffusers_tpu_torch.quantizers import quantize_kernel_int8
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    out = []
+    for label, kind, shape, n, ksize in INT8_ROUTE_CASES:
+        x = (torch.randn(*shape, generator=gen, device=dev) * 2).to(torch.bfloat16)
+        cin = shape[1]
+        wshape = (n, cin) if kind == "linear" else (n, cin, ksize, ksize)
+        fan_in = cin * (ksize or 1) ** 2
+        weight, scale = quantize_kernel_int8(torch.randn(*wshape, generator=gen, device=dev) / fan_in ** 0.5)
+        bias = (0.1 * torch.randn(n, generator=gen, device=dev)).to(torch.bfloat16)
+        ops = routes.gemm_operands(weight, scale, bias)
+        k = weight[0].numel()
+        kp = ops[0][0].shape[1]
+        if kind == "linear":
+            route = lambda skip=-1: routes.int8_linear_per_tensor(x, ops, n, _skip_k_tile=skip)  # noqa: E731
+            plain = lambda: routes.int8_linear_per_tensor_plain(x, weight, scale, bias)  # noqa: E731
+            qx, s = routes.quantize_tensor(x)
+            cols = qx
+            m = shape[0]
+            bf16 = (weight.float() * scale[:, None]).to(torch.bfloat16)
+            library_bf16 = lambda: F.linear(x, bf16, bias)  # noqa: E731
+        else:
+            route = lambda skip=-1: routes.int8_conv2d(x, ops, n, (ksize, ksize), (1, 1), 1, (1, 1),  # noqa: E731
+                                                       _skip_k_tile=skip)
+            plain = lambda: routes.int8_conv2d_plain(x, weight, scale, bias, 1, 1, 1)  # noqa: E731
+            qx, s = routes.quantize_tensor(x)
+            cols, ho, wo = routes._im2col(qx, (ksize, ksize), (1, 1), (1, 1, 1, 1), (1, 1), kp)
+            m = cols.shape[0]
+            bf16 = (weight.float() * scale[:, None, None, None]).to(torch.bfloat16)
+            library_bf16 = lambda: F.conv2d(x, bf16, bias, padding=1)  # noqa: E731
+        y, ref = route(), plain()
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(y, ref))
+        ulp = bf16_ulp(ref)
+        used = float(((y.float() - ref.float()).abs() / ulp).max())
+        control = float(((route(skip=(kp // 64) // 2).float() - ref.float()).abs() / ulp).max())
+        ms, plain_ms = time_pair(route, plain, iters=10, plain_iters=2)
+        qw, ws, b = ops[0]
+        ones = torch.ones(m, device=dev)
+        gemm = lambda: routes.w8a8_matmul_2d(cols, qw, ones, s * ws, torch.bfloat16, b)  # noqa: E731
+        int_mm = lambda: (torch._int_mm(cols, qw.t()).float() * (s * ws)).to(torch.bfloat16) + b  # noqa: E731
+        gemm_ms, int_mm_ms, bf16_ms = time_ms(gemm, 10), time_ms(int_mm, 10), time_ms(library_bf16, 10)
+        nbytes = 2 * x.numel() + weight.numel() + 4 * n + 2 * n + 2 * m * n
+        bms, by = bound_ms(nbytes, 2.0 * m * n * k, PEAK_INT8_OPS)
+        row = {"case": label, "m": m, "k": k, "n": n, "k_padded": kp, "n_padded": qw.shape[0], "bit_equal": equal,
+               "max_ulps_vs_plain": used, "control_skipped_k_tile_max_ulps": control, "ms": ms, "plain_ms": plain_ms,
+               "gemm_ms": gemm_ms, "int_mm_epilogue_ms": int_mm_ms, "bf16_library_ms": bf16_ms, "bound_ms": bms,
+               "bound_by": by, "share_of_bound": bms / ms}
+        out.append(row)
+        log(f"[K5 route] {label}: M {m} K {k} (padded {kp}) N {n} (padded {qw.shape[0]}): bit-equal {equal} "
+            f"({used:.2f} ulp; control {control:.1f} ulp); route {ms:.4f} ms ({100 * bms / ms:.1f}% of its bound "
+            f"{bms:.4f}, {by}), its K5 GEMM {gemm_ms:.4f}, plain {plain_ms:.3f}, _int_mm+epilogue {int_mm_ms:.4f}, "
+            f"bf16 {'F.linear' if kind == 'linear' else 'F.conv2d'} {bf16_ms:.4f}")
+        if not (equal and torch.isfinite(y).all()):
+            raise AssertionError(f"the int8 route disagrees with its plain version: {label}")
+        if control <= 1.0:
+            raise AssertionError(f"the route's limit does not reject a skipped K tile: {label}")
+    RESULTS["int8_routes"] = out
+
+
+def _small_q_unet_inputs(device, dtype):
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED)
+    sample = torch.from_numpy(rng.randn(2, 4, 16, 16).astype(np.float32))
+    ehs = torch.from_numpy(rng.randn(2, 77, 64).astype(np.float32))
+    cond = {"text_embeds": torch.from_numpy(rng.randn(2, 32).astype(np.float32)),
+            "time_ids": torch.tensor([[128.0, 128, 0, 0, 128, 128]] * 2)}
+    return (sample.to(device, dtype), torch.tensor([500, 500], device=device), ehs.to(device, dtype),
+            {"text_embeds": cond["text_embeds"].to(device, dtype), "time_ids": cond["time_ids"].to(device)})
+
+
+def _copy_model(model):
+    """A copy of a port model (its own tensors, on its device, in its dtypes)."""
+    import torch
+
+    with torch.device("meta"):
+        clone = type(model).from_config(model.config)
+    clone.load_state_dict({k: v.clone() for k, v in model.state_dict().items()}, assign=True)
+    return clone.eval()
+
+
+def quantization_configs():
+    """(label, config) of the four configs the port quantizes a UNet with."""
+    from diffusers_tpu_torch.quantizers import Fp8WeightOnlyConfig, Int8DynamicActConfig, Int8WeightOnlyConfig
+
+    return (("w8a8", Int8DynamicActConfig()), ("w8a8_xla", Int8DynamicActConfig(impl="xla")),
+            ("int8_weight_only", Int8WeightOnlyConfig()), ("fp8_weight_only", Fp8WeightOnlyConfig()))
+
+
+def check_small_family(device: str = "cuda"):
+    """Phase 10i: the modules of this slice on small components, card
+    (kernels) against CPU (plain versions; held to JAX by
+    tests/test_torch_quantized_layers.py, test_torch_instruct_pix2pix.py and
+    test_torch_lcm_tcd_upscale.py): SMALL_Q_UNET quantized by each of the
+    four configs (`quantize_model`), one UNet call in bf16 on both sides,
+    within SMALL_Q_TOL of the output's largest magnitude, K5's launches held
+    to the modules' counts; then, card bf16 against CPU f32, InstructPix2Pix on SD
+    and SDXL, the x4 upscaler (the noise level through the class-embedding
+    table), LCM and TCD (eta 0.3) on small components, 4 steps, within phase
+    7's 0.05 on the [0, 1] image. Both sides draw from one CPU generator
+    seeded alike."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
+    from diffusers_tpu_torch.pipelines.latent_consistency_models import LatentConsistencyModelPipeline
+    from diffusers_tpu_torch.pipelines.stable_diffusion import (
+        StableDiffusionInstructPix2PixPipeline,
+        StableDiffusionUpscalePipeline,
+    )
+    from diffusers_tpu_torch.pipelines.stable_diffusion_xl import StableDiffusionXLInstructPix2PixPipeline
+    from diffusers_tpu_torch.pipelines.tcd import TCDPipeline
+    from diffusers_tpu_torch.quantizers import quantize_model
+    from diffusers_tpu_torch.schedulers import DDIMScheduler, DDPMScheduler, LCMScheduler, TCDScheduler
+
+    results = {}
+    torch.manual_seed(SEED)
+    float_unet = UNet2DConditionModel(**SMALL_Q_UNET).eval()
+    for label, config in quantization_configs():
+        outs, launches = [], None
+        for dev in ("cpu", device):  # bf16 on both sides: the kernels against their plain versions
+            dtype = torch.bfloat16
+            unet = quantize_model(_copy_model(float_unet).to(device=dev, dtype=dtype), config)
+            reset_launches()
+            with torch.no_grad():
+                sample, t, ehs, cond = _small_q_unet_inputs(dev, dtype)
+                outs.append(unet(sample, t, ehs, added_cond_kwargs=cond).sample.float().cpu())
+            launches, expected = read_launches(), _module_launches(unet)
+        ref, out = outs
+        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        results[label] = {"max_abs_err": err, "ref_max": scale, "launches": launches}
+        log(f"[ref-family] small UNet {label}, card vs CPU (bf16): max |diff| {err:.3e} (tol "
+            f"{SMALL_Q_TOL * scale:.3e}); launches {launches}")
+        if not (torch.isfinite(out).all() and err <= SMALL_Q_TOL * scale):
+            raise AssertionError(f"small UNet {label}: the card disagrees with the CPU")
+        if device == "cuda" and launches != expected:
+            raise AssertionError(f"small UNet {label}: launches {launches}, the modules count {expected}")
+        if label.startswith("w8a8") and device == "cuda" and launches["w8a8_matmul"] <= 0:
+            raise AssertionError(f"small UNet {label} missed K5")
+
+    image = synthetic_inputs(32)[0]
+    low_res = synthetic_inputs(16)[0]
+    sides = []
+    for dev in ("cpu", device):
+        sd = _build_sd(SMALL_SD_UNET, SMALL_VAE, SMALL_CLIP, "cpu", torch.float32)
+        sdxl = _build_pipeline(SMALL_UNET, SMALL_VAE, SMALL_CLIP, SMALL_CLIP, "cpu", torch.float32)
+        torch.manual_seed(SEED + 3)
+        unet8 = UNet2DConditionModel(**dict(SMALL_SD_UNET, in_channels=8))
+        unet8_xl = UNet2DConditionModel(**dict(SMALL_UNET, in_channels=8))
+        lcm_unet = UNet2DConditionModel(**dict(SMALL_SD_UNET, time_cond_proj_dim=32))
+        up_unet = UNet2DConditionModel(**dict(SMALL_SD_UNET, in_channels=7, num_class_embeds=1000,
+                                              only_cross_attention=(True, False), use_linear_projection=True))
+        parts = dict(sd.components, device="cpu")
+        pipes = {
+            "sd_instruct_pix2pix": StableDiffusionInstructPix2PixPipeline(**dict(parts, unet=unet8)),
+            "sdxl_instruct_pix2pix": StableDiffusionXLInstructPix2PixPipeline(
+                **dict(sdxl.components, unet=unet8_xl, device="cpu")),
+            "upscale": StableDiffusionUpscalePipeline(sd.vae, sd.text_encoder, sd.tokenizer, up_unet,
+                                                      DDPMScheduler(**UPSCALE_DDPM), DDIMScheduler(**UPSCALE_DDIM),
+                                                      device="cpu"),
+            "lcm": LatentConsistencyModelPipeline(**dict(parts, unet=lcm_unet,
+                                                         scheduler=LCMScheduler(**LCM_SCHEDULER))),
+            "tcd": TCDPipeline(**dict(parts, scheduler=TCDScheduler(**LCM_SCHEDULER))),
+        }
+        for pipe in pipes.values():
+            pipe.to(device=torch.device(dev), dtype=torch.float32 if not sides else torch.bfloat16)
+        sides.append(pipes)
+    cases = (("sd_instruct_pix2pix", dict(image=image, guidance_scale=7.5, image_guidance_scale=1.5)),
+             ("sdxl_instruct_pix2pix", dict(image=image, guidance_scale=5.0, image_guidance_scale=1.5)),
+             ("upscale", dict(image=low_res, guidance_scale=9.0, noise_level=UPSCALE_NOISE_LEVEL)),
+             ("lcm", dict(guidance_scale=LCM_GUIDANCE)),
+             ("tcd", dict(eta=TCD_ETA)))
+    for label, kwargs in cases:
+        images, launches = [], None
+        for pipes in sides:
+            reset_launches()
+            images.append(pipes[label](SD15_PROMPT, num_inference_steps=4, output_type="np",
+                                       generator=torch.Generator().manual_seed(SEED), **kwargs).images)
+            launches = read_launches()
+        ref, out = images
+        err = float(np.abs(out - ref).max())
+        results[label] = {"max_abs_err": err, "tol": 0.05, "launches": launches, "shape": list(out.shape)}
+        log(f"[ref-family] small {label} {out.shape}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol 0.05); "
+            f"launches {launches}")
+        if not (out.shape == ref.shape and np.isfinite(out).all() and err <= 0.05):
+            raise AssertionError(f"small {label}: the card disagrees with the CPU")
+        if device == "cuda" and min(launches["flash_attention_fwd"], launches["group_norm"]) <= 0:
+            raise AssertionError(f"small {label} on the card missed a kernel: {launches}")
+    RESULTS["small_family"] = results
+
+
+def _weight_bytes(module) -> int:
+    return sum(t.numel() * t.element_size() for t in (*module.parameters(), *module.buffers()))
+
+
+def run_sdxl_w8a8(smi: str, pipe, dense_image):
+    """Phase 12d: SDXL at 1024 px (STEPS steps, CFG 5.0, PROMPTS[0], SEED:
+    phase 11's request) with a copy of phase 11's UNet quantized by
+    `Int8DynamicActConfig()` (`quantize_model`): SDXL_W8A8_LINEARS per-row
+    Linears on K5 with its row quantization and SDXL_INT8_CONVS int8 convs
+    on K5's GEMM through the per-tensor route; each step's launches held to
+    the modules' counts (K1 140, K4 46, K5 171 a step), its time, its peak
+    memory with phase 11's bf16 UNet moved off the card, the UNet's weight
+    bytes against bf16, and the image's cosine against phase 11's. Then one
+    UNet call at b=2 each under `impl="xla"`, `Int8WeightOnlyConfig` and
+    `Fp8WeightOnlyConfig` (and w8a8), timed on CUDA events, with its weight
+    bytes, launches and cosine against the bf16 UNet's output."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.ops.module import Int8Conv2d, W8A8Linear
+    from diffusers_tpu_torch.pipelines.stable_diffusion_xl import StableDiffusionXLPipeline
+    from diffusers_tpu_torch.quantizers import quantize_model, quantized_module_names
+
+    float_unet = pipe.unet
+    dev = torch.device("cuda")
+    sample = torch.randn(2, 4, 128, 128, device=dev, dtype=torch.bfloat16,
+                         generator=torch.Generator(device=dev).manual_seed(SEED))
+    ehs = torch.randn(2, 77, 2048, device=dev, dtype=torch.bfloat16)
+    cond = {"text_embeds": torch.randn(2, 1280, device=dev, dtype=torch.bfloat16),
+            "time_ids": torch.tensor([[1024, 1024, 0, 0, 1024, 1024]] * 2, device=dev, dtype=torch.float32)}
+    t = torch.tensor(500.0, device=dev)
+    with torch.no_grad():
+        dense_out = float_unet(sample, t, ehs, added_cond_kwargs=cond).sample.float()
+    bf16_bytes = _weight_bytes(float_unet)
+    out = {"card": smi, "unet_bf16_weight_gb": bf16_bytes / 1e9}
+    calls = {}
+    for label, config in quantization_configs():
+        names = quantized_module_names(float_unet, config)
+        unet = quantize_model(_copy_model(float_unet), config)
+        kinds = {}
+        for m in unet.modules():
+            kinds[type(m).__name__] = kinds.get(type(m).__name__, 0) + 1
+        launches_per_call = _module_launches(unet)
+        reset_launches()
+        with torch.no_grad():
+            y = unet(sample, t, ehs, added_cond_kwargs=cond).sample.float()
+            got = read_launches()
+            ms = time_ms(lambda: unet(sample, t, ehs, added_cond_kwargs=cond), iters=5)
+        cos = float(torch.nn.functional.cosine_similarity(y.flatten(), dense_out.flatten(), dim=0))
+        wbytes = _weight_bytes(unet)
+        calls[label] = {"quantized_layers": len(names), "unet_forward_b2_ms": ms, "weight_gb": wbytes / 1e9,
+                        "launches": got, "cosine_vs_bf16": cos,
+                        "layers": {k: v for k, v in kinds.items() if k in ("W8A8Linear", "Int8PerTensorLinear",
+                                                                           "Int8Conv2d", "WeightOnlyLinear")}}
+        log(f"[sdxl-quant] {smi}: UNet {label}: {len(names)} layers quantized {calls[label]['layers']}, weights "
+            f"{wbytes / 1e9:.3f} GB (bf16 {bf16_bytes / 1e9:.3f}), forward b=2 {ms:.2f} ms (CUDA events), launches "
+            f"{got}, cosine vs bf16 {cos:.5f}")
+        if got != launches_per_call or not torch.isfinite(y).all() or cos < 0.9:
+            raise AssertionError(f"SDXL UNet {label}: launches {got} (the modules count {launches_per_call}), "
+                                 f"cosine {cos}")
+        if label == "w8a8":
+            n_lin = sum(isinstance(m, W8A8Linear) for m in unet.modules())
+            n_conv = sum(isinstance(m, Int8Conv2d) for m in unet.modules())
+            if (n_lin, n_conv) != (SDXL_W8A8_LINEARS, SDXL_INT8_CONVS) or got["w8a8_matmul"] != n_lin + n_conv:
+                raise AssertionError(f"SDXL w8a8: {n_lin} Linears and {n_conv} convs, K5 {got['w8a8_matmul']}")
+            w8a8_unet = unet
+        else:
+            del unet
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["unet_calls"] = calls
+
+    # the request, with phase 11's bf16 UNet off the card
+    float_unet.to("cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    wpipe = StableDiffusionXLPipeline(**dict(pipe.components, unet=w8a8_unet))
+    wpipe(PROMPTS[0], height=RESOLUTION, width=RESOLUTION, num_inference_steps=2, guidance_scale=GUIDANCE,
+          output_type="latent", generator=torch.Generator(device="cuda").manual_seed(SEED))  # warm-up
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    per_step = _module_launches(w8a8_unet)
+    images, seconds, peak_gb, launches = _held_request(
+        smi, "sdxl_w8a8", wpipe, STEPS, per_step, {}, _module_launches(pipe.vae.decoder), prompt=PROMPTS[0],
+        height=RESOLUTION, width=RESOLUTION, num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+        generator=torch.Generator(device="cuda").manual_seed(SEED), output_type="pil")
+    image = np.asarray(images[0])
+    cos = _image_cosine(image, dense_image)
+    out["request"] = {"seconds_per_request": seconds, "steps": STEPS, "peak_memory_gb": peak_gb,
+                      "resident_gb_before": resident_gb, "launches": launches, "per_step": per_step,
+                      "image_cosine_vs_bf16": cos, "dense_seconds_per_request": RESULTS["pipeline"][
+                          "seconds_per_request"][0], "dense_peak_memory_gb": RESULTS["pipeline"]["peak_memory_gb"]}
+    log(f"[sdxl-w8a8] {smi}: {seconds:.3f} s/request ({STEPS} steps; bf16 phase 11: "
+        f"{RESULTS['pipeline']['seconds_per_request'][0]:.3f}), peak {peak_gb:.2f} GB (bf16 phase 11: "
+        f"{RESULTS['pipeline']['peak_memory_gb']:.2f}), K1 {per_step['flash_attention_fwd']}, K4 "
+        f"{per_step['group_norm']}, K5 {per_step['w8a8_matmul']} ({per_step['w8a8_quantize_rows']} row "
+        f"quantizations) a step; image cosine vs bf16 {cos:.5f}")
+    if image.shape != (RESOLUTION, RESOLUTION, 3) or cos < 0.9:
+        raise AssertionError(f"SDXL w8a8: image {image.shape}, cosine {cos}")
+    del wpipe, w8a8_unet
+    gc.collect()
+    torch.cuda.empty_cache()
+    float_unet.to("cuda")
+    RESULTS["sdxl_w8a8"] = out
+    return {"sdxl_w8a8": launches}
+
+
+def run_sdxl_ip2p(smi: str, pipe):
+    """Phase 12e: SDXL InstructPix2Pix at 768 px (IP2P_STEPS steps of 100, a
+    batch-3 UNet call a step) with an 8-channel SDXL UNet made from a seed on
+    phase 11's VAE and text towers; each step's launches held to the UNet's
+    module counts (the VAE encode booked to the first step)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
+    from diffusers_tpu_torch.pipelines.stable_diffusion_xl import StableDiffusionXLInstructPix2PixPipeline
+
+    torch.manual_seed(SEED + 7)
+    with torch.device("cuda"):
+        unet8 = UNet2DConditionModel(**dict(SDXL_UNET, in_channels=8)).to(torch.bfloat16)
+    ip2p = StableDiffusionXLInstructPix2PixPipeline(**dict(pipe.components, unet=unet8))
+    image = synthetic_inputs(IP2P_RESOLUTION_XL)[0]
+    kwargs = dict(prompt=PROMPTS[1], image=image, guidance_scale=IP2P_GUIDANCE,
+                  image_guidance_scale=IP2P_IMAGE_GUIDANCE)
+    ip2p(**kwargs, num_inference_steps=2, output_type="latent")  # warm-up
+    images, seconds, peak_gb, launches = _held_request(
+        smi, "sdxl_instruct_pix2pix", ip2p, IP2P_STEPS, _module_launches(unet8), _module_launches(pipe.vae.encoder),
+        _module_launches(pipe.vae.decoder), num_inference_steps=IP2P_STEPS, output_type="pil", **kwargs)
+    result = np.asarray(images[0])
+    if result.shape != (IP2P_RESOLUTION_XL, IP2P_RESOLUTION_XL, 3):
+        raise AssertionError(f"SDXL InstructPix2Pix: bad image {result.shape}")
+    RESULTS["sdxl_instruct_pix2pix"] = {"card": smi, "seconds_per_request": seconds, "steps": IP2P_STEPS,
+                                        "published_steps": 100, "peak_memory_gb": peak_gb, "launches": launches,
+                                        "resolution": IP2P_RESOLUTION_XL}
+    del ip2p, unet8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sdxl_instruct_pix2pix": launches}
+
+
+def run_sd15_family(smi: str, pipe):
+    """Phase 23b, on phase 23's SD 1.5 components: InstructPix2Pix at 512 px,
+    LCM at 768 px, TCD at 512 px and the x4 upscaler from 128 to 512 px, at
+    the published widths (made from a seed, bf16), each request warmed up
+    once at fewer steps, then held step by step to the modules' counts (K4
+    in every UNet call; K1 0 at SD 1.5's heads, and in the upscaler's UNet at
+    its heads of 64 and 128). Returns the launches by path."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.models.autoencoders.autoencoder_kl import AutoencoderKL
+    from diffusers_tpu_torch.models.text_encoders.clip import CLIPTextModel
+    from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
+    from diffusers_tpu_torch.pipelines.latent_consistency_models import LatentConsistencyModelPipeline
+    from diffusers_tpu_torch.pipelines.stable_diffusion import (
+        StableDiffusionInstructPix2PixPipeline,
+        StableDiffusionUpscalePipeline,
+    )
+    from diffusers_tpu_torch.pipelines.tcd import TCDPipeline
+    from diffusers_tpu_torch.schedulers import (
+        DDIMScheduler,
+        DDPMScheduler,
+        EulerDiscreteScheduler,
+        LCMScheduler,
+        TCDScheduler,
+    )
+
+    out, paths = {}, {}
+    decode = _module_launches(pipe.vae.decoder)
+
+    def request(label, pipeline, steps, size, first_extra, after, published, warm_steps=2, **kwargs):
+        pipeline(SD15_PROMPT, num_inference_steps=warm_steps, output_type="latent",
+                 generator=torch.Generator(device="cuda").manual_seed(SEED), **kwargs)
+        images, seconds, peak_gb, launches = _held_request(
+            smi, label, pipeline, steps, _module_launches(pipeline.unet), first_extra, after, prompt=SD15_PROMPT,
+            num_inference_steps=steps, output_type="pil", generator=torch.Generator(device="cuda").manual_seed(SEED),
+            **kwargs)
+        result = np.asarray(images[0])
+        if result.shape != (size, size, 3) or result.dtype != np.uint8:
+            raise AssertionError(f"{label}: bad uint8 image {result.shape} {result.dtype}")
+        out[label] = {"card": smi, "seconds_per_request": seconds, "peak_memory_gb": peak_gb, "steps": steps,
+                      "published_steps": published, "launches": launches, "image_mean": float(result.mean()),
+                      "per_step": _module_launches(pipeline.unet)}
+        paths[label] = launches
+
+    image = synthetic_inputs(SD15_RESOLUTION)[0]
+    torch.manual_seed(SEED + 8)
+    with torch.device("cuda"):
+        unet8 = UNet2DConditionModel(**dict(SD15_UNET, in_channels=8)).to(torch.bfloat16)
+    ip2p = StableDiffusionInstructPix2PixPipeline(**dict(pipe.components, unet=unet8,
+                                                         scheduler=EulerDiscreteScheduler(**EULER)))
+    request("sd15_instruct_pix2pix", ip2p, IP2P_STEPS, SD15_RESOLUTION, _module_launches(pipe.vae.encoder), decode,
+            100, image=image, guidance_scale=SD15_GUIDANCE, image_guidance_scale=IP2P_IMAGE_GUIDANCE)
+    del ip2p, unet8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(SEED + 9)
+    with torch.device("cuda"):
+        lcm_unet = UNet2DConditionModel(**LCM_UNET).to(torch.bfloat16)
+    lcm = LatentConsistencyModelPipeline(**dict(pipe.components, unet=lcm_unet,
+                                                scheduler=LCMScheduler(**LCM_SCHEDULER)))
+    request("sd15_lcm", lcm, LCM_STEPS, LCM_RESOLUTION, {}, decode, 4, warm_steps=1, height=LCM_RESOLUTION,
+            width=LCM_RESOLUTION, guidance_scale=LCM_GUIDANCE)
+    del lcm, lcm_unet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tcd = TCDPipeline(**dict(pipe.components, scheduler=TCDScheduler(**LCM_SCHEDULER)))
+    request("sd15_tcd", tcd, TCD_STEPS, SD15_RESOLUTION, {}, decode, 4, warm_steps=1, eta=TCD_ETA)
+
+    torch.manual_seed(SEED + 10)
+    with torch.device("cuda"):
+        up_unet = UNet2DConditionModel(**UPSCALE_UNET)
+        up_vae = AutoencoderKL(**UPSCALE_VAE)
+        up_text = CLIPTextModel(**CLIP_H_TEXT)
+    n_params = {k: sum(p.numel() for p in m.parameters()) for k, m in
+                (("unet", up_unet), ("vae", up_vae), ("text_encoder", up_text))}
+    upscale = StableDiffusionUpscalePipeline(up_vae, up_text, pipe.tokenizer, up_unet, DDPMScheduler(**UPSCALE_DDPM),
+                                             DDIMScheduler(**UPSCALE_DDIM)).to(dtype=torch.bfloat16)
+    low_res = synthetic_inputs(UPSCALE_LOW_RES)[0]
+    request("sd_x4_upscale", upscale, UPSCALE_STEPS, 4 * UPSCALE_LOW_RES, {}, _module_launches(up_vae.decoder), 75,
+            image=low_res, guidance_scale=UPSCALE_GUIDANCE, noise_level=UPSCALE_NOISE_LEVEL)
+    out["sd_x4_upscale"]["parameters"] = n_params
+    log(f"[sd-family] {smi}: x4 upscaler parameters {n_params}")
+    del upscale, up_unet, up_vae, up_text
+    gc.collect()
+    torch.cuda.empty_cache()
+    RESULTS["sd15_family"] = out
+    return paths
+
+
 def timed(fn, *args):
     """`fn(*args)`, its wall time logged and kept in RESULTS["phase_seconds"]
     under the function's name."""
@@ -6012,6 +6534,7 @@ def main() -> int:
     summary = timed(check_kernels)
     summary.update(timed(check_group_norm))
     summary.update(timed(check_w8a8))
+    timed(check_int8_routes)
     summary.update(timed(check_flash_bwd))
     timed(check_small_reference)
     timed(check_small_flux_reference)
@@ -6025,18 +6548,22 @@ def main() -> int:
     timed(check_small_wan_family)
     timed(check_small_sd)
     timed(check_small_controlnets)
+    timed(check_small_family)
     sdxl, pipe, image = timed(run_pipeline, smi)
     paths = {"sdxl": sdxl, **timed(run_sdxl_cached, smi, pipe, image)}
     paths.update(timed(run_image_pipelines, smi, pipe))
     paths.update(timed(run_sdxl_ip_adapter, smi, pipe, image))
     paths.update(timed(run_sdxl_from_disk, smi, pipe, image))
     paths.update(timed(run_sdxl_controlnets, smi, pipe))
+    paths.update(timed(run_sdxl_w8a8, smi, pipe, image))
+    paths.update(timed(run_sdxl_ip2p, smi, pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
     sd15_paths, pipe = timed(run_sd15, smi)
     paths.update(sd15_paths)
     paths.update(timed(run_sd15_controlnet, smi, pipe))
+    paths.update(timed(run_sd15_family, smi, pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()

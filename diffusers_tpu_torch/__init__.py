@@ -19,6 +19,11 @@ _EXPORTS = {
     "StableDiffusionPipeline": "diffusers_tpu_torch.pipelines.stable_diffusion",
     "StableDiffusionImg2ImgPipeline": "diffusers_tpu_torch.pipelines.stable_diffusion",
     "StableDiffusionInpaintPipeline": "diffusers_tpu_torch.pipelines.stable_diffusion",
+    "StableDiffusionInstructPix2PixPipeline": "diffusers_tpu_torch.pipelines.stable_diffusion",
+    "StableDiffusionUpscalePipeline": "diffusers_tpu_torch.pipelines.stable_diffusion",
+    "StableDiffusionXLInstructPix2PixPipeline": "diffusers_tpu_torch.pipelines.stable_diffusion_xl",
+    "LatentConsistencyModelPipeline": "diffusers_tpu_torch.pipelines.latent_consistency_models",
+    "TCDPipeline": "diffusers_tpu_torch.pipelines.tcd",
     "StableDiffusionAdapterPipeline": "diffusers_tpu_torch.pipelines.t2i_adapter",
     "StableDiffusionControlNetPipeline": "diffusers_tpu_torch.pipelines.controlnet",
     "StableDiffusionControlNetImg2ImgPipeline": "diffusers_tpu_torch.pipelines.controlnet",
@@ -40,6 +45,9 @@ _EXPORTS = {
     "MultiAdapter": "diffusers_tpu_torch.models.adapter",
     "PNDMScheduler": "diffusers_tpu_torch.schedulers",
     "DDIMScheduler": "diffusers_tpu_torch.schedulers",
+    "DDPMScheduler": "diffusers_tpu_torch.schedulers",
+    "LCMScheduler": "diffusers_tpu_torch.schedulers",
+    "TCDScheduler": "diffusers_tpu_torch.schedulers",
     "FluxPipeline": "diffusers_tpu_torch.pipelines.flux.pipeline_flux",
     "FluxImg2ImgPipeline": "diffusers_tpu_torch.pipelines.flux",
     "FluxInpaintPipeline": "diffusers_tpu_torch.pipelines.flux",

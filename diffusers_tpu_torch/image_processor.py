@@ -61,10 +61,12 @@ def postprocess_uint8(image: torch.Tensor) -> np.ndarray:
 
 class VaeImageProcessor:
     """JAX's defaults held fixed: PIL input is resized with the Lanczos
-    filter, and any input whose minimum is >= 0 is normalized to [-1, 1]."""
+    filter (or `resample`: "bicubic" for the x4 upscaler, as JAX's), and any
+    input whose minimum is >= 0 is normalized to [-1, 1]."""
 
-    def __init__(self, vae_scale_factor: int = 8):
+    def __init__(self, vae_scale_factor: int = 8, resample: str = "lanczos"):
         self.vae_scale_factor = vae_scale_factor
+        self.resample = resample
 
     @staticmethod
     def normalize(images):
@@ -89,14 +91,14 @@ class VaeImageProcessor:
         sf = self.vae_scale_factor
         return height - height % sf, width - width % sf
 
-    @staticmethod
-    def resize(image, height: int, width: int):
-        """A PIL image with the Lanczos filter, or a numpy [B, H, W, C] batch
-        by nearest neighbour (index maps on the host, as JAX)."""
+    def resize(self, image, height: int, width: int):
+        """A PIL image with the processor's filter (Lanczos by default), or a
+        numpy [B, H, W, C] batch by nearest neighbour (index maps on the
+        host, as JAX)."""
         if _is_pil(image):
             from PIL import Image
 
-            return image.resize((width, height), resample=Image.LANCZOS)
+            return image.resize((width, height), resample=getattr(Image, self.resample.upper()))
         arr = np.asarray(image)
         _, h, w, _ = arr.shape
         yi = (np.arange(height) * (h / height)).astype(np.int64).clip(0, h - 1)

@@ -15,9 +15,10 @@ layout: the text encoders read and write transformers' (`model.safetensors`,
 or `model-0000i-of-0000n.safetensors` shards with
 `model.safetensors.index.json`) and keep only the keys of their encoder, as
 the JAX text encoders' `from_pretrained` do. `quantization_config` quantizes
-on load: the Linears the config selects (`quantizers.quantize.w8a8_linear_names`
-or `int4_linear_names`, JAX's rules) become `W8A8Linear`s or `Int4Linear`s
-on the meta model, and each float weight is
+on load: the Linears and convs the config selects
+(`quantizers.quantize.quantized_module_names`, JAX's rules) become their
+quantized layers on the meta model (`W8A8Linear`, `Int8PerTensorLinear`,
+`Int8Conv2d`, `WeightOnlyLinear`, `Int4Linear`), and each float weight is
 quantized on the device as it arrives.
 
 The safetensors files are read and written with the standard library (an
@@ -40,17 +41,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.module import Int4Linear, RMSNorm, W8A8Linear
+from ..ops.module import Int4Linear, Int8Conv2d, Int8PerTensorLinear, RMSNorm, W8A8Linear, WeightOnlyLinear
 from ..quantizers.auto import resolve_quantization_config
-from ..quantizers.quantization_config import Int4WeightOnlyConfig
-from ..quantizers.quantize import (
-    int4_linear_names,
-    quantize_kernel_int4,
-    quantize_kernel_int8,
-    replace_with_int4,
-    replace_with_w8a8,
-    w8a8_linear_names,
-)
+from ..quantizers.quantize import QUANTIZED_LAYERS, quantize_weight, quantized_module_names, replace_with_quantized
 
 CONFIG_NAME = "config.json"
 SAFETENSORS_WEIGHTS_NAME = "diffusion_pytorch_model.safetensors"
@@ -58,7 +51,7 @@ SAFETENSORS_INDEX_NAME = "diffusion_pytorch_model.safetensors.index.json"
 _SAFETENSORS_DTYPES = {
     torch.float64: "F64", torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
     torch.int64: "I64", torch.int32: "I32", torch.int16: "I16", torch.int8: "I8", torch.uint8: "U8",
-    torch.bool: "BOOL",
+    torch.bool: "BOOL", torch.float8_e4m3fn: "F8_E4M3",
 }
 _SAFETENSORS_TORCH_DTYPES = {name: dtype for dtype, name in _SAFETENSORS_DTYPES.items()}
 
@@ -93,6 +86,8 @@ def save_safetensors(tensors: Dict[str, torch.Tensor], path: Union[str, os.PathL
             t = t.detach().to("cpu").contiguous()
             if t.dtype == torch.bfloat16:  # numpy has no bf16: its bits as int16
                 t = t.view(torch.int16)
+            elif t.dtype == torch.float8_e4m3fn:  # nor fp8: its bytes
+                t = t.view(torch.uint8)
             f.write(t.numpy().tobytes())  # native order: little-endian on x86-64 and aarch64, as the format needs
 
 
@@ -267,16 +262,17 @@ class ModelMixin(nn.Module):
         size (`WanRMSNorm.gamma`, which the JAX package writes flat).
 
         `quantization_config` (a config of `diffusers_tpu_torch.quantizers`,
-        a dict or a method name) quantizes on load. With
-        `Int8DynamicActConfig` the Linears JAX's `quantize_params` would mark
-        w8a8 become `W8A8Linear`s before any tensor is read; a float weight
-        is cast to `dtype` and quantized on `device` as it arrives
-        (`quantize_kernel_int8`), and an int8 weight with its `weight_scale`
-        (the port's own w8a8 save) loads as it is. `Int4WeightOnlyConfig`
-        does the same with `Int4Linear`s (JAX's int4 rule,
-        `quantize_kernel_int4` at the config's ``group_size``). The int8 and
-        fp8 weight-only configs raise
-        `NotImplementedError`, as do `gguf_file` and `mesh`. The default
+        a dict or a method name) quantizes on load. The layers JAX's
+        `quantize_params` would quantize under it
+        (`quantizers.quantized_module_names`) become their quantized layers
+        before any tensor is read (`W8A8Linear`, or `Int8PerTensorLinear`
+        with ``impl="xla"``, and `Int8Conv2d` under `Int8DynamicActConfig`;
+        `WeightOnlyLinear` int8 or fp8 under the weight-only configs;
+        `Int4Linear` at the config's ``group_size``); a float weight is cast
+        to `dtype` and quantized on `device` as it arrives
+        (`quantizers.quantize_weight`), and a quantized weight with its
+        `weight_scale` (the port's own save of a quantized model) loads as it
+        is. `gguf_file` and `mesh` raise `NotImplementedError`. The default
         device is the card: without one this raises; pass ``device="cpu"``
         to load on the CPU."""
         for name, value, item in (("gguf_file", gguf_file, "GGUF checkpoints, ROADMAP A4.5"),
@@ -296,19 +292,16 @@ class ModelMixin(nn.Module):
         with torch.device("meta"):
             model = cls.from_config(cls.load_config(model_path), **kwargs)
         quantized = []
-        if isinstance(quantization_config, Int4WeightOnlyConfig):
-            quantized = int4_linear_names(model, quantization_config)
-            replace_with_int4(model, quantized, quantization_config.group_size)
-        elif quantization_config is not None:
-            quantized = w8a8_linear_names(model, quantization_config)
-            replace_with_w8a8(model, quantized)
+        if quantization_config is not None:
+            quantized = quantized_module_names(model, quantization_config)
+            replace_with_quantized(model, quantized, quantization_config)
         expected = model.state_dict(keep_vars=True)
         files = _resolve_weight_files(model_path, cls._weights_name, cls._weights_index_name, variant)
         dtypes = [(k, info["dtype"]) for f in files for k, info in read_safetensors_header(f)[1].items()
                   if cls._reads_key(k)]
         keys = dict(dtypes)
-        # a quantized Linear whose checkpoint weight is float makes its scale on arrival
-        on_arrival = {n for n in quantized if keys.get(f"{n}.weight", "I8") != "I8"
+        # a quantized layer whose checkpoint weight is float (and has no scale) makes its scale on arrival
+        on_arrival = {n for n in quantized if keys.get(f"{n}.weight") in ("F64", "F32", "F16", "BF16")
                       and f"{n}.weight_scale" not in keys}
         derived = keys.keys() & set(model._derived_keys)
         missing = sorted(expected.keys() - keys.keys() - {f"{n}.weight_scale" for n in on_arrival})
@@ -329,6 +322,7 @@ class ModelMixin(nn.Module):
                 module_name, _, leaf = key.rpartition(".")
                 module = model.get_submodule(module_name)
                 target_shape = target.shape
+                quantized_leaf = isinstance(module, QUANTIZED_LAYERS) and leaf in ("weight", "weight_scale")
                 if isinstance(module, Int4Linear) and leaf == "weight" and module_name in on_arrival:
                     target_shape = (module.out_features, module.in_features)  # the float weight, packed below
                 if (tensor.shape != target_shape and leaf in getattr(module, "reshape_on_load", ())
@@ -338,18 +332,15 @@ class ModelMixin(nn.Module):
                     raise ValueError(f"{cls.__name__}.from_pretrained: {key} has shape {tuple(tensor.shape)} in "
                                      f"{f}, the model expects {tuple(target_shape)}")
                 cast = dtype if dtype is not None and tensor.is_floating_point() else tensor.dtype
-                if isinstance(module, (W8A8Linear, Int4Linear)) and leaf == "weight_scale":
-                    cast = torch.float32  # the f32 scales, whatever `dtype` is
+                if quantized_leaf and (leaf == "weight_scale" or module_name not in on_arrival):
+                    cast = tensor.dtype  # a quantized weight and the f32 scales, whatever `dtype` is
                 value = tensor.to(device=device, dtype=cast, copy=True)
-                if isinstance(module, (W8A8Linear, Int4Linear)) and leaf == "weight":
-                    if module_name in on_arrival and isinstance(module, Int4Linear):
-                        value, module._buffers["weight_scale"] = quantize_kernel_int4(
-                            value, quantization_config.group_size)
-                    elif module_name in on_arrival:
-                        value, module._buffers["weight_scale"] = quantize_kernel_int8(value)
-                    elif value.dtype != torch.int8:
+                if quantized_leaf and leaf == "weight":
+                    if module_name in on_arrival:
+                        value, module._buffers["weight_scale"] = quantize_weight(module, value)
+                    elif value.dtype != target.dtype:
                         raise ValueError(f"{cls.__name__}.from_pretrained: {key} is {value.dtype} beside a "
-                                         "weight_scale; a w8a8 checkpoint holds int8 weights")
+                                         f"weight_scale; {type(module).__name__} holds {target.dtype} weights")
                 if leaf in module._parameters:
                     module._parameters[leaf] = nn.Parameter(value, requires_grad=target.requires_grad)
                 else:
@@ -363,10 +354,12 @@ class ModelMixin(nn.Module):
 
 def _leaf_to_torch(module: nn.Module, name: str, array: np.ndarray):
     """(state-dict name, array in torch layout) for one JAX parameter leaf."""
-    if isinstance(module, (nn.Linear, W8A8Linear)) and name == "kernel":  # [in, out] -> [out, in]
+    if isinstance(module, (nn.Linear, W8A8Linear, WeightOnlyLinear)) and name == "kernel":  # [in, out] -> [out, in]
         return "weight", array.T
-    if isinstance(module, W8A8Linear) and name == "kernel_scale_w8a8":
+    if isinstance(module, (W8A8Linear, WeightOnlyLinear, Int8Conv2d)) and name.startswith("kernel_scale"):
         return "weight_scale", array
+    if isinstance(module, Int8Conv2d) and name == "kernel":  # HWIO -> OIHW
+        return "weight", array.transpose(3, 2, 0, 1)
     if isinstance(module, Int4Linear) and name in ("kernel", "kernel_scale_int4"):  # [.., out] -> [out, ..]
         return ("weight" if name == "kernel" else "weight_scale"), array.T
     if hasattr(module, "jax_leaf_to_torch"):  # a layer that keeps its own JAX layout (Animate's MotionConv2d)
@@ -387,32 +380,54 @@ def _leaf_to_torch(module: nn.Module, name: str, array: np.ndarray):
 def load_jax_params(module: nn.Module, tree: Dict[Any, Any]) -> nn.Module:
     """Load a JAX parameter pytree (nested dicts of numpy arrays, integer keys
     for module lists, as `jax.device_get(params)` returns) into `module`,
-    walking it to learn each leaf's layer type. A Linear whose leaf carries
-    ``kernel_scale_w8a8`` (JAX's w8a8 branch) becomes a `W8A8Linear` in place,
-    so one quantized JAX tree drives both packages. Strict: every key must
-    match, in both directions. Returns the module."""
+    walking it to learn each leaf's layer type. A Linear or Conv2d whose
+    leaf carries one of JAX's scale keys becomes its quantized layer in place
+    (``kernel_scale_w8a8``: `W8A8Linear` or `Int8Conv2d`; ``kernel_scale_i8x``:
+    `Int8PerTensorLinear`; ``kernel_scale``: `WeightOnlyLinear` of the
+    kernel's dtype; ``kernel_scale_int4``: `Int4Linear`), so one quantized
+    JAX tree drives both packages. Strict: every key must match, in both
+    directions. Returns the module."""
     state: Dict[str, torch.Tensor] = {}
+
+    def quantized(child: nn.Module, leaf: Dict[Any, Any]) -> Optional[nn.Module]:
+        if isinstance(child, nn.Conv2d) and "kernel_scale_w8a8" in leaf:
+            return Int8Conv2d.like(child)
+        if not isinstance(child, nn.Linear):
+            return None
+        use_bias = child.bias is not None
+        args = (child.in_features, child.out_features)
+        with torch.device(child.weight.device):
+            if "kernel_scale_w8a8" in leaf:
+                return W8A8Linear(*args, use_bias=use_bias)
+            if "kernel_scale_i8x" in leaf:
+                return Int8PerTensorLinear(*args, use_bias=use_bias)
+            if "kernel_scale_int4" in leaf:
+                return Int4Linear(*args, np.shape(leaf["kernel_scale_int4"])[0], use_bias=use_bias)
+            if "kernel_scale" in leaf:
+                fp8 = np.asarray(leaf["kernel"]).dtype.name == "float8_e4m3fn"
+                return WeightOnlyLinear(*args, use_bias=use_bias,
+                                        weight_dtype=torch.float8_e4m3fn if fp8 else torch.int8)
+        return None
 
     def walk(mod: nn.Module, node: Dict[Any, Any], prefix: str):
         for k, v in node.items():
             if isinstance(v, dict):
                 child = mod.get_submodule(str(k))
-                if "kernel_scale_w8a8" in v and isinstance(child, nn.Linear):
-                    with torch.device(child.weight.device):
-                        child = W8A8Linear(child.in_features, child.out_features, use_bias=child.bias is not None)
-                    setattr(mod, str(k), child)
-                elif "kernel_scale_int4" in v and isinstance(child, nn.Linear):
-                    with torch.device(child.weight.device):
-                        child = Int4Linear(child.in_features, child.out_features, np.shape(v["kernel_scale_int4"])[0],
-                                           use_bias=child.bias is not None)
-                    setattr(mod, str(k), child)
+                swapped = quantized(child, v)
+                if swapped is not None:
+                    setattr(mod, str(k), swapped)
+                    child = swapped
                 walk(child, v, f"{prefix}{k}.")
                 continue
             array = np.asarray(v)
             if array.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch.from_numpy
                 array = array.astype(np.float32)
             name, array = _leaf_to_torch(mod, str(k), array)
-            state[f"{prefix}{name}"] = torch.from_numpy(np.array(array))  # a writable copy
+            if array.dtype.name == "float8_e4m3fn":  # ml_dtypes fp8: its bytes, viewed as torch's
+                tensor = torch.from_numpy(np.array(array).view(np.uint8)).view(torch.float8_e4m3fn)
+            else:
+                tensor = torch.from_numpy(np.array(array))  # a writable copy
+            state[f"{prefix}{name}"] = tensor
 
     walk(module, tree, "")
     module.load_state_dict(state, strict=True)

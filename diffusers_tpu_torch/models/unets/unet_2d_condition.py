@@ -17,8 +17,16 @@ matches) arrive NCHW and are added as they are.
 ``added_cond_kwargs["image_embeds"]``), or ``ip_image_proj``, filled after
 construction by `loaders.ip_adapter.load_ip_adapter` with a
 `MultiIPAdapterImageProjection`: then the blocks get ``(text states, [image
-tokens per adapter])`` as `encoder_hidden_states`. Class embeddings and FreeU
-wait.
+tokens per adapter])`` as `encoder_hidden_states`.
+
+Class embeddings (JAX `:159-171`, `:349-360`) read `class_labels`: with
+`num_class_embeds` and no `class_embed_type` an `Embedding` table (the x4
+upscaler's noise level), or ``timestep`` (the labels through the time
+projection, then a `TimestepEmbedding`), ``identity``, ``projection`` (a
+`TimestepEmbedding` of `projection_class_embeddings_input_dim`) or
+``simple_projection`` (one Linear). The result is added to the time
+embedding, or concatenated to it with `class_embeddings_concat`, which
+doubles every resnet's time-embedding width. FreeU waits.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...configuration_utils import ConfigMixin, register_to_config
-from ...ops.module import Conv2d, GroupNorm, get_activation
+from ...ops.module import Conv2d, Embedding, GroupNorm, get_activation
 from ...utils import BaseOutput
 from ...ops.module import Linear
 from ..embeddings import ImageProjection, TextImageProjection, TextTimeEmbedding, TimestepEmbedding, Timesteps
@@ -91,8 +99,10 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
         attention_head_dim: Union[int, Tuple[int, ...]] = 8,
         num_attention_heads: Optional[Union[int, Tuple[int, ...]]] = None,
         use_linear_projection: bool = False,
+        class_embed_type: Optional[str] = None,
         addition_embed_type: Optional[str] = None,
         addition_time_embed_dim: Optional[int] = None,
+        num_class_embeds: Optional[int] = None,
         resnet_time_scale_shift: str = "default",
         time_embedding_dim: Optional[int] = None,
         time_embedding_act_fn: Optional[str] = None,
@@ -101,6 +111,7 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
         conv_in_kernel: int = 3,
         conv_out_kernel: int = 3,
         projection_class_embeddings_input_dim: Optional[int] = None,
+        class_embeddings_concat: bool = False,
         addition_embed_type_num_heads: int = 64,
     ):
         super().__init__()
@@ -145,6 +156,22 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
         else:
             raise NotImplementedError(f"encoder_hid_dim_type {encoder_hid_dim_type} is not ported yet")
 
+        if class_embed_type is None and num_class_embeds is not None:
+            self.class_embedding = Embedding(num_class_embeds, time_embed_dim)
+        elif class_embed_type == "timestep":
+            self.class_embedding = TimestepEmbedding(block_out_channels[0], time_embed_dim, act_fn=act_fn)
+        elif class_embed_type == "identity":
+            self.class_embedding = nn.Identity()
+        elif class_embed_type == "projection":
+            self.class_embedding = TimestepEmbedding(projection_class_embeddings_input_dim, time_embed_dim)
+        elif class_embed_type == "simple_projection":
+            self.class_embedding = Linear(projection_class_embeddings_input_dim, time_embed_dim)
+        elif class_embed_type is not None:
+            raise ValueError(f"class_embed_type {class_embed_type!r} must be None, 'timestep', 'identity', "
+                             "'projection' or 'simple_projection'")
+        else:
+            self.class_embedding = None
+
         if addition_embed_type == "text":
             text_time_embedding_from_dim = encoder_hid_dim if encoder_hid_dim is not None else cross_attention_dims[0]
             self.add_embedding = TextTimeEmbedding(
@@ -157,6 +184,8 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
             raise NotImplementedError(f"addition_embed_type {addition_embed_type} is not ported yet")
 
         self.time_embed_act = get_activation(time_embedding_act_fn) if time_embedding_act_fn else None
+        # the class embedding concatenated onto the time embedding doubles every resnet's temb width
+        blocks_time_embed_dim = time_embed_dim * 2 if class_embeddings_concat else time_embed_dim
 
         # down
         down_blocks = []
@@ -171,7 +200,7 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
                     transformer_layers_per_block=transformer_layers[i],
                     in_channels=input_channel,
                     out_channels=output_channel,
-                    temb_channels=time_embed_dim,
+                    temb_channels=blocks_time_embed_dim,
                     add_downsample=i != n_blocks - 1,
                     resnet_eps=norm_eps,
                     resnet_act_fn=act_fn,
@@ -191,7 +220,7 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
             self.mid_block = UNetMidBlock2DCrossAttn(
                 transformer_layers_per_block=transformer_layers[-1],
                 in_channels=block_out_channels[-1],
-                temb_channels=time_embed_dim,
+                temb_channels=blocks_time_embed_dim,
                 resnet_eps=norm_eps,
                 resnet_act_fn=act_fn,
                 output_scale_factor=mid_block_scale_factor,
@@ -231,7 +260,7 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
                     in_channels=input_channel,
                     out_channels=output_channel,
                     prev_output_channel=prev_output_channel,
-                    temb_channels=time_embed_dim,
+                    temb_channels=blocks_time_embed_dim,
                     add_upsample=i != n_blocks - 1,
                     resnet_eps=norm_eps,
                     resnet_act_fn=act_fn,
@@ -260,6 +289,7 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
         sample: torch.Tensor,  # [B, C, H, W]
         timestep: Union[torch.Tensor, float, int],
         encoder_hidden_states: torch.Tensor,  # [B, S, D]
+        class_labels: Optional[torch.Tensor] = None,
         timestep_cond: Optional[torch.Tensor] = None,
         attention_mask: Optional[torch.Tensor] = None,
         added_cond_kwargs: Optional[Dict[str, torch.Tensor]] = None,
@@ -279,6 +309,15 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
         timesteps = timesteps.expand(sample.shape[0])
         t_emb = self.time_proj(timesteps).to(sample.dtype)
         emb = self.time_embedding(t_emb, timestep_cond)
+
+        if self.class_embedding is not None:
+            if class_labels is None:
+                raise ValueError("class_labels must be provided for class conditioning")
+            class_labels = torch.as_tensor(class_labels, device=sample.device)
+            if self.config.class_embed_type == "timestep":
+                class_labels = self.time_proj(class_labels).to(sample.dtype)
+            class_emb = self.class_embedding(class_labels).to(sample.dtype)
+            emb = torch.cat([emb, class_emb], dim=-1) if self.config.class_embeddings_concat else emb + class_emb
 
         if self.config.addition_embed_type == "text":
             emb = emb + self.add_embedding(encoder_hidden_states)

@@ -1,7 +1,9 @@
 """Leaf layers as torch modules in torch layouts.
 
 Port of `diffusers_tpu/ops/module.py` (`Linear` with its w8a8 branch
-`:145-150`, its group-wise int4 branch `:151-158`, `Conv2d`, `Conv3d` `:245`,
+`:145-150`, its per-tensor int8 branch `:130-143`, its group-wise int4 branch
+`:151-158` and its int8 / fp8 weight-only branch `:159-160`, `Conv2d` with its
+int8 branch `:206-225`, `Conv3d` `:245`,
 `Conv1d` `:296`, `GroupNorm` `:476-510`, `LayerNorm`,
 `RMSNorm` `:542-567`, `Embedding`, `get_activation`). The JAX package keeps
 parameters in an external pytree in TPU layouts (``kernel`` [in, out], HWIO,
@@ -24,6 +26,46 @@ from torch import nn
 
 from .cuda.w8a8_matmul import w8a8_matmul
 from .cuda.group_norm import group_norm
+from .int8 import gemm_operands, int8_conv2d, int8_linear_per_tensor
+
+
+class _QuantizedLayer(nn.Module):
+    """A layer whose ``weight`` keeps its quantized dtype and whose
+    ``weight_scale`` stays float32 through a dtype cast of the module
+    (``.to(torch.bfloat16)`` casts the bias alone; an fp8 weight is a
+    floating-point tensor that torch would otherwise cast too)."""
+
+    def _apply(self, fn, recurse=True):
+        # detached aliases: torch may cast a parameter by swapping its `.data`
+        kept = {name: getattr(self, name).detach() for name in ("weight", "weight_scale")}
+        super()._apply(fn, recurse)
+        for name, before in kept.items():
+            after = getattr(self, name)
+            if after.dtype != before.dtype:
+                value = before.to(device=after.device)
+                if name in self._parameters:
+                    self._parameters[name] = nn.Parameter(value, requires_grad=False)
+                else:
+                    self._buffers[name] = value
+        return self
+
+    def extra_repr(self) -> str:
+        return f"in_features={self.in_features}, out_features={self.out_features}, bias={self.bias is not None}"
+
+
+class _GemmOperands:
+    """Caches K5's padded operands (`ops.int8.gemm_operands`) of a layer's
+    int8 weight, made again when the weight, its scales or the bias is
+    replaced or changed in place (a load, a device move, a dtype cast)."""
+
+    def _operands(self, groups: int = 1):
+        tensors = (self.weight, self.weight_scale, self.bias)
+        key = tuple((t.data_ptr(), t._version, t.device, t.dtype) if t is not None else None for t in tensors)
+        cached = self.__dict__.get("_gemm_cache")
+        if cached is None or cached[0] != key:
+            cached = self.__dict__["_gemm_cache"] = (key, gemm_operands(self.weight, self.weight_scale, self.bias,
+                                                                        groups))
+        return cached[1]
 
 
 class Linear(nn.Linear):
@@ -33,7 +75,7 @@ class Linear(nn.Linear):
         super().__init__(in_features, out_features, bias=use_bias)
 
 
-class W8A8Linear(nn.Module):
+class W8A8Linear(_QuantizedLayer):
     """The w8a8 branch of `Linear` (JAX params ``kernel`` int8 [in, out] +
     ``kernel_scale_w8a8``): an int8 ``weight`` [out, in] with a per-out-channel
     f32 ``weight_scale`` buffer, and x quantized per row at run time. CUDA
@@ -52,18 +94,52 @@ class W8A8Linear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return w8a8_matmul(x, self.weight, self.weight_scale, self.bias)
 
-    def _apply(self, fn, recurse=True):
-        scale = self.weight_scale
-        super()._apply(fn, recurse)
-        if self.weight_scale.dtype != torch.float32:  # a dtype cast: keep the f32 epilogue scale exact
-            self.weight_scale = scale.to(device=self.weight_scale.device)
-        return self
+
+class Int8PerTensorLinear(_GemmOperands, W8A8Linear):
+    """The per-tensor int8 branch of `Linear` (JAX params ``kernel`` int8
+    [in, out] + ``kernel_scale_i8x``, `Int8DynamicActConfig(impl="xla")`):
+    the state of a `W8A8Linear`, x quantized with one scale for the whole
+    tensor at run time, and the product on K5's GEMM (`ops.int8`; CPU
+    tensors its plain version). Any K and N: K5's operands are zero-padded
+    to multiples of 128 once and cached."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise RuntimeError("Int8PerTensorLinear is inference-only (K5 has no gradient); call it under "
+                               "torch.no_grad()")
+        return int8_linear_per_tensor(x, self._operands(), self.out_features)
+
+
+class WeightOnlyLinear(_QuantizedLayer):
+    """The int8 / fp8 weight-only branch of `Linear` (JAX params ``kernel``
+    int8 or float8_e4m3fn [in, out] + ``kernel_scale`` f32 [out]): ``weight``
+    [out, in] in `weight_dtype` and ``weight_scale`` f32 [out]. Each call
+    takes ``weight.to(x.dtype) * weight_scale.to(x.dtype)``, one matmul in
+    x's dtype, then the bias in x's dtype, in JAX's order. JAX's branch is
+    XLA's (no Pallas kernel), and so this one is plain torch on every
+    device."""
+
+    def __init__(self, in_features: int, out_features: int, use_bias: bool = True,
+                 weight_dtype: torch.dtype = torch.int8):
+        super().__init__()
+        if weight_dtype not in (torch.int8, torch.float8_e4m3fn):
+            raise ValueError(f"WeightOnlyLinear takes int8 or float8_e4m3fn weights, not {weight_dtype}")
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features, dtype=weight_dtype), requires_grad=False)
+        self.register_buffer("weight_scale", torch.ones(out_features, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight = self.weight.to(x.dtype) * self.weight_scale.to(x.dtype)[:, None]
+        y = F.linear(x, weight)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
     def extra_repr(self) -> str:
-        return f"in_features={self.in_features}, out_features={self.out_features}, bias={self.bias is not None}"
+        return super().extra_repr() + f", weight_dtype={self.weight.dtype}"
 
 
-class Int4Linear(nn.Module):
+class Int4Linear(_QuantizedLayer):
     """The group-wise int4 weight-only branch of `Linear` (JAX params
     ``kernel`` nibble-packed int8 [ceil(in/2), out] + ``kernel_scale_int4``
     f32 [groups, out]): ``weight`` int8 [out, ceil(in/2)], two input columns
@@ -89,13 +165,6 @@ class Int4Linear(nn.Module):
         weight = dequantize_int4(self.weight, self.weight_scale, x.dtype, self.in_features)
         return F.linear(x, weight, None if self.bias is None else self.bias.to(x.dtype))
 
-    def _apply(self, fn, recurse=True):
-        scale = self.weight_scale
-        super()._apply(fn, recurse)
-        if self.weight_scale.dtype != torch.float32:  # a dtype cast: keep the f32 scales as they are
-            self.weight_scale = scale.to(device=self.weight_scale.device)
-        return self
-
     def extra_repr(self) -> str:
         return (f"in_features={self.in_features}, out_features={self.out_features}, "
                 f"groups={self.weight_scale.shape[1]}, bias={self.bias is not None}")
@@ -119,6 +188,49 @@ class Conv2d(nn.Conv2d):
             in_channels, out_channels, kernel_size, stride=stride, padding=padding,
             dilation=dilation, groups=groups, bias=use_bias,
         )
+
+
+class Int8Conv2d(_GemmOperands, _QuantizedLayer):
+    """The int8 branch of `Conv2d` (JAX params ``kernel`` int8 HWIO +
+    ``kernel_scale_w8a8``, the convolutions `Int8DynamicActConfig` takes):
+    ``weight`` int8 OIHW, ``weight_scale`` f32 [out] and the bias; x
+    quantized with one scale for the whole tensor at run time, and the
+    convolution an im2col GEMM on K5 (`ops.int8.int8_conv2d`; CPU tensors
+    K5's plain version), one a group, its operands zero-padded to multiples
+    of 128 once and cached."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: Union[int, Tuple[int, int]] = 3,
+                 stride: Union[int, Tuple[int, int]] = 1, padding: Union[int, Tuple[int, int]] = 0,
+                 dilation: Union[int, Tuple[int, int]] = 1, groups: int = 1, use_bias: bool = True):
+        super().__init__()
+        if isinstance(padding, str):
+            raise ValueError(f"Int8Conv2d takes int or pair padding, not {padding!r}")
+        pair = lambda v: (v, v) if isinstance(v, int) else tuple(v)  # noqa: E731
+        self.in_channels, self.out_channels, self.groups = in_channels, out_channels, groups
+        self.kernel_size, self.stride, self.dilation = pair(kernel_size), pair(stride), pair(dilation)
+        self.padding = pair(padding)
+        self.weight = nn.Parameter(torch.zeros(out_channels, in_channels // groups, *self.kernel_size,
+                                               dtype=torch.int8), requires_grad=False)
+        self.register_buffer("weight_scale", torch.ones(out_channels, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
+
+    @classmethod
+    def like(cls, conv: nn.Conv2d) -> "Int8Conv2d":
+        """An empty int8 conv of `conv`'s geometry, on its device."""
+        with torch.device(conv.weight.device):
+            return cls(conv.in_channels, conv.out_channels, conv.kernel_size, conv.stride, conv.padding,
+                       conv.dilation, conv.groups, use_bias=conv.bias is not None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise RuntimeError("Int8Conv2d is inference-only (K5 has no gradient); call it under torch.no_grad()")
+        return int8_conv2d(x, self._operands(self.groups), self.out_channels, self.kernel_size, self.stride,
+                           self.padding, self.dilation, self.groups)
+
+    def extra_repr(self) -> str:
+        return (f"{self.in_channels}, {self.out_channels}, kernel_size={self.kernel_size}, stride={self.stride}, "
+                f"padding={self.padding}, dilation={self.dilation}, groups={self.groups}, "
+                f"bias={self.bias is not None}")
 
 
 class Conv1d(nn.Conv1d):

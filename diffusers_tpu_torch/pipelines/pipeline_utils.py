@@ -62,6 +62,8 @@ _CLASS_REGISTRY: Dict[str, str] = {
     "DDPMScheduler": "diffusers_tpu_torch.schedulers.scheduling_ddpm.DDPMScheduler",
     "PNDMScheduler": "diffusers_tpu_torch.schedulers.scheduling_pndm.PNDMScheduler",
     "DDIMScheduler": "diffusers_tpu_torch.schedulers.scheduling_ddim.DDIMScheduler",
+    "LCMScheduler": "diffusers_tpu_torch.schedulers.scheduling_lcm.LCMScheduler",
+    "TCDScheduler": "diffusers_tpu_torch.schedulers.scheduling_tcd.TCDScheduler",
     "T2IAdapter": "diffusers_tpu_torch.models.adapter.T2IAdapter",
     "CLIPTextModel": "diffusers_tpu_torch.models.text_encoders.clip.CLIPTextModel",
     "CLIPTextModelWithProjection": "diffusers_tpu_torch.models.text_encoders.clip.CLIPTextModelWithProjection",
@@ -96,6 +98,20 @@ def resolve_component_class(library: Optional[str], class_name: str):
         return getattr(transformers, class_name), "tokenizer"
     raise ValueError(f"{class_name!r} ({library}) is not a class the port has; it loads "
                      f"{sorted(_CLASS_REGISTRY)} and the transformers tokenizers {sorted(_TOKENIZER_CLASSES)}")
+
+
+def _pipeline_class(root: str):
+    """The pipeline class a directory's `model_index.json` names
+    (``_class_name``), among the pipelines the package exports."""
+    from .. import _EXPORTS
+
+    with open(os.path.join(root, PIPELINE_CONFIG_NAME)) as f:
+        name = json.load(f).get("_class_name")
+    if name in _EXPORTS:
+        pipeline_cls = getattr(importlib.import_module(_EXPORTS[name]), name)
+        if isinstance(pipeline_cls, type) and issubclass(pipeline_cls, DiffusionPipeline):
+            return pipeline_cls
+    raise ValueError(f"{root}: model_index.json names {name!r}, not a pipeline the port has")
 
 
 class DiffusionPipeline(ConfigMixin):
@@ -187,6 +203,10 @@ class DiffusionPipeline(ConfigMixin):
         if not os.path.isdir(root):
             raise EnvironmentError(f"{cls.__name__}.from_pretrained: {root} is not a local directory or a .dduf "
                                    "file (loading from the hub is not ported)")
+        if cls is DiffusionPipeline:  # the class model_index.json names, among the package's pipelines
+            return _pipeline_class(root).from_pretrained(root, dtype=dtype, variant=variant,
+                                                         quantization_config=quantization_config, device=device,
+                                                         **kwargs)
         expected = cls._component_names()
         init_kwargs = {k: kwargs.pop(k) for k in list(kwargs) if k in expected}  # passed components win
         if kwargs:

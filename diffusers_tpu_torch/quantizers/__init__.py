@@ -13,8 +13,11 @@ from .quantize import (
     quantize_int4,
     quantize_int4_linears,
     quantize_kernel_int4,
+    quantize_kernel_fp8,
     quantize_kernel_int8,
     quantize_linears,
+    quantize_model,
+    quantized_module_names,
     quantize_w8a8,
     unpack_int4_rows,
     w8a8_linear_names,

@@ -3,10 +3,11 @@
 The port's own copy of `diffusers_tpu/quantizers/quantization_config.py`
 (`:17-77`): the same four dataclasses, fields and defaults, so a config
 written for one package means the same in the other. What the port does
-with each is in `quantize.py`: `Int8DynamicActConfig` (w8a8, kernel K5) and
-`Int4WeightOnlyConfig` (group-wise int4, `Int4Linear`) quantize on load; the
-int8 and fp8 weight-only configs and the per-tensor ``impl="xla"`` path
-raise until they are ported (ROADMAP A6.2).
+with each is in `quantize.py`: `Int8DynamicActConfig` (per-row w8a8 Linears
+on kernel K5, or per-tensor ones with ``impl="xla"``, and the int8
+convolutions, both on K5's GEMM), `Int8WeightOnlyConfig` and
+`Fp8WeightOnlyConfig` (`WeightOnlyLinear`) and `Int4WeightOnlyConfig`
+(group-wise int4, `Int4Linear`), in memory (`quantize_model`) or on load.
 """
 
 from __future__ import annotations
@@ -55,7 +56,9 @@ class Int8DynamicActConfig(QuantizationConfig):
     int8 tensor cores through kernel K5 (`ops/cuda/w8a8_matmul.py`).
     ``impl`` names the Linear's compute path: "pallas" (the default; the
     fused per-row kernel, K5 here) or "xla" (the JAX package's per-tensor
-    XLA-native int8 dot, not ported)."""
+    XLA-native int8 dot; `Int8PerTensorLinear` here, on K5's GEMM). The
+    convolutions JAX's `_conv_int8_eligible` takes run int8 under either
+    (`Int8Conv2d`)."""
 
     quant_method = "int8_dynamic_activation"
     impl: str = "pallas"

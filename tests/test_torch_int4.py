@@ -22,7 +22,10 @@ from torch import nn
 from diffusers_tpu.models.text_encoders.t5 import T5EncoderModel as JaxT5EncoderModel
 from diffusers_tpu.models.transformers.transformer_flux import FluxTransformer2DModel as JaxFlux
 from diffusers_tpu.ops.module import Linear as JaxLinear
+from diffusers_tpu.quantizers.quantization_config import Fp8WeightOnlyConfig as JaxFp8WeightOnlyConfig
 from diffusers_tpu.quantizers.quantization_config import Int4WeightOnlyConfig as JaxInt4Config
+from diffusers_tpu.quantizers.quantization_config import Int8DynamicActConfig as JaxInt8DynamicActConfig
+from diffusers_tpu.quantizers.quantization_config import Int8WeightOnlyConfig as JaxInt8WeightOnlyConfig
 from diffusers_tpu.quantizers.quantize import (
     _quantize_kernel_int4,
     dequantize_int4 as jax_dequantize_int4,
@@ -39,7 +42,9 @@ from diffusers_tpu_torch.quantizers import (
     int4_linear_names,
     quantize_int4,
     quantize_int4_linears,
+    quantize_kernel_fp8,
     quantize_kernel_int4,
+    quantize_kernel_int8,
     unpack_int4_rows,
 )
 
@@ -88,7 +93,8 @@ def test_jit_scales_beside_eager():
     scales are the eager quantizer's within one f32 ulp (measured: 990 of
     2,048 differ, no nibble), and its nibbles within one step (ROADMAP C3).
     The port takes the eager rule: bit-equal to `quantize_params` with jit
-    disabled."""
+    disabled. The int8 (per row, per tensor, weight-only, conv) and fp8
+    scales take the same rule, held the same way."""
     kernel = _kernel(1024, 256, seed=3)
     tree = {"layer": {"kernel": jnp.asarray(kernel)}}
     jitted = quantize_params(tree, JaxInt4Config(min_weight_size=0))["layer"]
@@ -103,6 +109,30 @@ def test_jit_scales_beside_eager():
     steps = np.abs(np.asarray(jax_unpack(jitted["kernel"], 1024, jnp.float32)).T
                    - unpack_int4_rows(packed, 1024, torch.float32).numpy())
     assert steps.max() <= 1
+    # the same rule for the int8 per-row (w8a8, per-tensor and weight-only), fp8 and int8 conv scales
+    conv = (np.random.RandomState(4).randn(3, 3, 320, 256) * 0.05).astype(np.float32)  # HWIO
+    kernel = _kernel(2560, 256, seed=5)  # K 2560: w8a8's gate takes it
+    tree = {"layer": {"kernel": jnp.asarray(kernel)}, "conv": {"kernel": jnp.asarray(conv)}}
+    for config, key, port in ((JaxInt8DynamicActConfig(min_weight_size=0), "kernel_scale_w8a8", quantize_kernel_int8),
+                              (JaxInt8DynamicActConfig(min_weight_size=0, impl="xla"), "kernel_scale_i8x",
+                               quantize_kernel_int8),
+                              (JaxInt8WeightOnlyConfig(min_weight_size=0), "kernel_scale", quantize_kernel_int8),
+                              (JaxFp8WeightOnlyConfig(min_weight_size=0), "kernel_scale", quantize_kernel_fp8)):
+        jitted = quantize_params(tree, config)
+        with jax.disable_jit():
+            eager = quantize_params(tree, config)
+        leaves = [("layer", kernel.T, (1, 0))] + ([("conv", conv.transpose(3, 2, 0, 1), (3, 2, 0, 1))]
+                                                  if "w8a8" in key or "i8x" in key else [])
+        for name, weight, to_torch in leaves:
+            q, scale = port(torch.from_numpy(weight.copy()))
+            scale_key = "kernel_scale_w8a8" if name == "conv" else key
+            np.testing.assert_array_equal(np.asarray(eager[name][scale_key]), scale.numpy())
+            q_eager = np.asarray(eager[name]["kernel"]).transpose(to_torch)
+            q_bytes = (q.view(torch.uint8) if q.dtype == torch.float8_e4m3fn else q).numpy()
+            np.testing.assert_array_equal(np.ascontiguousarray(q_eager).view(q_bytes.dtype), q_bytes)
+            s_jit = np.asarray(jitted[name][scale_key])
+            ulps = np.abs(s_jit.view(np.int32).astype(np.int64) - scale.numpy().view(np.int32).astype(np.int64))
+            assert ulps.max() <= 1, (name, key, ulps.max())
 
 
 def test_int4_linear_matches_jax():

@@ -47,7 +47,7 @@ from diffusers_tpu_torch.models.transformers.transformer_flux import FluxTransfo
 from diffusers_tpu_torch.ops.module import W8A8Linear
 from diffusers_tpu_torch.pipelines.controlnet import StableDiffusionXLControlNetPipeline
 from diffusers_tpu_torch.pipelines.stable_diffusion_xl import StableDiffusionXLImg2ImgPipeline
-from diffusers_tpu_torch.quantizers import quantize_kernel_int8, quantize_linears, w8a8_linear_names
+from diffusers_tpu_torch.quantizers import quantize_kernel_int8, quantize_linears, quantize_model, w8a8_linear_names
 from diffusers_tpu_torch.utils.dduf import save_dduf
 from test_torch_flux import W8A8
 from test_torch_pipeline_cache import build_flux, build_sdxl
@@ -272,19 +272,25 @@ class _WithConv(ModelMixin, ConfigMixin):
 
 
 @pytest.mark.parametrize("config, item", [
-    (Int8WeightOnlyConfig(), "A6.2"), (Fp8WeightOnlyConfig(), "A6.2"), (Int4WeightOnlyConfig(), None),
-    (Int8DynamicActConfig(impl="xla"), "A6.2"), ("conv", "A6.2"),
+    (Int8WeightOnlyConfig(), ("WeightOnlyLinear", "Conv2d")), (Fp8WeightOnlyConfig(), ("WeightOnlyLinear", "Conv2d")),
+    (Int4WeightOnlyConfig(), ("Int4Linear", "Conv2d")), (Int8DynamicActConfig(impl="xla"), ("Int8PerTensorLinear", "Conv2d")),
+    ("conv", ("W8A8Linear", "Int8Conv2d")),
 ], ids=["int8-weight-only", "fp8-weight-only", "int4-weight-only", "w8a8-xla", "w8a8-conv"])
 def test_unported_quantization_configs_raise(tmp_path, config, item):
+    """Each config that once raised here (ROADMAP A6.2) now loads: the layers
+    JAX's rule selects become the port's quantized layers, the model equal to
+    the same float model quantized in memory (`quantize_model`), bit for bit.
+    (The name is kept from when these configs raised.)"""
+    torch.manual_seed(0)
     model = _WithConv(conv_in=512 if config == "conv" else 8)  # fan_in 4608 x 256 out: JAX's int8 conv gate
     model.save_pretrained(tmp_path)
     config = Int8DynamicActConfig() if config == "conv" else config
-    if item is None:  # int4 is ported (ROADMAP A6.1): the Linear loads as an Int4Linear, the conv as it is
-        loaded = _WithConv.from_pretrained(tmp_path, device="cpu", quantization_config=config)
-        assert type(loaded.proj).__name__ == "Int4Linear" and isinstance(loaded.conv, torch.nn.Conv2d)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        _WithConv.from_pretrained(tmp_path, device="cpu", quantization_config=config)
+    loaded = _WithConv.from_pretrained(tmp_path, device="cpu", quantization_config=config)
+    assert (type(loaded.proj).__name__, type(loaded.conv).__name__) == item
+    _assert_same_state(loaded, quantize_model(model, config))
+    if item[0] == "WeightOnlyLinear":
+        assert loaded.proj.weight.dtype == (torch.float8_e4m3fn if isinstance(config, Fp8WeightOnlyConfig)
+                                            else torch.int8)
     assert len(w8a8_linear_names(_WithConv(), Int8DynamicActConfig())) == 1  # the 8-channel conv is left alone
 
 
