@@ -47,8 +47,9 @@ made from a seed on the card:
   * Wan 2.1 text-to-video: Wan2.1-T2V-1.3B at its published widths (30
     layers, 12 x 128 heads; UMT5-XXL; the 3-D causal VAE, decoded in
     temporal chunks) through `WanPipeline.__call__`: one 480 x 832, 81-frame
-    request (32,760 tokens; 50 UniPC steps, CFG 5.0 as two batch-1 calls a
-    step, 512 text tokens; kernel K1 at head_dim 128, 60 a call), then one
+    request (32,760 tokens; WAN_STEPS UniPC steps, cut from upstream's 50,
+    CFG 5.0 as two batch-1 calls a step, 512 text tokens; kernel K1 at
+    head_dim 128, 60 a call), then one
     TaylorSeer(10, 2, 2) request, then video-to-video on the same pipeline
     (`WanVideoToVideoPipeline`, a synthetic 81-frame video, strength 0.8);
   * Wan image-to-video: Wan2.1-I2V-14B-480P at its published widths and
@@ -56,7 +57,7 @@ made from a seed on the card:
     branch; a CLIP ViT-H/14; phase 17's UMT5-XXL and VAE, whose chunked
     encode takes the 81-frame clip) through
     `WanImageToVideoPipeline.__call__`: one 480 x 832, 81-frame request of
-    a few steps from a synthetic image (K1 120 a call: self, text and image
+    WAN_I2V_STEPS step from a synthetic image (K1 120 a call: self, text and image
     cross attention in each block); then first-last-frame (Wan2.1-FLF2V's
     514-token image table) and Wan 2.2's two experts (boundary 0.9) at
     full width with the depth cut to 2 blocks;
@@ -119,6 +120,17 @@ made from a seed on the card:
     Int8DynamicActConfig()})` (w8a8 on load, kernel K5), one request; the
     four small pipelines round-tripped on the card; weights bit-equal and
     images within 2 uint8 levels of the in-memory pipelines';
+  * guidance (phase 25, and 10j small, card against CPU): on phase 11's
+    SDXL, `StableDiffusionXLPAGPipeline.from_pipe` at 1024 px, 30 steps,
+    CFG 5.0, pag_scale 3.0 on the "mid" layers (two UNet calls a step: the
+    CFG pair at b=2, the perturbed conditional at b=1; K1 270 and K4 92 a
+    step) beside the dense request, PAG img2img and PAG ControlNet (phase
+    12b's net) at cut steps, one FreeU request and one UNet call under SEG;
+    on phase 23's SD 1.5, the PAG pipeline (PNDM, 50 steps); on phase 16's
+    SD3.5 Medium, the PAG pipeline on block 13 (28 steps, CFG 7.0; K1 74 a
+    step, the perturbed joint attention through K1 under the identity mask,
+    which phase 3 holds to its plain version and times against the open
+    call) and one transformer call with blocks 7-9 skipped (SLG);
   * training: `train_text_to_image.main` on the SDXL UNet at its published
     widths, 1024 px, batch 1, TRAIN_STEPS steps (f32 weights and AdamW, bf16
     autocast; kernels K1 forward, K2 and K3 backward, K4), then a sharded
@@ -396,7 +408,7 @@ SMALL_SD3_CLIP = dict(SMALL_FLUX_CLIP, projection_dim=64)
 SMALL_SD3_VAE = dict(SMALL_FLUX_VAE, scaling_factor=1.5305, shift_factor=0.0609, sample_size=32)
 # Wan 2.1 text-to-video, Wan-AI/Wan2.1-T2V-1.3B-Diffusers: transformer/config.json (1.3B: 30 layers, 12 x 128
 # heads, ffn 8960), the VAE at the JAX package's defaults with upstream's 16-channel latent statistics, UMT5-XXL,
-# UniPC with flow prediction and flow shift 3.0; 480 x 832, 81 frames, 50 steps, CFG 5.0, 512 text tokens
+# UniPC with flow prediction and flow shift 3.0; 480 x 832, 81 frames, WAN_STEPS steps, CFG 5.0, 512 text tokens
 WAN_1_3B = dict(patch_size=(1, 2, 2), num_attention_heads=12, attention_head_dim=128, in_channels=16, out_channels=16,
                 text_dim=4096, freq_dim=256, ffn_dim=8960, num_layers=30, cross_attn_norm=True,
                 qk_norm="rms_norm_across_heads", eps=1e-6, rope_max_seq_len=1024)
@@ -409,7 +421,7 @@ UMT5_XXL = dict(vocab_size=256384, d_model=4096, d_kv=64, d_ff=10240, num_layers
                 feed_forward_proj="gated-gelu")
 WAN_UNIPC = dict(prediction_type="flow_prediction", use_flow_sigmas=True, flow_shift=3.0)
 WAN_HEIGHT, WAN_WIDTH, WAN_FRAMES = 480, 832, 81
-WAN_STEPS = 50
+WAN_STEPS = 10  # upstream's default is 50; cut to hold the run's time as the guidance phases join it
 WAN_GUIDANCE = 5.0
 WAN_TEXT_LEN = 512
 WAN_PROMPT = "a red panda eating bamboo in a misty forest, cinematic"
@@ -426,7 +438,7 @@ WAN_I2V_14B = dict(WAN_1_3B, num_attention_heads=40, ffn_dim=13824, num_layers=4
                    added_kv_proj_dim=5120)
 CLIP_VIT_H = dict(hidden_size=1280, intermediate_size=5120, num_hidden_layers=32, num_attention_heads=16,
                   image_size=224, patch_size=14, hidden_act="gelu", layer_norm_eps=1e-5)
-WAN_I2V_STEPS = 3
+WAN_I2V_STEPS = 1  # upstream's 50; one step runs every part of the path (CLIP, the encode, two calls)
 WAN_14B_SELF_ATTENTION = (1, WAN_TOKENS, 40, 128)
 WAN_14B_Q_CHUNK = 512  # at 40 heads a 2,048-row chunk of f32 logits would be 10.7 GB
 # phase 19's cut requests at full width, WAN_CUT_LAYERS blocks a transformer, WAN_CUT_STEPS steps: first-last-frame
@@ -440,7 +452,7 @@ WAN_A14B_CUT = dict(WAN_I2V_14B, image_dim=None, added_kv_proj_dim=None, num_lay
 WAN_A14B_BOUNDARY = 0.9
 WAN_A14B_GUIDANCE = (4.0, 3.0)
 # phase 17b: video-to-video on phase 17's Wan2.1-T2V-1.3B pipeline, a synthetic 81-frame 480 x 832 video
-WAN_V2V_STEPS, WAN_V2V_STRENGTH = 10, 0.8
+WAN_V2V_STEPS, WAN_V2V_STRENGTH = 5, 0.8
 # phase 10d: a small Wan pipeline (head_dim 64: K1 in both attentions of a block), 9 frames of 64 x 64
 SMALL_WAN = dict(patch_size=(1, 2, 2), num_attention_heads=2, attention_head_dim=64, in_channels=16, out_channels=16,
                  text_dim=64, freq_dim=64, ffn_dim=256, num_layers=2, cross_attn_norm=True, rope_max_seq_len=1024)
@@ -719,6 +731,26 @@ UNION_CANNY, UNION_DEPTH = 3, 1  # xinsir's task indices
 SD3_CONTROLNET_LAYERS = 12
 SD15_CONTROLNET_SCALE = 1.0
 CONTROLNET_WARMUP_STEPS = 4
+
+# guidance (phases 3, 10j, 25): Perturbed-Attention Guidance at pag_scale 3.0 on SDXL and SD 1.5 with the pipelines'
+# default "mid" (SDXL's 10 mid-block attn1 turned to identities: a perturbed UNet call launches K1 130 and K4 46, so a
+# PAG step at b=2 + b=1 launches K1 270 and K4 92; SD 1.5's heads run `native`, K4 61 + 61) and on SD3.5 Medium with
+# upstream's default block 13 (its joint attention under the identity mask: K1 37 + 37 a step); Skip Layer Guidance
+# over SD3.5 Medium's blocks 7-9 (the SD3.5 recipe's default, upstream's `skip_guidance_layers`); SEG on SDXL's mid
+# block at sigma 3 (kernel 19 over the 32 x 32 grid); FreeU at SDXL's suggested factors. The img2img PAG request
+# takes phase 12b's strength (9 of 30 steps), the ControlNet PAG request PAG_CONTROLNET_STEPS steps (the cut)
+PAG_SCALE = 3.0
+SD3_PAG_LAYERS = r"transformer_blocks\.13"
+SDXL_PAG_STEP = dict(flash_attention_fwd=270, group_norm=92)
+SD3_PAG_STEP_K1 = 74
+SLG_BLOCKS = (7, 8, 9)
+SEG_SIGMA = 3.0
+SDXL_FREEU = dict(s1=0.6, s2=0.4, b1=1.1, b2=1.2)
+PAG_CONTROLNET_STEPS = 8
+PAG_WARMUP_STEPS = 4
+SD3_IMAGE_TOKENS = 4096  # 1024 px: 64 x 64 patches before SD3's 333 text tokens
+SD3_PAG_ATTENTION = (1, 4096 + 333, 24, 64)  # the perturbed joint attention at b=1
+GUIDANCE_MODEL_TOL = 0.05  # a small model's bf16 output on the card against f32 on the CPU, of its largest value
 
 RESULTS = {}
 
@@ -1143,6 +1175,9 @@ def check_kernels():
         ("mask -inf over the first 160 keys of every other row, d=128", (2, 300, 2, 128), 333, {"mask": "hide"},
          False),
         ("mask finfo.min over every key of one query row", (1, 128, 1, 64), 128, {"mask": "row"}, False),
+        # SD3.5 PAG's perturbed call at 1024 px: the joint attention under the identity mask (the image block
+        # the identity, the 333 text keys open: `pag_identity_mask`), a dense float32 [1, 1, 4429, 4429] mask
+        ("SD3 PAG identity mask 4429 d=64", SD3_PAG_ATTENTION, SD3_PAG_ATTENTION[1], {"mask": "pag"}, False),
         *IP_K1_CASES,
     ]
     k1_errs, k1_times = [], {}
@@ -1159,6 +1194,10 @@ def check_kernels():
         elif opt.get("mask") == "row":  # every logit of row 5 below NEG_INF: NaN out, -inf LSE (JAX's rule)
             mask = torch.zeros((b, 1, sq, sk), device=dev)
             mask[:, :, 5, :] = torch.finfo(torch.float32).min
+        elif opt.get("mask") == "pag":
+            from diffusers_tpu_torch.models.transformers.transformer_sd3 import pag_identity_mask
+
+            mask = pag_identity_mask(sq, SD3_IMAGE_TOKENS, dev)
         elif opt.get("mask") == "block_causal":  # SkyReelsV2Transformer3DModel.causal_mask of a (4, 8, 12) grid
             from diffusers_tpu_torch.models.transformers.transformer_skyreels_v2 import SkyReelsV2Transformer3DModel
 
@@ -1241,6 +1280,8 @@ def check_kernels():
         cases.append(row)
         k1_errs.append(err32)
 
+    RESULTS["k1_pag_mask"] = check_k1_pag_mask(randn)
+
     # LSE against torch.logsumexp of the f32 logits
     q, k, v = randn(1, 256, 2, 64, scale=2.0), randn(1, 256, 2, 64), randn(1, 256, 2, 64)
     _, lse = flash_attention_full(q, k, v, return_lse=True)
@@ -1284,6 +1325,48 @@ def check_kernels():
         k1_errs.append(wan_self["max_abs_err_vs_f32"])
     RESULTS["kernel_cases"] = cases
     return {"flash_attention_fwd": (max(k1_errs + [lse_err]), k1_times["Flux joint 4608 d=128"])}
+
+
+def check_k1_pag_mask(randn):
+    """Phase 3, PAG's mask: K1 on SD3_PAG_ATTENTION under `pag_identity_mask`
+    (read per element through its broadcast strides, no copy) against the
+    unmasked call at the same shape, in turns (open, masked, masked, open)
+    on CUDA events and as device time (CUDA graphs), with the plain version
+    and SDPA under the same mask (SDPA's as a bool keep-mask) beside them.
+    The bound adds the mask's bytes, read once, to the call's. Returns the
+    record."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusers_tpu_torch.models.transformers.transformer_sd3 import pag_identity_mask
+    from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full, flash_attention_plain
+
+    b, sq, h, d = SD3_PAG_ATTENTION
+    q, k, v = randn(b, sq, h, d, scale=2.0), randn(b, sq, h, d), randn(b, sq, h, d)
+    mask = pag_identity_mask(sq, SD3_IMAGE_TOKENS, q.device)
+    keep = mask == 0
+
+    def masked():
+        return flash_attention_full(q, k, v, attn_mask=mask)
+
+    def open_():
+        return flash_attention_full(q, k, v)
+
+    masked_ms, open_ms = time_pair(masked, open_, iters=20)
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, attn_mask=mask), iters=3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep), iters=10)
+    flops = 4.0 * b * h * sq * sq * d
+    bms, by = bound_ms(2 * 4 * q.numel() + 4 * mask.numel(), flops, PEAK_BF16_FLOPS)
+    record = {"q": list(SD3_PAG_ATTENTION), "mask_bytes": 4 * mask.numel(), "masked_ms": masked_ms,
+              "open_ms": open_ms, "gap_ms": masked_ms - open_ms, "masked_device_ms": graph_ms(masked),
+              "open_device_ms": graph_ms(open_), "plain_masked_ms": plain_ms, "library_masked_ms": library_ms,
+              "bound_ms": bms, "bound_by": by}
+    log(f"[K1] SD3 PAG identity mask {SD3_PAG_ATTENTION}: masked {masked_ms:.4f} ms against {open_ms:.4f} ms "
+        f"unmasked (CUDA events, in turns; device {record['masked_device_ms']:.4f} / {record['open_device_ms']:.4f} "
+        f"ms), gap {record['gap_ms']:.4f} ms; the plain version {plain_ms:.3f} ms, SDPA with the bool mask "
+        f"{library_ms:.4f} ms; bound {bms:.4f} ms ({by}, the mask's {record['mask_bytes'] / 1e6:.1f} MB included)")
+    return record
 
 
 def check_k1_wan_self(randn, shape, chunk, iters=10):
@@ -1672,6 +1755,10 @@ def check_flash_bwd():
         elif opt.get("mask") == "row":
             mask = torch.zeros((b, 1, sq, sk), device=dev)
             mask[:, :, 5, :] = torch.finfo(torch.float32).min
+        elif opt.get("mask") == "pag":
+            from diffusers_tpu_torch.models.transformers.transformer_sd3 import pag_identity_mask
+
+            mask = pag_identity_mask(sq, SD3_IMAGE_TOKENS, dev)
         elif opt.get("mask") == "block_causal":  # SkyReelsV2Transformer3DModel.causal_mask of a (4, 8, 12) grid
             from diffusers_tpu_torch.models.transformers.transformer_skyreels_v2 import SkyReelsV2Transformer3DModel
 
@@ -2655,7 +2742,8 @@ def run_image_pipelines(smi: str, pipe):
     (30 ControlNet + UNet calls). Each step's launches are held to the
     counts of the models' modules (`StepLaunches`): a UNet call, plus the
     ControlNet's, plus at the first step each VAE encode the request makes;
-    the decode after the last step. Returns the launches by path."""
+    the decode after the last step. Returns the launches by path and the
+    ControlNet (phase 25a takes it on)."""
     import gc
 
     import numpy as np
@@ -2744,11 +2832,8 @@ def run_image_pipelines(smi: str, pipe):
     out["sdxl_controlnet"].update(controlnet_forward_b2_ms=cn_ms, unet_forward_b2_ms=unet_ms)
     log(f"[image] {smi}: ControlNet forward b=2 {cn_ms:.2f} ms, UNet forward b=2 {unet_ms:.2f} ms (CUDA events, "
         f"10 calls each): {cn_ms / unet_ms:.2f} of a UNet call")
-    del controlnet
-    gc.collect()
-    torch.cuda.empty_cache()
     RESULTS["image_pipelines"] = out
-    return paths
+    return paths, controlnet
 
 
 def run_flux_cached(smi: str, pipe, dense_image):
@@ -3390,7 +3475,7 @@ def run_wan(smi: str):
     seconds a video (host clock ending in a synchronise), each transformer
     call on CUDA events, the UMT5 encodes and the VAE decode apart (CUDA
     events), peak memory; every step's launches held to the module counts
-    (K1 60 a call, 6,000 a dense request). Returns the paths' launches and
+    (K1 60 a call, 120 a step). Returns the paths' launches and
     the pipeline (phases 17b and 19 go on with its components)."""
     import numpy as np
     import torch
@@ -3443,7 +3528,7 @@ def run_wan(smi: str):
         if label == "dense":
             dense_frames = frames
             if launches["flash_attention_fwd"] != 2 * WAN_STEPS * 60:
-                raise AssertionError(f"the dense Wan request launched {launches}, expected K1 6000")
+                raise AssertionError(f"the dense Wan request launched {launches}, expected K1 {2 * WAN_STEPS * 60}")
         else:
             a, b = dense_frames.astype(np.float64).ravel(), frames.astype(np.float64).ravel()
             row["cosine_to_dense"] = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-12))
@@ -3659,7 +3744,7 @@ def check_small_wan_i2v(device: str = "cuda"):
 def run_wan_v2v(smi: str, base):
     """Phase 17b: video-to-video on phase 17's Wan2.1-T2V-1.3B pipeline
     (`WanVideoToVideoPipeline.from_pipe`): a synthetic 81-frame 480 x 832
-    video at strength WAN_V2V_STRENGTH, WAN_V2V_STEPS steps (the last 8
+    video at strength WAN_V2V_STRENGTH, WAN_V2V_STEPS steps (the last 4
     run), CFG 5.0, 512 text tokens. Recorded: seconds a video, the chunked
     81-frame VAE encode and the decode (CUDA events), each transformer call,
     peak memory; every step's launches (K1 60 a call)."""
@@ -6510,6 +6595,432 @@ def run_sd15_family(smi: str, pipe):
     return paths
 
 
+def _guidance_cases():
+    """Phase 10j's small pipelines (label, pipeline name, guidance scale, request kwargs)."""
+    import numpy as np
+    import torch
+
+    image, mask, edges = synthetic_inputs(32)
+    latents = torch.from_numpy(np.random.RandomState(SEED).randn(1, 4, 16, 16).astype(np.float32))
+    latents16 = torch.from_numpy(np.random.RandomState(SEED).randn(1, 16, 16, 16).astype(np.float32))
+    sd3 = dict(max_sequence_length=16, pag_applied_layers=r"transformer_blocks\.1")
+    return (
+        ("sdxl_pag", "sdxl", GUIDANCE, dict(latents=latents, pag_scale=PAG_SCALE)),
+        ("sdxl_pag_img2img", "sdxl_img2img", GUIDANCE, dict(image=image, strength=0.6, pag_scale=PAG_SCALE)),
+        ("sdxl_pag_inpaint_9ch", "sdxl_inpaint_9ch", GUIDANCE, dict(image=image, mask_image=mask, pag_stop=0.5)),
+        ("sd_pag", "sd", SD15_GUIDANCE, dict(latents=latents, pag_scale=PAG_SCALE)),
+        ("sd_pag_img2img", "sd_img2img", SD15_GUIDANCE, dict(image=image, strength=0.6, pag_start=0.3)),
+        ("sd_pag_inpaint_9ch", "sd_inpaint_9ch", SD15_GUIDANCE, dict(image=image, mask_image=mask)),
+        ("sd3_pag", "sd3", SD3_GUIDANCE, dict(sd3, latents=latents16, pag_scale=PAG_SCALE)),
+        ("sd3_pag_img2img", "sd3_img2img", SD3_GUIDANCE, dict(sd3, image=image, strength=0.6)),
+        ("sd_controlnet_pag", "sd_controlnet", SD15_GUIDANCE,
+         dict(image=edges, latents=latents, controlnet_conditioning_scale=0.8)),
+        ("sd_controlnet_pag_inpaint", "sd_controlnet_inpaint", SD15_GUIDANCE,
+         dict(image=image, mask_image=mask, control_image=edges)),
+        ("sdxl_controlnet_pag", "sdxl_controlnet", GUIDANCE,
+         dict(image=edges, latents=latents, controlnet_conditioning_scale=0.5, pag_applied_layers=["mid", "up"])),
+        ("sdxl_controlnet_pag_img2img", "sdxl_controlnet_img2img", GUIDANCE,
+         dict(image=image, control_image=edges, strength=0.6)),
+        ("sdxl_freeu", "sdxl_freeu", GUIDANCE, dict(latents=latents)),
+    )
+
+
+def _guidance_pipelines():
+    """Phase 10j's pipelines on the CPU in float32, by name: the twelve PAG
+    pipelines on phase 10b's SDXL, phase 10g's SD and phase 10c's SD3.5
+    components (9-channel UNets and small ControlNets from SEED + 4), and
+    the SDXL pipeline that takes FreeU."""
+    import torch
+
+    from diffusers_tpu_torch.models.controlnets import ControlNetModel
+    from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
+    from diffusers_tpu_torch.pipelines import pag
+
+    sd = _build_sd(SMALL_SD_UNET, SMALL_VAE, SMALL_CLIP, "cpu", torch.float32)
+    sdxl = _build_pipeline(SMALL_UNET, SMALL_VAE, SMALL_CLIP, SMALL_CLIP, "cpu", torch.float32)
+    sd3 = _build_sd3_pipeline(SMALL_SD35, SMALL_SD3_VAE, SMALL_SD3_CLIP, SMALL_SD3_CLIP, SMALL_T5, "cpu",
+                              torch.float32)
+    torch.manual_seed(SEED + 4)
+    xl9, sd9 = (UNet2DConditionModel(**dict(cfg, in_channels=9)) for cfg in (SMALL_UNET, SMALL_SD_UNET))
+    xl_net, sd_net = ControlNetModel(**SMALL_CONTROLNET), ControlNetModel(**SMALL_SD_CONTROLNET)
+    xl, s, s3 = (dict(p.components, device="cpu") for p in (sdxl, sd, sd3))
+    return {
+        "sdxl": pag.StableDiffusionXLPAGPipeline(**xl),
+        "sdxl_img2img": pag.StableDiffusionXLPAGImg2ImgPipeline(**xl),
+        "sdxl_inpaint_9ch": pag.StableDiffusionXLPAGInpaintPipeline(**dict(xl, unet=xl9)),
+        "sd": pag.StableDiffusionPAGPipeline(**s),
+        "sd_img2img": pag.StableDiffusionPAGImg2ImgPipeline(**s),
+        "sd_inpaint_9ch": pag.StableDiffusionPAGInpaintPipeline(**dict(s, unet=sd9)),
+        "sd3": pag.StableDiffusion3PAGPipeline(**s3),
+        "sd3_img2img": pag.StableDiffusion3PAGImg2ImgPipeline(**s3),
+        "sd_controlnet": pag.StableDiffusionControlNetPAGPipeline(**s, controlnet=sd_net),
+        "sd_controlnet_inpaint": pag.StableDiffusionControlNetPAGInpaintPipeline(**s, controlnet=sd_net),
+        "sdxl_controlnet": pag.StableDiffusionXLControlNetPAGPipeline(**xl, controlnet=xl_net),
+        "sdxl_controlnet_img2img": pag.StableDiffusionXLControlNetPAGImg2ImgPipeline(**xl, controlnet=xl_net),
+        "sdxl_freeu": type(sdxl)(**xl),
+    }
+
+
+GUIDER_CONFIGS = (  # phase 10j: each guider at a step inside its window, with guidance_rescale where it reads one
+    ("ClassifierFreeGuidance", dict(guidance_scale=6.0, guidance_rescale=0.4)),
+    ("ClassifierFreeZeroStarGuidance", dict(guidance_scale=5.0, zero_init_steps=1, guidance_rescale=0.3)),
+    ("AdaptiveProjectedGuidance", dict(guidance_scale=7.0, eta=0.6, adaptive_projected_guidance_rescale=4.0)),
+    ("AdaptiveProjectedMixGuidance", dict(adaptive_projected_guidance_start_step=1, guidance_rescale=0.2)),
+    ("AutoGuidance", dict(guidance_scale=4.0, auto_guidance_layers=[1], guidance_rescale=0.5)),
+    ("FrequencyDecoupledGuidance", dict(guidance_scales=(9.0, 4.0), parallel_weights=(1.0, 0.5))),
+    ("MagnitudeAwareGuidance", dict(guidance_scale=9.0, alpha=2.0, guidance_rescale=0.3)),
+    ("PerturbedAttentionGuidance", dict(perturbed_guidance_scale=2.0, perturbed_guidance_start=0.0)),
+    ("SkipLayerGuidance", dict(skip_layer_guidance_scale=3.0, skip_layer_guidance_start=0.0)),
+    ("SmoothedEnergyGuidance", dict(seg_guidance_scale=2.5, guidance_rescale=0.3)),
+    ("TangentialClassifierFreeGuidance", dict(guidance_scale=5.0, guidance_rescale=0.3)),
+)
+
+
+def check_small_guidance(device: str = "cuda"):
+    """Phase 10j: the guidance modules on small components, card (bf16,
+    kernels) against CPU (f32, plain versions; held to JAX by
+    tests/test_torch_pag*.py, test_torch_guiders.py and
+    test_torch_freeu.py): the twelve PAG pipelines and an SDXL request with
+    FreeU, 4 steps, within phase 7's 0.05 on the [0, 1] image, each on the
+    card launching K1 and K4; a small SDXL UNet call under SEG (the mid
+    block's self-attentions, sigma 3 over a 4 x 4 grid: a pad wider than the
+    grid) and a small SD3.5-style transformer call under Skip Layer Guidance
+    (block 1), within GUIDANCE_MODEL_TOL of the reference's largest value;
+    each guider on the card on bf16 predictions against the CPU in f32, within
+    the same share. Both sides draw from one CPU generator seeded alike."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch import guiders
+
+    sides = []
+    for dev in ("cpu", device):
+        pipes = _guidance_pipelines()
+        for pipe in pipes.values():
+            pipe.to(device=torch.device(dev), dtype=torch.float32 if not sides else torch.bfloat16)
+        sides.append(pipes)
+    results, tol = {}, 0.05  # phase 7's
+    for label, name, guidance, kwargs in _guidance_cases():
+        images, launches = [], None
+        for pipes in sides:  # the CPU, then the card
+            pipe = pipes[name]
+            if name == "sdxl_freeu":  # on the UNet the SDXL PAG pipelines share: off again after the request
+                pipe.enable_freeu(**SDXL_FREEU)
+            reset_launches()
+            try:
+                images.append(pipe(PROMPTS[0], num_inference_steps=4, guidance_scale=guidance, output_type="np",
+                                   generator=torch.Generator().manual_seed(SEED), **kwargs).images)
+            finally:
+                if name == "sdxl_freeu":
+                    pipe.disable_freeu()
+            launches = read_launches()
+        ref, out = images
+        err = float(np.abs(out - ref).max())
+        results[label] = {"max_abs_err": err, "mean_abs_err": float(np.abs(out - ref).mean()), "tol": tol,
+                          "launches": launches}
+        log(f"[ref-guidance] small {label}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol {tol}); launches "
+            f"{launches}")
+        if not (out.shape == ref.shape == (1, 32, 32, 3) and np.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"small {label}: the card disagrees with the CPU")
+        if device == "cuda" and min(launches["flash_attention_fwd"], launches["group_norm"]) <= 0:
+            raise AssertionError(f"small {label} on the card missed a kernel: {launches}")
+
+    def compare(label, outs):
+        ref, out = (o.float().cpu() for o in outs)
+        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        results[label] = {"max_abs_err": err, "ref_max": scale, "tol": GUIDANCE_MODEL_TOL * scale}
+        log(f"[ref-guidance] {label}, card bf16 vs CPU f32: max |diff| {err:.3e} "
+            f"(tol {GUIDANCE_MODEL_TOL * scale:.3e})")
+        if not (torch.isfinite(out).all() and err <= GUIDANCE_MODEL_TOL * scale):
+            raise AssertionError(f"{label}: the card disagrees with the CPU")
+
+    rng = np.random.RandomState(SEED)
+    sample, ehs = rng.randn(1, 4, 16, 16).astype(np.float32), rng.randn(1, 77, 64).astype(np.float32)
+    text_embeds = rng.randn(1, 32).astype(np.float32)
+    latents, embeds = rng.randn(1, 16, 16, 16).astype(np.float32), rng.randn(1, 24, 256).astype(np.float32)
+    pooled = rng.randn(1, 128).astype(np.float32)
+    seg, slg = [], []
+    for pipes in sides:
+        unet, tr = pipes["sdxl"].unet, pipes["sd3"].transformer
+        dev, dtype = unet.device, unet.dtype
+
+        def t(x):
+            return torch.from_numpy(x).to(device=dev, dtype=dtype)
+
+        cond = {"text_embeds": t(text_embeds),
+                "time_ids": torch.tensor([[32, 32, 0, 0, 32, 32]], device=dev, dtype=torch.float32)}
+        with torch.no_grad():
+            with guiders.seg_blurred(guiders.select_pag_layers(unet, "mid"), SEG_SIGMA):
+                seg.append(unet(t(sample), torch.tensor(500.0, device=dev), t(ehs), added_cond_kwargs=cond).sample)
+            with guiders.layers_skipped(guiders.select_skip_blocks(tr, [1])):
+                slg.append(tr(t(latents), t(embeds), t(pooled), torch.tensor([500.0], device=dev)).sample)
+    compare("sdxl_unet_seg", seg)
+    compare("sd3_transformer_slg", slg)
+    preds = [rng.randn(2, 4, 16, 16).astype(np.float32) for _ in range(3)]
+    for name, config in GUIDER_CONFIGS:
+        guider = getattr(guiders, name)(**config)
+        n = guider.num_conditions
+        compare(f"guider_{name}", [guider(*(torch.from_numpy(p).to(device=d, dtype=dt) for p in preds[:n]), step=2,
+                                          num_steps=4) for d, dt in (("cpu", torch.float32), (device, torch.bfloat16))])
+    RESULTS["small_guidance"] = results
+
+
+def _guided_request(smi, label, pipeline, denoiser, expected, after, warmup_steps=PAG_WARMUP_STEPS, **kwargs):
+    """One request after a warm-up of `warmup_steps` steps (each with its own
+    generator seeded with SEED): its host seconds ending in a synchronise,
+    its peak memory, each denoiser call on CUDA events by its batch size
+    (the CFG pair at b=2, PAG's perturbed call at b=1), each step's launches
+    held to `expected` (one dict a step) and the decode's to `after`, the
+    latents entering the decode finite. Returns (images, record)."""
+    import numpy as np
+    import torch
+
+    pipeline(**dict(kwargs, num_inference_steps=warmup_steps, output_type="latent",
+                    generator=torch.Generator(device="cuda").manual_seed(SEED)))
+    latents_seen = []
+    hook = pipeline.vae.decoder.register_forward_pre_hook(lambda m, a: latents_seen.append(a[0]))
+    reset_launches()
+    try:
+        with StepLaunches(pipeline, denoiser) as counted, CudaSpans(modules={"denoiser": denoiser}) as spans:
+            images, seconds, peak_gb = _request_seconds(lambda: pipeline(
+                generator=torch.Generator(device="cuda").manual_seed(SEED), **kwargs).images)
+    finally:
+        hook.remove()
+    launches = read_launches()
+    by_batch = {}
+    for batch, ms in zip(counted.batches, spans.ms()["denoiser"]):
+        by_batch.setdefault(f"b{batch}", []).append(ms)
+    if not latents_seen or not all(bool(torch.isfinite(z).all()) for z in latents_seen):
+        raise AssertionError(f"{label}: non-finite latents")
+    _check_steps(label, counted.per_step, expected, counted.after, after)
+    call_ms = {b: float(np.mean(v)) for b, v in sorted(by_batch.items())}
+    calls = {b: len(v) for b, v in sorted(by_batch.items())}
+    per_step = counted.per_step[0]
+    log(f"[guidance] {smi}: {label}: {seconds:.3f} s/request (host clock), {len(expected)} steps, peak "
+        f"{peak_gb:.1f} GB; denoiser calls {calls}, mean ms a call {call_ms} (CUDA events); K1 "
+        f"{per_step['flash_attention_fwd']} and K4 {per_step['group_norm']} at step 0, as the modules count; "
+        f"launches {launches}")
+    return images, {"card": smi, "seconds_per_request": seconds, "peak_memory_gb": peak_gb, "steps": len(expected),
+                    "launches": launches, "launches_per_step": counted.per_step, "denoiser_calls": calls,
+                    "denoiser_call_ms": call_ms}
+
+
+def _perturbed_launches(call, layers):
+    """The launches of a PAG-perturbed call: `call`'s, less K1 for each
+    self-attention of `layers` (turned identities) at a head dim K1 takes."""
+    from diffusers_tpu_torch.ops.cuda.flash_attention import HEAD_DIMS
+
+    return dict(call, flash_attention_fwd=call["flash_attention_fwd"] - sum(m.dim_head in HEAD_DIMS for m in layers))
+
+
+def _uint8_mean_diff(a, b) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(a).astype(np.float64) - np.asarray(b).astype(np.float64)).mean())
+
+
+def run_sdxl_guidance(smi: str, pipe, controlnet, dense_image):
+    """Phase 25a: guidance at SDXL's full width on phase 11's pipeline, 1024
+    px, CFG 5.0: the dense request again (warm, the PAG request's
+    baseline), then `StableDiffusionXLPAGPipeline.from_pipe` (30 steps,
+    pag_scale 3.0, "mid": K1 270 and K4 92 a step), a PAG img2img request at
+    phase 12b's strength (9 steps, the VAE encode booked to the first), a
+    PAG ControlNet request on phase 12b's ControlNet (PAG_CONTROLNET_STEPS
+    steps), a FreeU request (SDXL_FREEU, 30 steps, K1 140 and K4 46 a step),
+    and one UNet call at b=1 under SEG (the mid block's 10 self-attentions
+    at sigma 3: K1 takes the blurred queries) beside a plain one. Each
+    request warms up for PAG_WARMUP_STEPS steps first; its b=2 and b=1 UNet
+    calls are timed apart on CUDA events. Returns the launches by path."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.guiders import seg_blurred, select_pag_layers
+    from diffusers_tpu_torch.pipelines.pag import (
+        StableDiffusionXLControlNetPAGPipeline,
+        StableDiffusionXLPAGImg2ImgPipeline,
+        StableDiffusionXLPAGPipeline,
+    )
+
+    unet = pipe.unet
+    unet_call, encode, decode = (_module_launches(m) for m in (unet, pipe.vae.encoder, pipe.vae.decoder))
+    identities = select_pag_layers(unet, "mid")
+    pag_step = _sum_launches((1, unet_call), (1, _perturbed_launches(unet_call, identities)))
+    if {k: pag_step[k] for k in SDXL_PAG_STEP} != SDXL_PAG_STEP:
+        raise AssertionError(f"an SDXL PAG step counts {pag_step}, expected {SDXL_PAG_STEP}")
+    image, _, edges = synthetic_inputs(RESOLUTION)
+    common = dict(prompt=PROMPTS[0], guidance_scale=GUIDANCE, output_type="pil")
+    out, paths = {}, {}
+
+    _, dense = _guided_request(smi, "sdxl_dense", pipe, unet, [unet_call] * STEPS, decode, num_inference_steps=STEPS,
+                               height=RESOLUTION, width=RESOLUTION, **common)
+    images, rec = _guided_request(smi, "sdxl_pag", StableDiffusionXLPAGPipeline.from_pipe(pipe), unet,
+                                  [pag_step] * STEPS, decode, num_inference_steps=STEPS, height=RESOLUTION,
+                                  width=RESOLUTION, pag_scale=PAG_SCALE, pag_applied_layers="mid", **common)
+    rec.update(image_mean=_check_image("sdxl_pag", images, RESOLUTION), dense_seconds=dense["seconds_per_request"],
+               dense_denoiser_call_ms=dense["denoiser_call_ms"],
+               ratio_to_dense=rec["seconds_per_request"] / dense["seconds_per_request"],
+               ratio_to_phase_11=rec["seconds_per_request"] / RESULTS["pipeline"]["seconds_per_request"][0],
+               uint8_mean_diff_to_phase_11=_uint8_mean_diff(images[0], dense_image))
+    log(f"[guidance] {smi}: SDXL PAG request {rec['seconds_per_request']:.3f} s, {rec['ratio_to_dense']:.2f} x the "
+        f"dense request beside it ({dense['seconds_per_request']:.3f} s), {rec['ratio_to_phase_11']:.2f} x phase 11's; "
+        f"UNet b=2 {rec['denoiser_call_ms']['b2']:.2f} ms, perturbed b=1 {rec['denoiser_call_ms']['b1']:.2f} ms "
+        f"(CUDA events); K1 {SDXL_PAG_STEP['flash_attention_fwd']} and K4 {SDXL_PAG_STEP['group_norm']} a step")
+    out["sdxl_pag"], out["sdxl_dense_warm"] = rec, dense
+    paths["sdxl_dense_warm"], paths["sdxl_pag"] = dense["launches"], rec["launches"]
+
+    steps = int(STEPS * IMG2IMG_STRENGTH)
+    expected = [dict(pag_step) for _ in range(steps)]
+    expected[0] = _sum_launches((1, pag_step), (1, encode))
+    images, rec = _guided_request(smi, "sdxl_pag_img2img", StableDiffusionXLPAGImg2ImgPipeline.from_pipe(pipe), unet,
+                                  expected, decode, num_inference_steps=STEPS, image=image, strength=IMG2IMG_STRENGTH,
+                                  pag_scale=PAG_SCALE, **common)
+    rec.update(image_mean=_check_image("sdxl_pag_img2img", images, RESOLUTION))
+    out["sdxl_pag_img2img"], paths["sdxl_pag_img2img"] = rec, rec["launches"]
+
+    cn_step = _sum_launches((1, pag_step), (1, _module_launches(controlnet)))
+    images, rec = _guided_request(smi, "sdxl_pag_controlnet",
+                                  StableDiffusionXLControlNetPAGPipeline.from_pipe(pipe, controlnet=controlnet), unet,
+                                  [cn_step] * PAG_CONTROLNET_STEPS, decode, num_inference_steps=PAG_CONTROLNET_STEPS,
+                                  image=edges, controlnet_conditioning_scale=CONTROLNET_SCALE, pag_scale=PAG_SCALE,
+                                  **common)
+    rec.update(image_mean=_check_image("sdxl_pag_controlnet", images, RESOLUTION))
+    out["sdxl_pag_controlnet"], paths["sdxl_pag_controlnet"] = rec, rec["launches"]
+
+    pipe.enable_freeu(**SDXL_FREEU)
+    try:
+        images, rec = _guided_request(smi, "sdxl_freeu", pipe, unet, [unet_call] * STEPS, decode,
+                                      num_inference_steps=STEPS, height=RESOLUTION, width=RESOLUTION, **common)
+    finally:
+        pipe.disable_freeu()
+    rec.update(image_mean=_check_image("sdxl_freeu", images, RESOLUTION), freeu=SDXL_FREEU,
+               ratio_to_dense=rec["seconds_per_request"] / dense["seconds_per_request"],
+               uint8_mean_diff_to_phase_11=_uint8_mean_diff(images[0], dense_image))
+    if not rec["uint8_mean_diff_to_phase_11"] > 0:
+        raise AssertionError("FreeU left the SDXL image unchanged")
+    out["sdxl_freeu"], paths["sdxl_freeu"] = rec, rec["launches"]
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sample = torch.randn(1, 4, 128, 128, generator=gen, device=dev).to(torch.bfloat16)
+    ehs = torch.randn(1, 77, 2048, generator=gen, device=dev).to(torch.bfloat16)
+    cond = {"text_embeds": torch.randn(1, 1280, generator=gen, device=dev).to(torch.bfloat16),
+            "time_ids": torch.tensor([[1024, 1024, 0, 0, 1024, 1024]], device=dev, dtype=torch.float32)}
+    t = torch.tensor(500.0, device=dev)
+
+    def call():
+        return unet(sample, t, ehs, added_cond_kwargs=cond).sample
+
+    with torch.no_grad():
+        plain = call()
+        reset_launches()
+        with seg_blurred(identities, SEG_SIGMA):
+            blurred = call()
+            torch.cuda.synchronize()
+            seg_launches = read_launches()
+            seg_ms = time_ms(call, iters=5)
+        plain_ms = time_ms(call, iters=5)
+    diff = float((blurred.float() - plain.float()).abs().mean())
+    rec = {"card": smi, "sigma": SEG_SIGMA, "layers": len(identities), "launches": seg_launches, "ms": seg_ms,
+           "plain_ms": plain_ms, "mean_abs_diff_to_plain": diff}
+    log(f"[guidance] {smi}: SDXL UNet call at b=1 under SEG (sigma {SEG_SIGMA}, {len(identities)} mid-block "
+        f"self-attentions): {seg_ms:.2f} ms against {plain_ms:.2f} ms plain (CUDA events, 5 calls each); mean |diff| "
+        f"{diff:.3e}; launches {seg_launches}")
+    if not (bool(torch.isfinite(blurred).all()) and diff > 0):
+        raise AssertionError("the SEG call is not finite or equals the plain call")
+    if seg_launches != unet_call:
+        raise AssertionError(f"the SEG call launched {seg_launches}, the modules count {unet_call}")
+    out["sdxl_seg_call"], paths["sdxl_seg_call"] = rec, seg_launches
+    RESULTS["sdxl_guidance"] = out
+    return paths
+
+
+def run_sd15_guidance(smi: str, pipe):
+    """Phase 25b: `StableDiffusionPAGPipeline.from_pipe` of phase 23's SD 1.5
+    (PNDM, 50 steps: 51 UNet steps; 512 px, CFG 7.5, pag_scale 3.0, "mid"):
+    K4 61 + 61 a step and K1 0 (its heads run `native`), the 51st step
+    without the perturbed call (step 50 of 50 is past PAG's window, as in
+    JAX); the b=2 and b=1 UNet calls on CUDA events. Returns the launches by
+    path."""
+    from diffusers_tpu_torch.guiders import select_pag_layers
+    from diffusers_tpu_torch.pipelines.pag import StableDiffusionPAGPipeline
+    from diffusers_tpu_torch.schedulers import PNDMScheduler
+
+    unet_call, decode = _module_launches(pipe.unet), _module_launches(pipe.vae.decoder)
+    perturbed = _perturbed_launches(unet_call, select_pag_layers(pipe.unet, "mid"))
+    pag_step = _sum_launches((1, unet_call), (1, perturbed))
+    expected = [pag_step] * SD15_STEPS + [unet_call]
+    pag = StableDiffusionPAGPipeline.from_pipe(pipe, scheduler=PNDMScheduler(**SD15_PNDM))
+    images, rec = _guided_request(smi, "sd15_pag", pag, pipe.unet, expected, decode, prompt=SD15_PROMPT,
+                                  height=SD15_RESOLUTION, width=SD15_RESOLUTION, num_inference_steps=SD15_STEPS,
+                                  guidance_scale=SD15_GUIDANCE, pag_scale=PAG_SCALE, output_type="pil")
+    rec.update(image_mean=_check_image("sd15_pag", images, SD15_RESOLUTION),
+               ratio_to_phase_23=rec["seconds_per_request"] / RESULTS["sd15"]["sd15_pndm"]["seconds_per_request"])
+    log(f"[guidance] {smi}: SD 1.5 PAG {rec['ratio_to_phase_23']:.2f} x phase 23's PNDM request")
+    RESULTS["sd15_guidance"] = {"sd15_pag": rec}
+    return {"sd15_pag": rec["launches"]}
+
+
+def run_sd3_guidance(smi: str, pipe):
+    """Phase 25c: on phase 16's SD3.5 Medium, `StableDiffusion3PAGPipeline.from_pipe`
+    (1024 px, 28 steps, CFG 7.0, pag_scale 3.0, block 13: K1 37 + 37 a step,
+    the perturbed call's block-13 joint attention under the identity mask),
+    then one transformer call at b=1 under Skip Layer Guidance (blocks 7-9
+    skipped: 6 fewer K1 launches) beside a full one, on CUDA events.
+    Returns the launches by path."""
+    import torch
+
+    from diffusers_tpu_torch.guiders import layers_skipped, select_skip_blocks
+    from diffusers_tpu_torch.pipelines.pag import StableDiffusion3PAGPipeline
+
+    tr = pipe.transformer
+    call, decode = _module_launches(tr), _module_launches(pipe.vae.decoder)
+    step = _sum_launches((2, call))  # block 13's joint attention runs K1 under the mask
+    if step["flash_attention_fwd"] != SD3_PAG_STEP_K1:
+        raise AssertionError(f"an SD3 PAG step counts {step}, expected K1 {SD3_PAG_STEP_K1}")
+    images, rec = _guided_request(smi, "sd3_pag", StableDiffusion3PAGPipeline.from_pipe(pipe), tr,
+                                  [step] * SD3_STEPS, decode, prompt=SD3_PROMPTS[0], height=RESOLUTION,
+                                  width=RESOLUTION, num_inference_steps=SD3_STEPS, guidance_scale=SD3_GUIDANCE,
+                                  pag_scale=PAG_SCALE, pag_applied_layers=SD3_PAG_LAYERS, output_type="pil")
+    rec.update(image_mean=_check_image("sd3_pag", images, RESOLUTION),
+               ratio_to_phase_16=rec["seconds_per_request"] / RESULTS["sd3"]["direct_seconds"])
+    log(f"[guidance] {smi}: SD3.5 Medium PAG {rec['ratio_to_phase_16']:.2f} x phase 16's direct request")
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    latents = torch.randn(1, 16, 128, 128, generator=gen, device=dev).to(torch.bfloat16)
+    embeds = torch.randn(1, 333, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    pooled = torch.randn(1, 2048, generator=gen, device=dev).to(torch.bfloat16)
+    t = torch.tensor([500.0], device=dev)
+    blocks = select_skip_blocks(tr, list(SLG_BLOCKS))
+    expected = dict(call, flash_attention_fwd=call["flash_attention_fwd"] - sum(
+        _module_launches(b)["flash_attention_fwd"] for b in blocks))
+
+    def forward():
+        return tr(latents, embeds, pooled, t).sample
+
+    with torch.no_grad():
+        full = forward()
+        full_ms = time_ms(forward, iters=5)
+        reset_launches()
+        with layers_skipped(blocks):
+            skipped = forward()
+            torch.cuda.synchronize()
+            slg_launches = read_launches()
+            slg_ms = time_ms(forward, iters=5)
+    diff = float((skipped.float() - full.float()).abs().mean())
+    slg = {"card": smi, "blocks": list(SLG_BLOCKS), "launches": slg_launches, "ms": slg_ms, "full_ms": full_ms,
+           "mean_abs_diff_to_full": diff}
+    log(f"[guidance] {smi}: SD3.5 Medium transformer call at b=1 with blocks {list(SLG_BLOCKS)} skipped (SLG): "
+        f"{slg_ms:.2f} ms against {full_ms:.2f} ms whole (CUDA events, 5 calls each); mean |diff| {diff:.3e}; "
+        f"launches {slg_launches} (K1 {expected['flash_attention_fwd']} by the modules)")
+    if not (bool(torch.isfinite(skipped).all()) and diff > 0):
+        raise AssertionError("the SLG call is not finite or equals the whole call")
+    if slg_launches != expected:
+        raise AssertionError(f"the SLG call launched {slg_launches}, the modules count {expected}")
+    RESULTS["sd3_guidance"] = {"sd3_pag": rec, "sd3_slg_call": slg}
+    return {"sd3_pag": rec["launches"], "sd3_slg_call": slg_launches}
+
+
 def timed(fn, *args):
     """`fn(*args)`, its wall time logged and kept in RESULTS["phase_seconds"]
     under the function's name."""
@@ -6549,9 +7060,15 @@ def main() -> int:
     timed(check_small_sd)
     timed(check_small_controlnets)
     timed(check_small_family)
+    timed(check_small_guidance)
     sdxl, pipe, image = timed(run_pipeline, smi)
     paths = {"sdxl": sdxl, **timed(run_sdxl_cached, smi, pipe, image)}
-    paths.update(timed(run_image_pipelines, smi, pipe))
+    image_paths, controlnet = timed(run_image_pipelines, smi, pipe)
+    paths.update(image_paths)
+    paths.update(timed(run_sdxl_guidance, smi, pipe, controlnet, image))
+    del controlnet
+    gc.collect()
+    torch.cuda.empty_cache()
     paths.update(timed(run_sdxl_ip_adapter, smi, pipe, image))
     paths.update(timed(run_sdxl_from_disk, smi, pipe, image))
     paths.update(timed(run_sdxl_controlnets, smi, pipe))
@@ -6564,6 +7081,7 @@ def main() -> int:
     paths.update(sd15_paths)
     paths.update(timed(run_sd15_controlnet, smi, pipe))
     paths.update(timed(run_sd15_family, smi, pipe))
+    paths.update(timed(run_sd15_guidance, smi, pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -6582,6 +7100,7 @@ def main() -> int:
     paths.update(sd3_paths)
     paths.update(timed(run_sd3_from_disk, smi, pipe))
     paths.update(timed(run_sd3_controlnet, smi, pipe))
+    paths.update(timed(run_sd3_guidance, smi, pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()

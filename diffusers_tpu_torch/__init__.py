@@ -35,6 +35,29 @@ _EXPORTS = {
     "StableDiffusionXLControlNetUnionImg2ImgPipeline": "diffusers_tpu_torch.pipelines.controlnet",
     "StableDiffusionXLControlNetUnionInpaintPipeline": "diffusers_tpu_torch.pipelines.controlnet",
     "StableDiffusion3ControlNetPipeline": "diffusers_tpu_torch.pipelines.controlnet_sd3",
+    "StableDiffusionXLPAGPipeline": "diffusers_tpu_torch.pipelines.pag",
+    "StableDiffusionXLPAGImg2ImgPipeline": "diffusers_tpu_torch.pipelines.pag",
+    "StableDiffusionXLPAGInpaintPipeline": "diffusers_tpu_torch.pipelines.pag",
+    "StableDiffusionPAGPipeline": "diffusers_tpu_torch.pipelines.pag",
+    "StableDiffusionPAGImg2ImgPipeline": "diffusers_tpu_torch.pipelines.pag",
+    "StableDiffusionPAGInpaintPipeline": "diffusers_tpu_torch.pipelines.pag",
+    "StableDiffusion3PAGPipeline": "diffusers_tpu_torch.pipelines.pag",
+    "StableDiffusion3PAGImg2ImgPipeline": "diffusers_tpu_torch.pipelines.pag",
+    "StableDiffusionControlNetPAGPipeline": "diffusers_tpu_torch.pipelines.pag",
+    "StableDiffusionControlNetPAGInpaintPipeline": "diffusers_tpu_torch.pipelines.pag",
+    "StableDiffusionXLControlNetPAGPipeline": "diffusers_tpu_torch.pipelines.pag",
+    "StableDiffusionXLControlNetPAGImg2ImgPipeline": "diffusers_tpu_torch.pipelines.pag",
+    "ClassifierFreeGuidance": "diffusers_tpu_torch.guiders",
+    "ClassifierFreeZeroStarGuidance": "diffusers_tpu_torch.guiders",
+    "AdaptiveProjectedGuidance": "diffusers_tpu_torch.guiders",
+    "AdaptiveProjectedMixGuidance": "diffusers_tpu_torch.guiders",
+    "AutoGuidance": "diffusers_tpu_torch.guiders",
+    "FrequencyDecoupledGuidance": "diffusers_tpu_torch.guiders",
+    "MagnitudeAwareGuidance": "diffusers_tpu_torch.guiders",
+    "PerturbedAttentionGuidance": "diffusers_tpu_torch.guiders",
+    "SkipLayerGuidance": "diffusers_tpu_torch.guiders",
+    "SmoothedEnergyGuidance": "diffusers_tpu_torch.guiders",
+    "TangentialClassifierFreeGuidance": "diffusers_tpu_torch.guiders",
     "ControlNetModel": "diffusers_tpu_torch.models.controlnets",
     "ControlNetUnionModel": "diffusers_tpu_torch.models.controlnets",
     "MultiControlNetModel": "diffusers_tpu_torch.models.controlnets",

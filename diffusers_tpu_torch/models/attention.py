@@ -1,9 +1,18 @@
 """Attention module.
 
 Port of `diffusers_tpu/models/attention.py` (`Attention` `:22-195`) with
-its IP-Adapter branch (`:176-188`) and without PAG and SEG, which wait for
-their pipelines. Submodule names (to_q/to_k/to_v/to_out.0/group_norm/
+its IP-Adapter branch (`:176-188`) and the two perturbation flags of the
+guiders (`:108-153`). Submodule names (to_q/to_k/to_v/to_out.0/group_norm/
 norm_cross) match the reference state-dict keys.
+
+`pag_identity` (Perturbed-Attention Guidance): a self-attention call uses
+the identity attention map, so it returns ``to_out(to_v(x))`` after the
+group norm, with the residual and `rescale_output_factor` applied and no
+IP-Adapter branch. `seg_blur_sigma` (Smoothed Energy Guidance): a
+self-attention call blurs its queries over the token grid
+(`guiders.smoothed_energy_guidance.seg_gaussian_blur_2d`) before attending.
+Both are plain attributes, read on every call; the guiders' context managers
+(`pag_perturbed`, `seg_blurred`) set and clear them.
 
 IP-Adapter: `loaders.ip_adapter.load_ip_adapter` gives a cross attention
 `to_k_ip` / `to_v_ip` (one bias-free Linear per adapter) and
@@ -24,12 +33,16 @@ from typing import List, Optional
 import torch
 from torch import nn
 
+from ..guiders.smoothed_energy_guidance import seg_gaussian_blur_2d, seg_kernel_size
 from ..ops.attention import dispatch_attention_fn
 from ..ops.module import GroupNorm, LayerNorm, Linear
 
 
 class Attention(nn.Module):
     """Multi-head attention over [B, S, C] hidden states (self or cross)."""
+
+    pag_identity: bool = False
+    seg_blur_sigma: Optional[float] = None
 
     def __init__(
         self,
@@ -106,7 +119,15 @@ class Attention(nn.Module):
             # GroupNorm normalizes the channel axis: tokens [B, S, C] -> [B, C, S]
             hidden_states = self.group_norm(hidden_states.transpose(1, 2)).transpose(1, 2)
 
+        if self.pag_identity and encoder_hidden_states is None:
+            out = self.to_out[0](self.to_v(hidden_states))  # the identity attention map: the output is V
+            if self.residual_connection:
+                out = out + residual
+            return out / self.rescale_output_factor
+
         query = self.to_q(hidden_states)
+        if self.seg_blur_sigma is not None and encoder_hidden_states is None:
+            query = seg_gaussian_blur_2d(query, seg_kernel_size(self.seg_blur_sigma), self.seg_blur_sigma)
         if encoder_hidden_states is None:
             key, value = self.to_k(hidden_states), self.to_v(hidden_states)
         else:

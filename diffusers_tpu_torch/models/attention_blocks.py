@@ -5,7 +5,9 @@ Port of the SDXL- and Flux-path classes of
 `diffusers_tpu/models/attention_blocks.py` (`GELUProj` `:35`, `GEGLU` `:48`,
 `LinearActivation` `:83`, `FeedForward` `:103` with its ``gelu``,
 ``gelu-approximate``, ``geglu`` and ``linear-silu`` routes,
-`BasicTransformerBlock` `:141`, the layer_norm variant). Submodule names
+`BasicTransformerBlock` `:141`, the layer_norm variant, with Skip Layer
+Guidance's `layer_skip`: while it is set the block returns its input).
+Submodule names
 (norm1/attn1/norm2/attn2/norm3/ff.net.0.proj/ff.net.2) match the reference
 state-dict keys.
 """
@@ -89,6 +91,8 @@ class FeedForward(nn.Module):
 class BasicTransformerBlock(nn.Module):
     """self-attn -> cross-attn -> FF, layer_norm variant (SD/SDXL UNets)."""
 
+    layer_skip: bool = False
+
     def __init__(
         self,
         dim: int,
@@ -140,6 +144,8 @@ class BasicTransformerBlock(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         encoder_attention_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        if self.layer_skip:  # Skip Layer Guidance: the block is the identity
+            return hidden_states
         # IP-Adapter: the UNet passes (text states, [image tokens per adapter])
         ip_hidden_states = None
         if isinstance(encoder_hidden_states, tuple):

@@ -22,7 +22,14 @@ FirstBlockCache (`fbc_state`, `fbc_config`): the first block always runs,
 and `hooks.first_block_cache.fbc_single_gate` runs the other blocks or
 replays their cached residual.
 
-PAG's `pag_identity` and Skip Layer Guidance's `layer_skip` wait (ROADMAP A).
+Perturbed-Attention Guidance (JAX `:100-130`): while `JointAttention.pag_identity`
+is set, the joint attention takes an additive float32 mask [1, 1, Sq, Sq]
+whose image-to-image block is the identity (``finfo(float32).min`` off the
+diagonal, 0 on it) and which leaves every text key open to every query; on
+the card K1 reads it through its broadcast strides. Skip Layer Guidance
+(JAX `:178-187`): while `JointTransformerBlock.layer_skip` is set the block
+returns its inputs (and the PAB cache it was given). Both are plain
+attributes that the guiders' context managers set and clear.
 """
 
 from __future__ import annotations
@@ -68,9 +75,21 @@ class SD35AdaLayerNormZeroX(nn.Module):
         return x1, gate_msa, shift_mlp, scale_mlp, gate_mlp, x2, gate_msa2
 
 
+def pag_identity_mask(seq_len: int, sample_len: int, device=None) -> torch.Tensor:
+    """PAG's additive mask over the joint stream (image tokens first): among
+    the first `sample_len` tokens each query sees only itself (float32
+    minimum elsewhere); the text keys stay open to every query. [1, 1, S, S]."""
+    mask = torch.zeros((seq_len, seq_len), dtype=torch.float32, device=device)
+    mask[:sample_len, :sample_len] = torch.finfo(torch.float32).min
+    mask[:sample_len, :sample_len].fill_diagonal_(0.0)
+    return mask[None, None]
+
+
 class JointAttention(nn.Module):
     """SD3 attention over the sample-first joint stream (image tokens, then
     text tokens), or over the image tokens alone without `added_kv_proj_dim`."""
+
+    pag_identity: bool = False
 
     def __init__(
         self,
@@ -128,7 +147,8 @@ class JointAttention(nn.Module):
                 eq, ek = self.norm_added_q(eq), self.norm_added_k(ek)
             q, k, v = torch.cat([q, eq], dim=1), torch.cat([k, ek], dim=1), torch.cat([v, ev], dim=1)
 
-        out = dispatch_attention_fn(q, k, v)
+        out = dispatch_attention_fn(q, k, v, attn_mask=pag_identity_mask(q.shape[1], sample_len, q.device)
+                                    if self.pag_identity else None)
         out = out.reshape(b, -1, self.heads * self.dim_head).to(q.dtype)
         if encoder_hidden_states is None:
             return self.to_out[0](out)
@@ -139,6 +159,8 @@ class JointAttention(nn.Module):
 
 
 class JointTransformerBlock(nn.Module):
+    layer_skip: bool = False
+
     def __init__(
         self,
         dim: int,
@@ -174,7 +196,9 @@ class JointTransformerBlock(nn.Module):
         `pab=(compute, cached)`: on a step that does not compute, the dict
         `cached` ("attn", "ctx" unless context_pre_only, "attn2" on a dual
         block) stands in for the attention outputs; the dict in use is then
-        returned third."""
+        returned third. A skipped block (`layer_skip`) returns its inputs."""
+        if self.layer_skip:
+            return (hidden_states, encoder_hidden_states) + ((pab[1],) if pab is not None else ())
         if self.use_dual_attention:
             norm_hidden, gate_msa, shift_mlp, scale_mlp, gate_mlp, norm_hidden2, gate_msa2 = self.norm1(
                 hidden_states, emb=temb)

@@ -3,7 +3,10 @@
 Port of the SDXL-path classes of `diffusers_tpu/models/unets/unet_2d_blocks.py`
 (`DownBlock2D`, `UNetMidBlock2D`, `UpBlock2D`, `get_down_block`,
 `get_up_block`), on NCHW activations with spatial attention flattened to
-``[B, H*W, C]``. The other blocks of that file wait.
+``[B, H*W, C]``. The other blocks of that file wait. An up block with a
+`freeu` dict (set by `UNet2DConditionModel.enable_freeu`) passes each
+(backbone, skip) pair through `utils.freeu_utils.apply_freeu` before joining
+them, as JAX `:277-283` does.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...utils.freeu_utils import apply_freeu
 from ..attention import Attention
 from ..resnet import Downsample2D, ResnetBlock2D, Upsample2D
 
@@ -140,6 +144,8 @@ class UNetMidBlock2D(nn.Module):
 
 class UpBlock2D(nn.Module):
     has_cross_attention = False
+    freeu = None  # FreeU's factors and this block's index, set by UNet2DConditionModel.enable_freeu
+    resolution_idx = None
 
     def __init__(
         self,
@@ -181,6 +187,9 @@ class UpBlock2D(nn.Module):
         for resnet in self.resnets:
             res_hidden_states = res_hidden_states_tuple[-1]
             res_hidden_states_tuple = res_hidden_states_tuple[:-1]
+            if self.freeu is not None:
+                hidden_states, res_hidden_states = apply_freeu(self.resolution_idx, hidden_states, res_hidden_states,
+                                                               self.freeu)
             hidden_states = torch.cat([hidden_states, res_hidden_states], dim=1)
             hidden_states = resnet(hidden_states, temb)
         if self.add_upsample:

@@ -26,7 +26,13 @@ projection, then a `TimestepEmbedding`), ``identity``, ``projection`` (a
 `TimestepEmbedding` of `projection_class_embeddings_input_dim`) or
 ``simple_projection`` (one Linear). The result is added to the time
 embedding, or concatenated to it with `class_embeddings_concat`, which
-doubles every resnet's time-embedding width. FreeU waits.
+doubles every resnet's time-embedding width.
+
+FreeU (JAX `:503-516`): `enable_freeu(s1, s2, b1, b2)` gives every up block
+the factors and its index (`resolution_idx`); the first two up blocks apply
+them (`utils.freeu_utils`). SDXL's are its two cross-attention up blocks,
+SD 1.5's an `UpBlock2D` and then a cross-attention block. `disable_freeu`
+takes them off.
 """
 
 from __future__ import annotations
@@ -425,3 +431,15 @@ class UNet2DConditionModel(ModelMixin, ConfigMixin):
         if not return_dict:
             return (sample,)
         return UNet2DConditionOutput(sample=sample)
+
+    def enable_freeu(self, s1: float, s2: float, b1: float, b2: float):
+        """FreeU on the up blocks (arXiv:2309.11497): skip factors s1, s2,
+        backbone factors b1, b2."""
+        freeu = {"s1": s1, "s2": s2, "b1": b1, "b2": b2}
+        for i, block in enumerate(self.up_blocks):
+            block.freeu = freeu
+            block.resolution_idx = i
+
+    def disable_freeu(self):
+        for block in self.up_blocks:
+            block.freeu = None

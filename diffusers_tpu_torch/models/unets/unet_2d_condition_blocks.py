@@ -4,7 +4,8 @@ Port of `diffusers_tpu/models/unets/unet_2d_condition_blocks.py`
 (`CrossAttnDownBlock2D`, `UNetMidBlock2DCrossAttn`, `CrossAttnUpBlock2D`), on
 NCHW activations; `CrossAttnDownBlock2D` adds a T2I-Adapter feature
 (`additional_residual`) after its last (resnet, attention) pair, as JAX
-`:106-110` does. FreeU waits for its utilities.
+`:106-110` does; `CrossAttnUpBlock2D` takes FreeU as `UpBlock2D` does (JAX
+`:270-276`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ...utils.freeu_utils import apply_freeu
 from ..resnet import Downsample2D, ResnetBlock2D, Upsample2D
 from ..transformers.transformer_2d import Transformer2DModel
 
@@ -190,6 +192,8 @@ class UNetMidBlock2DCrossAttn(nn.Module):
 
 class CrossAttnUpBlock2D(nn.Module):
     has_cross_attention = True
+    freeu = None  # FreeU's factors and this block's index, set by UNet2DConditionModel.enable_freeu
+    resolution_idx = None
 
     def __init__(
         self,
@@ -260,6 +264,9 @@ class CrossAttnUpBlock2D(nn.Module):
         for resnet, attn in zip(self.resnets, self.attentions):
             res_hidden_states = res_hidden_states_tuple[-1]
             res_hidden_states_tuple = res_hidden_states_tuple[:-1]
+            if self.freeu is not None:
+                hidden_states, res_hidden_states = apply_freeu(self.resolution_idx, hidden_states, res_hidden_states,
+                                                               self.freeu)
             hidden_states = torch.cat([hidden_states, res_hidden_states], dim=1)
             hidden_states = resnet(hidden_states, temb)
             hidden_states = attn(

@@ -96,20 +96,20 @@ class ControlNetCall:
 
 
 def controlnet_noise(pipe, controlnet_call: ControlNetCall, state, t, t_device, latents, prompt_embeds,
-                     guidance_scale: float, added: Optional[dict] = None) -> torch.Tensor:
+                     guidance_scale: float, added: Optional[dict] = None, step=None) -> torch.Tensor:
     """One step's noise prediction: the ControlNet, then the UNet with its
     residuals; with CFG (the embeddings hold twice the latents' batch,
-    uncond first) the two halves are combined."""
+    uncond first) the two halves are combined (`pipe._cfg_predict`, given
+    `step`)."""
     cfg = prompt_embeds.shape[0] == 2 * latents.shape[0]
     latent_input = torch.cat([latents, latents], dim=0) if cfg else latents
     latent_input = pipe.scheduler.scale_model_input(state, latent_input, t)
     residuals = controlnet_call(pipe.scheduler, state, t, t_device, latents, latent_input)
-    noise_pred = pipe.unet(latent_input, t_device, encoder_hidden_states=prompt_embeds, added_cond_kwargs=added,
-                           **residuals).sample
-    if cfg:
-        uncond, text = noise_pred.chunk(2, dim=0)
-        noise_pred = uncond + guidance_scale * (text - uncond)
-    return noise_pred
+
+    def unet(x, embeds, added, residuals):
+        return pipe.unet(x, t_device, encoder_hidden_states=embeds, added_cond_kwargs=added, **residuals).sample
+
+    return pipe._cfg_predict(unet, guidance_scale, cfg, step, latent_input, prompt_embeds, added, residuals)
 
 
 def blend_loop(forward, scheduler, state, timesteps, latents, init_latents, noise, mask, dtype) -> torch.Tensor:
@@ -152,12 +152,15 @@ class ControlNetPipelineMixin:
             return [conditioning_image(self.image_processor, im) for im in image]
         return conditioning_image(self.image_processor, image)
 
-    def _loop(self, cn, state, timesteps, latents, prompt_embeds, guidance_scale, added=None):
-        """The denoise loop over `timesteps` with the ControlNet call `cn`."""
+    def _loop(self, cn, state, timesteps, latents, prompt_embeds, guidance_scale, added=None, num_steps=None):
+        """The denoise loop over `timesteps` with the ControlNet call `cn`;
+        step i is step i of `num_steps` (default: of the loop's timesteps)."""
         ts = timesteps.to(latents.device)
+        num_steps = len(timesteps) if num_steps is None else num_steps
 
         def forward(lat, i, t):
-            return controlnet_noise(self, cn, state, t, ts[i], lat, prompt_embeds, guidance_scale, added)
+            return controlnet_noise(self, cn, state, t, ts[i], lat, prompt_embeds, guidance_scale, added,
+                                    step=(i, num_steps))
 
         return denoise_loop(forward, self.scheduler, latents, state, timesteps)
 
@@ -170,7 +173,8 @@ class ControlNetPipelineMixin:
         ts = timesteps.to(latents.device)
 
         def forward(lat, i, t):
-            return controlnet_noise(self, cn, state, t, ts[i], lat, prompt_embeds, guidance_scale, added)
+            return controlnet_noise(self, cn, state, t, ts[i], lat, prompt_embeds, guidance_scale, added,
+                                    step=(i, len(timesteps)))
 
         return blend_loop(forward, self.scheduler, state, timesteps, latents, init_latents, noise, mask,
                           self.unet.dtype)

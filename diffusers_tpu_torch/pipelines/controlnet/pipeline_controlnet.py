@@ -68,5 +68,6 @@ class StableDiffusionControlNetPipeline(ControlNetPipelineMixin, StableDiffusion
             latents = torch_utils.randn_tensor(shape, generator, device)
         state = self.scheduler.set_timesteps(num_inference_steps)
         latents = latents.to(device=device, dtype=dtype) * state.init_noise_sigma
-        latents = self._loop(cn, state, state.timesteps, latents, prompt_embeds, guidance_scale)
+        latents = self._loop(cn, state, state.timesteps, latents, prompt_embeds, guidance_scale,
+                             num_steps=num_inference_steps)
         return self._output(latents, output_type, return_dict)

@@ -85,5 +85,6 @@ class StableDiffusionXLControlNetPipeline(ControlNetPipelineMixin, StableDiffusi
         if latents is None:
             latents = torch_utils.randn_tensor(shape, generator, device)
         state, latents, _ = self._start(latents.to(device=device, dtype=dtype), num_inference_steps)
-        latents = self._loop(cn, state, state.timesteps, latents, prompt_embeds, guidance_scale, added)
+        latents = self._loop(cn, state, state.timesteps, latents, prompt_embeds, guidance_scale, added,
+                             num_steps=num_inference_steps)
         return self._output(latents, output_type, return_dict)

@@ -3,7 +3,8 @@
 Port of `diffusers_tpu/pipelines/pipeline_utils.py`: `register_modules`,
 config, `components`, the class registry and `resolve_component_class`
 (`:42-265`), `from_pretrained` over `model_index.json` (`:294-404`),
-`from_pipe` (`:407-427`) and `save_pretrained` (`:429-447`). JAX pipelines
+`from_pipe` (`:407-427`), `save_pretrained` (`:429-447`) and FreeU
+(`enable_freeu` / `disable_freeu`, `:522-536`). JAX pipelines
 hold ``(module, params)`` pairs; here a weight-bearing component is one
 `nn.Module`, and `.to(device, dtype)` moves them all. A pipeline runs on the
 card unless its caller asks for the CPU: every pipeline takes ``device``
@@ -12,6 +13,12 @@ raises there if no CUDA device is visible. `from_pretrained` loads each
 component straight onto that device. `enable_cache` / `disable_cache` store
 a config from `diffusers_tpu_torch.hooks` that the pipeline's denoise loop
 honours. LoRA waits.
+
+`_cfg_predict` is the step's guidance: the model's prediction on the CFG
+batch (uncond first) combined by classifier-free guidance. The pipelines'
+denoise loops route their model call through it with the step's (index,
+count), and the PAG pipelines (`pipelines.pag.pag_utils.PAGMixin`) override
+it to add the perturbed forward.
 """
 
 from __future__ import annotations
@@ -344,3 +351,29 @@ class DiffusionPipeline(ConfigMixin):
 
     def disable_cache(self):
         self._cache_config = None
+
+    # -------------------------------------------------------------- guidance
+    def _cfg_predict(self, model_fn, guidance_scale: float, cfg: bool, step, *inputs) -> torch.Tensor:
+        """``model_fn(*inputs)``, combined as ``uncond + g (text - uncond)``
+        when `cfg` (the inputs then hold the CFG batch, uncond first).
+        `step` is the denoise step's (index, count), or None."""
+        noise_pred = model_fn(*inputs)
+        if not cfg:
+            return noise_pred
+        uncond, text = noise_pred.chunk(2, dim=0)
+        return uncond + guidance_scale * (text - uncond)
+
+    # ----------------------------------------------------------------- FreeU
+    def enable_freeu(self, s1: float, s2: float, b1: float, b2: float):
+        """FreeU on the UNet's up blocks (`UNet2DConditionModel.enable_freeu`).
+        SD 1.5's suggested factors: s1=0.9, s2=0.2, b1=1.2, b2=1.4; SDXL's:
+        s1=0.6, s2=0.4, b1=1.1, b2=1.2."""
+        unet = getattr(self, "unet", None)
+        if unet is None or not hasattr(unet, "enable_freeu"):
+            raise AttributeError(f"{type(self).__name__} has no FreeU-capable unet")
+        unet.enable_freeu(s1, s2, b1, b2)
+
+    def disable_freeu(self):
+        unet = getattr(self, "unet", None)
+        if unet is not None and hasattr(unet, "disable_freeu"):
+            unet.disable_freeu()

@@ -119,21 +119,26 @@ class StableDiffusionPipeline(DiffusionPipeline, IPAdapterPipelineMixin):
         return StableDiffusionPipelineOutput(images=image)
 
     # ------------------------------------------------------------- denoise
-    def _noise(self, state, t, t_device, latents, prompt_embeds, guidance_scale, image_embeds=None, **unet_kwargs):
+    def _noise(self, state, t, t_device, latents, prompt_embeds, guidance_scale, image_embeds=None, extra=None,
+               step=None, **unet_kwargs):
         """One step's noise prediction; with CFG (the embeddings hold twice
-        the latents' batch, uncond first) the two halves are combined.
-        `unet_kwargs` go to the UNet as they are (the adapter features)."""
+        the latents' batch, uncond first) the two halves are combined
+        (`_cfg_predict`, given `step`). `extra` (an inpainting UNet's mask
+        and masked-image latents, at the CFG batch) joins the scaled latents
+        on the channel axis; `unet_kwargs` go to the UNet as they are (the
+        adapter features)."""
         cfg = prompt_embeds.shape[0] == 2 * latents.shape[0]
         latent_input = torch.cat([latents, latents], dim=0) if cfg else latents
         latent_input = self.scheduler.scale_model_input(state, latent_input, t)
+        if extra is not None:
+            latent_input = torch.cat([latent_input, extra], dim=1)
         image_embeds = match_batch(image_embeds, prompt_embeds.shape[0])
         added = {"image_embeds": image_embeds} if image_embeds is not None else None
-        noise_pred = self.unet(latent_input, t_device, encoder_hidden_states=prompt_embeds, added_cond_kwargs=added,
-                               **unet_kwargs).sample
-        if cfg:
-            uncond, text = noise_pred.chunk(2, dim=0)
-            noise_pred = uncond + guidance_scale * (text - uncond)
-        return noise_pred
+
+        def unet(x, embeds, added):
+            return self.unet(x, t_device, encoder_hidden_states=embeds, added_cond_kwargs=added, **unet_kwargs).sample
+
+        return self._cfg_predict(unet, guidance_scale, cfg, step, latent_input, prompt_embeds, added)
 
     @torch.no_grad()
     def _denoise(self, prompt_embeds, latents, guidance_scale, num_inference_steps, image_embeds=None,
@@ -144,13 +149,13 @@ class StableDiffusionPipeline(DiffusionPipeline, IPAdapterPipelineMixin):
         if callback is None:
             def forward(latents, i, t):
                 return self._noise(state, t, timesteps_device[i], latents, prompt_embeds, guidance_scale,
-                                   image_embeds, **unet_kwargs)
+                                   image_embeds, step=(i, num_inference_steps), **unet_kwargs)
 
             return denoise_loop(forward, self.scheduler, latents, state, state.timesteps)
 
         def forward_cb(latents, i, t, cb):
             return self._noise(state, t, timesteps_device[i], latents, cb["prompt_embeds"], cb["guidance_scale"],
-                               image_embeds, **unet_kwargs)
+                               image_embeds, step=(i, num_inference_steps), **unet_kwargs)
 
         return denoise_loop_with_callback(forward_cb, self.scheduler, latents, state, state.timesteps, self, callback,
                                           {"prompt_embeds": prompt_embeds, "guidance_scale": guidance_scale})

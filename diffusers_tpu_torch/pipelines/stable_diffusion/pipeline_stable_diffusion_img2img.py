@@ -51,7 +51,8 @@ class StableDiffusionImg2ImgPipeline(StableDiffusionPipeline):
         timesteps_device = timesteps.to(device)
 
         def forward(latents, i, t):
-            return self._noise(state, t, timesteps_device[i], latents, prompt_embeds, guidance_scale)
+            return self._noise(state, t, timesteps_device[i], latents, prompt_embeds, guidance_scale,
+                               step=(i, len(timesteps)))
 
         latents = denoise_loop(forward, self.scheduler, latents, state, timesteps)
         return self._output(latents, output_type, return_dict)

@@ -30,8 +30,9 @@ sees and may replace "latents". The VAE encode of an input image and the
 decode are shared with img2img and inpaint; every random draw goes through
 `utils.torch_utils.randn_tensor`. `from_pretrained` (the base class's) loads
 it from a saved directory, `text_encoder_3` / `tokenizer_3` optional as in
-the JAX pipeline; the HTTP server loads SD3.5 Medium that way. PAG and Skip
-Layer Guidance wait.
+the JAX pipeline; the HTTP server loads SD3.5 Medium that way. The PAG
+pipelines (`pipelines.pag`) build on it; Skip Layer Guidance is the
+`guiders` package's `layers_skipped` around a transformer call.
 """
 
 from __future__ import annotations
@@ -182,21 +183,26 @@ class StableDiffusion3Pipeline(DiffusionPipeline):
         return StableDiffusion3PipelineOutput(images=image)
 
     # ------------------------------------------------------------- denoise
-    def _forward(self, latents, t, prompt_embeds, pooled, guidance_scale, context=None, **cache):
+    def _forward(self, latents, t, prompt_embeds, pooled, guidance_scale, context=None, step=None, **cache):
         """One step's noise prediction in the latents' dtype, and the cache
         state the transformer returns beside it when `cache` passes one
         (FirstBlockCache, PAB). With CFG (the embeddings hold twice the
-        latents' batch, uncond first) the two halves are combined."""
+        latents' batch, uncond first) the two halves are combined
+        (`_cfg_predict`, given `step`)."""
         cfg = prompt_embeds.shape[0] == 2 * latents.shape[0]
         x = torch.cat([latents, latents], dim=0) if cfg else latents
-        out = self.transformer(x.to(self.transformer.dtype), prompt_embeds, pooled, t.expand(x.shape[0]),
-                               context=context, **cache)
-        out, state = out if cache else (out, None)
-        noise_pred = out.sample.to(latents.dtype)
-        if cfg:
-            uncond, text = noise_pred.chunk(2, dim=0)
-            noise_pred = uncond + guidance_scale * (text - uncond)
-        return noise_pred, state
+        states = []
+
+        def transformer(x, embeds, pooled, context):
+            out = self.transformer(x.to(self.transformer.dtype), embeds, pooled, t.expand(x.shape[0]),
+                                   context=context, **cache)
+            if cache:
+                out, state = out
+                states.append(state)
+            return out.sample.to(latents.dtype)
+
+        noise_pred = self._cfg_predict(transformer, guidance_scale, cfg, step, x, prompt_embeds, pooled, context)
+        return noise_pred, (states[0] if cache else None)
 
     @torch.no_grad()
     def _denoise(self, latents, prompt_embeds, pooled, state, timesteps, guidance_scale):
@@ -248,7 +254,8 @@ class StableDiffusion3Pipeline(DiffusionPipeline):
             return latents
 
         def forward(lat, i, t):
-            return self._forward(lat, ts[i], prompt_embeds, pooled, guidance_scale, context=context)[0]
+            return self._forward(lat, ts[i], prompt_embeds, pooled, guidance_scale, context=context,
+                                 step=(i, len(timesteps)))[0]
 
         return denoise_loop(forward, scheduler, latents, state, timesteps, cfg)
 
@@ -259,7 +266,7 @@ class StableDiffusion3Pipeline(DiffusionPipeline):
         ts = state.timesteps.to(latents.device)
 
         def forward_cb(lat, i, t, cb):
-            return self._forward(lat, ts[i], prompt_embeds, pooled, guidance_scale)[0]
+            return self._forward(lat, ts[i], prompt_embeds, pooled, guidance_scale, step=(i, len(ts)))[0]
 
         return denoise_loop_with_callback(forward_cb, self.scheduler, latents, state, state.timesteps, self,
                                           callback, {}, cache_cfg=self._cache_config)

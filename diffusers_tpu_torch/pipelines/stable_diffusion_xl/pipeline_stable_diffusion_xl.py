@@ -189,18 +189,23 @@ class StableDiffusionXLPipeline(DiffusionPipeline, IPAdapterPipelineMixin):
         return self.unet(latent_input, t, encoder_hidden_states=prompt_embeds, added_cond_kwargs=cond).sample
 
     def _noise(self, state, t, t_device, latents, prompt_embeds, text_embeds, time_ids, guidance_scale,
-               image_embeds=None):
+               image_embeds=None, extra=None, step=None):
         """One step's noise prediction; with CFG (the embeddings hold twice
-        the latents' batch, uncond first) the two halves are combined."""
+        the latents' batch, uncond first) the two halves are combined
+        (`_cfg_predict`, given `step`). `extra` (an inpainting UNet's mask
+        and masked-image latents, at the CFG batch) joins the scaled latents
+        on the channel axis."""
         cfg = prompt_embeds.shape[0] == 2 * latents.shape[0]
         latent_input = torch.cat([latents, latents], dim=0) if cfg else latents
         latent_input = self.scheduler.scale_model_input(state, latent_input, t)
-        noise_pred = self._unet(latent_input, t_device, prompt_embeds, text_embeds, time_ids,
-                                match_batch(image_embeds, prompt_embeds.shape[0]))
-        if cfg:
-            uncond, text = noise_pred.chunk(2, dim=0)
-            noise_pred = uncond + guidance_scale * (text - uncond)
-        return noise_pred
+        if extra is not None:
+            latent_input = torch.cat([latent_input, extra], dim=1)
+
+        def unet(x, embeds, text, time, image):
+            return self._unet(x, t_device, embeds, text, time, image)
+
+        return self._cfg_predict(unet, guidance_scale, cfg, step, latent_input, prompt_embeds, text_embeds, time_ids,
+                                 match_batch(image_embeds, prompt_embeds.shape[0]))
 
     def _start(self, latents, num_inference_steps):
         """(scheduler state, scaled initial latents, the timesteps on the
@@ -222,7 +227,7 @@ class StableDiffusionXLPipeline(DiffusionPipeline, IPAdapterPipelineMixin):
 
         def forward(latents, i, t):
             return self._noise(state, t, timesteps_device[i], latents, prompt_embeds, add_text_embeds, add_time_ids,
-                               guidance_scale, image_embeds)
+                               guidance_scale, image_embeds, step=(i, num_inference_steps))
 
         text_kv = text_kv_cache(self.unet) if isinstance(cache_cfg, TextKVCacheConfig) else contextlib.nullcontext()
         with text_kv:
@@ -239,7 +244,7 @@ class StableDiffusionXLPipeline(DiffusionPipeline, IPAdapterPipelineMixin):
 
         def forward_cb(latents, i, t, cb):
             return self._noise(state, t, timesteps_device[i], latents, cb["prompt_embeds"], cb["add_text_embeds"],
-                               cb["add_time_ids"], cb["guidance_scale"], image_embeds)
+                               cb["add_time_ids"], cb["guidance_scale"], image_embeds, step=(i, num_inference_steps))
 
         cb_tensors = {"prompt_embeds": prompt_embeds, "add_text_embeds": add_text_embeds,
                       "add_time_ids": add_time_ids, "guidance_scale": guidance_scale}

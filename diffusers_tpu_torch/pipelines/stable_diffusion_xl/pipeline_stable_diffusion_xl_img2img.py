@@ -74,7 +74,7 @@ class StableDiffusionXLImg2ImgPipeline(StableDiffusionXLPipeline):
 
         def forward(latents, i, t):
             return self._noise(state, t, timesteps_device[i], latents, prompt_embeds, add_text_embeds, add_time_ids,
-                               guidance_scale)
+                               guidance_scale, step=(i, len(timesteps)))
 
         latents = denoise_loop(forward, self.scheduler, latents, state, timesteps)
         return self._output(latents, output_type, return_dict)

@@ -89,14 +89,8 @@ class StableDiffusionXLInpaintPipeline(StableDiffusionXLPipeline):
         timesteps_device = timesteps.to(device)
         n = len(timesteps)
         for i, t in enumerate(timesteps):
-            latent_input = torch.cat([latents, latents], dim=0) if do_cfg else latents
-            latent_input = self.scheduler.scale_model_input(state, latent_input, t)
-            if is_inpaint_unet:
-                latent_input = torch.cat([latent_input, mask_input], dim=1)
-            noise_pred = self._unet(latent_input, timesteps_device[i], prompt_embeds, add_text_embeds, add_time_ids)
-            if do_cfg:
-                uncond, text = noise_pred.chunk(2, dim=0)
-                noise_pred = uncond + guidance_scale * (text - uncond)
+            noise_pred = self._noise(state, t, timesteps_device[i], latents, prompt_embeds, add_text_embeds,
+                                     add_time_ids, guidance_scale, extra=mask_input, step=(i, n))
             latents = self.scheduler.step(state, noise_pred, t, latents).prev_sample
             if not is_inpaint_unet:  # upstream's blend: the known region at the next timestep's noise level
                 known = (init_latents if i == n - 1
