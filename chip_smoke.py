@@ -65,9 +65,9 @@ made from a seed on the card:
     Wan2.1-VACE-1.3B's widths and depth (30 blocks and 15 VACE blocks) through
     `WanVACEPipeline.__call__`, one 480 x 832 x 81 request with a synthetic
     control video and mask (CFG as one batch-2 call a step, K1 90 a call);
-    Wan2.2-Animate-14B at full width cut to 10 blocks (the motion encoder at
-    512 px, the face encoder, two face adapters; a CLIP ViT-H/14) through
-    `WanAnimatePipeline.__call__` at 720 x 1280: two 77-frame segments in
+    Wan2.2-Animate-14B at full width cut to 5 blocks (the motion encoder at
+    512 px, the face encoder, one face adapter; a CLIP ViT-H/14) through
+    `WanAnimatePipeline.__call__` at 720 x 1280: one 77-frame segment in
     animate mode, then one replace segment; SkyReels-V2-T2V-14B-540P at full
     width cut to 2 blocks through `SkyReelsV2Pipeline.__call__`, one 544 x
     960 x 97 request (51,000 tokens);
@@ -131,6 +131,20 @@ made from a seed on the card:
     step, the perturbed joint attention through K1 under the identity mask,
     which phase 3 holds to its plain version and times against the open
     call) and one transformer call with blocks 7-9 skipped (SLG);
+  * the loaders (phase 26): on phase 11's SDXL, two seeded rank-16 PEFT
+    LoRAs on the UNet's attention and feed-forward Linears and both text
+    encoders through `load_lora_weights`, a request with one, one with
+    `set_adapters` of both at (0.3, 0.7), a kohya SGM-layout twin fused
+    bit-equal, and after `disable_lora` a request bit-equal to the dense
+    one (K1 140, K4 46 a step each); the UNet, VAE and CLIP-L written as one
+    LDM-layout single file and read back through `loaders.single_file`,
+    bit-equal in state and in a request; a 2-vector textual inversion in
+    CLIP-L and a request that uses it; on phase 13's Flux.1-dev, an XLabs
+    LoRA refused by the w8a8 transformer, then fused into a bf16 FLUX.1-dev
+    transformer before `quantize_w8a8(model, 2**20)`, one call held to its
+    plain routes (K1 57, K5 500); the Flux, SD3.5 Medium and Wan I2V-14B
+    transformers at full width and 2 blocks written in their original
+    layouts and read back, bit-equal in state and in a forward;
   * training: `train_text_to_image.main` on the SDXL UNet at its published
     widths, 1024 px, batch 1, TRAIN_STEPS steps (f32 weights and AdamW, bf16
     autocast; kernels K1 forward, K2 and K3 backward, K4), then a sharded
@@ -160,6 +174,7 @@ with f32 weights. float32 references run in full float32: this script sets
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import math
@@ -421,7 +436,7 @@ UMT5_XXL = dict(vocab_size=256384, d_model=4096, d_kv=64, d_ff=10240, num_layers
                 feed_forward_proj="gated-gelu")
 WAN_UNIPC = dict(prediction_type="flow_prediction", use_flow_sigmas=True, flow_shift=3.0)
 WAN_HEIGHT, WAN_WIDTH, WAN_FRAMES = 480, 832, 81
-WAN_STEPS = 10  # upstream's default is 50; cut to hold the run's time as the guidance phases join it
+WAN_STEPS = 5  # upstream's default is 50; cut to hold the run's time as the guidance and loader phases join it
 WAN_GUIDANCE = 5.0
 WAN_TEXT_LEN = 512
 WAN_PROMPT = "a red panda eating bamboo in a misty forest, cinematic"
@@ -446,13 +461,13 @@ WAN_14B_Q_CHUNK = 512  # at 40 heads a 2,048-row chunk of f32 logits would be 10
 # 514) at 480 x 832; Wan 2.2's two experts at Wan-AI/Wan2.2-I2V-A14B-Diffusers' widths (I2V-14B's with no image
 # branch, boundary_ratio 0.9), guidance 4.0 then 3.0
 WAN_CUT_LAYERS = 2
-WAN_CUT_STEPS = 4
+WAN_CUT_STEPS = 2
 WAN_FLF_CUT = dict(WAN_I2V_14B, pos_embed_seq_len=514, num_layers=WAN_CUT_LAYERS)
 WAN_A14B_CUT = dict(WAN_I2V_14B, image_dim=None, added_kv_proj_dim=None, num_layers=WAN_CUT_LAYERS)
 WAN_A14B_BOUNDARY = 0.9
 WAN_A14B_GUIDANCE = (4.0, 3.0)
 # phase 17b: video-to-video on phase 17's Wan2.1-T2V-1.3B pipeline, a synthetic 81-frame 480 x 832 video
-WAN_V2V_STEPS, WAN_V2V_STRENGTH = 5, 0.8
+WAN_V2V_STEPS, WAN_V2V_STRENGTH = 2, 0.8
 # phase 10d: a small Wan pipeline (head_dim 64: K1 in both attentions of a block), 9 frames of 64 x 64
 SMALL_WAN = dict(patch_size=(1, 2, 2), num_attention_heads=2, attention_head_dim=64, in_channels=16, out_channels=16,
                  text_dim=64, freq_dim=64, ffn_dim=256, num_layers=2, cross_attn_norm=True, rope_max_seq_len=1024)
@@ -474,16 +489,17 @@ SMALL_WAN_EXPERT = dict(SMALL_WAN, in_channels=36)
 # VAE; 480 x 832 x 81 with a synthetic control video and mask, CFG 5.0 as one batch-2 call a step, WAN_VACE_STEPS
 # steps (the cut)
 WAN_VACE_1_3B = dict(WAN_1_3B, vace_layers=list(range(0, 30, 2)), vace_in_channels=96)
-WAN_VACE_STEPS = 3
+WAN_VACE_STEPS = 1
 WAN_VACE_K1_PER_CALL = (30 + 15) * 2
 WAN_VACE_BATCH2_SELF_ATTENTION = (2, WAN_TOKENS, 12, 128)
 WAN_VACE_Q_CHUNK = 1024
 # phase 21: Wan2.2-Animate-14B (Wan-AI/Wan2.2-Animate-14B-Diffusers): I2V-14B's widths (40 x 128 heads, ffn 13824,
 # 36 input channels, the CLIP image branch) with the motion encoder at 512 px, the face encoder (4 heads of 1024)
-# and a face adapter every 5 blocks; cut to WAN_ANIMATE_LAYERS blocks (two adapters); phase 17's UMT5-XXL and VAE,
-# a CLIP ViT-H/14; 720 x 1280, 77-frame segments: two of them over a 153-frame pose and face video in animate
-# mode, then one in replace mode, WAN_ANIMATE_STEPS steps each (75,600 tokens: 21 latent frames of 45 x 80 patches)
-WAN_ANIMATE_LAYERS = 10
+# and a face adapter every 5 blocks; cut to WAN_ANIMATE_LAYERS blocks (one adapter); phase 17's UMT5-XXL and VAE,
+# a CLIP ViT-H/14; 720 x 1280, 77-frame segments: WAN_ANIMATE_SEGMENTS over a pose and face video in animate mode,
+# then one in replace mode, WAN_ANIMATE_STEPS steps each (75,600 tokens: 21 latent frames of 45 x 80 patches)
+WAN_ANIMATE_LAYERS = 5  # 10 before the loader phases joined the run
+WAN_ANIMATE_SEGMENTS = 1  # 2 before the loader phases joined the run
 WAN_ANIMATE_14B = dict(WAN_I2V_14B, latent_channels=16, num_layers=WAN_ANIMATE_LAYERS, inject_face_latents_blocks=5)
 WAN_ANIMATE_HEIGHT, WAN_ANIMATE_WIDTH, WAN_ANIMATE_SEGMENT = 720, 1280, 77
 WAN_ANIMATE_STEPS = 1
@@ -496,7 +512,7 @@ WAN_ANIMATE_SELF_ATTENTION = (1, WAN_ANIMATE_TOKENS, 40, 128)
 SKYREELS_14B = dict(WAN_1_3B, num_attention_heads=40, ffn_dim=13824, num_layers=WAN_CUT_LAYERS)
 SKYREELS_UNIPC = dict(WAN_UNIPC, flow_shift=8.0)
 SKYREELS_HEIGHT, SKYREELS_WIDTH, SKYREELS_FRAMES = 544, 960, 97
-SKYREELS_STEPS, SKYREELS_GUIDANCE = 3, 6.0
+SKYREELS_STEPS, SKYREELS_GUIDANCE = 1, 6.0
 SKYREELS_TOKENS = 25 * 34 * 60
 SKYREELS_SELF_ATTENTION = (1, SKYREELS_TOKENS, 40, 128)
 # phase 10f: small VACE, Animate and SkyReels-V2 on phase 10d's widths
@@ -789,12 +805,15 @@ class StandInTokenizer:
 T5_TOKENIZER = dict(vocab_size=32128, bos=None, eos=1)
 
 
-def clip_tokenizer(directory):
+def clip_tokenizer(directory, vocab_size=None):
     """A real `transformers.CLIPTokenizer` with a vocabulary written on the
     spot into `directory` (no download): CLIP's byte-level alphabet, each
     symbol also as a word end (``</w>``), a few merges, then BOS and EOS,
-    the highest ids (CLIP pools at the highest). Loaded with
-    `from_pretrained`, as a published pipeline's `tokenizer/` folder is."""
+    the highest ids (CLIP pools at the highest). With `vocab_size` (CLIP's
+    49408), filler words no prompt meets pad the vocabulary so that BOS and
+    EOS are CLIP's 49406 and 49407 and a textual-inversion token gets the
+    row the text encoder's table appends. Loaded with `from_pretrained`, as
+    a published pipeline's `tokenizer/` folder is."""
     import transformers
 
     directory = Path(directory)
@@ -808,6 +827,8 @@ def clip_tokenizer(directory):
     vocab.update({sym + "</w>": 256 + i for i, sym in enumerate(symbols)})
     for m in merges:
         vocab["".join(m.split())] = len(vocab)
+    while vocab_size is not None and len(vocab) < vocab_size - 2:
+        vocab[f"filler{len(vocab)}\u0100</w>"] = len(vocab)
     vocab["<|startoftext|>"], vocab["<|endoftext|>"] = len(vocab), len(vocab) + 1
     (directory / "vocab.json").write_text(json.dumps(vocab))
     (directory / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n")
@@ -1038,6 +1059,242 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+# ------------------------------------------------------------------ single-file layouts (phase 26 and the CPU tests)
+# Each function writes a port model's state dict (diffusers keys) in a community single-file layout: the inverse of
+# the converters of `diffusers_tpu_torch.loaders.single_file`. tests/test_torch_single_file.py checks each by a round
+# trip through the JAX package's converter.
+
+_LDM_RESNET_INVERSE = {"norm1": "in_layers.0", "conv1": "in_layers.2", "time_emb_proj": "emb_layers.1",
+                       "norm2": "out_layers.0", "conv2": "out_layers.3", "conv_shortcut": "skip_connection"}
+_LDM_UNET_STATIC_INVERSE = {"time_embedding.linear_1": "time_embed.0", "time_embedding.linear_2": "time_embed.2",
+                            "conv_in": "input_blocks.0.0", "conv_norm_out": "out.0", "conv_out": "out.2",
+                            "add_embedding.linear_1": "label_emb.0.0", "add_embedding.linear_2": "label_emb.0.2"}
+
+
+def ldm_unet_keys(state, layers_per_block: int, prefix: str = "model.diffusion_model.") -> dict:
+    """A diffusers UNet state dict in the LDM (SGM) layout."""
+    per = layers_per_block + 1
+    has_attention = {key.split(".")[1] for key in state if key.startswith("up_blocks.") and ".attentions." in key}
+    out = {}
+    for key, value in state.items():
+        parts = key.split(".")
+        module, leaf = ".".join(parts[:-1]), parts[-1]
+        if module in _LDM_UNET_STATIC_INVERSE:
+            new = f"{_LDM_UNET_STATIC_INVERSE[module]}.{leaf}"
+        elif parts[0] in ("down_blocks", "up_blocks"):
+            b, kind = int(parts[1]), parts[2]
+            if kind == "downsamplers":
+                new = f"input_blocks.{1 + b * per + layers_per_block}.0.op.{leaf}"
+            elif kind == "upsamplers":
+                new = f"output_blocks.{b * per + layers_per_block}.{2 if parts[1] in has_attention else 1}.conv.{leaf}"
+            else:
+                layer = int(parts[3])
+                i = 1 + b * per + layer if parts[0] == "down_blocks" else b * per + layer
+                name = "input_blocks" if parts[0] == "down_blocks" else "output_blocks"
+                rest = parts[4:]
+                if kind == "resnets":
+                    new = f"{name}.{i}.0.{_LDM_RESNET_INVERSE[rest[0]]}.{'.'.join(rest[1:])}"
+                else:
+                    new = f"{name}.{i}.1.{'.'.join(rest)}"
+        elif parts[0] == "mid_block":
+            j = {("resnets", "0"): 0, ("attentions", "0"): 1, ("resnets", "1"): 2}[(parts[1], parts[2])]
+            rest = parts[3:]
+            if parts[1] == "resnets":
+                new = f"middle_block.{j}.{_LDM_RESNET_INVERSE[rest[0]]}.{'.'.join(rest[1:])}"
+            else:
+                new = f"middle_block.{j}.{'.'.join(rest)}"
+        else:
+            raise KeyError(f"no LDM name for UNet key {key}")
+        out[prefix + new] = value
+    return out
+
+
+_LDM_VAE_STATIC_INVERSE = {"encoder.conv_norm_out": "encoder.norm_out", "decoder.conv_norm_out": "decoder.norm_out"}
+_LDM_VAE_ATTENTION_INVERSE = {"group_norm": "norm", "to_q": "q", "to_k": "k", "to_v": "v", "to_out.0": "proj_out"}
+
+
+def ldm_vae_keys(state, prefix: str = "first_stage_model.") -> dict:
+    """A diffusers AutoencoderKL state dict in the LDM layout: the decoder's up
+    blocks reversed, the mid block's attention projections as 1x1 convolutions."""
+    n_up = len({key.split(".")[2] for key in state if key.startswith("decoder.up_blocks.")})
+    out = {}
+    for key, value in state.items():
+        parts = key.split(".")
+        module, leaf = ".".join(parts[:-1]), parts[-1]
+        who = parts[0]
+        if module in _LDM_VAE_STATIC_INVERSE:
+            new = f"{_LDM_VAE_STATIC_INVERSE[module]}.{leaf}"
+        elif len(parts) > 2 and parts[1] in ("down_blocks", "up_blocks"):
+            i = int(parts[2]) if parts[1] == "down_blocks" else n_up - 1 - int(parts[2])
+            stage = "down" if parts[1] == "down_blocks" else "up"
+            if parts[3] == "resnets":
+                name = "nin_shortcut" if parts[5] == "conv_shortcut" else parts[5]
+                new = f"{who}.{stage}.{i}.block.{parts[4]}.{name}.{leaf}"
+            else:
+                new = f"{who}.{stage}.{i}.{'downsample' if stage == 'down' else 'upsample'}.conv.{leaf}"
+        elif len(parts) > 2 and parts[1] == "mid_block":
+            if parts[2] == "resnets":
+                new = f"{who}.mid.block_{int(parts[3]) + 1}.{'.'.join(parts[4:])}"
+            else:
+                name = ".".join(parts[4:-1])
+                new = f"{who}.mid.attn_1.{_LDM_VAE_ATTENTION_INVERSE[name]}.{leaf}"
+                if name != "group_norm" and leaf == "weight":
+                    value = value[:, :, None, None]
+        else:
+            new = key
+        out[prefix + new] = value
+    return out
+
+
+def ldm_clip_keys(state, prefix: str = "conditioner.embedders.0.transformer.") -> dict:
+    """A CLIP text encoder's state dict under an LDM prefix (SDXL's CLIP-L by
+    default; SD 1.x's is ``cond_stage_model.transformer.``), with the
+    ``position_ids`` buffer such files carry."""
+    import torch
+
+    out = {prefix + key: value for key, value in state.items()}
+    n = state["text_model.embeddings.position_embedding.weight"].shape[0]
+    out[prefix + "text_model.embeddings.position_ids"] = torch.arange(n)[None]
+    return out
+
+
+def _cat0(*tensors):
+    import torch
+
+    return torch.cat(tensors, dim=0)
+
+
+def _swap_halves(w):
+    first, second = w.chunk(2, dim=0)
+    return _cat0(second, first)
+
+
+def bfl_flux_keys(state) -> dict:
+    """A diffusers Flux transformer state dict in BFL's original layout."""
+    out = {}
+    simple = {"time_in.in_layer": "time_text_embed.timestep_embedder.linear_1",
+              "time_in.out_layer": "time_text_embed.timestep_embedder.linear_2",
+              "vector_in.in_layer": "time_text_embed.text_embedder.linear_1",
+              "vector_in.out_layer": "time_text_embed.text_embedder.linear_2",
+              "guidance_in.in_layer": "time_text_embed.guidance_embedder.linear_1",
+              "guidance_in.out_layer": "time_text_embed.guidance_embedder.linear_2",
+              "txt_in": "context_embedder", "img_in": "x_embedder", "final_layer.linear": "proj_out"}
+    for dst, src in simple.items():
+        if f"{src}.weight" in state:
+            out[f"{dst}.weight"], out[f"{dst}.bias"] = state[f"{src}.weight"], state[f"{src}.bias"]
+    out["final_layer.adaLN_modulation.1.weight"] = _swap_halves(state["norm_out.linear.weight"])
+    out["final_layer.adaLN_modulation.1.bias"] = _swap_halves(state["norm_out.linear.bias"])
+    i = 0
+    while f"transformer_blocks.{i}.norm1.linear.weight" in state:
+        p, s = f"transformer_blocks.{i}.", f"double_blocks.{i}."
+        for leaf in ("weight", "bias"):
+            out[f"{s}img_mod.lin.{leaf}"] = state[f"{p}norm1.linear.{leaf}"]
+            out[f"{s}txt_mod.lin.{leaf}"] = state[f"{p}norm1_context.linear.{leaf}"]
+            out[f"{s}img_attn.qkv.{leaf}"] = _cat0(*(state[f"{p}attn.{n}.{leaf}"] for n in ("to_q", "to_k", "to_v")))
+            out[f"{s}txt_attn.qkv.{leaf}"] = _cat0(*(state[f"{p}attn.{n}.{leaf}"]
+                                                   for n in ("add_q_proj", "add_k_proj", "add_v_proj")))
+            for a, b in (("img_mlp.0", "ff.net.0.proj"), ("img_mlp.2", "ff.net.2"),
+                         ("txt_mlp.0", "ff_context.net.0.proj"), ("txt_mlp.2", "ff_context.net.2"),
+                         ("img_attn.proj", "attn.to_out.0"), ("txt_attn.proj", "attn.to_add_out")):
+                out[f"{s}{a}.{leaf}"] = state[f"{p}{b}.{leaf}"]
+        out[f"{s}img_attn.norm.query_norm.scale"] = state[f"{p}attn.norm_q.weight"]
+        out[f"{s}img_attn.norm.key_norm.scale"] = state[f"{p}attn.norm_k.weight"]
+        out[f"{s}txt_attn.norm.query_norm.scale"] = state[f"{p}attn.norm_added_q.weight"]
+        out[f"{s}txt_attn.norm.key_norm.scale"] = state[f"{p}attn.norm_added_k.weight"]
+        i += 1
+    i = 0
+    while f"single_transformer_blocks.{i}.norm.linear.weight" in state:
+        p, s = f"single_transformer_blocks.{i}.", f"single_blocks.{i}."
+        for leaf in ("weight", "bias"):
+            out[f"{s}modulation.lin.{leaf}"] = state[f"{p}norm.linear.{leaf}"]
+            out[f"{s}linear1.{leaf}"] = _cat0(*(state[f"{p}{n}.{leaf}"]
+                                                for n in ("attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp")))
+            out[f"{s}linear2.{leaf}"] = state[f"{p}proj_out.{leaf}"]
+        out[f"{s}norm.query_norm.scale"] = state[f"{p}attn.norm_q.weight"]
+        out[f"{s}norm.key_norm.scale"] = state[f"{p}attn.norm_k.weight"]
+        i += 1
+    return out
+
+
+def sai_sd3_keys(state, pos_embed) -> dict:
+    """A diffusers SD3 transformer state dict in SAI's MMDiT layout, with its
+    sin-cos table `pos_embed` ([1, m², D]) as SAI files carry it."""
+    out = {"pos_embed": pos_embed, "x_embedder.proj.weight": state["pos_embed.proj.weight"],
+           "x_embedder.proj.bias": state["pos_embed.proj.bias"]}
+    for ours, theirs in (("time_text_embed.timestep_embedder.linear_1", "t_embedder.mlp.0"),
+                         ("time_text_embed.timestep_embedder.linear_2", "t_embedder.mlp.2"),
+                         ("time_text_embed.text_embedder.linear_1", "y_embedder.mlp.0"),
+                         ("time_text_embed.text_embedder.linear_2", "y_embedder.mlp.2"),
+                         ("context_embedder", "context_embedder"), ("proj_out", "final_layer.linear")):
+        for leaf in ("weight", "bias"):
+            out[f"{theirs}.{leaf}"] = state[f"{ours}.{leaf}"]
+    for leaf in ("weight", "bias"):
+        out[f"final_layer.adaLN_modulation.1.{leaf}"] = _swap_halves(state[f"norm_out.linear.{leaf}"])
+    n = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("transformer_blocks."))
+    for i in range(n):
+        p, s, last = f"transformer_blocks.{i}.", f"joint_blocks.{i}.", i == n - 1
+        for leaf in ("weight", "bias"):
+            out[f"{s}x_block.attn.qkv.{leaf}"] = _cat0(*(state[f"{p}attn.{x}.{leaf}"]
+                                                       for x in ("to_q", "to_k", "to_v")))
+            out[f"{s}context_block.attn.qkv.{leaf}"] = _cat0(*(state[f"{p}attn.{x}.{leaf}"]
+                                                             for x in ("add_q_proj", "add_k_proj", "add_v_proj")))
+            out[f"{s}x_block.attn.proj.{leaf}"] = state[f"{p}attn.to_out.0.{leaf}"]
+            out[f"{s}x_block.adaLN_modulation.1.{leaf}"] = state[f"{p}norm1.linear.{leaf}"]
+            ctx = state[f"{p}norm1_context.linear.{leaf}"]
+            out[f"{s}context_block.adaLN_modulation.1.{leaf}"] = _swap_halves(ctx) if last else ctx
+            blocks = (("x_block", "ff"),) if last else (("x_block", "ff"), ("context_block", "ff_context"))
+            for block, ff in blocks:
+                out[f"{s}{block}.mlp.fc1.{leaf}"] = state[f"{p}{ff}.net.0.proj.{leaf}"]
+                out[f"{s}{block}.mlp.fc2.{leaf}"] = state[f"{p}{ff}.net.2.{leaf}"]
+            if not last:
+                out[f"{s}context_block.attn.proj.{leaf}"] = state[f"{p}attn.to_add_out.{leaf}"]
+            if f"{p}attn2.to_q.weight" in state:
+                out[f"{s}x_block.attn2.qkv.{leaf}"] = _cat0(*(state[f"{p}attn2.{x}.{leaf}"]
+                                                            for x in ("to_q", "to_k", "to_v")))
+                out[f"{s}x_block.attn2.proj.{leaf}"] = state[f"{p}attn2.to_out.0.{leaf}"]
+        for ours, theirs in (("attn.norm_q", "x_block.attn.ln_q"), ("attn.norm_k", "x_block.attn.ln_k"),
+                             ("attn.norm_added_q", "context_block.attn.ln_q"),
+                             ("attn.norm_added_k", "context_block.attn.ln_k"),
+                             ("attn2.norm_q", "x_block.attn2.ln_q"), ("attn2.norm_k", "x_block.attn2.ln_k")):
+            if f"{p}{ours}.weight" in state:
+                out[f"{s}{theirs}.weight"] = state[f"{p}{ours}.weight"]
+    return out
+
+
+_WAN_INVERSE = [  # diffusers -> original, applied in order (the converter's table backwards)
+    ("condition_embedder.image_embedder.norm1", "img_emb.proj.0"),
+    ("condition_embedder.image_embedder.ff.net.0.proj", "img_emb.proj.1"),
+    ("condition_embedder.image_embedder.ff.net.2", "img_emb.proj.3"),
+    ("condition_embedder.image_embedder.norm2", "img_emb.proj.4"),
+    ("condition_embedder.time_embedder.linear_1", "time_embedding.0"),
+    ("condition_embedder.time_embedder.linear_2", "time_embedding.2"),
+    ("condition_embedder.text_embedder.linear_1", "text_embedding.0"),
+    ("condition_embedder.text_embedder.linear_2", "text_embedding.2"),
+    ("condition_embedder.time_proj", "time_projection.1"),
+    ("attn2", "cross_attn"), ("attn1", "self_attn"),
+    (".to_out.0.", ".o."), (".to_q.", ".q."), (".to_k.", ".k."), (".to_v.", ".v."),
+    (".add_k_proj.", ".k_img."), (".add_v_proj.", ".v_img."), (".norm_added_k.", ".norm_k_img."),
+    ("ffn.net.0.proj", "ffn.0"), ("ffn.net.2", "ffn.2"),
+    ("norm2", "norm__placeholder"), ("norm3", "norm2"), ("norm__placeholder", "norm3"),
+]
+
+
+def wan_original_keys(state) -> dict:
+    """A diffusers Wan transformer state dict in Wan's original layout."""
+    out = {}
+    for key, value in state.items():
+        if key == "scale_shift_table":
+            new = "head.modulation"
+        elif key.startswith("proj_out."):
+            new = "head.head." + key[len("proj_out."):]
+        else:
+            new = key.replace("scale_shift_table", "modulation")
+            for ours, theirs in _WAN_INVERSE:
+                new = new.replace(ours, theirs)
+        out[new] = value
+    return out
 
 
 # ------------------------------------------------------------------ phases
@@ -3744,8 +4001,8 @@ def check_small_wan_i2v(device: str = "cuda"):
 def run_wan_v2v(smi: str, base):
     """Phase 17b: video-to-video on phase 17's Wan2.1-T2V-1.3B pipeline
     (`WanVideoToVideoPipeline.from_pipe`): a synthetic 81-frame 480 x 832
-    video at strength WAN_V2V_STRENGTH, WAN_V2V_STEPS steps (the last 4
-    run), CFG 5.0, 512 text tokens. Recorded: seconds a video, the chunked
+    video at strength WAN_V2V_STRENGTH, WAN_V2V_STEPS steps (the last
+    int(steps x strength) run), CFG 5.0, 512 text tokens. Recorded: seconds a video, the chunked
     81-frame VAE encode and the decode (CUDA events), each transformer call,
     peak memory; every step's launches (K1 60 a call)."""
     import numpy as np
@@ -4120,13 +4377,13 @@ def run_wan_vace(smi: str, base):
 
 def run_wan_animate(smi: str, base):
     """Phase 21: Wan2.2-Animate-14B at its published widths cut to
-    WAN_ANIMATE_LAYERS blocks (two face adapters; the motion encoder at 512
+    WAN_ANIMATE_LAYERS blocks (one face adapter; the motion encoder at 512
     px, the face encoder; made on the card, bf16) with a CLIP ViT-H/14 on
     phase 17's UMT5-XXL and VAE, through `WanAnimatePipeline.__call__` at
-    720 x 1280: two 77-frame segments over a 153-frame pose and face video
-    in animate mode, then one replace segment with a background video and a
-    box mask; WAN_ANIMATE_STEPS steps a segment, CFG 5.0, 512 text tokens.
-    K1 held to 30 + 2 a call. Recorded: each transformer call, the motion
+    720 x 1280: WAN_ANIMATE_SEGMENTS 77-frame segments of a pose and face
+    video in animate mode, then one replace segment with a background video
+    and a box mask; WAN_ANIMATE_STEPS steps a segment, CFG 5.0, 512 text
+    tokens. K1 held to 3 a block and 1 an adapter a call. Recorded: each transformer call, the motion
     and face encoders, the VAE encodes (pose, conditioning, reference), the
     decodes, CLIP and UMT5 on CUDA events; seconds a request; peak
     memory."""
@@ -4151,7 +4408,7 @@ def run_wan_animate(smi: str, base):
         raise AssertionError(f"the Animate transformer counts {per_call} launches a call, expected "
                              f"K1 {WAN_ANIMATE_K1_PER_CALL}")
     h, w, seg = WAN_ANIMATE_HEIGHT, WAN_ANIMATE_WIDTH, WAN_ANIMATE_SEGMENT
-    n_frames = 2 * seg - 1  # two segments sharing one conditioning frame
+    n_frames = WAN_ANIMATE_SEGMENTS * (seg - 1) + 1  # segments sharing one conditioning frame
     pose = _moving_frames(n_frames, h, w, 8)
     face = _moving_frames(n_frames, 512, 512, 4)
     image = Image.fromarray(np.round(255 * pose[0]).astype(np.uint8))
@@ -4159,7 +4416,7 @@ def run_wan_animate(smi: str, base):
     request = dict(image=image, prompt=WAN_PROMPT, negative_prompt=WAN_NEGATIVE, height=h, width=w,
                    segment_frame_length=seg, num_inference_steps=WAN_ANIMATE_STEPS, guidance_scale=WAN_GUIDANCE,
                    max_sequence_length=WAN_TEXT_LEN)
-    cases = (("animate", 2, dict(pose_video=pose, face_video=face, mode="animate")),
+    cases = (("animate", WAN_ANIMATE_SEGMENTS, dict(pose_video=pose, face_video=face, mode="animate")),
              ("replace", 1, dict(pose_video=pose[:seg], face_video=face[:seg], mode="replace",
                                  background_video=pose[::-1][:seg], mask_video=[box] * seg)))
     results, paths = {}, {}
@@ -5841,14 +6098,10 @@ def plain_routes():
 
 
 @contextlib.contextmanager
-def in_float32(pipeline):
-    """Inside, every float parameter and buffer of the pipeline's modules is
-    float32; after, each is back in its own dtype (bf16 -> f32 -> bf16 is
-    exact)."""
-    import torch
-
-    tensors = [t for m in pipeline.components.values() if isinstance(m, torch.nn.Module)
-               for t in (*m.parameters(), *m.buffers()) if t.is_floating_point()]
+def module_in_float32(module):
+    """Inside, every float parameter and buffer of `module` is float32; after,
+    each is back in its own dtype (bf16 -> f32 -> bf16 is exact)."""
+    tensors = [t for t in (*module.parameters(), *module.buffers()) if t.is_floating_point()]
     dtypes = [t.dtype for t in tensors]
     for t in tensors:
         t.data = t.data.float()
@@ -5857,6 +6110,18 @@ def in_float32(pipeline):
     finally:
         for t, dtype in zip(tensors, dtypes):
             t.data = t.data.to(dtype)
+
+
+@contextlib.contextmanager
+def in_float32(pipeline):
+    """`module_in_float32` for each of the pipeline's modules."""
+    import torch
+
+    with contextlib.ExitStack() as stack:
+        for m in pipeline.components.values():
+            if isinstance(m, torch.nn.Module):
+                stack.enter_context(module_in_float32(m))
+        yield
 
 
 PLAIN_CHECK_RATIO = 2.0  # the kernels' error against the f32 run, at most this times the plain bf16 run's
@@ -7021,6 +7286,532 @@ def run_sd3_guidance(smi: str, pipe):
     return {"sd3_pag": rec["launches"], "sd3_slg_call": slg_launches}
 
 
+# ------------------------------------------------------------------ phase 26: the loaders
+# LoRA (PEFT and kohya's SGM layout on SDXL, XLabs on Flux.1-dev before w8a8), single-file checkpoints (SDXL's LDM
+# layout; the Flux, SD3 and Wan transformers in their original layouts) and textual inversion, at full width
+LORA_RANK = 16
+LORA_SCALES = (0.3, 0.7)  # the two-adapter request's set_adapters weights
+SDXL_LORA_UNET = ("attn1.to_q", "attn1.to_k", "attn1.to_v", "attn1.to_out.0", "attn2.to_q", "attn2.to_k",
+                  "attn2.to_v", "attn2.to_out.0", "ff.net.0.proj", "ff.net.2")
+SDXL_LORA_TEXT = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.out_proj", "mlp.fc1",
+                  "mlp.fc2")
+TI_TOKEN = "<lora-cat>"
+TI_VECTORS = 2
+SINGLE_FILE_DEPTH = 2  # the transformers' blocks in phase 26e (full width)
+
+
+def _lora_pair(gen, d_in: int, d_out: int):
+    """A seeded rank-LORA_RANK (A, B) pair on the card in bf16, ``B @ A`` about
+    1% of a unit-variance weight's entries."""
+    import torch
+
+    a = torch.randn(LORA_RANK, d_in, device="cuda", generator=gen) / d_in ** 0.5
+    b = torch.randn(d_out, LORA_RANK, device="cuda", generator=gen) * 0.01 / LORA_RANK ** 0.5
+    return a.to(torch.bfloat16), b.to(torch.bfloat16)
+
+
+def sdxl_peft_lora(pipe, seed: int) -> dict:
+    """A PEFT-format LoRA (``<component>.<path>.lora_A/B.weight`` and ``alpha``)
+    on every UNet attention projection and feed-forward Linear (SDXL_LORA_UNET)
+    and every Linear of both text encoders' layers (SDXL_LORA_TEXT)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = {}
+    for comp, suffixes in (("unet", SDXL_LORA_UNET), ("text_encoder", SDXL_LORA_TEXT),
+                           ("text_encoder_2", SDXL_LORA_TEXT)):
+        for name, m in getattr(pipe, comp).named_modules():
+            if isinstance(m, torch.nn.Linear) and name.endswith(suffixes):
+                sd[f"{comp}.{name}.lora_A.weight"], sd[f"{comp}.{name}.lora_B.weight"] = _lora_pair(
+                    gen, m.in_features, m.out_features)
+                sd[f"{comp}.{name}.alpha"] = torch.tensor(float(LORA_RANK))
+    return sd
+
+
+def kohya_sgm_lora(peft: dict, layers_per_block: int) -> dict:
+    """The UNet part of a PEFT LoRA under kohya's SGM-layout names
+    (``lora_unet_input_blocks_4_1_transformer_blocks_0_attn1_to_q.lora_down.weight``),
+    the names `ldm_unet_keys` gives each module."""
+    out = {}
+    for key, value in peft.items():
+        if not key.startswith("unet."):
+            continue
+        path, _, leaf = key[len("unet."):].rpartition(".lora_") if ".lora_" in key else (
+            key[len("unet."):-len(".alpha")], "", "alpha")
+        ldm = next(iter(ldm_unet_keys({path + ".weight": None}, layers_per_block, prefix="")))[:-len(".weight")]
+        flat = "lora_unet_" + ldm.replace(".", "_")
+        leaf = {"A.weight": "lora_down.weight", "B.weight": "lora_up.weight"}.get(leaf, "alpha")
+        out[f"{flat}.{leaf}"] = value
+    return out
+
+
+def _pristine_bytes(pipe) -> int:
+    return sum(t.numel() * t.element_size() for kept in pipe.__dict__.get("_lora_base", {}).values()
+               for _, weight, bias in kept.values() for t in (weight, bias) if t is not None)
+
+
+def _sdxl_request(smi, label, pipe, prompt=PROMPTS[0]):
+    """Phase 11's request (1024 px, STEPS steps, CFG 5.0, SEED), each step's
+    launches held to the UNet's and the decode's module counts. Returns
+    (uint8 image, seconds, peak GB, launches)."""
+    import numpy as np
+    import torch
+
+    images, seconds, peak_gb, launches = _held_request(
+        smi, label, pipe, STEPS, _module_launches(pipe.unet), {}, _module_launches(pipe.vae.decoder), prompt=prompt,
+        height=RESOLUTION, width=RESOLUTION, num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+        generator=torch.Generator(device="cuda").manual_seed(SEED), output_type="pil")
+    image = np.asarray(images[0])
+    _check_image(label, images, RESOLUTION)
+    return image, seconds, peak_gb, launches
+
+
+def run_sdxl_lora(smi: str, pipe, dense):
+    """Phase 26a: LoRA on phase 11's full-width SDXL pipeline: two seeded
+    rank-16 PEFT LoRAs on the UNet's attention projections and feed-forward
+    Linears and on both text encoders, loaded with `load_lora_weights` (host
+    clock ending in a synchronise; the pristine copies' bytes on the card);
+    one request with the first adapter; `set_adapters` of both at
+    LORA_SCALES and a request; a kohya SGM-layout twin of the first
+    adapter's UNet part, whose fused UNet weights must equal the first
+    adapter's bit for bit; `disable_lora`, then phase 11's request again
+    (the dense request beside the others, its seconds theirs to compare
+    with) bit-equal to phase 11's image `dense`, and every touched weight
+    equal to its pristine copy. Each request's launches held to the
+    modules' counts (K1 140, K4 46 a step, as dense)."""
+    import numpy as np
+    import torch
+
+    out = {"card": smi, "rank": LORA_RANK}
+    dense_peak = RESULTS["pipeline"]["peak_memory_gb"]
+    loras = [sdxl_peft_lora(pipe, SEED + 101 + i) for i in range(2)]
+    out["lora_tensors"] = len(loras[0])
+    out["lora_bytes"] = sum(t.numel() * t.element_size() for t in loras[0].values())
+    _, out["load_seconds"], _ = _request_seconds(lambda: pipe.load_lora_weights(loras[0], adapter_name="a"))
+    out["pristine_bytes"] = _pristine_bytes(pipe)
+    out["touched_modules"] = {k: len(v) for k, v in pipe._lora_base.items()}
+    image_a, out["one_adapter_seconds"], out["one_adapter_peak_gb"], launches_a = _sdxl_request(
+        smi, "sdxl_lora", pipe)
+    _, out["second_load_seconds"], _ = _request_seconds(lambda: pipe.load_lora_weights(loras[1], adapter_name="b"))
+    _, out["set_adapters_seconds"], _ = _request_seconds(lambda: pipe.set_adapters(["a", "b"], list(LORA_SCALES)))
+    image_ab, out["two_adapters_seconds"], out["two_adapters_peak_gb"], launches_ab = _sdxl_request(
+        smi, "sdxl_lora_two_adapters", pipe)
+
+    # kohya's SGM layout: the first adapter's UNet part under LDM names fuses into the same modules
+    pipe.set_adapters("a")
+    fused = {p: w.clone() for p, (m, _, _) in pipe._lora_base["unet"].items() for w in (m.weight,)}
+    pipe.load_lora_weights(kohya_sgm_lora(loras[0], pipe.unet.config.layers_per_block), adapter_name="kohya")
+    kohya_equal = all(torch.equal(pipe._lora_base["unet"][p][0].weight, w) for p, w in fused.items())
+    out["kohya_sgm_modules"] = len(pipe._lora_adapters["kohya"]["unet"])
+    del fused
+
+    _, out["disable_seconds"], _ = _request_seconds(pipe.disable_lora)
+    restored = all(torch.equal(m.weight, w) and (b is None or torch.equal(m.bias, b))
+                   for kept in pipe._lora_base.values() for m, w, b in kept.values())
+    image_off, off_s, off_peak, launches_off = _sdxl_request(smi, "sdxl_lora_disabled", pipe)
+    diff_off = _uint8_diff(image_off, dense)
+    pipe.delete_adapters(["a", "b", "kohya"])
+    out.update(dense_peak_gb=dense_peak, disabled_seconds=off_s, disabled_peak_gb=off_peak,
+               kohya_sgm_equal_to_peft=kohya_equal, restored_bit_equal=restored, disabled_max_diff_to_dense=diff_off,
+               one_adapter_mean_diff_to_dense=float(np.abs(image_a.astype(np.float32) - dense).mean()),
+               two_adapters_mean_diff_to_one=float(np.abs(image_ab.astype(np.float32) - image_a).mean()),
+               launches={"one_adapter": launches_a, "two_adapters": launches_ab, "disabled": launches_off},
+               pristine_left_after_delete=_pristine_bytes(pipe))
+    RESULTS["sdxl_lora"] = out
+    log(f"[sdxl-lora] {smi}: rank {LORA_RANK} on {out['touched_modules']} Linears ({out['lora_bytes'] / 1e6:.1f} MB "
+        f"an adapter): load_lora_weights {out['load_seconds']:.3f} s (second {out['second_load_seconds']:.3f} s), "
+        f"set_adapters {LORA_SCALES} {out['set_adapters_seconds']:.3f} s, disable_lora {out['disable_seconds']:.3f} "
+        f"s; pristine copies {out['pristine_bytes'] / 1e9:.3f} GB on the card; requests: one adapter "
+        f"{out['one_adapter_seconds']:.3f} s (peak {out['one_adapter_peak_gb']:.2f} GB), two "
+        f"{out['two_adapters_seconds']:.3f} s, disabled (dense weights) {off_s:.3f} s (peak {off_peak:.2f} GB with "
+        f"the copies; phase 11's {dense_peak:.2f} GB); mean |diff| to dense "
+        f"{out['one_adapter_mean_diff_to_dense']:.2f} levels; kohya SGM twin fuses bit-equal {kohya_equal} ({out['kohya_sgm_modules']} modules); restored "
+        f"{restored}, disabled max |diff| to phase 11's image {diff_off}; launches {launches_a}")
+    if not (kohya_equal and restored and diff_off == 0):
+        raise AssertionError(f"SDXL LoRA: kohya twin equal {kohya_equal}, weights restored {restored}, disabled "
+                             f"request differs from dense by {diff_off} levels")
+    if not launches_a == launches_ab == launches_off == RESULTS["pipeline"]["launches"]:
+        raise AssertionError(f"SDXL LoRA requests launched {out['launches']}")
+    if out["one_adapter_mean_diff_to_dense"] == 0 or out["two_adapters_mean_diff_to_one"] == 0:
+        raise AssertionError("SDXL LoRA: an adapter did not change the image")
+    if out["pristine_left_after_delete"]:
+        raise AssertionError("SDXL LoRA: pristine copies left after every adapter was deleted")
+    return {"sdxl_lora": launches_a, "sdxl_lora_two_adapters": launches_ab, "sdxl_lora_disabled": launches_off}
+
+
+def run_sdxl_single_file(smi: str, pipe, dense):
+    """Phase 26c: phase 11's full-width SDXL UNet, VAE and CLIP-L written as
+    one LDM-layout safetensors file (`ldm_unet_keys`, `ldm_vae_keys`,
+    `ldm_clip_keys`) under the system temp dir, read back through
+    `loaders.single_file` (`load_single_file_checkpoint`, the three LDM
+    converters, `model_from_state_dict` onto the card; the page cache warm)
+    with its read rate; every state dict bit-equal, then phase 11's request
+    with the loaded components bit-equal to `dense` (phase 11's image)."""
+    import shutil
+
+    import torch
+
+    from diffusers_tpu_torch.loaders import single_file as sf
+    from diffusers_tpu_torch.models.autoencoders.autoencoder_kl import AutoencoderKL
+    from diffusers_tpu_torch.models.modeling_utils import save_safetensors
+    from diffusers_tpu_torch.models.text_encoders.clip import CLIPTextModel
+    from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
+    from diffusers_tpu_torch.pipelines.stable_diffusion_xl import StableDiffusionXLPipeline
+
+    layers = pipe.unet.config.layers_per_block
+    sd = {**ldm_unet_keys(pipe.unet.state_dict(), layers), **ldm_vae_keys(pipe.vae.state_dict()),
+          **ldm_clip_keys(pipe.text_encoder.state_dict())}
+    nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+    directory = _scratch_dir("sdxl_single_file", nbytes)
+    path = f"{directory}/sd_xl_ldm.safetensors"
+
+    split = {}
+
+    def read():  # the header and the memory map, the key maps, then each tensor onto the card
+        t0 = time.perf_counter()
+        raw = sf.load_single_file_checkpoint(path)
+        t1 = time.perf_counter()
+        converted = {"unet": sf.convert_ldm_unet_state_dict(raw, dict(pipe.unet.config)),
+                     "vae": sf.convert_ldm_vae_state_dict(raw), "text_encoder": sf.convert_ldm_clip_state_dict(raw)}
+        t2 = time.perf_counter()
+        classes = {"unet": UNet2DConditionModel, "vae": AutoencoderKL, "text_encoder": CLIPTextModel}
+        parts = {}
+        for name, sd in converted.items():
+            t3 = time.perf_counter()
+            parts[name] = sf.model_from_state_dict(classes[name], dict(getattr(pipe, name).config), sd,
+                                                   device=pipe.device)
+            torch.cuda.synchronize()
+            split[f"place_{name}_seconds"] = time.perf_counter() - t3
+        split.update(open_seconds=t1 - t0, convert_seconds=t2 - t1, place_seconds=time.perf_counter() - t2)
+        return parts, sf.infer_single_file_checkpoint_type(raw)
+
+    try:
+        _, write_s, _ = _request_seconds(lambda: save_safetensors(sd, path))
+        del sd
+        (parts, kind), read_s, read_peak = _request_seconds(read)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    equal = {}
+    for name, model in parts.items():
+        a, b = getattr(pipe, name).state_dict(), model.state_dict()
+        equal[name] = sorted(a) == sorted(b) and all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+    loaded = StableDiffusionXLPipeline(**dict(pipe.components, **parts), device=pipe.device)
+    image, seconds, peak_gb, launches = _sdxl_request(smi, "sdxl_single_file", loaded)
+    diff = _uint8_diff(image, dense)
+    RESULTS["sdxl_single_file"] = {
+        "card": smi, "bytes": nbytes, "write_seconds": write_s, "read_seconds": read_s,
+        "read_gb_per_s": nbytes / read_s / 1e9, "page_cache": "warm (just written)", "read_peak_gb": read_peak, **split,
+        "sniffed_type": kind, "bit_equal": equal, "request_seconds": seconds, "request_peak_gb": peak_gb,
+        "max_diff_to_dense": diff, "launches": launches}
+    log(f"[sdxl-single-file] {smi}: SDXL UNet + VAE + CLIP-L as one LDM file, {nbytes / 1e9:.2f} GB: written in "
+        f"{write_s:.1f} s; read, converted and placed on the card in {read_s:.2f} s ({nbytes / read_s / 1e9:.2f} GB/s, "
+        f"page cache warm; open {split['open_seconds']:.2f}, convert {split['convert_seconds']:.2f}, place "
+        f"{split['place_seconds']:.2f} s), sniffed {kind!r}; state dicts bit-equal {equal}; request {seconds:.3f} s, "
+        f"max |diff| to phase 11's image {diff} (uint8 levels)")
+    if not all(equal.values()) or diff != 0:
+        raise AssertionError(f"SDXL single file: state dicts equal {equal}, request differs by {diff} levels")
+    del loaded, parts
+    return {"sdxl_single_file": launches}
+
+
+def run_sdxl_textual_inversion(smi: str, pipe):
+    """Phase 26d: a seeded TI_VECTORS-vector embedding (A1111's
+    ``string_to_param`` format) loaded into phase 11's CLIP-L with
+    `load_textual_inversion`, the pipeline given real CLIP tokenizers of
+    CLIP's 49,408 ids (`clip_tokenizer`: the new token's ids are the
+    appended rows; CLIP-bigG's tokenizer does not have it), then phase 11's
+    request with a prompt that uses the token (`maybe_convert_prompt`). The
+    token's rows must be the embedding's, and the prompt's CLIP-L hidden
+    states must differ from those of the prompt without it. The stand-in
+    tokenizers are put back after."""
+    import tempfile
+
+    import torch
+    import transformers
+
+    from diffusers_tpu_torch.loaders.textual_inversion import load_textual_inversion, maybe_convert_prompt
+
+    stand_ins = dict(tokenizer=pipe.tokenizer, tokenizer_2=pipe.tokenizer_2)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tokenizer_") as directory:
+        clip_tokenizer(directory, vocab_size=49408)
+        tokenizers = {name: transformers.CLIPTokenizer.from_pretrained(directory) for name in stand_ins}
+    tokenizer_s = time.perf_counter() - t0
+    pipe.register_modules(**tokenizers)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 201)
+        width = pipe.text_encoder.config.hidden_size
+        emb = torch.randn(TI_VECTORS, width, device="cuda", generator=gen) * 0.02
+        rows_before = pipe.text_encoder.text_model.embeddings.token_embedding.num_embeddings
+        _, load_s, _ = _request_seconds(lambda: load_textual_inversion(
+            {"string_to_param": {"*": emb}}, TI_TOKEN, pipe.tokenizer, pipe.text_encoder))
+        table = pipe.text_encoder.text_model.embeddings.token_embedding.weight
+        ids = pipe.tokenizer.convert_tokens_to_ids([TI_TOKEN] + [f"{TI_TOKEN}_{i}" for i in range(1, TI_VECTORS)])
+        rows_equal = ids == list(range(rows_before, rows_before + TI_VECTORS)) and torch.equal(
+            table[ids], emb.to(table.dtype))
+        t1 = time.perf_counter()
+        prompt = maybe_convert_prompt(f"a photo of {TI_TOKEN} riding a horse on mars", pipe.tokenizer)
+        plain = "a photo of riding a horse on mars"
+        with torch.no_grad():
+            hidden = [pipe.text_encoder(torch.tensor(pipe.tokenizer([p], padding="max_length", max_length=77,
+                                                                       truncation=True).input_ids, device="cuda"))[0]
+                      for p in (prompt, plain)]
+        changed = not torch.equal(hidden[0], hidden[1])
+        check_s = time.perf_counter() - t1
+        image, seconds, peak_gb, launches = _sdxl_request(smi, "sdxl_textual_inversion", pipe, prompt=prompt)
+    finally:
+        pipe.register_modules(**stand_ins)
+    RESULTS["sdxl_textual_inversion"] = {
+        "card": smi, "vectors": TI_VECTORS, "prompt": prompt, "tokenizers_seconds": tokenizer_s,
+        "load_seconds": load_s, "prompt_check_seconds": check_s, "token_ids": ids,
+        "rows_equal": rows_equal, "hidden_states_changed": changed, "request_seconds": seconds,
+        "request_peak_gb": peak_gb, "image_mean": float(image.mean()), "launches": launches}
+    log(f"[sdxl-ti] {smi}: {TI_VECTORS}-vector embedding into CLIP-L ({rows_before} -> {table.shape[0]} rows) in "
+        f"{load_s * 1e3:.1f} ms, token ids {ids}, rows equal {rows_equal}; prompt {prompt!r}: CLIP-L hidden states "
+        f"changed {changed}; request {seconds:.3f} s, peak {peak_gb:.2f} GB, launches {launches}; tokenizers made in "
+        f"{tokenizer_s:.2f} s, the prompt check {check_s:.2f} s")
+    if not (rows_equal and changed):
+        raise AssertionError(f"textual inversion: rows equal {rows_equal}, hidden states changed {changed}")
+    return {"sdxl_textual_inversion": launches}
+
+
+def xlabs_flux_lora(cfg: dict, seed: int) -> dict:
+    """A seeded rank-16 XLabs-format Flux LoRA (``double_blocks.N.processor.
+    {qkv,proj}_lora{1,2}.{down,up}.weight``, ``single_blocks.N.processor.
+    {qkv,proj}_lora...``) at the widths of `cfg`, bf16 on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    inner = cfg.get("num_attention_heads", 24) * cfg.get("attention_head_dim", 128)
+    sd = {}
+
+    def put(key, d_in, d_out):
+        sd[f"{key}.down.weight"], sd[f"{key}.up.weight"] = _lora_pair(gen, d_in, d_out)
+
+    for i in range(cfg.get("num_layers", 19)):
+        for name, d_out in (("qkv_lora1", 3 * inner), ("qkv_lora2", 3 * inner), ("proj_lora1", inner),
+                            ("proj_lora2", inner)):
+            put(f"double_blocks.{i}.processor.{name}", inner, d_out)
+    for i in range(cfg.get("num_single_layers", 38)):
+        put(f"single_blocks.{i}.processor.qkv_lora", inner, 3 * inner)
+        put(f"single_blocks.{i}.processor.proj_lora", 5 * inner, inner)
+    return sd
+
+
+@contextlib.contextmanager
+def plain_w8a8():
+    """Inside, `W8A8Linear` takes K5's plain versions (`quantize_rows_plain`,
+    `w8a8_matmul_2d_plain`) on the card."""
+    from diffusers_tpu_torch.ops.cuda import w8a8_matmul as k5
+
+    kernels = k5.quantize_rows, k5.w8a8_matmul_2d
+    k5.quantize_rows, k5.w8a8_matmul_2d = k5.quantize_rows_plain, k5.w8a8_matmul_2d_plain
+    try:
+        yield
+    finally:
+        k5.quantize_rows, k5.w8a8_matmul_2d = kernels
+
+
+def _flux_call_inputs(dtype):
+    """One 1024 px Flux.1-dev transformer call's inputs (4,096 image tokens,
+    512 text tokens, guidance 3.5), from SEED."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 301)
+    img, txt = (RESOLUTION // 16) ** 2, FLUX_MAX_SEQUENCE_LENGTH
+    rows, cols = torch.meshgrid(torch.arange(RESOLUTION // 16), torch.arange(RESOLUTION // 16), indexing="ij")
+    img_ids = torch.stack([torch.zeros_like(rows), rows, cols], -1).reshape(-1, 3).float().cuda()
+    return dict(hidden_states=torch.randn(1, img, 64, device="cuda", generator=gen).to(dtype),
+                encoder_hidden_states=torch.randn(1, txt, 4096, device="cuda", generator=gen).to(dtype),
+                pooled_projections=torch.randn(1, 768, device="cuda", generator=gen).to(dtype),
+                timestep=torch.tensor([0.7], device="cuda"), guidance=torch.tensor([FLUX_GUIDANCE], device="cuda"),
+                img_ids=img_ids, txt_ids=torch.zeros(txt, 3, device="cuda"))
+
+
+def run_flux_lora_w8a8(smi: str, pipe):
+    """Phase 26b: FLUX.1-dev's transformer at full width in bf16 (made on the
+    card from SEED), a seeded XLabs-format LoRA fused into it
+    (`loaders.lora.load_lora_weights`, timed), bench.py's
+    `quantize_w8a8(model, 2**20)` (timed); on phase 13's pipeline given this
+    w8a8 transformer, `load_lora_weights` of the same LoRA must raise (it
+    lands on W8A8Linears); then one 1024 px transformer call
+    held against its plain routes (`plain_routes` and `plain_w8a8`): on the
+    kernels (K1 57, K5 500 and its row quantization 500), on the plain
+    routes in bf16 and in float32; the kernels' output must be as close to
+    the f32 one as the plain bf16 one is (PLAIN_CHECK_RATIO)."""
+    import gc
+
+    import torch
+
+    from diffusers_tpu_torch.loaders.lora import load_lora_weights
+    from diffusers_tpu_torch.models.modeling_utils import materialize_
+    from diffusers_tpu_torch.models.transformers.transformer_flux import FluxTransformer2DModel
+    from diffusers_tpu_torch.ops.module import W8A8Linear
+    from diffusers_tpu_torch.quantizers import quantize_w8a8
+
+    sd = xlabs_flux_lora(FLUX_DEV, SEED + 401)
+    torch.manual_seed(SEED)
+    with torch.device("meta"):
+        tr = FluxTransformer2DModel(**FLUX_DEV)
+    _, build_s, _ = _request_seconds(lambda: materialize_(tr, "cuda", torch.bfloat16))
+    _, fuse_s, _ = _request_seconds(lambda: load_lora_weights(sd, tr, component="transformer"))
+    _, quant_s, _ = _request_seconds(lambda: quantize_w8a8(tr, 2**20))
+    n_w8a8 = sum(isinstance(m, W8A8Linear) for m in tr.modules())
+    pipe.transformer = tr  # phase 13's pipeline (its transformer freed by phase 13c)
+    try:
+        pipe.load_lora_weights(sd)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    if refused is None or "W8A8Linear" not in refused:
+        raise AssertionError(f"load_lora_weights on the w8a8 Flux transformer did not refuse: {refused}")
+    expected = _module_launches(tr)
+    inputs = _flux_call_inputs(torch.bfloat16)
+    outs, launches = [], []
+    with torch.no_grad():
+        for route, f32 in ((contextlib.nullcontext, False), (plain_routes, False), (plain_routes, True)):
+            reset_launches()
+            call_inputs = {k: v.float() if f32 and v.is_floating_point() else v for k, v in inputs.items()}
+            with route(), plain_w8a8() if route is plain_routes else contextlib.nullcontext(), \
+                    module_in_float32(tr) if f32 else contextlib.nullcontext():
+                outs.append(tr(**call_inputs).sample.float())
+            torch.cuda.synchronize()
+            launches.append(read_launches())
+        call_ms = time_ms(lambda: tr(**inputs), iters=5)
+    kernels, plain, f32 = outs
+    errs = {name: (float((a - b).abs().max()), float((a - b).abs().mean()))
+            for name, a, b in (("kernels_vs_plain", kernels, plain), ("kernels_vs_f32", kernels, f32),
+                               ("plain_vs_f32", plain, f32))}
+    RESULTS["flux_lora_w8a8"] = {
+        "card": smi, "refused_on_w8a8": refused, "lora_tensors": len(sd), "build_seconds": build_s,
+        "fuse_seconds": fuse_s, "quantize_seconds": quant_s, "w8a8_linears": n_w8a8, "call_ms": call_ms,
+        "launches": launches[0], "expected_launches": expected, "plain_launches": launches[1:],
+        **{f"{name}_{stat}": v for name, pair in errs.items() for stat, v in zip(("max", "mean"), pair)}}
+    log(f"[flux-lora] {smi}: load_lora_weights on the w8a8 transformer refused ({refused[:80]}...); FLUX.1-dev bf16 "
+        f"made in {build_s:.1f} s, XLabs LoRA ({len(sd)} tensors) fused in {fuse_s:.3f} s, quantize_w8a8 in "
+        f"{quant_s:.2f} s ({n_w8a8} W8A8Linears); a 1024 px call {call_ms:.1f} ms; max / mean |diff|: kernels vs "
+        "plain bf16 {:.3e} / {:.3e}, kernels vs f32 {:.3e} / {:.3e}, plain bf16 vs f32 {:.3e} / {:.3e}; launches "
+        "{} (expected {})".format(*errs["kernels_vs_plain"], *errs["kernels_vs_f32"], *errs["plain_vs_f32"],
+                                  launches[0], expected))
+    if launches[0] != expected or any(any(v.values()) for v in launches[1:]):
+        raise AssertionError(f"Flux LoRA w8a8 call: launches {launches}, expected {expected} then none")
+    if not (torch.isfinite(kernels).all() and all(k <= PLAIN_CHECK_RATIO * p for k, p in
+                                                   zip(errs["kernels_vs_f32"], errs["plain_vs_f32"]))):
+        raise AssertionError(f"Flux LoRA w8a8 call: the kernels are further from f32 than the plain routes: {errs}")
+    pipe.transformer = None
+    del tr, outs, kernels, plain, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flux_lora_w8a8_call": launches[0]}
+
+
+def sd3_pos_embed_table(model):
+    """The [1, m², D] sin-cos table an SAI SD3 file carries for `model`'s
+    `pos_embed_max_size` m (the port derives it from the config)."""
+    import torch
+
+    from diffusers_tpu_torch.models.embeddings import get_2d_sincos_pos_embed
+
+    pe, m = model.pos_embed, model.config.pos_embed_max_size
+    return torch.from_numpy(get_2d_sincos_pos_embed(pe.embed_dim, m, pe.base_size, pe.interpolation_scale))[None]
+
+
+def _transformer_single_file_cases():
+    """(label, class, config, the writer of a model's original-layout dict,
+    loader name, loader overrides, call inputs) of phase 26e, at full width,
+    SINGLE_FILE_DEPTH blocks each."""
+    import torch
+
+    from diffusers_tpu_torch.models.transformers.transformer_flux import FluxTransformer2DModel
+    from diffusers_tpu_torch.models.transformers.transformer_sd3 import SD3Transformer2DModel
+    from diffusers_tpu_torch.models.transformers.transformer_wan import WanTransformer3DModel
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 501)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+    t = torch.tensor([500.0], device="cuda")
+    return [
+        ("flux", FluxTransformer2DModel, dict(FLUX_DEV, num_layers=SINGLE_FILE_DEPTH,
+                                              num_single_layers=SINGLE_FILE_DEPTH),
+         lambda m: bfl_flux_keys(m.state_dict()), "load_flux_transformer_single_file", {},
+         lambda: _flux_call_inputs(torch.bfloat16)),
+        ("sd3", SD3Transformer2DModel, dict(SD35_MEDIUM, num_layers=SINGLE_FILE_DEPTH,
+                                            dual_attention_layers=tuple(range(SINGLE_FILE_DEPTH))),
+         lambda m: sai_sd3_keys(m.state_dict(), sd3_pos_embed_table(m).to(torch.bfloat16)),
+         "load_sd3_transformer_single_file", {},
+         lambda: dict(hidden_states=randn(2, 16, 128, 128), encoder_hidden_states=randn(2, 333, 4096),
+                      pooled_projections=randn(2, 2048), timestep=t.expand(2))),
+        ("wan_i2v", WanTransformer3DModel, dict(WAN_I2V_14B, num_layers=SINGLE_FILE_DEPTH),
+         lambda m: wan_original_keys(m.state_dict()), "load_wan_transformer_single_file", {},
+         lambda: dict(hidden_states=randn(1, 36, 21, 60, 104), timestep=t, encoder_hidden_states=randn(1, 512, 4096),
+                      encoder_hidden_states_image=randn(1, 257, 1280))),
+    ]
+
+
+def run_transformers_single_file(smi: str):
+    """Phase 26e: FLUX.1-dev's, SD3.5 Medium's and Wan2.1-I2V-14B's
+    transformers at full width and SINGLE_FILE_DEPTH blocks, made on the card
+    from SEED (bf16), written in their original layouts (BFL's, SAI's with
+    its sin-cos table, Wan's) under the system temp dir and read back with
+    `load_flux/sd3/wan_transformer_single_file` (config from the keys; the
+    page cache warm), with the read rate; each state dict bit-equal, and one
+    forward each on the card equal bit for bit to the source model's, its K1
+    launches the modules' count."""
+    import gc
+    import shutil
+
+    import torch
+
+    from diffusers_tpu_torch.loaders import single_file as sf
+    from diffusers_tpu_torch.models.modeling_utils import save_safetensors
+
+    out, paths = {"card": smi}, {}
+    for label, cls, cfg, writer, loader, overrides, inputs in _transformer_single_file_cases():
+        model = _wan_random_model(cls, cfg, "cuda", torch.bfloat16, SEED)
+        state, original = model.state_dict(), writer(model)
+        nbytes = sum(t.numel() * t.element_size() for t in original.values())
+        directory = _scratch_dir(f"{label}_single_file", nbytes)
+        path = f"{directory}/{label}.safetensors"
+        try:
+            _, write_s, _ = _request_seconds(lambda: save_safetensors(original, path))
+            del original
+            loaded, read_s, _ = _request_seconds(lambda: getattr(sf, loader)(path, config_overrides=overrides))
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+        got = loaded.state_dict()
+        equal = sorted(got) == sorted(state) and all(got[k].dtype == state[k].dtype and torch.equal(got[k], state[k])
+                                                      for k in state)
+        kwargs = inputs()
+        with torch.no_grad():
+            ref = model(**kwargs).sample
+            reset_launches()
+            y = loaded(**kwargs).sample
+            torch.cuda.synchronize()
+            launches = read_launches()
+        same = torch.equal(ref, y) and bool(torch.isfinite(y).all())
+        expected = _module_launches(loaded)
+        out[label] = {"config": {k: v for k, v in dict(loaded.config).items() if not k.startswith("_")},
+                      "bytes": nbytes, "write_seconds": write_s, "read_seconds": read_s,
+                      "read_gb_per_s": nbytes / read_s / 1e9, "page_cache": "warm (just written)",
+                      "state_bit_equal": equal, "forward_bit_equal": same, "launches": launches,
+                      "expected_launches": expected}
+        log(f"[single-file] {smi}: {label} at full width, {SINGLE_FILE_DEPTH} blocks, {nbytes / 1e9:.2f} GB in its "
+            f"original layout: written in {write_s:.1f} s, read onto the card in {read_s:.2f} s "
+            f"({nbytes / read_s / 1e9:.2f} GB/s, warm); state bit-equal {equal}, forward bit-equal {same}; launches "
+            f"{launches} (expected {expected})")
+        if not (equal and same) or launches != expected:
+            raise AssertionError(f"{label} single file: state equal {equal}, forward equal {same}, launches "
+                                 f"{launches} (expected {expected})")
+        paths[f"{label}_single_file_call"] = launches
+        del model, loaded, state, got, ref, y
+        gc.collect()
+        torch.cuda.empty_cache()
+    RESULTS["transformers_single_file"] = out
+    return paths
+
+
 def timed(fn, *args):
     """`fn(*args)`, its wall time logged and kept in RESULTS["phase_seconds"]
     under the function's name."""
@@ -7036,6 +7827,12 @@ def main() -> int:
     parser.add_argument("--out", type=Path, default=None, help="directory for chip_smoke.json")
     args = parser.parse_args()
     t_start = time.perf_counter()
+    if args.out is not None:  # the detailed results, written on the way out whether or not a phase failed
+        def write_results():
+            args.out.mkdir(parents=True, exist_ok=True)
+            (args.out / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=2, default=str))
+
+        atexit.register(write_results)
     smi = setup()
     import gc
 
@@ -7074,6 +7871,9 @@ def main() -> int:
     paths.update(timed(run_sdxl_controlnets, smi, pipe))
     paths.update(timed(run_sdxl_w8a8, smi, pipe, image))
     paths.update(timed(run_sdxl_ip2p, smi, pipe))
+    paths.update(timed(run_sdxl_lora, smi, pipe, image))
+    paths.update(timed(run_sdxl_single_file, smi, pipe, image))
+    paths.update(timed(run_sdxl_textual_inversion, smi, pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -7089,12 +7889,14 @@ def main() -> int:
     paths.update(flux=flux, **timed(run_flux_cached, smi, pipe, image))
     paths.update(timed(run_vae_tiling, smi, pipe))
     paths.update(timed(run_flux_family, smi, pipe))
+    paths.update(timed(run_flux_lora_w8a8, smi, pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(timed(run_flux_w8a8_on_load, smi))
     gc.collect()
     torch.cuda.empty_cache()
+    paths.update(timed(run_transformers_single_file, smi))
     paths.update(timed(run_small_round_trips, smi))
     sd3_paths, pipe = timed(run_sd3_served, smi)
     paths.update(sd3_paths)
@@ -7156,9 +7958,6 @@ def main() -> int:
     RESULTS["kernels"] = kernels
     RESULTS["seconds"] = time.perf_counter() - t_start
     log(f"[done] {RESULTS['seconds']:.1f} s")
-    if args.out is not None:
-        args.out.mkdir(parents=True, exist_ok=True)
-        (args.out / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=2))
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

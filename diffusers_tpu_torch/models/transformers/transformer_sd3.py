@@ -281,8 +281,9 @@ class SD3Transformer2DModel(ModelMixin, ConfigMixin):
         """`pos_embed.pos_embed` of an upstream checkpoint: the full [1, m², D]
         sin-cos table of `pos_embed_max_size` m. Its shape must match the
         config and its values the table the port computes (within 1e-6: upstream
-        may take sin and cos from torch rather than numpy), checked in slabs of
-        16 grid rows; the tensor itself is not kept."""
+        may take sin and cos from torch rather than numpy; a half-precision
+        file's table, whose values lie in [-1, 1], within its dtype's epsilon),
+        checked in slabs of 16 grid rows; the tensor itself is not kept."""
         pe, m = self.pos_embed, self.config.pos_embed_max_size
         if key != "pos_embed.pos_embed" or m is None:
             raise ValueError(f"{type(self).__name__}: {key} is not a derived tensor of this config")
@@ -290,12 +291,13 @@ class SD3Transformer2DModel(ModelMixin, ConfigMixin):
             raise ValueError(f"{type(self).__name__}: {key} has shape {tuple(tensor.shape)}, the config "
                              f"(pos_embed_max_size {m}, {self.inner_dim} wide) gives {(1, m * m, self.inner_dim)}")
         table = tensor.reshape(m, m, self.inner_dim).float()
+        tol = 1e-6 if tensor.dtype in (torch.float32, torch.float64) else float(torch.finfo(tensor.dtype).eps)
         for top in range(0, m, 16):
             rows = min(16, m - top)
             ref = torch.from_numpy(get_2d_sincos_pos_embed(pe.embed_dim, m, pe.base_size, pe.interpolation_scale,
                                                            crop=(top, 0, rows, m)))
             err = float((table[top:top + rows].reshape(-1, self.inner_dim) - ref).abs().max())
-            if not err <= 1e-6:
+            if not err <= tol:
                 raise ValueError(f"{type(self).__name__}: {key} differs from the sin-cos table of this config by "
                                  f"{err:.3e} in grid rows {top}-{top + rows - 1}")
 

@@ -4,7 +4,8 @@ Port of `diffusers_tpu/pipelines/pipeline_utils.py`: `register_modules`,
 config, `components`, the class registry and `resolve_component_class`
 (`:42-265`), `from_pretrained` over `model_index.json` (`:294-404`),
 `from_pipe` (`:407-427`), `save_pretrained` (`:429-447`) and FreeU
-(`enable_freeu` / `disable_freeu`, `:522-536`). JAX pipelines
+(`enable_freeu` / `disable_freeu`, `:522-536`), with `custom_pipeline`
+(`:329-343`) and LoRA (`PipelineLoraMixin`, `loaders/lora.py`). JAX pipelines
 hold ``(module, params)`` pairs; here a weight-bearing component is one
 `nn.Module`, and `.to(device, dtype)` moves them all. A pipeline runs on the
 card unless its caller asks for the CPU: every pipeline takes ``device``
@@ -12,7 +13,7 @@ card unless its caller asks for the CPU: every pipeline takes ``device``
 raises there if no CUDA device is visible. `from_pretrained` loads each
 component straight onto that device. `enable_cache` / `disable_cache` store
 a config from `diffusers_tpu_torch.hooks` that the pipeline's denoise loop
-honours. LoRA waits.
+honours.
 
 `_cfg_predict` is the step's guidance: the model's prediction on the CFG
 batch (uncond first) combined by classifier-free guidance. The pipelines'
@@ -35,6 +36,7 @@ from torch import nn
 
 from .. import __version__
 from ..configuration_utils import ConfigMixin
+from ..loaders.lora import PipelineLoraMixin
 from ..models.modeling_utils import ModelMixin
 from ..quantizers.auto import PipelineQuantizationConfig
 from ..utils import logging
@@ -121,9 +123,27 @@ def _pipeline_class(root: str):
     raise ValueError(f"{root}: model_index.json names {name!r}, not a pipeline the port has")
 
 
-class DiffusionPipeline(ConfigMixin):
+def _custom_pipeline_class(root: str, custom_pipeline: str, trust_remote_code: bool):
+    """The `DiffusionPipeline` subclass of `custom_pipeline`: a ``.py`` file or
+    a folder holding ``pipeline.py`` (as given), else a module name inside
+    the checkpoint folder `root`. A hub id raises."""
+    from ..utils.dynamic_modules_utils import get_class_from_dynamic_module
+
+    if os.path.isdir(custom_pipeline) or custom_pipeline.endswith(".py"):
+        location, module_file = custom_pipeline, "pipeline.py"
+    elif "/" in custom_pipeline:
+        raise EnvironmentError(f"custom_pipeline={custom_pipeline!r} is not a local file or folder (custom "
+                               "pipelines from the hub are not ported)")
+    else:
+        location, module_file = root, f"{custom_pipeline.removesuffix('.py')}.py"
+    return get_class_from_dynamic_module(location, module_file=module_file, trust_remote_code=trust_remote_code,
+                                         base_class=DiffusionPipeline)
+
+
+class DiffusionPipeline(ConfigMixin, PipelineLoraMixin):
     """Base pipeline. Subclasses declare components via `register_modules` in
-    __init__ and implement `__call__`."""
+    __init__ and implement `__call__`. LoRA adapters load onto the
+    ``transformer``, ``unet`` and text encoders (`PipelineLoraMixin`)."""
 
     config_name = PIPELINE_CONFIG_NAME
     _optional_components: list = []
@@ -192,24 +212,34 @@ class DiffusionPipeline(ConfigMixin):
         (`quantization_config` is a `PipelineQuantizationConfig`, read per
         component with `config_for`, or one config for every weight-bearing
         component); schedulers from their config; tokenizers with
-        `transformers`' `from_pretrained`. Hub ids, `mesh` and custom
-        pipelines are not ported: they raise."""
+        `transformers`' `from_pretrained`.
+
+        `custom_pipeline` builds the pipeline class of outside code, as JAX
+        does (`utils.dynamic_modules_utils`, gated by
+        ``trust_remote_code=True``): a ``.py`` file, a folder holding
+        ``pipeline.py``, or the name of a ``.py`` inside the checkpoint
+        folder; the one `DiffusionPipeline` subclass it defines loads the
+        checkpoint. Hub ids (for the checkpoint or the custom pipeline) and
+        `mesh` are not ported: they raise."""
         if mesh is not None:
             raise NotImplementedError(f"{cls.__name__}.from_pretrained: `mesh` (sharded loading) is not ported "
                                       "yet (ROADMAP A8)")
-        if custom_pipeline is not None or trust_remote_code:
-            raise NotImplementedError(f"{cls.__name__}.from_pretrained: `custom_pipeline` / `trust_remote_code` "
-                                      "(pipelines from outside code) are not ported (ROADMAP A9)")
         root = str(pretrained_model_name_or_path)
         if root.endswith(".dduf") and os.path.isfile(root):
             from ..utils.dduf import extract_dduf
 
             with tempfile.TemporaryDirectory(prefix="dduf_") as extracted:
                 return cls.from_pretrained(extract_dduf(root, extracted), dtype=dtype, variant=variant,
-                                           quantization_config=quantization_config, device=device, **kwargs)
+                                           quantization_config=quantization_config, device=device,
+                                           custom_pipeline=custom_pipeline, trust_remote_code=trust_remote_code,
+                                           **kwargs)
         if not os.path.isdir(root):
             raise EnvironmentError(f"{cls.__name__}.from_pretrained: {root} is not a local directory or a .dduf "
                                    "file (loading from the hub is not ported)")
+        if custom_pipeline is not None:
+            return _custom_pipeline_class(root, str(custom_pipeline), trust_remote_code).from_pretrained(
+                root, dtype=dtype, variant=variant, quantization_config=quantization_config, device=device,
+                **kwargs)
         if cls is DiffusionPipeline:  # the class model_index.json names, among the package's pipelines
             return _pipeline_class(root).from_pretrained(root, dtype=dtype, variant=variant,
                                                          quantization_config=quantization_config, device=device,

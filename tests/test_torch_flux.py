@@ -31,6 +31,7 @@ from diffusers_tpu_torch.models.transformers.transformer_flux import FluxTransfo
 from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
 from diffusers_tpu_torch.ops.cuda.w8a8_matmul import quantize_rows, w8a8_matmul_2d
 from diffusers_tpu_torch.ops.module import W8A8Linear
+from test_torch_models import carry_params
 
 torch.set_num_threads(1)
 
@@ -57,11 +58,10 @@ def quantize_tree_w8a8(tree):
 
 
 def flux_tree(jax_model, seed=0, w8a8=False):
-    """JAX init, 1-D leaves jittered, optionally w8a8-quantized: a numpy tree."""
-    params = jax_model.init(jax.random.PRNGKey(seed))
-    rng = np.random.RandomState(seed)
-    tree = jax.tree_util.tree_map(
-        lambda a: np.asarray(a) + (0.1 * rng.randn(*a.shape).astype(np.float32) if a.ndim == 1 else 0), params)
+    """The port's weights of `jax_model`'s config from `seed`, 1-D leaves
+    jittered, as a JAX numpy tree (`test_torch_models.carry_params`: JAX's
+    eager `init` takes seconds), optionally w8a8-quantized."""
+    tree = jax.device_get(carry_params(jax_model, FluxTransformer2DModel.from_config(dict(jax_model.config)), seed))
     return quantize_tree_w8a8(tree) if w8a8 else tree
 
 
@@ -89,8 +89,9 @@ def test_flux_transformer_matches_jax(name):
         inputs["guidance"] = np.array([3.5], np.float32)
     ids = np.concatenate([np.zeros((txt, 3), np.float32), rng.randint(0, 4, (img, 3)).astype(np.float32)])
     cos, sin = jm.pos_embed({}, ids)  # host float64 tables
-    ref = jm(jax.tree_util.tree_map(jnp.asarray, tree), **{k: jnp.asarray(v) for k, v in inputs.items()},
-             image_rotary_emb=(jnp.asarray(cos), jnp.asarray(sin))).sample
+    ref = jax.jit(lambda p, kw, rope: jm(p, **kw, image_rotary_emb=rope).sample)(
+        jax.tree_util.tree_map(jnp.asarray, tree), {k: jnp.asarray(v) for k, v in inputs.items()},
+        (jnp.asarray(cos), jnp.asarray(sin)))
 
     flash_attention_full.launches = quantize_rows.launches = w8a8_matmul_2d.launches = 0
     with torch.no_grad():

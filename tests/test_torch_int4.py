@@ -47,6 +47,7 @@ from diffusers_tpu_torch.quantizers import (
     quantize_kernel_int8,
     unpack_int4_rows,
 )
+from test_torch_models import carry_params, jax_tree
 
 torch.set_num_threads(1)
 
@@ -172,7 +173,7 @@ def test_selection_equals_jax(model):
     jcls, tcls, cfg = (JaxT5EncoderModel, T5EncoderModel, T5_TINY) if model == "t5" else (
         JaxFlux, FluxTransformer2DModel, FLUX_TINY)
     jm, tm = jcls(**cfg), tcls(**cfg)
-    params = jm.init(jax.random.PRNGKey(0))
+    params = carry_params(jm, tcls(**cfg))  # a seeded port's weights in JAX (JAX's eager init is slow)
     for kw in (dict(min_weight_size=4096), dict(min_weight_size=8192, modules_to_not_convert=["layer.1", "ff"])):
         jq = quantize_params(params, JaxInt4Config(**kw))
         assert sorted(int4_linear_names(tm, Int4WeightOnlyConfig(**kw))) == _jax_int4_paths(jq)
@@ -180,10 +181,7 @@ def test_selection_equals_jax(model):
 
 def _tiny_t5_pair():
     jm, tm = JaxT5EncoderModel(**T5_TINY), T5EncoderModel(**T5_TINY)
-    rng = np.random.RandomState(0)
-    tree = jax.tree_util.tree_map(lambda a: np.asarray(a) + (0.1 * rng.randn(*a.shape).astype(np.float32)
-                                                             if a.ndim == 1 else 0), jm.init(jax.random.PRNGKey(0)))
-    return jm, tm, tree
+    return jm, tm, jax_tree(jm, T5EncoderModel(**T5_TINY))
 
 
 def test_int4_t5_matches_jax():

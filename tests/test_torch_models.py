@@ -1,8 +1,10 @@
 """Port models (`diffusers_tpu_torch.models`) against the JAX package on the CPU.
 
-Each case builds the JAX model and its port from one config, carries the JAX
-parameters across with `load_jax_params` (1-D leaves jittered so norm
-scales/biases are not the trivial 1/0), feeds both the same numpy inputs in
+Each case builds the JAX model and its port from one config, carries the
+port's seeded parameters across with `convert_torch_state_dict` (1-D leaves
+jittered so norm scales/biases are not the trivial 1/0; JAX's eager `init` of
+a tiny UNet alone takes ~15 s on a CPU, and the bridge's other direction,
+`load_jax_params`, has its own tests below), feeds both the same numpy inputs in
 float32 and compares at the public boundary (NCHW for UNet/VAE). Tolerance:
 max-abs `< 5e-4`, the README's whole-model parity bar.
 """
@@ -15,7 +17,7 @@ import torch
 
 from diffusers_tpu.models.autoencoders.autoencoder_kl import AutoencoderKL as JaxAutoencoderKL
 from diffusers_tpu.models.embeddings import TextTimeEmbedding as JaxTextTimeEmbedding
-from diffusers_tpu.models.modeling_utils import flatten_to_torch_state_dict
+from diffusers_tpu.models.modeling_utils import convert_torch_state_dict, flatten_to_torch_state_dict
 from diffusers_tpu.models.text_encoders.clip import CLIPTextModel as JaxCLIPTextModel
 from diffusers_tpu.models.text_encoders.clip import CLIPTextModelWithProjection as JaxCLIPTextModelWithProjection
 from diffusers_tpu.models.unets.unet_2d_condition import UNet2DConditionModel as JaxUNet2DConditionModel
@@ -54,15 +56,26 @@ CLIP_TINY = dict(vocab_size=1000, hidden_size=32, intermediate_size=64, num_hidd
 
 
 def carry_params(jax_model, torch_model, seed=0):
-    """JAX init -> jittered numpy tree -> loaded into the port; returns the
-    JAX params (jnp) of the same tree."""
-    params = jax_model.init(jax.random.PRNGKey(seed))
+    """The port's weights from `seed` (its modules' own initialisation, 1-D
+    leaves jittered), carried into the JAX model; returns the JAX params
+    (jnp) of the same weights."""
+    torch.manual_seed(seed)
     rng = np.random.RandomState(seed)
-    tree = jax.tree_util.tree_map(
-        lambda a: np.asarray(a) + (0.1 * rng.randn(*a.shape).astype(np.float32) if a.ndim == 1 else 0), params)
-    load_jax_params(torch_model, tree)
+    with torch.no_grad():
+        for m in torch_model.modules():
+            if hasattr(m, "reset_parameters"):
+                m.reset_parameters()
+        for p in torch_model.parameters():
+            if p.ndim == 1:
+                p.add_(torch.from_numpy(0.1 * rng.randn(*p.shape).astype(np.float32)))
     torch_model.eval()
-    return jax.tree_util.tree_map(jnp.asarray, tree)
+    return convert_torch_state_dict(jax_model, {k: v.numpy() for k, v in torch_model.state_dict().items()})
+
+
+def jax_tree(jax_model, torch_model, seed=0):
+    """A JAX parameter tree (numpy leaves, JAX layouts) of `carry_params`'
+    weights, for the `load_jax_params` direction of the bridge."""
+    return jax.device_get(carry_params(jax_model, torch_model, seed))
 
 
 def _max_diff(a, b):
@@ -79,8 +92,9 @@ def test_unet_matches_jax(config):
     ehs = rng.randn(2, 8, cfg["cross_attention_dim"]).astype(np.float32)
     cond = {"text_embeds": rng.randn(2, 32).astype(np.float32), "time_ids": rng.randn(2, 6).astype(np.float32)}
     added = cond if config == "sdxl" else None
-    ref = jm(params, jnp.asarray(x), 5, jnp.asarray(ehs),
-             added_cond_kwargs=None if added is None else {k: jnp.asarray(v) for k, v in added.items()}).sample
+    jadded = None if added is None else {k: jnp.asarray(v) for k, v in added.items()}
+    ref = jax.jit(lambda p, x, e, a: jm(p, x, 5, e, added_cond_kwargs=a).sample)(
+        params, jnp.asarray(x), jnp.asarray(ehs), jadded)
     with torch.no_grad():
         out = tm(torch.from_numpy(x), 5, torch.from_numpy(ehs),
                  added_cond_kwargs=None if added is None else {k: torch.from_numpy(v) for k, v in added.items()}).sample
@@ -98,10 +112,15 @@ def test_vae_decode_and_encode_match_jax():
         dec = tm.decode(torch.from_numpy(z)).sample
         post = tm.encode(torch.from_numpy(image))
     assert dec.shape == (1, 3, 16, 16)
-    assert _max_diff(dec.numpy(), jm.decode(params, jnp.asarray(z)).sample) < ATOL
-    ref_post = jm.encode(params, jnp.asarray(image))
-    assert _max_diff(post.mean.numpy(), ref_post.mean) < ATOL
-    assert _max_diff(post.std.numpy(), ref_post.std) < ATOL
+    assert _max_diff(dec.numpy(), jax.jit(lambda p, z: jm.decode(p, z).sample)(params, jnp.asarray(z))) < ATOL
+
+    def encode(p, x):
+        posterior = jm.encode(p, x)
+        return posterior.mean, posterior.std
+
+    ref_mean, ref_std = jax.jit(encode)(params, jnp.asarray(image))
+    assert _max_diff(post.mean.numpy(), ref_mean) < ATOL
+    assert _max_diff(post.std.numpy(), ref_std) < ATOL
 
 
 @pytest.mark.parametrize("projection", [False, True])
@@ -141,8 +160,8 @@ def test_weight_bridge_matches_flatten_to_torch_state_dict(config):
     key and bit for bit."""
     cfg = SDXL_TINY if config == "sdxl" else SD_TINY
     jm, tm = JaxUNet2DConditionModel(**cfg), UNet2DConditionModel(**cfg)
-    params = jm.init(jax.random.PRNGKey(8))
-    load_jax_params(tm, jax.device_get(params))
+    params = jax_tree(jm, UNet2DConditionModel(**cfg), seed=8)
+    load_jax_params(tm, params)
     expected = flatten_to_torch_state_dict(jm, params)
     got = {k: v.numpy() for k, v in tm.state_dict().items()}
     assert sorted(got) == sorted(expected)
@@ -154,7 +173,7 @@ def test_weight_bridge_matches_flatten_to_torch_state_dict(config):
 def test_weight_bridge_is_strict():
     cfg = SDXL_TINY
     jm, tm = JaxUNet2DConditionModel(**cfg), UNet2DConditionModel(**cfg)
-    params = jax.device_get(jm.init(jax.random.PRNGKey(9)))
+    params = jax_tree(jm, UNet2DConditionModel(**cfg), seed=9)
     del params["conv_in"]["bias"]
     with pytest.raises(RuntimeError, match="conv_in.bias"):
         load_jax_params(tm, params)
@@ -173,8 +192,8 @@ def test_unet_optional_conditioning_matches_jax():
     ehs = rng.randn(2, 8, 32).astype(np.float32)
     cond = rng.randn(2, 16).astype(np.float32)
     mask = np.array([[1] * 8, [1] * 5 + [0] * 3], dtype=np.float32)
-    ref = jm(params, jnp.asarray(x), 7, jnp.asarray(ehs), timestep_cond=jnp.asarray(cond),
-             encoder_attention_mask=jnp.asarray(mask)).sample
+    ref = jax.jit(lambda p, x, e, c, m: jm(p, x, 7, e, timestep_cond=c, encoder_attention_mask=m).sample)(
+        params, jnp.asarray(x), jnp.asarray(ehs), jnp.asarray(cond), jnp.asarray(mask))
     with torch.no_grad():
         out = tm(torch.from_numpy(x), 7, torch.from_numpy(ehs), timestep_cond=torch.from_numpy(cond),
                  encoder_attention_mask=torch.from_numpy(mask)).sample

@@ -332,7 +332,7 @@ def test_loader_error_paths(tmp_path, monkeypatch):
         StableDiffusionXLPipeline.from_pretrained("stabilityai/stable-diffusion-xl-base-1.0", device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         StableDiffusionXLPipeline.from_pretrained(tmp_path / "pipe", device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="trust_remote_code"):  # custom pipelines are ported (JAX's gate)
         DiffusionPipeline.from_pretrained(tmp_path / "pipe", device="cpu", custom_pipeline="pipeline.py")
     with pytest.raises(TypeError, match="torch_dtype"):
         StableDiffusionXLPipeline.from_pretrained(tmp_path / "pipe", device="cpu", torch_dtype=torch.float16)

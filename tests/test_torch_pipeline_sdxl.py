@@ -1,8 +1,9 @@
 """The port's SDXL text-to-image pipeline against the JAX one, end to end on
 the CPU.
 
-The tiny components of tests/test_pipeline_sdxl.py are built in JAX, their
-parameters carried into the port with `load_jax_params`, both pipelines get
+The tiny components of tests/test_pipeline_sdxl.py are built in the port from
+a seed, their parameters carried into JAX with `convert_torch_state_dict`
+(`test_torch_models.carry_params`), the pipelines built once a module, both get
 the same numpy latents and a deterministic tokenizer, and the
 `output_type="np"` images are compared. Tolerance: max-abs `1e-3` on the
 [0, 1] image: float32 on both sides, differences are summation order only,
@@ -11,7 +12,6 @@ carried through CLIP, the denoise loop and the VAE.
 
 import zlib
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,13 +26,13 @@ from diffusers_tpu.pipelines.stable_diffusion_xl.pipeline_stable_diffusion_xl im
 )
 from diffusers_tpu.schedulers import EulerDiscreteScheduler as JaxEulerDiscreteScheduler
 from diffusers_tpu_torch.models.autoencoders.autoencoder_kl import AutoencoderKL
-from diffusers_tpu_torch.models.modeling_utils import load_jax_params
 from diffusers_tpu_torch.models.text_encoders.clip import CLIPTextModel, CLIPTextModelWithProjection
 from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
 from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
 from diffusers_tpu_torch.ops.cuda.group_norm import group_norm
 from diffusers_tpu_torch.pipelines.stable_diffusion_xl.pipeline_stable_diffusion_xl import StableDiffusionXLPipeline
 from diffusers_tpu_torch.schedulers import EulerDiscreteScheduler
+from test_torch_models import carry_params
 
 torch.set_num_threads(1)
 
@@ -75,12 +75,10 @@ class CRCTokenizer:
 
 
 def _carry(jax_model, torch_model, seed):
-    params = jax_model.init(jax.random.PRNGKey(seed))
-    rng = np.random.RandomState(seed)
-    tree = jax.tree_util.tree_map(
-        lambda a: np.asarray(a) + (0.1 * rng.randn(*a.shape).astype(np.float32) if a.ndim == 1 else 0), params)
-    load_jax_params(torch_model, tree)
-    return jax.tree_util.tree_map(jnp.asarray, tree)
+    """The port's weights from `seed`, 1-D ones jittered, carried into JAX
+    (`test_torch_models.carry_params`: JAX's eager `init` of these tiny
+    components takes tens of seconds on a CPU); returns the JAX params."""
+    return carry_params(jax_model, torch_model, seed)
 
 
 def _pipelines():

@@ -102,9 +102,9 @@ def test_transformer_matches_jax(style, controlnet):
     rng = np.random.RandomState(2)
     x, ehs, pooled, t = _inputs(rng, cfg)
     residuals = [rng.randn(2, 64, 32).astype(np.float32) for _ in range(2)] if controlnet else None
-    ref = np.asarray(jm(params, jnp.asarray(x), jnp.asarray(ehs), jnp.asarray(pooled), jnp.asarray(t),
-                        block_controlnet_hidden_states=None if residuals is None else [jnp.asarray(r) for r in residuals]
-                        ).sample)
+    ref = np.asarray(jax.jit(lambda p, x, e, pool, t, res: jm(p, x, e, pool, t, block_controlnet_hidden_states=res)
+                             .sample)(params, jnp.asarray(x), jnp.asarray(ehs), jnp.asarray(pooled), jnp.asarray(t),
+                                      None if residuals is None else [jnp.asarray(r) for r in residuals]))
     flash_attention_full.launches = 0
     with torch.no_grad():
         out = model(torch.from_numpy(x), torch.from_numpy(ehs), torch.from_numpy(pooled), torch.from_numpy(t),

@@ -18,6 +18,7 @@ from diffusers_tpu.models.text_encoders.t5 import T5EncoderModel as JaxT5Encoder
 from diffusers_tpu.models.text_encoders.t5 import _relative_position_bucket as jax_bucket
 from diffusers_tpu_torch.models.modeling_utils import load_jax_params
 from diffusers_tpu_torch.models.text_encoders.t5 import T5EncoderModel, _relative_position_bucket
+from test_torch_models import jax_tree
 
 torch.set_num_threads(1)
 
@@ -37,16 +38,14 @@ def test_relative_position_buckets_match_jax():
 def test_t5_encoder_matches_jax(ff, masked):
     cfg = dict(T5_TINY, feed_forward_proj=ff)
     jm, tm = JaxT5EncoderModel(**cfg), T5EncoderModel(**cfg)
-    params = jm.init(jax.random.PRNGKey(0))
-    rng = np.random.RandomState(0)
-    tree = jax.tree_util.tree_map(
-        lambda a: np.asarray(a) + (0.1 * rng.randn(*a.shape).astype(np.float32) if a.ndim == 1 else 0), params)
+    tree = jax_tree(jm, T5EncoderModel(**cfg))  # a seeded port's weights as a JAX tree (JAX's eager init is slow)
     load_jax_params(tm, tree)
+    rng = np.random.RandomState(0)
     ids = rng.randint(0, 1000, (2, 40))
     mask = np.ones((2, 40), np.int64)
     mask[1, 25:] = 0
-    ref = jm(jax.tree_util.tree_map(jnp.asarray, tree), jnp.asarray(ids),
-             attention_mask=jnp.asarray(mask) if masked else None).last_hidden_state
+    ref = jax.jit(lambda p, i, m: jm(p, i, attention_mask=m).last_hidden_state)(
+        jax.tree_util.tree_map(jnp.asarray, tree), jnp.asarray(ids), jnp.asarray(mask) if masked else None)
     with torch.no_grad():
         out = tm(torch.from_numpy(ids), attention_mask=torch.from_numpy(mask) if masked else None).last_hidden_state
     assert out.shape == (2, 40, 32)

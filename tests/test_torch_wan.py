@@ -93,10 +93,11 @@ def test_umt5_matches_jax(masked):
     ids = rng.randint(0, 1000, (2, 40))
     mask = np.ones((2, 40), np.int64)
     mask[1, 25:] = 0
-    ref = jm(to_jax(jm, model), jnp.asarray(ids), attention_mask=jnp.asarray(mask) if masked else None)
+    ref = jax.jit(lambda p, i, m: jm(p, i, attention_mask=m).last_hidden_state)(
+        to_jax(jm, model), jnp.asarray(ids), jnp.asarray(mask) if masked else None)
     with torch.no_grad():
         out = model(torch.from_numpy(ids), attention_mask=torch.from_numpy(mask) if masked else None)
-    np.testing.assert_allclose(out.last_hidden_state.numpy(), np.asarray(ref.last_hidden_state), atol=1e-5)
+    np.testing.assert_allclose(out.last_hidden_state.numpy(), np.asarray(ref), atol=1e-5)
 
 
 @pytest.mark.parametrize("solver_type", ["bh1", "bh2"])
@@ -152,8 +153,9 @@ def test_transformer_matches_jax(image_context):
     jm = JaxWan(**cfg)
     x, t, ehs, image = _wan_inputs(np.random.RandomState(2), cfg, text_len=512 if image_context else 8,
                                    image_len=6 if image_context else 0)
-    ref = np.asarray(jm(to_jax(jm, model), jnp.asarray(x), jnp.asarray(t), jnp.asarray(ehs),
-                        encoder_hidden_states_image=None if image is None else jnp.asarray(image)).sample)
+    jimage = None if image is None else jnp.asarray(image)
+    ref = np.asarray(jax.jit(lambda p, x, t, e, i: jm(p, x, t, e, encoder_hidden_states_image=i).sample)(
+        to_jax(jm, model), jnp.asarray(x), jnp.asarray(t), jnp.asarray(ehs), jimage))
     flash_attention_full.launches = 0
     with torch.no_grad():
         out = model(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ehs),
