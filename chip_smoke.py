@@ -28,12 +28,12 @@ made from a seed on the card:
     FirstBlockCache, Pyramid Attention Broadcast and MagCache;
   * the rest of the Flux family at FLUX.1-dev's full width (phase 13c), on
     the same pipeline at 1024 px: img2img, inpaint, Kontext with a 1024 px
-    reference (28 steps; K1 at 8,704 tokens), Kontext inpaint, ControlNet at
+    reference (KONTEXT_STEPS; K1 at 8,704 tokens), Kontext inpaint, ControlNet at
     InstantX/FLUX.1-dev-Controlnet-Canny's widths (plain, img2img, inpaint)
     and its Union form, Redux (SigLIP so400m and the Redux encoder feeding a
     request), bench.py's int4 T5-XXL (quantized in place on the card; its
     bytes, encode time and embeds beside the bf16 tower's, one request),
-    then FLUX.1-Fill-dev (28 steps) and FLUX.1-Canny-dev (Control, its
+    then FLUX.1-Fill-dev (FILL_STEPS) and FLUX.1-Canny-dev (Control, its
     img2img and inpaint) at full depth;
   * SD3.5 Medium: its published widths (24 layers, 13 dual-attention, 24 x
     64 heads; CLIP-L, bigG, T5-XXL; the 16-channel VAE) served by the
@@ -84,7 +84,8 @@ made from a seed on the card:
     request with tiling on (phase 13b);
   * the ControlNet family (phase 24; each request warmed up once, then
     timed on CUDA events, a denoiser and a ControlNet call timed apart): on
-    phase 11's SDXL, ControlNet img2img (0.3) and inpaint (0.99), then
+    phase 11's SDXL at SDXL_CONTROLNET_FAMILY_STEPS (10; cut from 30),
+    ControlNet img2img (0.3) and inpaint (0.99), then
     ControlNet-Union (xinsir/controlnet-union-sdxl-1.0's layout) text-to-
     image, img2img and inpaint and two Union nets as a
     MultiControlNetUnionModel; on phase 23's SD 1.5, a ControlNet at
@@ -145,6 +146,22 @@ made from a seed on the card:
     plain routes (K1 57, K5 500); the Flux, SD3.5 Medium and Wan I2V-14B
     transformers at full width and 2 blocks written in their original
     layouts and read back, bit-equal in state and in a forward;
+  * Qwen-Image (phase 27): its published widths (the 20.4 B double-stream
+    transformer, the 7.07 B Qwen2.5-VL text tower, the Wan-family VAE) with
+    a Qwen2 BPE tokenizer written on the spot, through
+    `QwenImagePipeline.__call__`: one 1024 px request of QWEN_STEPS steps
+    (true CFG 4.0 as one batch-2 call a step over 1,024 padded text + 4,096
+    image tokens; K1 60 a call under the key-padding bias), then img2img
+    and inpaint (3 and 2 calls);
+  * LTX-Video (phase 28): the 2 B DiT at LTX-Video 0.9.x's widths with
+    T5-XXL and a 0.9.1-style timestep-conditioned VAE, through
+    `LTXPipeline.__call__`: one 512 x 704 x 161 request of LTX_STEPS steps
+    (CFG 3.0 as one batch-2 call a step over 7,392 tokens; K1 56 a call)
+    with the whole-video decode, image-to-video and a condition request
+    (an image at frame 0, a 17-frame video at frame 80), and the 0.9.7
+    spatial latent upsampler on the request's latents (K4 17 a call);
+    phases 10k and 10l run both families small, card against CPU, with
+    every LTX cache;
   * training: `train_text_to_image.main` on the SDXL UNet at its published
     widths, 1024 px, batch 1, TRAIN_STEPS steps (f32 weights and AdamW, bf16
     autocast; kernels K1 forward, K2 and K3 backward, K4), then a sharded
@@ -673,8 +690,8 @@ SMALL_FAMILY_STEPS = 4
 # single blocks at 24 x 128, guidance embeds) and InstantX/FLUX.1-dev-Controlnet-Union's (the same, num_mode 10), each
 # w8a8 by bench.py's rule; Redux: google/siglip-so400m-patch14-384's vision tower (1152 wide, 27 layers, 16 heads of 72,
 # MLP 4304, 384 px in patches of 14: 729 tokens) and black-forest-labs/FLUX.1-Redux-dev's ReduxImageEncoder(1152, 4096).
-# Kontext (1024 px with a 1024 px reference: 512 + 4096 + 4096 = 8,704 tokens) and Fill run their published 28 steps;
-# the other requests are cut to 4 transformer calls (img2img and inpaint at strength 0.6 of 7 steps)
+# Kontext (1024 px with a 1024 px reference: 512 + 4096 + 4096 = 8,704 tokens) and Fill are cut from their published
+# 28 steps to 4, as the other requests are cut to 4 transformer calls (img2img and inpaint at strength 0.6 of 7 steps)
 FLUX_FILL_DEV = dict(FLUX_DEV, in_channels=384, out_channels=64)
 FLUX_CANNY_DEV = dict(FLUX_DEV, in_channels=128, out_channels=64)
 FLUX_CONTROLNET_CANNY = dict(guidance_embeds=True, num_layers=5, num_single_layers=10)
@@ -682,9 +699,9 @@ FLUX_CONTROLNET_UNION = dict(FLUX_CONTROLNET_CANNY, num_mode=10)
 SIGLIP_SO400M = dict(hidden_size=1152, intermediate_size=4304, num_hidden_layers=27, num_attention_heads=16,
                      image_size=384, patch_size=14)
 REDUX_DEV = dict(redux_dim=1152, txt_in_features=4096)
-KONTEXT_STEPS = 28
+KONTEXT_STEPS = 4  # cut from the published 28 to hold the run's time as phases 27-28 join it
 KONTEXT_GUIDANCE = 2.5
-FILL_STEPS = 28
+FILL_STEPS = 4  # cut from 28, as KONTEXT_STEPS
 FILL_GUIDANCE = 30.0
 FAMILY_CUT_STEPS = 4
 FAMILY_STRENGTH = 0.6
@@ -747,6 +764,7 @@ UNION_CANNY, UNION_DEPTH = 3, 1  # xinsir's task indices
 SD3_CONTROLNET_LAYERS = 12
 SD15_CONTROLNET_SCALE = 1.0
 CONTROLNET_WARMUP_STEPS = 4
+SDXL_CONTROLNET_FAMILY_STEPS = 10  # phase 24b's schedule, cut from 30 to hold the run's time
 
 # guidance (phases 3, 10j, 25): Perturbed-Attention Guidance at pag_scale 3.0 on SDXL and SD 1.5 with the pipelines'
 # default "mid" (SDXL's 10 mid-block attn1 turned to identities: a perturbed UNet call launches K1 130 and K4 46, so a
@@ -767,6 +785,77 @@ PAG_WARMUP_STEPS = 4
 SD3_IMAGE_TOKENS = 4096  # 1024 px: 64 x 64 patches before SD3's 333 text tokens
 SD3_PAG_ATTENTION = (1, 4096 + 333, 24, 64)  # the perturbed joint attention at b=1
 GUIDANCE_MODEL_TOL = 0.05  # a small model's bf16 output on the card against f32 on the CPU, of its largest value
+
+# Qwen-Image (phases 3, 10k, 27): Qwen/Qwen-Image's published widths, the JAX package's defaults (recalled: no
+# config.json in the repository): the transformer (60 blocks, 24 x 128 heads, joint dim 3584, in 64, out 16; 20.4 B),
+# the Qwen2.5-VL-7B text tower without its vision tower and LM head (28 layers, 3584 / 18944, 28 / 4 heads, vocab
+# 152064; 7.07 B), the VAE (base 96, z 16), its flow-match scheduler config; 1024 px, true CFG 4.0 as one batch-2
+# call a step, 1,024 text tokens (+ the 34 of the template's prefix). Cut to QWEN_STEPS of 50 steps; img2img
+# (strength 0.6 of QWEN_EDIT_STEPS) and inpaint run 3 and 2 transformer calls
+QWEN_IMAGE = dict()
+QWEN_TEXT = dict()
+QWEN_VAE = dict()
+QWEN_SCHEDULER = dict(use_dynamic_shifting=True, base_shift=0.5, max_shift=0.9, base_image_seq_len=256,
+                      max_image_seq_len=8192, shift_terminal=0.02)
+QWEN_STEPS = 4
+QWEN_EDIT_STEPS = (5, 4)  # img2img, inpaint: strength 0.6 keeps 3 and 2 steps
+QWEN_STRENGTH = 0.6
+QWEN_TRUE_CFG = 4.0
+QWEN_TEXT_LEN = 1024
+QWEN_PROMPT = "a jade rabbit sitting on a red paper lantern, ink painting"
+QWEN_JOINT_ATTENTION = (2, 1024 + 4096, 24, 128)  # 1,024 padded text + 64 x 64 image tokens at b=2
+QWEN_KEPT_TEXT = (12, 40)  # text keys a short negative and positive prompt keep of the 1,024: the key-padding bias
+# phase 10k: small Qwen-Image pipelines (head_dim 128: K1), card bf16 against CPU f32
+SMALL_QWEN = dict(patch_size=2, in_channels=16, out_channels=4, num_layers=2, attention_head_dim=128,
+                  num_attention_heads=2, joint_attention_dim=64, axes_dims_rope=(16, 56, 56))
+SMALL_QWEN_TEXT = dict(vocab_size=1024, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                       num_attention_heads=4, num_key_value_heads=2)
+SMALL_QWEN_VAE = dict(base_dim=16, z_dim=4, dim_mult=(1, 2, 2, 2), num_res_blocks=1,
+                      latents_mean=[0.1, -0.2, 0.0, 0.3], latents_std=[1.0, 0.5, 2.0, 1.5])
+
+# LTX-Video (phases 3, 4, 10l, 28): LTX-Video 0.9.x's transformer at its published widths, the JAX defaults (28
+# blocks, 32 x 64 heads, caption 4096; 1.92 B) with T5-XXL at 128 tokens; the VAE with LTX-Video 0.9.1's
+# timestep-conditioned decoder (recalled: decoder widths 256 / 512 / 1024 with 5 / 6 / 7 / 8 resnets, noise in the
+# up blocks, residual upsamplers of factor 2) and its scheduler config (recalled); 512 x 704 x 161 frames (21 x 16 x 22
+# latent tokens: 7,392), CFG 3.0 as one batch-2 call a step, cut to LTX_STEPS of 50; image-to-video and a condition
+# request (an image at frame 0, a 17-frame video at frame 80) cut to LTX_EDIT_STEPS with no decode; the latent
+# upsampler at LTX-Video 0.9.7's spatial widths (128 -> 512, 4 blocks a stage, dims 3) on the request's latents (its
+# output not decoded: 161 x 1024 x 1408 frames)
+LTX_VIDEO = dict()
+LTX_VAE = dict(decoder_block_out_channels=(256, 512, 1024), decoder_layers_per_block=(5, 6, 7, 8),
+               decoder_spatio_temporal_scaling=(True, True, True), decoder_inject_noise=(True, True, True, False),
+               upsample_residual=(True, True, True), upsample_factor=(2, 2, 2), timestep_conditioning=True)
+LTX_SCHEDULER = dict(use_dynamic_shifting=True, base_shift=0.95, max_shift=2.05, base_image_seq_len=1024,
+                     max_image_seq_len=4096, shift_terminal=0.1)
+LTX_UPSAMPLER = dict(in_channels=128, mid_channels=512, num_blocks_per_stage=4, dims=3, spatial_upsample=True)
+LTX_HEIGHT, LTX_WIDTH, LTX_FRAMES, LTX_FRAME_RATE = 512, 704, 161, 25
+LTX_STEPS = 3
+LTX_EDIT_STEPS = 2
+LTX_GUIDANCE = 3.0
+LTX_TEXT_LEN = 128
+LTX_DECODE_TIMESTEP, LTX_DECODE_NOISE_SCALE = 0.05, 0.025
+LTX_PROMPT = "a paper boat drifting down a rain-soaked street at dusk"
+LTX_NEGATIVE = "worst quality, blurry, jittery"
+LTX_TOKENS = 21 * 16 * 22
+LTX_SELF_ATTENTION = (2, LTX_TOKENS, 32, 64)  # 7,392 = 57 x 128 + 96: a ragged last q tile
+LTX_KEPT_TEXT = (6, 18)  # T5 tokens a negative and positive prompt keep of the 128: the cross attention's -10000 bias
+# K4 in one LTX latent-upsampler call (17 launches): the initial norm and 4 blocks before the 2x spatial upsample, 4
+# after; a group spans 16 channels of 21 x 16 x 22 (231 KB in bf16: the cluster regime), then of 21 x 32 x 44
+GN_LTX_UPSAMPLER = (
+    ((1, 512, 21, 16, 22), True, 5), ((1, 512, 21, 16, 22), False, 4),
+    ((1, 512, 21, 32, 44), True, 4), ((1, 512, 21, 32, 44), False, 4),
+)
+# phase 10l: small LTX pipelines (head_dim 64: K1; the upsampler's GroupNorms: K4), card bf16 against CPU f32
+SMALL_LTX = dict(in_channels=16, out_channels=16, num_attention_heads=2, attention_head_dim=64,
+                 cross_attention_dim=128, num_layers=2, caption_channels=64)
+SMALL_LTX_VAE = dict(latent_channels=16, block_out_channels=(16, 32, 32, 32), decoder_block_out_channels=(32,) * 4,
+                     layers_per_block=(1, 1, 1, 1, 1), decoder_layers_per_block=(1, 1, 1, 1, 1),
+                     spatio_temporal_scaling=(True, True, False, False),
+                     decoder_spatio_temporal_scaling=(True, True, False, False), timestep_conditioning=True,
+                     patch_size=2)
+SMALL_LTX_T5 = dict(vocab_size=32128, d_model=64, d_kv=32, d_ff=128, num_layers=2, num_heads=2,
+                    feed_forward_proj="gated-gelu")
+SMALL_LTX_UPSAMPLER = dict(in_channels=16, mid_channels=64, num_blocks_per_stage=1, dims=3)
 
 RESULTS = {}
 
@@ -1436,6 +1525,15 @@ def check_kernels():
         # the identity, the 333 text keys open: `pag_identity_mask`), a dense float32 [1, 1, 4429, 4429] mask
         ("SD3 PAG identity mask 4429 d=64", SD3_PAG_ATTENTION, SD3_PAG_ATTENTION[1], {"mask": "pag"}, False),
         *IP_K1_CASES,
+        # Qwen-Image at 1024 px under true CFG: the joint attention over 1,024 padded text + 4,096 image tokens,
+        # open and under the key-padding bias (-inf on the padded text keys: whole 128-key tiles in the middle of
+        # every row hidden, the first only in part); LTX-Video at 512 x 704 x 161: the cross attention over 128 T5
+        # tokens under its -10000 bias and open (the self attention is checked apart, check_k1_wan_self)
+        ("Qwen joint 5120 d=128", QWEN_JOINT_ATTENTION, QWEN_JOINT_ATTENTION[1], {}, True),
+        ("Qwen joint 5120 d=128, key-padding bias", QWEN_JOINT_ATTENTION, QWEN_JOINT_ATTENTION[1], {"mask": "qwen"},
+         True),
+        ("LTX cross 7392 x 128 d=64", LTX_SELF_ATTENTION, LTX_TEXT_LEN, {}, True),
+        ("LTX cross 7392 x 128 d=64, -10000 bias", LTX_SELF_ATTENTION, LTX_TEXT_LEN, {"mask": "ltx"}, True),
     ]
     k1_errs, k1_times = [], {}
     for label, qshape, sk, opt, timed in attn_cases:
@@ -1461,6 +1559,8 @@ def check_kernels():
             with torch.device("meta"):
                 sky = SkyReelsV2Transformer3DModel(num_attention_heads=2, num_layers=0, num_frame_per_block=2)
             mask = torch.from_numpy(sky.causal_mask(4, 8, 12).copy()).to(dev)
+        elif opt.get("mask") in ("qwen", "ltx"):
+            mask = key_padding_bias(opt["mask"], b, dev)
         elif opt.get("mask"):
             mask = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=dev) < 0.3, -1e4, 0.0)
         causal = opt.get("is_causal", False)
@@ -1485,17 +1585,30 @@ def check_kernels():
                "max_bound_vs_f32": float(torch.where(fin, bound32, 0.0).max()),
                "non_finite_rows_as_plain": same_pattern, "nan_outputs": int(torch.isnan(out).sum())}
         if timed:
-            ms, plain_ms = time_pair(lambda: flash_attention_full(q, k, v),
-                                     lambda: flash_attention_plain(q, k, v), iters=20, plain_iters=5)
+            # under a mask: SDPA with the same keys as a bool keep-mask; the bound reads the mask once and counts
+            # only the kept (query, key) pairs, since a hidden key's products add exactly 0
+            keep = None if mask is None else mask == 0
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=20)
-            flops = 4.0 * b * h * sq * sk * d
-            bms, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + q.numel()), flops, PEAK_BF16_FLOPS)
+
+            def kernel():
+                return flash_attention_full(q, k, v, attn_mask=mask)
+
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
+
+            ms, plain_ms = time_pair(kernel, lambda: flash_attention_plain(q, k, v, attn_mask=mask), iters=20,
+                                     plain_iters=5)
+            library_ms = time_ms(library, iters=20)
+            kept_share = 1.0 if mask is None else float(keep.float().mean())
+            flops = 4.0 * b * h * sq * sk * d * kept_share
+            nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+            if mask is not None:
+                nbytes += mask.numel() * mask.element_size()
+            bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
             row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
-                       tflops=flops / ms / 1e9, share_of_time_bound=bms / ms,
-                       device_ms=graph_ms(lambda: flash_attention_full(q, k, v)),
-                       library_device_ms=graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-                       host_us_per_call=host_us(lambda: flash_attention_full(q, k, v)))
+                       kept_pair_share=kept_share, tflops=flops / ms / 1e9, share_of_time_bound=bms / ms,
+                       device_ms=graph_ms(kernel), library_device_ms=graph_ms(library),
+                       host_us_per_call=host_us(kernel))
             k1_times[label] = row
         log(f"[K1] {label}: err vs f32 {err32:.3e}, vs plain {err16:.3e}; share of the per-element bound "
             f"{used32:.3f} / {used16:.3f}"
@@ -1515,7 +1628,7 @@ def check_kernels():
                 "(tol 1e-3)")
             if not tail_err <= 1e-3:
                 raise AssertionError(f"flash_attention_fwd's LSE of the ragged last q tile is wrong on {label}")
-        if timed:
+        if timed and mask is None:
             # controls: outputs of a partly wrong kernel must break the bound
             t0 = (sk // 2) // 64 * 64  # 64 keys from the middle (one key of a single short kv tile)
             drop = 64 if sk > 64 else 1
@@ -1538,6 +1651,23 @@ def check_kernels():
         k1_errs.append(err32)
 
     RESULTS["k1_pag_mask"] = check_k1_pag_mask(randn)
+    # the key-padding biases against the open calls at the same shapes, each with its own bound
+    RESULTS["k1_key_padding"] = {}
+    for name, label, bias in (("qwen_joint", "Qwen joint 5120 d=128", "key-padding bias"),
+                              ("ltx_cross", "LTX cross 7392 x 128 d=64", "-10000 bias")):
+        masked, open_ = k1_times[f"{label}, {bias}"], k1_times[label]
+        RESULTS["k1_key_padding"][name] = record = {
+            "masked_ms": masked["ms"], "open_ms": open_["ms"], "gap_ms": masked["ms"] - open_["ms"],
+            "masked_device_ms": masked["device_ms"], "open_device_ms": open_["device_ms"],
+            "masked_bound_ms": masked["bound_ms"], "masked_bound_by": masked["bound_by"],
+            "open_bound_ms": open_["bound_ms"], "open_bound_by": open_["bound_by"],
+            "kept_pair_share": masked["kept_pair_share"], "plain_masked_ms": masked["plain_ms"],
+            "library_masked_ms": masked["library_ms"], "library_open_ms": open_["library_ms"]}
+        log(f"[K1] {label} under its {bias} (pairs kept {100 * record['kept_pair_share']:.1f}%): masked "
+            f"{record['masked_ms']:.4f} ms (bound {record['masked_bound_ms']:.4f}, {record['masked_bound_by']}) "
+            f"against {record['open_ms']:.4f} open (bound {record['open_bound_ms']:.4f}), gap "
+            f"{record['gap_ms']:.4f} ms; SDPA {record['library_masked_ms']:.4f} with the bool keep-mask, "
+            f"{record['library_open_ms']:.4f} open")
 
     # LSE against torch.logsumexp of the f32 logits
     q, k, v = randn(1, 256, 2, 64, scale=2.0), randn(1, 256, 2, 64), randn(1, 256, 2, 64)
@@ -1576,8 +1706,10 @@ def check_kernels():
     for shape, chunk, iters in ((WAN_SELF_ATTENTION, WAN_Q_CHUNK, 10), (WAN_14B_SELF_ATTENTION, WAN_14B_Q_CHUNK, 10),
                                 (WAN_VACE_BATCH2_SELF_ATTENTION, WAN_VACE_Q_CHUNK, 5),
                                 (SKYREELS_SELF_ATTENTION, WAN_14B_Q_CHUNK, 3),
-                                (WAN_ANIMATE_SELF_ATTENTION, WAN_14B_Q_CHUNK, 3)):
-        wan_self = check_k1_wan_self(randn, shape, chunk, iters)
+                                (WAN_ANIMATE_SELF_ATTENTION, WAN_14B_Q_CHUNK, 3),
+                                (LTX_SELF_ATTENTION, WAN_Q_CHUNK, 10)):
+        wan_self = check_k1_wan_self(randn, shape, chunk, iters, name="LTX self" if shape == LTX_SELF_ATTENTION
+                                     else "Wan self")
         cases.append(wan_self)
         k1_errs.append(wan_self["max_abs_err_vs_f32"])
     RESULTS["kernel_cases"] = cases
@@ -1626,11 +1758,31 @@ def check_k1_pag_mask(randn):
     return record
 
 
-def check_k1_wan_self(randn, shape, chunk, iters=10):
+def key_padding_bias(kind, batch, device):
+    """The f32 [batch, 1, 1, S] bias the model hands K1, built by the model's
+    own code from a text keep-mask whose row i keeps its first `kept[i]`
+    tokens: Qwen-Image's joint attention ("qwen": `-inf` on the padded
+    text keys of 1,024, then 4,096 open image keys) or LTX's cross
+    attention ("ltx": `-10000` on the padded keys of 128 T5 tokens)."""
+    import torch
+
+    from diffusers_tpu_torch.models.transformers.transformer_ltx import cross_attention_bias
+    from diffusers_tpu_torch.models.transformers.transformer_qwenimage import key_padding_bias as qwen_bias
+
+    kept, text = (QWEN_KEPT_TEXT, QWEN_TEXT_LEN) if kind == "qwen" else (LTX_KEPT_TEXT, LTX_TEXT_LEN)
+    lengths = torch.tensor([kept[i % len(kept)] for i in range(batch)], device=device)
+    keep = (torch.arange(text, device=device)[None] < lengths[:, None]).long()
+    if kind == "qwen":
+        return qwen_bias(keep, QWEN_JOINT_ATTENTION[1] - QWEN_TEXT_LEN)
+    return cross_attention_bias(keep)
+
+
+def check_k1_wan_self(randn, shape, chunk, iters=10, name="Wan self"):
     """Phase 3, Wan's self attention: K1 at `shape` ((1, 32760, 12, 128) for
     the 1.3B model, (1, 32760, 40, 128) for the 14B, (2, 32760, 12, 128) for
     VACE's CFG batch, (1, 51000, 40, 128) for SkyReels-V2 at 544 x 960 x 97,
-    (1, 75600, 40, 128) for Animate at 720 x 1280), bf16, held to
+    (1, 75600, 40, 128) for Animate at 720 x 1280; LTX-Video's (2, 7392, 32,
+    64) at 512 x 704 x 161 under `name` "LTX self"), bf16, held to
     `attention_bounds` over every query row and every head, `chunk` query
     rows at a time (the plain version of the whole would hold an h x 32760²
     f32 logit matrix, 51.5 GB at 12 heads); the ragged last q tile's 120 rows
@@ -1644,7 +1796,7 @@ def check_k1_wan_self(randn, shape, chunk, iters=10):
     from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full, flash_attention_plain
 
     b, sq, h, d = shape
-    label = f"Wan self {sq} x {h} heads d={d}" + (f", batch {b}" if b > 1 else "")
+    label = f"{name} {sq} x {h} heads d={d}" + (f", batch {b}" if b > 1 else "")
     q, k, v = randn(b, sq, h, d, scale=2.0), randn(b, sq, h, d), randn(b, sq, h, d)
     out, lse = flash_attention_full(q, k, v, return_lse=True)
     torch.cuda.synchronize()
@@ -1657,7 +1809,8 @@ def check_k1_wan_self(randn, shape, chunk, iters=10):
         used32 = max(used32, float(((o - ref32).abs() / bound32).max()))
         used16 = max(used16, float(((o - ref16).abs() / bound16).max()))
         if start == 0:  # controls: outputs of a partly wrong kernel must break the bound
-            keep = torch.cat([torch.arange(16384, device=q.device), torch.arange(16448, sq, device=q.device)])
+            drop = 16384 if sq > 16448 else sq // 2 // 64 * 64  # 64 keys from the middle
+            keep = torch.cat([torch.arange(drop, device=q.device), torch.arange(drop + 64, sq, device=q.device)])
             last = (sq - 1) // 128 * 128
             controls = {
                 "kv_tile_dropped": float(((flash_attention_full(qs, k[:, keep], v[:, keep]).float() - ref32).abs()
@@ -1734,11 +1887,12 @@ def check_group_norm():
     sms = sm_count(0)
     cases, max_err, controlled = [], 0.0, set()
     sums = {where: {k: 0.0 for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")}
-            for where in ("UNet", "VAE", "SD UNet", "VAE 512")}
+            for where in ("UNet", "VAE", "SD UNet", "VAE 512", "LTX upsampler")}
     decoder_shapes = {(shape, silu) for shape, silu, _ in GN_VAE_DECODE}
     encode_only = tuple(row for row in GN_VAE_ENCODE if row[:2] not in decoder_shapes)
     for where, table in (("UNet", GN_UNET_CALL), ("VAE", GN_VAE_DECODE), ("VAE encode", encode_only),
-                         ("SD UNet", GN_SD15_UNET_CALL), ("VAE 512", GN_VAE_DECODE_512)):
+                         ("SD UNet", GN_SD15_UNET_CALL), ("VAE 512", GN_VAE_DECODE_512),
+                         ("LTX upsampler", GN_LTX_UPSAMPLER)):
         for shape, silu, launches in table:
             c = shape[1]
             x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.5).to(torch.bfloat16)
@@ -1808,12 +1962,15 @@ def check_group_norm():
             torch.cuda.empty_cache()
     assert sum(n for _, _, n in GN_UNET_CALL) == 46 and controlled == {False, True} and len(encode_only) == 2
     assert sum(n for _, _, n in GN_SD15_UNET_CALL) == 61 and sum(n for _, _, n in GN_VAE_DECODE_512) == 30
+    assert sum(n for _, _, n in GN_LTX_UPSAMPLER) == 17
     RESULTS["group_norm_cases"] = cases
     RESULTS["group_norm_per_unet_call"], RESULTS["group_norm_per_vae_decode"] = sums["UNet"], sums["VAE"]
     RESULTS["group_norm_per_sd15_unet_call"], RESULTS["group_norm_per_vae_decode_512"] = sums["SD UNet"], sums["VAE 512"]
+    RESULTS["group_norm_per_ltx_upsampler_call"] = sums["LTX upsampler"]
     for where, what in (("UNet", "one SDXL UNet call at b=2 (46 launches)"), ("VAE", "one VAE decode (30 launches)"),
                         ("SD UNet", "one SD 1.5 UNet call at b=2, 512 px (61 launches)"),
-                        ("VAE 512", "one VAE decode to 512 px, or one 512 px tile (30 launches)")):
+                        ("VAE 512", "one VAE decode to 512 px, or one 512 px tile (30 launches)"),
+                        ("LTX upsampler", "one LTX latent-upsampler call at 512 x 704 x 161 (17 launches)")):
         t = sums[where]
         log(f"[K4] {what}: device {t['device_ms']:.3f} ms (bound {t['bound_ms']:.3f} ms), F.group_norm(+F.silu) "
             f"device {t['library_device_ms']:.3f} ms; events {t['ms']:.3f} ms, plain {t['plain_ms']:.2f} ms, library "
@@ -2805,6 +2962,8 @@ def _module_launches(module):
     conv (any shape: their operands are padded)."""
     from diffusers_tpu_torch.models.attention import Attention
     from diffusers_tpu_torch.models.transformers.transformer_flux import FluxAttention
+    from diffusers_tpu_torch.models.transformers.transformer_ltx import LTXAttention
+    from diffusers_tpu_torch.models.transformers.transformer_qwenimage import QwenDoubleStreamAttention
     from diffusers_tpu_torch.models.transformers.transformer_sd3 import JointAttention
     from diffusers_tpu_torch.models.transformers.transformer_wan import WanAttention
     from diffusers_tpu_torch.models.transformers.transformer_wan_animate import WanAnimateFaceBlockCrossAttention
@@ -2815,7 +2974,8 @@ def _module_launches(module):
     w8a8 = sum(type(m) is W8A8Linear and m.in_features % 128 == 0 and m.out_features % 128 == 0 for m in mods)
     per_tensor = sum(isinstance(m, Int8PerTensorLinear) for m in mods) + sum(
         m.groups for m in mods if isinstance(m, Int8Conv2d))
-    attentions = (Attention, FluxAttention, JointAttention, WanAttention, WanAnimateFaceBlockCrossAttention)
+    attentions = (Attention, FluxAttention, JointAttention, WanAttention, WanAnimateFaceBlockCrossAttention,
+                  QwenDoubleStreamAttention, LTXAttention)
 
     def calls(m):  # a Wan image branch or a loaded IP-Adapter (one a nonzero scale) adds calls
         if isinstance(m, WanAttention):
@@ -6298,7 +6458,7 @@ def run_sd15_controlnet(smi: str, pipe):
 
 def run_sdxl_controlnets(smi: str, pipe):
     """Phase 24b: on phase 11's full-width SDXL pipeline, 1024 px, CFG 5.0,
-    30 Euler steps: ControlNet img2img (0.3) and inpaint (0.99) with
+    SDXL_CONTROLNET_FAMILY_STEPS Euler steps: ControlNet img2img (0.3) and inpaint (0.99) with
     SDXL_CONTROLNET (made on the card), then ControlNet-Union
     (xinsir/controlnet-union-sdxl-1.0's layout) text-to-image on the edge map
     (canny), img2img and inpaint at the same strengths, and two Union nets as
@@ -6328,6 +6488,8 @@ def run_sdxl_controlnets(smi: str, pipe):
     parts = {k: v for k, v in pipe.components.items() if k not in ("image_encoder", "feature_extractor")}
     out, paths = {}, {}
 
+    steps_total = SDXL_CONTROLNET_FAMILY_STEPS
+
     def request(label, cls, net, steps, first_extra, **kwargs):
         pipeline = cls(**dict(parts, controlnet=net, scheduler=EulerDiscreteScheduler(**EULER)))
         nets = net if isinstance(net, list) else [net]
@@ -6335,12 +6497,12 @@ def run_sdxl_controlnets(smi: str, pipe):
         per_step = {k: unet_call[k] + sum(c[k] for c in cn_calls) for k in unet_call}
         images, record = _timed_request(
             smi, label, pipeline, steps, per_step, first_extra, decode, prompt=PROMPTS[0], guidance_scale=GUIDANCE,
-            num_inference_steps=STEPS, generator=torch.Generator(device="cuda").manual_seed(SEED), output_type="pil",
-            **kwargs)
+            num_inference_steps=steps_total, generator=torch.Generator(device="cuda").manual_seed(SEED),
+            output_type="pil", **kwargs)
         record.update(image_mean=_check_image(label, images, RESOLUTION), controlnet_parameters=_n_params(*nets))
         out[label], paths[label] = record, record["launches"]
 
-    img2img_steps, inpaint_steps = int(STEPS * IMG2IMG_STRENGTH), int(STEPS * INPAINT_STRENGTH)
+    img2img_steps, inpaint_steps = int(steps_total * IMG2IMG_STRENGTH), int(steps_total * INPAINT_STRENGTH)
     request("sdxl_controlnet_img2img", StableDiffusionXLControlNetImg2ImgPipeline, controlnet, img2img_steps, encode,
             image=image, control_image=edges, strength=IMG2IMG_STRENGTH,
             controlnet_conditioning_scale=CONTROLNET_SCALE)
@@ -6354,12 +6516,12 @@ def run_sdxl_controlnets(smi: str, pipe):
         unions = [_random_residuals(ControlNetUnionModel(**SDXL_UNION).to(torch.bfloat16), SEED + i)
                   for i in range(2)]
     union = dict(control_image=[edges], control_mode=[UNION_CANNY], controlnet_conditioning_scale=CONTROLNET_SCALE)
-    request("union", StableDiffusionXLControlNetUnionPipeline, unions[0], STEPS, {}, plain_check=True, **union)
+    request("union", StableDiffusionXLControlNetUnionPipeline, unions[0], steps_total, {}, plain_check=True, **union)
     request("union_img2img", StableDiffusionXLControlNetUnionImg2ImgPipeline, unions[0], img2img_steps, encode,
             image=image, strength=IMG2IMG_STRENGTH, **union)
     request("union_inpaint", StableDiffusionXLControlNetUnionInpaintPipeline, unions[0], inpaint_steps, encode,
             image=image, mask_image=mask, strength=INPAINT_STRENGTH, **union)
-    request("multi_union", StableDiffusionXLControlNetUnionPipeline, unions, STEPS, {},
+    request("multi_union", StableDiffusionXLControlNetUnionPipeline, unions, steps_total, {},
             control_image=[[edges], [image]], control_mode=[[UNION_CANNY], [UNION_DEPTH]],
             controlnet_conditioning_scale=[CONTROLNET_SCALE, CONTROLNET_SCALE])
     log(f"[controlnet] SDXL ControlNet-Union: {_n_params(unions[0]) / 1e9:.3f} B parameters a net")
@@ -7812,6 +7974,481 @@ def run_transformers_single_file(smi: str):
     return paths
 
 
+# ------------------------------------------------------------------ Qwen-Image and LTX-Video (phases 10k, 10l, 27, 28)
+
+def qwen_tokenizer(directory):
+    """A real Qwen2 tokenizer (transformers' `Qwen2TokenizerFast`, or
+    `Qwen2Tokenizer` where transformers has no separate fast class) over a
+    byte-level BPE written on the spot into `directory` (no download):
+    trained to 600 tokens on the chat template around this script's prompts,
+    with Qwen's special tokens ``<|endoftext|>`` (the padding),
+    ``<|im_start|>`` and ``<|im_end|>``. Loaded with `from_pretrained`."""
+    import transformers
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers, trainers
+
+    from diffusers_tpu_torch.pipelines.qwenimage.pipeline_qwenimage import PROMPT_TEMPLATE
+
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    tok = Tokenizer(models.BPE())
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    trainer = trainers.BpeTrainer(vocab_size=600, special_tokens=["<|endoftext|>", "<|im_start|>", "<|im_end|>"],
+                                  initial_alphabet=pre_tokenizers.ByteLevel.alphabet(), show_progress=False)
+    tok.train_from_iterator([PROMPT_TEMPLATE.format(p) for p in (QWEN_PROMPT, " ", *PROMPTS)] * 4, trainer=trainer)
+    tok.save(str(directory / "tokenizer.json"))
+    cls = getattr(transformers, "Qwen2TokenizerFast", None) or transformers.Qwen2Tokenizer
+    (directory / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": cls.__name__, "model_max_length": 32768, "eos_token": "<|im_end|>",
+         "pad_token": "<|endoftext|>", "add_prefix_space": False}))
+    return cls.from_pretrained(str(directory))
+
+
+def _build_qwen_pipeline(transformer_cfg, text_cfg, vae_cfg, tokenizer, device, dtype):
+    """A QwenImagePipeline with random weights from SEED: on the card the text
+    tower and the transformer are built on the meta device and allocated a
+    unit at a time (`_wan_random_model`), the VAE in float32, then cast."""
+    import torch
+
+    from diffusers_tpu_torch import (AutoencoderKLQwenImage, FlowMatchEulerDiscreteScheduler, QwenImagePipeline,
+                                     Qwen2_5_VLTextEncoder, QwenImageTransformer2DModel)
+
+    text_encoder = _wan_random_model(Qwen2_5_VLTextEncoder, text_cfg, device, dtype, SEED)
+    transformer = _wan_random_model(QwenImageTransformer2DModel, transformer_cfg, device, dtype, SEED + 1)
+    torch.manual_seed(SEED + 2)
+    with torch.device(device):
+        vae = AutoencoderKLQwenImage(**vae_cfg).to(dtype).eval()
+    kwargs = {} if device == "cuda" else {"device": device}
+    return QwenImagePipeline(scheduler=FlowMatchEulerDiscreteScheduler(**QWEN_SCHEDULER), vae=vae,
+                             text_encoder=text_encoder, tokenizer=tokenizer, transformer=transformer, **kwargs)
+
+
+def _qwen_requests(pipe, size, steps, edit_steps, text_len, generator):
+    """(label, pipeline, kwargs) of the three Qwen-Image requests on `pipe`'s
+    components: text-to-image, img2img and inpaint on a synthetic image."""
+    from diffusers_tpu_torch import QwenImageImg2ImgPipeline, QwenImageInpaintPipeline
+
+    image, mask, _ = synthetic_inputs(size)
+    common = dict(true_cfg_scale=QWEN_TRUE_CFG, max_sequence_length=text_len, output_type="np")
+    return (
+        ("text2image", pipe, dict(height=size, width=size, num_inference_steps=steps, **common)),
+        ("img2img", QwenImageImg2ImgPipeline.from_pipe(pipe),
+         dict(image=image, strength=QWEN_STRENGTH, num_inference_steps=edit_steps[0], **common)),
+        ("inpaint", QwenImageInpaintPipeline.from_pipe(pipe),
+         dict(image=image, mask_image=mask, strength=QWEN_STRENGTH, num_inference_steps=edit_steps[1], **common)),
+    )
+
+
+def check_small_qwenimage(device: str = "cuda"):
+    """Phase 10k: small Qwen-Image pipelines (SMALL_QWEN: head_dim 128, a
+    2-layer Qwen2.5-VL tower, a 4-level Qwen-Image VAE; 64 px, 16 text
+    tokens) on the card (bf16, K1) against the CPU (f32, plain versions; held
+    to JAX by tests/test_torch_pipeline_qwenimage.py): text-to-image, img2img
+    and inpaint, each step's launches held to the module counts (K1 one a
+    block: the joint attention under the key-padding bias), phase 7's
+    tolerance on the [0, 1] image. Both sides draw from one CPU generator
+    seeded alike."""
+    import numpy as np
+    import torch
+
+    tokenizer = qwen_tokenizer(ROOT / "build" / "qwen_tokenizer")
+    cpu = _build_qwen_pipeline(SMALL_QWEN, SMALL_QWEN_TEXT, SMALL_QWEN_VAE, tokenizer, "cpu", torch.float32)
+    card = _build_qwen_pipeline(SMALL_QWEN, SMALL_QWEN_TEXT, SMALL_QWEN_VAE, tokenizer, "cpu", torch.float32)
+    card.to(device=torch.device(device), dtype=torch.bfloat16)
+    tol = 0.05
+    results = {}
+    per_call = _module_launches(card.transformer)
+    for (label, cpu_pipe, kwargs), (_, card_pipe, _) in zip(_qwen_requests(cpu, 64, 4, (5, 4), 16, None),
+                                                            _qwen_requests(card, 64, 4, (5, 4), 16, None)):
+        images = []
+        for pipe in (cpu_pipe, card_pipe):
+            reset_launches()
+            with StepLaunches(pipe, pipe.transformer) as steps:
+                images.append(pipe(QWEN_PROMPT, generator=torch.Generator().manual_seed(SEED), **kwargs).images)
+        ref, out = images
+        err = float(np.abs(out - ref).max())
+        results[label] = {"max_abs_err": err, "tol": tol, "launches": read_launches(),
+                          "steps": len(steps.per_step), "batches": steps.batches}
+        log(f"[ref-qwen] small Qwen-Image {label}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol {tol}); launches "
+            f"{results[label]['launches']} over {len(steps.per_step)} steps (batches {steps.batches})")
+        if not (out.shape == ref.shape == (1, 64, 64, 3) and np.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"small Qwen-Image {label}: the card disagrees with the CPU")
+        _check_steps(f"small Qwen-Image {label}", steps.per_step, [per_call] * len(steps.per_step), steps.after,
+                     _launches())
+        if set(steps.batches) != {2} or per_call["flash_attention_fwd"] != SMALL_QWEN["num_layers"]:
+            raise AssertionError(f"small Qwen-Image {label}: batches {steps.batches}, per call {per_call}")
+    RESULTS["small_qwenimage"] = results
+
+
+def run_qwenimage(smi: str):
+    """Phase 27: Qwen-Image at its published widths (QWEN_IMAGE: 20.4 B;
+    QWEN_TEXT: the 7.07 B Qwen2.5-VL tower; QWEN_VAE; random bf16 weights from
+    SEED made on the card), with a Qwen2 BPE tokenizer written on the spot:
+    one 1024 px text-to-image request through `QwenImagePipeline.__call__`
+    (true CFG 4.0 as one batch-2 transformer call a step over 1,024 padded
+    text + 4,096 image tokens; QWEN_STEPS steps), then img2img and inpaint
+    on a synthetic image (3 and 2 transformer calls). Recorded: each
+    transformer call, the text encodes, the VAE encode and decode on CUDA
+    events, seconds a request, peak memory; every step's launches held to
+    the module counts (K1 60 a call; the text tower's plain attention and the
+    VAE launch nothing). Returns the paths' launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokenizer = qwen_tokenizer(ROOT / "build" / "qwen_tokenizer")
+    pipe = _build_qwen_pipeline(QWEN_IMAGE, QWEN_TEXT, QWEN_VAE, tokenizer, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = {name: sum(p.numel() for p in getattr(pipe, name).parameters())
+                for name in ("transformer", "text_encoder", "vae")}
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    prefix = len(tokenizer(pipe.prompt_template_encode.format(""))["input_ids"])
+    log(f"[qwen] built Qwen-Image at full width on the card in {build_s:.1f} s: parameters "
+        f"{ {k: f'{v / 1e9:.3f} B' for k, v in n_params.items()} }, bf16, {resident_gb:.1f} GB resident; the "
+        f"tokenizer's template takes {prefix} tokens around an empty prompt (Qwen's: 34 before it)")
+    per_call = _module_launches(pipe.transformer)
+    if per_call["flash_attention_fwd"] != 60:
+        raise AssertionError(f"the Qwen-Image transformer counts {per_call} launches a call, expected K1 60")
+    results, paths = {}, {}
+    for label, pipeline, kwargs in _qwen_requests(pipe, RESOLUTION, QWEN_STEPS, QWEN_EDIT_STEPS, QWEN_TEXT_LEN,
+                                                  None):
+        reset_launches()
+        spans = CudaSpans({"transformer": pipe.transformer, "text_encoder": pipe.text_encoder},
+                          {"vae_decode": (pipe.vae, "decode"), "vae_encode": (pipe.vae, "encode")})
+        with StepLaunches(pipeline, pipe.transformer) as steps, spans:
+            images, seconds, peak_gb = _request_seconds(lambda: pipeline(
+                QWEN_PROMPT, generator=torch.Generator(device="cuda").manual_seed(SEED), **kwargs).images)
+        ms = spans.ms()
+        _check_steps(f"qwen {label}", steps.per_step, [per_call] * len(steps.per_step), steps.after, _launches())
+        expected_calls = {"text2image": QWEN_STEPS, "img2img": 3, "inpaint": 2}[label]
+        if not (images.shape == (1, RESOLUTION, RESOLUTION, 3) and np.isfinite(images).all()
+                and steps.batches == [2] * expected_calls):
+            raise AssertionError(f"qwen {label}: images {images.shape}, batches {steps.batches}")
+        row = {"seconds_per_image": seconds, "peak_memory_gb": peak_gb, "launches": read_launches(),
+               "transformer_calls": len(ms["transformer"]), "transformer_ms_per_call": ms["transformer"],
+               "transformer_ms_mean": float(np.mean(ms["transformer"])),
+               "text_encode_ms": ms["text_encoder"], "vae_encode_ms": ms["vae_encode"],
+               "vae_decode_ms": ms["vae_decode"], "image_mean": float(images.mean()), "image_std": float(images.std())}
+        results[label] = row
+        paths[f"qwenimage_{label}"] = row["launches"]
+        log(f"[qwen] {smi}: {label}: {seconds:.2f} s an image ({RESOLUTION} px), {row['transformer_calls']} transformer "
+            f"calls of {row['transformer_ms_mean']:.1f} ms (CUDA events; min {min(ms['transformer']):.1f}, max "
+            f"{max(ms['transformer']):.1f}), text encodes {[round(t, 1) for t in ms['text_encoder']]} ms, VAE encode "
+            f"{[round(t, 1) for t in ms['vae_encode']]} ms, decode {[round(t, 1) for t in ms['vae_decode']]} ms, peak "
+            f"memory {peak_gb:.1f} GB; launches {row['launches']}")
+    RESULTS["qwenimage"] = {"card": smi, "steps": QWEN_STEPS, "edit_steps": QWEN_EDIT_STEPS, "strength": QWEN_STRENGTH,
+                            "resolution": RESOLUTION, "true_cfg_scale": QWEN_TRUE_CFG, "text_tokens": QWEN_TEXT_LEN,
+                            "build_seconds": build_s, "parameters": n_params, "resident_gb": resident_gb,
+                            "template_tokens": prefix, "k1_per_call": per_call["flash_attention_fwd"], **results}
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _build_ltx_pipeline(transformer_cfg, vae_cfg, t5_cfg, device, dtype):
+    """An LTXPipeline with random weights from SEED (T5 and the transformer
+    through `_wan_random_model`, the VAE in float32 then cast, its noise
+    scales and latent statistics drawn from SEED)."""
+    import torch
+
+    from diffusers_tpu_torch import AutoencoderKLLTXVideo, FlowMatchEulerDiscreteScheduler, LTXPipeline, \
+        LTXVideoTransformer3DModel
+    from diffusers_tpu_torch.models.text_encoders.t5 import T5EncoderModel
+
+    text_encoder = _wan_random_model(T5EncoderModel, t5_cfg, device, dtype, SEED)
+    transformer = _wan_random_model(LTXVideoTransformer3DModel, transformer_cfg, device, dtype, SEED + 1)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    torch.manual_seed(SEED + 2)
+    with torch.device(device):
+        vae = AutoencoderKLLTXVideo(**vae_cfg)
+    with torch.no_grad():
+        for name, p in vae.named_parameters():
+            if "per_channel_scale" in name:
+                p.copy_(0.05 * torch.randn(p.shape, generator=gen))
+        c = vae.latents_mean.shape[0]
+        vae.latents_mean.copy_(0.1 * torch.randn(c, generator=gen))
+        vae.latents_std.copy_(1.0 + 0.2 * torch.rand(c, generator=gen))
+    kwargs = {} if device == "cuda" else {"device": device}
+    return LTXPipeline(scheduler=FlowMatchEulerDiscreteScheduler(**LTX_SCHEDULER), vae=vae.to(dtype).eval(),
+                       text_encoder=text_encoder, tokenizer=StandInTokenizer(**T5_TOKENIZER), transformer=transformer,
+                       **kwargs)
+
+
+def ltx_step_launches(config, pipe, timesteps, fbc_decisions=None):
+    """The launches expected at each denoise step of an LTX request under
+    `config` (CFG as one batch-2 call a step), from the module counts and the
+    cache's host-made schedule: a TaylorSeer or MagCache step that predicts,
+    nothing; a FasterCache step, the pair's two calls or the cond call; a PAB
+    broadcast step, the cross attentions alone; a FirstBlockCache step that
+    skips, the first block's."""
+    import numpy as np
+
+    from diffusers_tpu_torch.hooks import (
+        FasterCacheConfig,
+        FirstBlockCacheConfig,
+        MagCacheConfig,
+        PyramidAttentionBroadcastConfig,
+        TaylorSeerCacheConfig,
+        faster_cache_schedules,
+        mag_cache_compute_mask,
+        pab_compute_mask,
+        taylorseer_compute_mask,
+    )
+
+    tr, n = pipe.transformer, len(timesteps)
+    full, none = _module_launches(tr), _launches()
+    if isinstance(config, TaylorSeerCacheConfig):
+        return [full if c else none for c in taylorseer_compute_mask(n, config)]
+    if isinstance(config, MagCacheConfig):
+        return [full if c else none for c in mag_cache_compute_mask(config)]
+    if isinstance(config, FasterCacheConfig):
+        skip = faster_cache_schedules(np.asarray(timesteps), config)[0]
+        return [{k: (1 if s else 2) * v for k, v in full.items()} for s in skip]
+    if isinstance(config, PyramidAttentionBroadcastConfig):
+        mask = pab_compute_mask(np.asarray(timesteps), config.spatial_attention_block_skip_range,
+                                config.spatial_attention_timestep_skip_range)
+        return [full if c else _launches(flash_attention_fwd=len(tr.transformer_blocks)) for c in mask]
+    if isinstance(config, FirstBlockCacheConfig):
+        first = _module_launches(tr.transformer_blocks[0])
+        return [full if c else first for c in fbc_decisions]
+    return [full] * n  # dense, TextKV, a callback
+
+
+def small_ltx_cases():
+    """Phase 10l's text-to-video cases: (label, cache config or None, callback or None)."""
+    from diffusers_tpu_torch.hooks import (
+        FasterCacheConfig,
+        FirstBlockCacheConfig,
+        MagCacheConfig,
+        PyramidAttentionBroadcastConfig,
+        TaylorSeerCacheConfig,
+        TextKVCacheConfig,
+    )
+
+    n = SMALL_CACHE_STEPS
+    return (
+        ("dense", None, None),
+        ("taylorseer", TaylorSeerCacheConfig(cache_interval=3, disable_cache_before_step=2, max_order=2), None),
+        ("mag_cache", MagCacheConfig(threshold=0.5, max_skip_steps=1, retention_ratio=0.25, num_inference_steps=n,
+                                     mag_ratios=(1.0,) * n), None),
+        ("text_kv", TextKVCacheConfig(), None),
+        ("faster_cache", FasterCacheConfig(unconditional_batch_skip_range=3,
+                                           unconditional_batch_timestep_skip_range=(-1, 1000)), None),
+        ("pab", PyramidAttentionBroadcastConfig(spatial_attention_timestep_skip_range=(100, 950)), None),
+        ("first_block_cache", FirstBlockCacheConfig(threshold=SMALL_FBC_THRESHOLD), None),
+        ("callback_latents", None, lambda p, i, t, kw: {"latents": kw["latents"] * 0.5} if i == 3 else {}),
+    )
+
+
+def check_small_ltx(device: str = "cuda"):
+    """Phase 10l: small LTX-Video pipelines (SMALL_LTX: head_dim 64; a
+    timestep-conditioned VAE with noise; 9 frames of 64 x 64) on the card
+    (bf16, K1; the upsampler's K4) against the CPU (f32, plain versions; held
+    to JAX by tests/test_torch_pipeline_ltx.py, test_torch_ltx_condition.py
+    and test_torch_ltx_i2v.py): text-to-video dense, with each of the six
+    caches and with a step callback, each step's launches held to the cache's
+    schedule (`ltx_step_launches`); image-to-video; a condition request (an
+    image at frame 0, a 5-frame video at frame 4); the latent upsampler (K4 5
+    a call at 1 block a stage) with its pipeline's latent output. Phase 7's
+    tolerance on the [0, 1] frames and on the latents' largest value. Both
+    sides draw from one CPU generator seeded alike."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch import (FlowMatchEulerDiscreteScheduler, LTXConditionPipeline, LTXImageToVideoPipeline,
+                                     LTXLatentUpsamplePipeline, LTXLatentUpsamplerModel, LTXVideoCondition)
+
+    sides = [_build_ltx_pipeline(SMALL_LTX, SMALL_LTX_VAE, SMALL_LTX_T5, "cpu", torch.float32) for _ in range(2)]
+    torch.manual_seed(SEED + 3)
+    upsampler = LTXLatentUpsamplerModel(**SMALL_LTX_UPSAMPLER).eval()
+    upsamplers = [upsampler, _copy_model(upsampler).to(device=torch.device(device), dtype=torch.bfloat16)]
+    sides[1].to(device=torch.device(device), dtype=torch.bfloat16)
+    tol = 0.05
+    video = synthetic_video(9, 64, 64)
+    call = dict(height=64, width=64, num_frames=9, guidance_scale=LTX_GUIDANCE, max_sequence_length=32,
+                decode_timestep=LTX_DECODE_TIMESTEP, decode_noise_scale=LTX_DECODE_NOISE_SCALE)
+    results = {}
+
+    def compare(label, outs, shape, scale=1.0):
+        ref, out = (o.float().cpu().numpy() if isinstance(o, torch.Tensor) else o for o in outs)
+        ref, out = np.asarray(ref, np.float32), np.asarray(out, np.float32)
+        err = float(np.abs(out - ref).max()) / scale
+        results[label] = dict(results.get(label, {}), max_abs_err=err, tol=tol, launches=read_launches())
+        log(f"[ref-ltx] small LTX {label}, card bf16 vs CPU f32: max |diff| {err:.3e}"
+            f"{' of the largest value' if scale != 1.0 else ''} (tol {tol}); launches {results[label]['launches']}")
+        if not (out.shape == ref.shape == shape and np.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"small LTX {label}: the card disagrees with the CPU ({out.shape}, {err})")
+
+    for label, config, callback in small_ltx_cases():
+        outs = []
+        for pipe in sides:
+            if config is not None:
+                pipe.enable_cache(config)
+            reset_launches()
+            try:
+                with StepLaunches(pipe, pipe.transformer) as steps:
+                    outs.append(pipe(LTX_PROMPT, LTX_NEGATIVE, num_inference_steps=SMALL_CACHE_STEPS,
+                                     generator=torch.Generator().manual_seed(SEED), callback_on_step_end=callback,
+                                     **call).frames)
+            finally:
+                pipe.disable_cache()
+        compare(label, outs, (1, 9, 64, 64, 3))
+        decisions = pipe.fbc_record["decisions"] if label == "first_block_cache" else None
+        _check_steps(f"small LTX {label}", steps.per_step, ltx_step_launches(config, pipe, steps.timesteps, decisions),
+                     steps.after, _launches())
+        results[label]["transformer_batches"] = steps.batches
+
+    edit = dict(call, num_inference_steps=4)
+    cond_sched = dict(scheduler=FlowMatchEulerDiscreteScheduler(shift=1.0))  # the condition pipeline sets timesteps
+    for label, make, args in (
+            ("image2video", lambda p: LTXImageToVideoPipeline.from_pipe(p), dict(image=video[0])),
+            ("condition", lambda p: LTXConditionPipeline.from_pipe(p, **cond_sched),
+             dict(conditions=[LTXVideoCondition(image=video[0], frame_index=0, strength=1.0),
+                              LTXVideoCondition(video=video[:5], frame_index=4, strength=0.8)]))):
+        outs = []
+        for pipe in sides:
+            pipeline = make(pipe)
+            reset_launches()
+            with StepLaunches(pipeline, pipeline.transformer) as steps:
+                outs.append(pipeline(prompt=LTX_PROMPT, negative_prompt=LTX_NEGATIVE,
+                                     generator=torch.Generator().manual_seed(SEED), **args, **edit).frames)
+        compare(label, outs, (1, 9, 64, 64, 3))
+        _check_steps(f"small LTX {label}", steps.per_step, [_module_launches(pipeline.transformer)] * 4, steps.after,
+                     _launches())
+
+    outs = []
+    latents = torch.from_numpy(np.random.RandomState(SEED).randn(1, 16, 3, 8, 8).astype(np.float32))
+    for pipe, up in zip(sides, upsamplers):
+        reset_launches()
+        outs.append(LTXLatentUpsamplePipeline(vae=pipe.vae, latent_upsampler=up, device=up.device)(
+            latents=latents, adain_factor=1.0, output_type="latent").frames)
+    ref = outs[0]
+    compare("latent_upsample", outs, (1, 16, 3, 16, 16), scale=float(ref.abs().max()))
+    if read_launches()["group_norm"] != 5:
+        raise AssertionError(f"the small upsampler launched {read_launches()}, expected K4 5")
+    RESULTS["small_ltx"] = results
+
+
+def run_ltx(smi: str):
+    """Phase 28: LTX-Video at full width (LTX_VIDEO: 28 blocks of 32 x 64
+    heads; T5-XXL at 128 tokens; the 0.9.1-style timestep-conditioned VAE;
+    random bf16 weights from SEED made on the card): one 512 x 704 x 161
+    request through `LTXPipeline.__call__` (CFG 3.0 as one batch-2 call a step
+    over 7,392 tokens, LTX_STEPS steps; the decode at LTX_DECODE_TIMESTEP with
+    noise), then image-to-video and a condition request (an image at frame
+    0, a 17-frame video at frame 80: 704 prefix tokens), LTX_EDIT_STEPS steps
+    each without decode, then the latent upsampler (LTX_UPSAMPLER) through
+    `LTXLatentUpsamplePipeline` on the first request's latents. Recorded:
+    each transformer call, the T5 encodes, the VAE encodes and the decode on
+    CUDA events, seconds a request, peak memory; every step's launches held
+    to the module counts (K1 56 a call: 28 self + 28 cross), K4 17 an
+    upsampler call. Returns the paths' launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch import (FlowMatchEulerDiscreteScheduler, LTXConditionPipeline, LTXImageToVideoPipeline,
+                                     LTXLatentUpsamplePipeline, LTXLatentUpsamplerModel, LTXVideoCondition)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = _build_ltx_pipeline(LTX_VIDEO, LTX_VAE, T5_XXL, "cuda", torch.bfloat16)
+    torch.manual_seed(SEED + 4)
+    with torch.device("cuda"):
+        upsampler = LTXLatentUpsamplerModel(**LTX_UPSAMPLER).to(torch.bfloat16).eval()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = {name: sum(p.numel() for p in getattr(pipe, name).parameters())
+                for name in ("transformer", "text_encoder", "vae")}
+    n_params["latent_upsampler"] = sum(p.numel() for p in upsampler.parameters())
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"[ltx] built LTX-Video at full width on the card in {build_s:.1f} s: parameters "
+        f"{ {k: f'{v / 1e9:.3f} B' for k, v in n_params.items()} }, bf16, {resident_gb:.1f} GB resident")
+    per_call = _module_launches(pipe.transformer)
+    if per_call["flash_attention_fwd"] != 56:
+        raise AssertionError(f"the LTX transformer counts {per_call} launches a call, expected K1 56")
+    video = synthetic_video(17, LTX_HEIGHT, LTX_WIDTH)
+    common = dict(prompt=LTX_PROMPT, negative_prompt=LTX_NEGATIVE, height=LTX_HEIGHT, width=LTX_WIDTH,
+                  num_frames=LTX_FRAMES, frame_rate=LTX_FRAME_RATE, guidance_scale=LTX_GUIDANCE,
+                  max_sequence_length=LTX_TEXT_LEN, decode_timestep=LTX_DECODE_TIMESTEP,
+                  decode_noise_scale=LTX_DECODE_NOISE_SCALE)
+    requests = (
+        ("text2video", pipe, dict(num_inference_steps=LTX_STEPS, output_type="np"), LTX_STEPS),
+        ("image2video", LTXImageToVideoPipeline.from_pipe(pipe),
+         dict(image=video[0], num_inference_steps=LTX_EDIT_STEPS, output_type="latent"), LTX_EDIT_STEPS),
+        ("condition", LTXConditionPipeline.from_pipe(pipe, scheduler=FlowMatchEulerDiscreteScheduler(shift=1.0)),
+         dict(conditions=[LTXVideoCondition(image=video[0], frame_index=0, strength=1.0),
+                          LTXVideoCondition(video=video, frame_index=80, strength=0.8)],
+              num_inference_steps=LTX_EDIT_STEPS, output_type="latent"), LTX_EDIT_STEPS),
+    )
+    captured = {}
+    decode = pipe.decode_latents
+    pipe.decode_latents = lambda latents, *a, **k: decode(captured.setdefault("latents", latents), *a, **k)
+    results, paths = {}, {}
+    try:
+        for label, pipeline, kwargs, n_steps in requests:
+            reset_launches()
+            spans = CudaSpans({"transformer": pipe.transformer, "text_encoder": pipe.text_encoder},
+                              {"vae_decode": (pipe.vae, "decode"), "vae_encode": (pipe.vae, "encode")})
+            with StepLaunches(pipeline, pipe.transformer) as steps, spans:
+                out, seconds, peak_gb = _request_seconds(lambda: pipeline(
+                    generator=torch.Generator(device="cuda").manual_seed(SEED), **common, **kwargs).frames)
+            ms = spans.ms()
+            _check_steps(f"ltx {label}", steps.per_step, [per_call] * n_steps, steps.after, _launches())
+            shape = {"text2video": (1, LTX_FRAMES, LTX_HEIGHT, LTX_WIDTH, 3), "image2video": (1, LTX_TOKENS, 128),
+                     "condition": (1, 128, 21, LTX_HEIGHT // 32, LTX_WIDTH // 32)}[label]  # i2v's latents are packed
+            finite = bool(np.isfinite(out).all()) if isinstance(out, np.ndarray) else bool(torch.isfinite(out).all())
+            if not (tuple(out.shape) == shape and finite and steps.batches == [2] * n_steps):
+                raise AssertionError(f"ltx {label}: output {tuple(out.shape)}, batches {steps.batches}")
+            row = {"seconds_per_video": seconds, "peak_memory_gb": peak_gb, "launches": read_launches(),
+                   "transformer_calls": len(ms["transformer"]), "transformer_ms_per_call": ms["transformer"],
+                   "transformer_ms_mean": float(np.mean(ms["transformer"])), "text_encode_ms": ms["text_encoder"],
+                   "vae_encode_ms": ms["vae_encode"], "vae_decode_ms": ms["vae_decode"],
+                   "tokens": LTX_TOKENS + (704 if label == "condition" else 0)}
+            results[label] = row
+            paths[f"ltx_{label}"] = row["launches"]
+            log(f"[ltx] {smi}: {label}: {seconds:.2f} s a request ({LTX_FRAMES} x {LTX_HEIGHT} x {LTX_WIDTH}, "
+                f"{n_steps} steps, {row['tokens']} tokens), {row['transformer_calls']} transformer calls of "
+                f"{row['transformer_ms_mean']:.1f} ms (CUDA events; min {min(ms['transformer']):.1f}, max "
+                f"{max(ms['transformer']):.1f}), T5 encodes {[round(t, 1) for t in ms['text_encoder']]} ms, VAE "
+                f"encodes {[round(t, 1) for t in ms['vae_encode']]} ms, decode {[round(t, 1) for t in ms['vae_decode']]}"
+                f" ms, peak memory {peak_gb:.1f} GB; launches {row['launches']}")
+    finally:
+        del pipe.decode_latents
+
+    upsample = LTXLatentUpsamplePipeline(vae=pipe.vae, latent_upsampler=upsampler)
+    latents = captured["latents"]
+    reset_launches()
+    spans = CudaSpans({"upsampler": upsampler})
+    with spans:
+        up, seconds, peak_gb = _request_seconds(lambda: upsample(latents=latents, adain_factor=1.0,
+                                                                 output_type="latent").frames)
+    launches = read_launches()
+    if not (tuple(up.shape) == (1, 128, 21, 32, 44) and bool(torch.isfinite(up).all())
+            and launches == _launches(group_norm=17)):
+        raise AssertionError(f"ltx upsampler: output {tuple(up.shape)}, launches {launches}")
+    results["latent_upsample"] = {"seconds": seconds, "peak_memory_gb": peak_gb, "launches": launches,
+                                  "upsampler_ms": spans.ms()["upsampler"]}
+    paths["ltx_latent_upsample"] = launches
+    log(f"[ltx] {smi}: latent upsampler on the request's latents {tuple(latents.shape)} -> {tuple(up.shape)}: "
+        f"{seconds:.3f} s, the model {spans.ms()['upsampler'][0]:.1f} ms (CUDA events), peak memory {peak_gb:.1f} GB; "
+        f"launches {launches}")
+    RESULTS["ltx"] = {"card": smi, "steps": LTX_STEPS, "edit_steps": LTX_EDIT_STEPS, "frames": LTX_FRAMES,
+                      "height": LTX_HEIGHT, "width": LTX_WIDTH, "guidance_scale": LTX_GUIDANCE,
+                      "text_tokens": LTX_TEXT_LEN, "build_seconds": build_s, "parameters": n_params,
+                      "resident_gb": resident_gb, "k1_per_call": per_call["flash_attention_fwd"], **results}
+    del pipe, upsample, upsampler
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
 def timed(fn, *args):
     """`fn(*args)`, its wall time logged and kept in RESULTS["phase_seconds"]
     under the function's name."""
@@ -7858,6 +8495,8 @@ def main() -> int:
     timed(check_small_controlnets)
     timed(check_small_family)
     timed(check_small_guidance)
+    timed(check_small_qwenimage)
+    timed(check_small_ltx)
     sdxl, pipe, image = timed(run_pipeline, smi)
     paths = {"sdxl": sdxl, **timed(run_sdxl_cached, smi, pipe, image)}
     image_paths, controlnet = timed(run_image_pipelines, smi, pipe)
@@ -7923,6 +8562,8 @@ def main() -> int:
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
+    paths.update(timed(run_qwenimage, smi))
+    paths.update(timed(run_ltx, smi))
     paths["training"] = timed(run_training, smi)
     RESULTS["launches_by_path"] = paths
 

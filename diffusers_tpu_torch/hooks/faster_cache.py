@@ -125,7 +125,8 @@ def faster_cache_apply_pair(
     return (uncond, cond), FasterCacheState(low_freq_delta=lf_delta, high_freq_delta=hf_delta)
 
 
-def denoise_loop_faster_cache(pair_forward, cond_forward, combine, scheduler, latents, state, timesteps, config):
+def denoise_loop_faster_cache(pair_forward, cond_forward, combine, scheduler, latents, state, timesteps, config,
+                              reshape_in=None, reshape_out=None):
     """The denoise loop under the pair form of the CFG-cache.
 
     Args:
@@ -134,12 +135,23 @@ def denoise_loop_faster_cache(pair_forward, cond_forward, combine, scheduler, la
         combine: fn(uncond, cond) -> the model output fed to `scheduler.step`.
         timesteps: the schedule's timesteps (host tensor); the skip schedule
             and weights come from `faster_cache_schedules(timesteps, config)`.
+        reshape_in / reshape_out: maps putting a prediction into a
+            [..., H, W] grid for the frequency split and back (a token-sequence
+            DiT's unpack and pack, JAX `denoise_scan_faster_cache`); default
+            the identity.
     Returns the final latents."""
+    rin = reshape_in or (lambda x: x)
+    rout = reshape_out or (lambda x: x)
     skip, lf_w, hf_w = faster_cache_schedules(timesteps.numpy(), config)
-    fc = init_faster_cache_state(latents.shape, latents.device)
+    fc = init_faster_cache_state(rin(latents).shape, latents.device)
+
+    def pair(i, t):
+        uncond, cond = pair_forward(latents, i, t)
+        return rin(uncond), rin(cond)
+
     for i, t in enumerate(timesteps):
         (uncond, cond), fc = faster_cache_apply_pair(
             fc, bool(skip[i]), float(lf_w[i]), float(hf_w[i]),
-            lambda: pair_forward(latents, i, t), lambda: cond_forward(latents, i, t))
-        latents = scheduler.step(state, combine(uncond, cond), t, latents).prev_sample
+            lambda: pair(i, t), lambda: rin(cond_forward(latents, i, t)))
+        latents = scheduler.step(state, combine(rout(uncond), rout(cond)), t, latents).prev_sample
     return latents

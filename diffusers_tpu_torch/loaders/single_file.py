@@ -1,5 +1,5 @@
 """Single-file checkpoints: the LDM layout of SD 1.x / 2.x / SDXL and the
-original layouts of the Flux, SD3 and Wan transformers.
+original layouts of the Flux, SD3, Wan and LTX-Video transformers.
 
 Port of `diffusers_tpu/loaders/single_file.py`. The converters are plain
 functions on a flat ``{key: array}`` dict (numpy arrays or torch tensors)
@@ -624,7 +624,7 @@ def load_wan_transformer_single_file(path_or_state_dict, config_overrides: Optio
 
 
 # ---------------------------------------------------------------------------
-# LTX-Video (a key map only: the port has no LTX transformer)
+# LTX-Video
 # ---------------------------------------------------------------------------
 
 _LTX_RENAME = [
@@ -651,8 +651,27 @@ def convert_ltx_transformer_state_dict(sd: Dict) -> Dict:
 def load_ltx_transformer_single_file(path_or_state_dict, config_overrides: Optional[dict] = None,
                                      dtype: Optional[torch.dtype] = None,
                                      device: Union[str, torch.device] = "cuda"):
-    raise NotImplementedError("load_ltx_transformer_single_file: the port has no LTX-Video transformer yet "
-                              "(ROADMAP A9); convert_ltx_transformer_state_dict gives its keys")
+    """An LTX-Video single file (Lightricks' original layout, with or without
+    the ``model.diffusion_model.`` prefix; VAE keys skipped) -> a port
+    `LTXVideoTransformer3DModel` on `device`, its config inferred from the
+    keys as JAX's `:623-655` (heads of 64 unless overridden: the qk norm
+    spans all heads, so the keys do not show it)."""
+    from ..models.transformers.transformer_ltx import LTXVideoTransformer3DModel
+
+    converted = convert_ltx_transformer_state_dict(_read(path_or_state_dict))
+    inner_dim, in_channels = converted["proj_in.weight"].shape
+    head_dim = (config_overrides or {}).get("attention_head_dim", 64)
+    cfg = dict(
+        in_channels=in_channels,
+        out_channels=in_channels,
+        num_layers=_num_blocks(converted, "transformer_blocks."),
+        attention_head_dim=head_dim,
+        num_attention_heads=inner_dim // head_dim,
+        cross_attention_dim=converted["transformer_blocks.0.attn2.to_k.weight"].shape[1],
+        caption_channels=converted["caption_projection.linear_1.weight"].shape[1],
+    )
+    cfg.update(config_overrides or {})
+    return model_from_state_dict(LTXVideoTransformer3DModel, cfg, converted, device, dtype)
 
 
 # ---------------------------------------------------------------------------

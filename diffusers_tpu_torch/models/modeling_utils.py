@@ -181,6 +181,13 @@ class ModelMixin(nn.Module):
         kept = cls._keep_key_prefixes is None or key.startswith(cls._keep_key_prefixes)
         return kept and not key.endswith(cls._drop_key_suffixes)
 
+    @classmethod
+    def _state_key(cls, key: str) -> str:
+        """The state-dict name of a checkpoint key the class reads: the key
+        itself, unless the class's checkpoints nest it under prefixes
+        (the decoder-only text encoders)."""
+        return key
+
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
@@ -297,8 +304,8 @@ class ModelMixin(nn.Module):
             replace_with_quantized(model, quantized, quantization_config)
         expected = model.state_dict(keep_vars=True)
         files = _resolve_weight_files(model_path, cls._weights_name, cls._weights_index_name, variant)
-        dtypes = [(k, info["dtype"]) for f in files for k, info in read_safetensors_header(f)[1].items()
-                  if cls._reads_key(k)]
+        dtypes = [(cls._state_key(k), info["dtype"]) for f in files
+                  for k, info in read_safetensors_header(f)[1].items() if cls._reads_key(k)]
         keys = dict(dtypes)
         # a quantized layer whose checkpoint weight is float (and has no scale) makes its scale on arrival
         on_arrival = {n for n in quantized if keys.get(f"{n}.weight") in ("F64", "F32", "F16", "BF16")
@@ -315,6 +322,7 @@ class ModelMixin(nn.Module):
             for key, tensor in iter_safetensors(f):
                 if not cls._reads_key(key):
                     continue
+                key = cls._state_key(key)
                 if key in derived:
                     model.check_derived_tensor(key, tensor)
                     continue

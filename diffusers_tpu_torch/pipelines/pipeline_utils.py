@@ -64,6 +64,16 @@ _CLASS_REGISTRY: Dict[str, str] = {
     "SkyReelsV2Transformer3DModel":
         "diffusers_tpu_torch.models.transformers.transformer_skyreels_v2.SkyReelsV2Transformer3DModel",
     "AutoencoderKLWan": "diffusers_tpu_torch.models.autoencoders.autoencoder_kl_wan.AutoencoderKLWan",
+    "QwenImageTransformer2DModel":
+        "diffusers_tpu_torch.models.transformers.transformer_qwenimage.QwenImageTransformer2DModel",
+    "AutoencoderKLQwenImage":
+        "diffusers_tpu_torch.models.autoencoders.autoencoder_kl_qwenimage.AutoencoderKLQwenImage",
+    "Qwen2_5_VLForConditionalGeneration": "diffusers_tpu_torch.models.text_encoders.qwen2_vl.Qwen2_5_VLTextEncoder",
+    "Qwen2_5_VLTextEncoder": "diffusers_tpu_torch.models.text_encoders.qwen2_vl.Qwen2_5_VLTextEncoder",
+    "LlamaModel": "diffusers_tpu_torch.models.text_encoders.llama.LlamaModel",
+    "LTXVideoTransformer3DModel": "diffusers_tpu_torch.models.transformers.transformer_ltx.LTXVideoTransformer3DModel",
+    "AutoencoderKLLTXVideo": "diffusers_tpu_torch.models.autoencoders.autoencoder_kl_ltx.AutoencoderKLLTXVideo",
+    "LTXLatentUpsamplerModel": "diffusers_tpu_torch.pipelines.ltx.modeling_latent_upsampler.LTXLatentUpsamplerModel",
     "EulerDiscreteScheduler": "diffusers_tpu_torch.schedulers.scheduling_euler_discrete.EulerDiscreteScheduler",
     "FlowMatchEulerDiscreteScheduler":
         "diffusers_tpu_torch.schedulers.scheduling_flow_match_euler_discrete.FlowMatchEulerDiscreteScheduler",

@@ -6,9 +6,10 @@ Euler step ``x <- x + (sigma_next - sigma) v``. The sigma and timestep tables
 are built in numpy on the host exactly as in JAX (float32 with float64
 inputs) and kept as float32 host tensors; only `step` runs in torch, in
 float32, casting `prev_sample` to the model output's dtype; `scale_noise`, the forward
-process of the image-conditioned SD3 pipelines, likewise. The Karras /
-exponential / beta ladders, stochastic sampling and per-token timesteps wait
-for the pipelines that use them.
+process of the image-conditioned SD3 pipelines, likewise. `step`
+also takes per-token timesteps (the LTX condition pipeline's). The Karras /
+exponential / beta ladders and stochastic sampling wait for the pipelines
+that use them.
 """
 
 from __future__ import annotations
@@ -153,10 +154,23 @@ class FlowMatchEulerDiscreteScheduler(SchedulerMixin, ConfigMixin):
         model_output: torch.Tensor,
         timestep,
         sample: torch.Tensor,
+        per_token_timesteps: Optional[torch.Tensor] = None,
         return_dict: bool = True,
     ):
-        idx = index_for_timestep(state.timesteps, timestep)
-        dt = float(state.sigmas[idx + 1] - state.sigmas[idx])  # f32 difference, as in JAX
+        """``x + (sigma_next - sigma) v`` in float32, cast to the model
+        output's dtype. With `per_token_timesteps` ([B, S], train-timestep
+        units; the LTX condition pipeline's), each token of ``[B, S, C]``
+        steps from its own sigma to the largest sigma of the schedule
+        strictly below it, or 0 (JAX `:164-191`)."""
+        if per_token_timesteps is not None:
+            sigma = per_token_timesteps.float() / self.config.num_train_timesteps  # [B, S]
+            grid = state.sigmas.to(device=sigma.device, dtype=torch.float32)[:, None, None]
+            zero = torch.zeros((), dtype=torch.float32, device=sigma.device)
+            lower = torch.where(grid < sigma[None] - 1e-6, grid, zero).amax(dim=0)
+            dt = (lower - sigma)[..., None]
+        else:
+            idx = index_for_timestep(state.timesteps, timestep)
+            dt = float(state.sigmas[idx + 1] - state.sigmas[idx])  # f32 difference, as in JAX
         prev_sample = (sample.float() + dt * model_output.float()).to(model_output.dtype)
         if not return_dict:
             return (prev_sample,)

@@ -272,8 +272,14 @@ def test_ltx_converter_and_loader():
         "model.diffusion_model.patchify_proj.weight", "model.diffusion_model.adaln_single.linear.weight",
         "model.diffusion_model.transformer_blocks.0.attn1.q_norm.weight", "vae.decoder.conv_in.weight")}
     _same(jsf.convert_ltx_transformer_state_dict(dict(sd)), sf.convert_ltx_transformer_state_dict(dict(sd)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        sf.load_ltx_transformer_single_file(sd)
+    # the loader returns the port's LTX transformer; its bit-equal round trip from the original layout,
+    # held to JAX's loader, is tests/test_torch_ltx.py::test_ltx_single_file
+    from diffusers_tpu_torch.models.transformers.transformer_ltx import LTXVideoTransformer3DModel
+
+    state = LTXVideoTransformer3DModel(in_channels=8, out_channels=8, num_attention_heads=2, attention_head_dim=8,
+                                       cross_attention_dim=16, num_layers=1, caption_channels=12).state_dict()
+    loaded = sf.load_ltx_transformer_single_file(state, config_overrides={"attention_head_dim": 8}, device="cpu")
+    assert isinstance(loaded, LTXVideoTransformer3DModel)
 
 
 # ------------------------------------------------------------------ the sniff table
