@@ -161,7 +161,22 @@ made from a seed on the card:
     (an image at frame 0, a 17-frame video at frame 80), and the 0.9.7
     spatial latent upsampler on the request's latents (K4 17 a call);
     phases 10k and 10l run both families small, card against CPU, with
-    every LTX cache;
+    every LTX cache; phase 27 also runs the Qwen-Image ControlNet (5 blocks
+    by `from_transformer`, residual paths random) into one transformer call
+    at b=2 (K1 65);
+  * HunyuanVideo (phase 29): the 13 B transformer, llava-llama-3-8b's text
+    tower and CLIP-L, the causal 3-D VAE, through
+    `HunyuanVideoPipeline.__call__`: one 320 x 512 x 61 request of
+    HUNYUAN_STEPS steps (guidance 6.0 distilled: one batch-1 call a step
+    over 10,240 image + 256 text tokens; K1 62 a call: 60 joint attentions
+    under the key-padding bias and the token refiner's 2) with the decode
+    (K4 at every GroupNorm of the decoder; the mid block's frame-causal
+    attention at d = 512 runs `native`), and a TaylorSeer request; FramePack
+    (phase 30): its transformer in place of HunyuanVideo's, SigLIP so400m,
+    phase 29's tower, CLIP-L and VAE, one 832 x 480 image-to-video request
+    of 2 sections in each sampling order, at the joint attention length and
+    VAE spans that phases 3 and 4 check K1 and K4 at; phases 10m and 10n run both small,
+    card against CPU, with every HunyuanVideo cache and true CFG;
   * training: `train_text_to_image.main` on the SDXL UNet at its published
     widths, 1024 px, batch 1, TRAIN_STEPS steps (f32 weights and AdamW, bf16
     autocast; kernels K1 forward, K2 and K3 backward, K4), then a sharded
@@ -857,6 +872,73 @@ SMALL_LTX_T5 = dict(vocab_size=32128, d_model=64, d_kv=32, d_ff=128, num_layers=
                     feed_forward_proj="gated-gelu")
 SMALL_LTX_UPSAMPLER = dict(in_channels=16, mid_channels=64, num_blocks_per_stage=1, dims=3)
 
+# HunyuanVideo (phases 3, 4, 10m, 29): hunyuanvideo-community/HunyuanVideo's published widths, the port's defaults
+# (the JAX package's): the 13 B transformer (20 dual + 40 single blocks of 24 x 128 heads, 2 refiner layers, text
+# 4096, pooled 768, RoPE (16, 56, 56) at theta 256, distilled guidance), llava-llama-3-8b's text tower (32 layers,
+# 4096 / 14336, 32 / 8 heads, vocab 128320) read at hidden_states[-3], CLIP-L's pooled output, the causal 3-D VAE
+# (128, 256, 512, 512), flow-match shift 7.0; 320 x 512 x 61 frames (diffusers' HunyuanVideo docs): 16 x 20 x 32 =
+# 10,240 image tokens + 256 text tokens, guidance 6.0 distilled (one batch-1 call a step); HUNYUAN_STEPS of 30 with
+# the decode. The template's crop is the stand-in tokenizer's count of the template before the prompt
+HUNYUAN_VIDEO = dict()
+HUNYUAN_LLAMA = dict()
+HUNYUAN_VAE = dict()
+HUNYUAN_SHIFT = 7.0
+HUNYUAN_HEIGHT, HUNYUAN_WIDTH, HUNYUAN_FRAMES = 320, 512, 61
+HUNYUAN_STEPS = 4
+HUNYUAN_GUIDANCE = 6.0
+HUNYUAN_TEXT_LEN = 256
+HUNYUAN_PROMPT = "a cat walks on the grass, realistic style, soft morning light"
+HUNYUAN_TOKENS = 16 * 20 * 32
+HUNYUAN_JOINT_ATTENTION = (1, HUNYUAN_TOKENS + HUNYUAN_TEXT_LEN, 24, 128)  # image tokens first, then the text
+HUNYUAN_KEPT_TEXT = (12,)  # text tokens the prompt keeps of the 256 after the crop: the key-padding bias
+HUNYUAN_REFINER_ATTENTION = (1, HUNYUAN_TEXT_LEN, 24, 128)  # the token refiner under its 2-D mask
+HUNYUAN_LLAMA_VOCAB = 128320
+# K4 at the decode's largest spans (320 x 512 x 61, the split regime): the last up block's first norm over 256
+# channels (160 MB a group), its other five and `conv_norm_out` over 128 (80 MB a group)
+GN_HUNYUAN_VAE = (((1, 256, 61, 320, 512), True, 1), ((1, 128, 61, 320, 512), True, 6))
+HUNYUAN_TAYLORSEER = dict(cache_interval=2, disable_cache_before_step=1, max_order=1)
+# FramePack (phases 10n, 30): lllyasviel/FramePackI2V_HY's transformer (HunyuanVideo's widths, the 1,152-wide SigLIP
+# projection, the 1x / 2x / 4x history embedders) with google/siglip-so400m-patch14-384 as the image encoder at 384
+# px; 832 x 480 (104 x 60 latents: 1,560 tokens a latent frame), sections of FRAMEPACK_WINDOW latent frames (9
+# published: the second section's decode of 19 latent frames, 73 x 480 x 832, does not fit beside the 42 GB of
+# weights without tiling, which JAX does not do), 2 sections (num_frames 34) of FRAMEPACK_STEPS steps (25 published),
+# in both sampling orders
+FRAMEPACK = dict(has_image_proj=True, has_clean_x_embedder=True)
+FRAMEPACK_HEIGHT, FRAMEPACK_WIDTH = 480, 832
+FRAMEPACK_WINDOW = 5
+FRAMEPACK_FRAMES = 34
+FRAMEPACK_STEPS = 2
+FRAMEPACK_GUIDANCE = 10.0
+# K1 at FramePack's joint attention (phase 3; phase 30 holds its main path to this length): 30 x 52 tokens a latent
+# frame after the 2 x 2 patch, for the section's FRAMEPACK_WINDOW frames and the 2 clean frames, then the 2x
+# history's 1 frame at 15 x 26 and the 4x history's 4 frames at 8 x 13 (replicate-padded): 11,726 image tokens;
+# then 729 SigLIP tokens and the 256 text tokens: 12,711 = 99 x 128 + 39, a ragged last query tile, and the
+# key-padding bias hides the last 244 keys, the whole last key tile among them
+FRAMEPACK_TOKENS = (FRAMEPACK_WINDOW + 2) * 30 * 52 + 15 * 26 + 4 * 8 * 13
+FRAMEPACK_IMAGE_TOKENS = 729
+FRAMEPACK_JOINT_ATTENTION = (1, FRAMEPACK_TOKENS + FRAMEPACK_IMAGE_TOKENS + HUNYUAN_TEXT_LEN, 24, 128)
+# K4 at FramePack's largest spans (the split regime; phase 30 holds its decodes to them): the decode of the last
+# section's 11 latent frames in the inverted order (41 x 480 x 832: the last up block's first norm over 256
+# channels, 4.2 G elements, its other five and `conv_norm_out` over 128), and the image encode's first down block
+# (1 x 480 x 832, four norms)
+GN_FRAMEPACK_VAE = (((1, 256, 41, 480, 832), True, 1), ((1, 128, 41, 480, 832), True, 6),
+                    ((1, 128, 1, 480, 832), True, 4))
+# phases 10m, 10n: small HunyuanVideo and FramePack pipelines (head_dim 128: K1), card bf16 against CPU f32
+SMALL_HUNYUAN = dict(in_channels=16, out_channels=16, num_attention_heads=2, attention_head_dim=128, num_layers=1,
+                     num_single_layers=1, num_refiner_layers=1, text_embed_dim=64, pooled_projection_dim=32,
+                     rope_axes_dim=(16, 56, 56))
+SMALL_HUNYUAN_LLAMA = dict(vocab_size=HUNYUAN_LLAMA_VOCAB, hidden_size=64, intermediate_size=128,
+                           num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2)
+SMALL_HUNYUAN_CLIP = dict(vocab_size=49408, hidden_size=32, intermediate_size=64, num_hidden_layers=1,
+                          num_attention_heads=2, projection_dim=32)
+SMALL_HUNYUAN_VAE = dict(latent_channels=16, block_out_channels=(32, 32, 32, 32), layers_per_block=1,
+                         norm_num_groups=32)
+SMALL_FRAMEPACK_SIGLIP = dict(hidden_size=64, intermediate_size=128, num_hidden_layers=1, num_attention_heads=2,
+                              image_size=64, patch_size=16)
+# the Qwen-Image ControlNet (phase 27): InstantX/Qwen-Image-ControlNet-Union's depth (5 blocks) from the
+# transformer by `from_transformer`; its residuals enter one transformer call at b=2
+QWEN_CONTROLNET_LAYERS = 5
+
 RESULTS = {}
 
 
@@ -965,6 +1047,19 @@ def clip_image_processor():
 
     return transformers.CLIPImageProcessor(size={"shortest_edge": 224}, crop_size={"height": 224, "width": 224},
                                            image_mean=list(OPENAI_CLIP_MEAN), image_std=list(OPENAI_CLIP_STD))
+
+
+def group_slices(x, groups: int, limit: int = 2**28):
+    """(channel slice, its group count) pairs that cover x's channels in
+    whole groups, each of at most `limit` elements where a group allows it
+    (one slice for x up to `limit`): GroupNorm's plain version runs on them
+    one at a time, so that the f32 reference of a multi-GB span (FramePack's
+    decode) fits on the card beside the span."""
+    per = max(1, min(groups, groups * limit // x.numel()))
+    while groups % per:
+        per -= 1
+    width = x.shape[1] // groups * per
+    return [(slice(c, c + width), per) for c in range(0, x.shape[1], width)]
 
 
 def bf16_tol(ref) -> float:
@@ -1534,6 +1629,10 @@ def check_kernels():
          True),
         ("LTX cross 7392 x 128 d=64", LTX_SELF_ATTENTION, LTX_TEXT_LEN, {}, True),
         ("LTX cross 7392 x 128 d=64, -10000 bias", LTX_SELF_ATTENTION, LTX_TEXT_LEN, {"mask": "ltx"}, True),
+        # HunyuanVideo's token refiner over 256 text tokens under its 2-D keep-mask (a prompt of 12 kept tokens:
+        # the padded query rows keep key 0 alone); its joint attention is checked apart (check_k1_wan_self)
+        ("HunyuanVideo refiner 256 d=128, 2-D mask", HUNYUAN_REFINER_ATTENTION, HUNYUAN_TEXT_LEN,
+         {"mask": "hunyuan_refiner"}, True),
     ]
     k1_errs, k1_times = [], {}
     for label, qshape, sk, opt, timed in attn_cases:
@@ -1559,7 +1658,7 @@ def check_kernels():
             with torch.device("meta"):
                 sky = SkyReelsV2Transformer3DModel(num_attention_heads=2, num_layers=0, num_frame_per_block=2)
             mask = torch.from_numpy(sky.causal_mask(4, 8, 12).copy()).to(dev)
-        elif opt.get("mask") in ("qwen", "ltx"):
+        elif opt.get("mask") in ("qwen", "ltx", "hunyuan_refiner"):
             mask = key_padding_bias(opt["mask"], b, dev)
         elif opt.get("mask"):
             mask = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=dev) < 0.3, -1e4, 0.0)
@@ -1587,7 +1686,7 @@ def check_kernels():
         if timed:
             # under a mask: SDPA with the same keys as a bool keep-mask; the bound reads the mask once and counts
             # only the kept (query, key) pairs, since a hidden key's products add exactly 0
-            keep = None if mask is None else mask == 0
+            keep = None if mask is None else mask if mask.dtype == torch.bool else mask == 0
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
             def kernel():
@@ -1712,6 +1811,20 @@ def check_kernels():
                                      else "Wan self")
         cases.append(wan_self)
         k1_errs.append(wan_self["max_abs_err_vs_f32"])
+    # HunyuanVideo at 320 x 512 x 61: the joint attention over 10,240 image + 256 text tokens under the
+    # key-padding bias (the text keys past the prompt's 12 hidden: two 128-key tiles, the first in part)
+    hunyuan = check_k1_wan_self(randn, HUNYUAN_JOINT_ATTENTION, WAN_Q_CHUNK, 10, name="HunyuanVideo joint",
+                                mask=key_padding_bias("hunyuan", HUNYUAN_JOINT_ATTENTION[0], dev))
+    cases.append(hunyuan)
+    k1_errs.append(hunyuan["max_abs_err_vs_f32"])
+    RESULTS["k1_hunyuan_joint"] = hunyuan
+    # FramePack at 832 x 480: 11,726 image + 729 SigLIP + 256 text tokens under the key-padding bias, a ragged last
+    # query tile (39 rows, their LSE checked) and a last key tile the bias hides whole
+    framepack = check_k1_wan_self(randn, FRAMEPACK_JOINT_ATTENTION, WAN_Q_CHUNK, 10, name="FramePack joint",
+                                  mask=key_padding_bias("framepack", FRAMEPACK_JOINT_ATTENTION[0], dev))
+    cases.append(framepack)
+    k1_errs.append(framepack["max_abs_err_vs_f32"])
+    RESULTS["k1_framepack_joint"] = framepack
     RESULTS["kernel_cases"] = cases
     return {"flash_attention_fwd": (max(k1_errs + [lse_err]), k1_times["Flux joint 4608 d=128"])}
 
@@ -1759,37 +1872,57 @@ def check_k1_pag_mask(randn):
 
 
 def key_padding_bias(kind, batch, device):
-    """The f32 [batch, 1, 1, S] bias the model hands K1, built by the model's
-    own code from a text keep-mask whose row i keeps its first `kept[i]`
-    tokens: Qwen-Image's joint attention ("qwen": `-inf` on the padded
-    text keys of 1,024, then 4,096 open image keys) or LTX's cross
-    attention ("ltx": `-10000` on the padded keys of 128 T5 tokens)."""
+    """The mask the model hands K1, built by the model's own code from a text
+    keep-mask whose row i keeps its first `kept[i]` tokens: an f32 [batch,
+    1, 1, S] bias for Qwen-Image's joint attention ("qwen": `-inf` on the
+    padded text keys of 1,024, then 4,096 open image keys), LTX's cross
+    attention ("ltx": `-10000` on the padded keys of 128 T5 tokens),
+    HunyuanVideo's joint attention ("hunyuan": 10,240 open image keys, then
+    `-inf` on the padded text keys of 256) and FramePack's ("framepack":
+    11,726 open image keys and 729 open SigLIP keys, then the text keys as
+    HunyuanVideo's); the bool [batch, 1, 256, 256] keep-mask of
+    HunyuanVideo's token refiner ("hunyuan_refiner": kept query and key, or
+    key 0)."""
     import torch
 
+    from diffusers_tpu_torch.models.transformers.transformer_hunyuan_video import refiner_mask, validity_bias
     from diffusers_tpu_torch.models.transformers.transformer_ltx import cross_attention_bias
     from diffusers_tpu_torch.models.transformers.transformer_qwenimage import key_padding_bias as qwen_bias
 
-    kept, text = (QWEN_KEPT_TEXT, QWEN_TEXT_LEN) if kind == "qwen" else (LTX_KEPT_TEXT, LTX_TEXT_LEN)
+    kept, text = {"qwen": (QWEN_KEPT_TEXT, QWEN_TEXT_LEN), "ltx": (LTX_KEPT_TEXT, LTX_TEXT_LEN)}.get(
+        kind, (HUNYUAN_KEPT_TEXT, HUNYUAN_TEXT_LEN))
     lengths = torch.tensor([kept[i % len(kept)] for i in range(batch)], device=device)
     keep = (torch.arange(text, device=device)[None] < lengths[:, None]).long()
     if kind == "qwen":
         return qwen_bias(keep, QWEN_JOINT_ATTENTION[1] - QWEN_TEXT_LEN)
+    if kind == "hunyuan":
+        return validity_bias(keep, HUNYUAN_TOKENS)
+    if kind == "framepack":
+        siglip = torch.ones((batch, FRAMEPACK_IMAGE_TOKENS), dtype=keep.dtype, device=device)
+        return validity_bias(torch.cat([siglip, keep], dim=1), FRAMEPACK_TOKENS)
+    if kind == "hunyuan_refiner":
+        return refiner_mask(keep)
     return cross_attention_bias(keep)
 
 
-def check_k1_wan_self(randn, shape, chunk, iters=10, name="Wan self"):
-    """Phase 3, Wan's self attention: K1 at `shape` ((1, 32760, 12, 128) for
-    the 1.3B model, (1, 32760, 40, 128) for the 14B, (2, 32760, 12, 128) for
+def check_k1_wan_self(randn, shape, chunk, iters=10, name="Wan self", mask=None):
+    """Phase 3, long self attentions: K1 at `shape` ((1, 32760, 12, 128) for
+    Wan's 1.3B model, (1, 32760, 40, 128) for the 14B, (2, 32760, 12, 128) for
     VACE's CFG batch, (1, 51000, 40, 128) for SkyReels-V2 at 544 x 960 x 97,
     (1, 75600, 40, 128) for Animate at 720 x 1280; LTX-Video's (2, 7392, 32,
-    64) at 512 x 704 x 161 under `name` "LTX self"), bf16, held to
+    64) at 512 x 704 x 161 under `name` "LTX self"; HunyuanVideo's joint
+    attention (1, 10496, 24, 128) and FramePack's (1, 12711, 24, 128) under
+    their key-padding bias `mask`, an f32 [B, 1, 1, S] broadcast over the
+    queries), bf16, held to
     `attention_bounds` over every query row and every head, `chunk` query
     rows at a time (the plain version of the whole would hold an h x 32760²
-    f32 logit matrix, 51.5 GB at 12 heads); the ragged last q tile's 120 rows
-    and their LSE; controls that must break the bound (on the first chunk);
-    the kernel's time on events, its device time (CUDA graph), its bound,
-    SDPA's time, and the plain version's time computing the whole output
-    chunk by chunk."""
+    f32 logit matrix, 51.5 GB at 12 heads); a ragged last q tile's rows and
+    their LSE; controls that must break the bound (on the first chunk: a
+    64-key span of kept keys dropped, the last kv tile that holds a kept key
+    dropped, rows misscaled); the kernel's time on events, its device time
+    (CUDA graph), its bound (over the kept pairs), SDPA's time (a bool
+    keep-mask under a bias), and the plain version's time computing the
+    whole output chunk by chunk."""
     import torch
     import torch.nn.functional as F
 
@@ -1798,55 +1931,72 @@ def check_k1_wan_self(randn, shape, chunk, iters=10, name="Wan self"):
     b, sq, h, d = shape
     label = f"{name} {sq} x {h} heads d={d}" + (f", batch {b}" if b > 1 else "")
     q, k, v = randn(b, sq, h, d, scale=2.0), randn(b, sq, h, d), randn(b, sq, h, d)
-    out, lse = flash_attention_full(q, k, v, return_lse=True)
+    out, lse = flash_attention_full(q, k, v, attn_mask=mask, return_lse=True)
     torch.cuda.synchronize()
+
+    def cols(idx):  # the mask's columns of the kept keys `idx`
+        return None if mask is None else mask[..., idx]
+
     err32 = err16 = used32 = used16 = 0.0
     for start in range(0, sq, chunk):
         qs, o = q[:, start:start + chunk], out[:, start:start + chunk].float()
-        ref32, bound32, bound16 = attention_bounds(qs, k, v)
-        ref16 = flash_attention_plain(qs, k, v).float()
+        ref32, bound32, bound16 = attention_bounds(qs, k, v, attn_mask=mask)
+        ref16 = flash_attention_plain(qs, k, v, attn_mask=mask).float()
         err32, err16 = max(err32, float((o - ref32).abs().max())), max(err16, float((o - ref16).abs().max()))
         used32 = max(used32, float(((o - ref32).abs() / bound32).max()))
         used16 = max(used16, float(((o - ref16).abs() / bound16).max()))
         if start == 0:  # controls: outputs of a partly wrong kernel must break the bound
             drop = 16384 if sq > 16448 else sq // 2 // 64 * 64  # 64 keys from the middle
             keep = torch.cat([torch.arange(drop, device=q.device), torch.arange(drop + 64, sq, device=q.device)])
-            last = (sq - 1) // 128 * 128
+            kept = torch.arange(sq, device=q.device) if mask is None else (mask[0, 0, 0] == 0).nonzero()[:, 0]
+            last = int(kept[-1]) // 128 * 128  # the last kv tile that holds a kept key
+            no_last = torch.cat([torch.arange(last, device=q.device),
+                                 torch.arange(min(last + 128, sq), sq, device=q.device)])
             controls = {
-                "kv_tile_dropped": float(((flash_attention_full(qs, k[:, keep], v[:, keep]).float() - ref32).abs()
-                                          / bound32).max()),
-                "last_kv_tile_dropped": float(((flash_attention_full(qs, k[:, :last], v[:, :last]).float() - ref32)
+                "kv_tile_dropped": float(((flash_attention_full(qs, k[:, keep], v[:, keep], attn_mask=cols(keep))
+                                           .float() - ref32).abs() / bound32).max()),
+                "last_kv_tile_dropped": float(((flash_attention_full(qs, k[:, no_last], v[:, no_last],
+                                                                     attn_mask=cols(no_last)).float() - ref32)
                                                .abs() / bound32).max()),
                 "rows_misscaled": float(((o[:, ::64] * (1 + 2.0**-5) - ref32[:, ::64]).abs() / bound32[:, ::64]).max()),
             }
         del ref32, bound32, bound16, ref16
     tail = sq // 128 * 128
-    logits = torch.einsum("bqhd,bkhd->bhqk", q[:, tail:].float(), k.float()) / math.sqrt(d)
-    tail_err = float((lse[:, :, tail:] - torch.logsumexp(logits, dim=-1)).abs().max())
-    flops = 4.0 * b * h * sq * sq * d
-    bms, by = bound_ms(2 * 4 * q.numel(), flops, PEAK_BF16_FLOPS)
-    ms = (time_ms(lambda: flash_attention_full(q, k, v), iters=iters)
-          + time_ms(lambda: flash_attention_full(q, k, v), iters=iters)) / 2
-    plain_ms = time_ms(lambda: [flash_attention_plain(q[:, i:i + chunk], k, v)
+    tail_err = 0.0
+    if tail < sq:
+        logits = torch.einsum("bqhd,bkhd->bhqk", q[:, tail:].float(), k.float()) / math.sqrt(d)
+        if mask is not None:
+            logits = logits + mask.float()
+        tail_err = float((lse[:, :, tail:] - torch.logsumexp(logits, dim=-1)).abs().max())
+    keep_mask = None if mask is None else mask == 0
+    kept_share = 1.0 if mask is None else float(keep_mask.float().mean())
+    flops = 4.0 * b * h * sq * sq * d * kept_share
+    nbytes = 2 * 4 * q.numel() + (0 if mask is None else mask.numel() * mask.element_size())
+    bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    ms = (time_ms(lambda: flash_attention_full(q, k, v, attn_mask=mask), iters=iters)
+          + time_ms(lambda: flash_attention_full(q, k, v, attn_mask=mask), iters=iters)) / 2
+    plain_ms = time_ms(lambda: [flash_attention_plain(q[:, i:i + chunk], k, v, attn_mask=mask)
                                 for i in range(0, sq, chunk)], iters=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     row = {"kernel": "flash_attention_fwd", "case": label, "q": list(shape), "sk": sq,
            "dtype": "torch.bfloat16", "checked": f"every query row and head, {chunk} rows at a time",
+           "key_padding_bias": mask is not None, "kept_pair_share": kept_share,
            "max_abs_err_vs_f32": err32, "max_abs_err_vs_plain_same_dtype": err16,
            "max_share_of_bound_vs_f32": used32, "max_share_of_bound_vs_plain_same_dtype": used16,
            "ragged_tail_rows": sq - tail, "ragged_tail_lse_err": tail_err, "controls_share_of_bound": controls,
            "ms": ms, "plain_ms": plain_ms, "plain": f"chunked, {chunk} query rows a call",
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=iters),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep_mask), iters=iters),
            "bound_ms": bms, "bound_by": by, "tflops": flops / ms / 1e9, "share_of_time_bound": bms / ms,
-           "device_ms": graph_ms(lambda: flash_attention_full(q, k, v), iters=min(iters, 5)),
-           "library_device_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=min(iters, 5)),
-           "host_us_per_call": host_us(lambda: flash_attention_full(q, k, v), iters=min(iters, 5))}
-    log(f"[K1] {label} (every query row of every head, {chunk} rows at a time): err vs f32 "
-        f"{err32:.3e}, vs plain {err16:.3e}; share of the per-element bound {used32:.3f} / {used16:.3f}; ragged last q "
-        f"tile ({sq - tail} rows): LSE err {tail_err:.3e} (tol 1e-3); controls {controls}; kernel {ms:.3f} ms "
-        f"({row['tflops']:.1f} TFLOP/s, {100 * bms / ms:.1f}% of its bound), device {row['device_ms']:.3f} ms, SDPA "
-        f"{row['library_ms']:.3f} ms (device {row['library_device_ms']:.3f}), bound {bms:.3f} ms, plain (chunked) "
-        f"{plain_ms:.1f} ms")
+           "device_ms": graph_ms(lambda: flash_attention_full(q, k, v, attn_mask=mask), iters=min(iters, 5)),
+           "library_device_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep_mask),
+                                         iters=min(iters, 5)),
+           "host_us_per_call": host_us(lambda: flash_attention_full(q, k, v, attn_mask=mask), iters=min(iters, 5))}
+    log(f"[K1] {label}{' under its key-padding bias' if mask is not None else ''} (every query row of every head, "
+        f"{chunk} rows at a time): err vs f32 {err32:.3e}, vs plain {err16:.3e}; share of the per-element bound "
+        f"{used32:.3f} / {used16:.3f}; ragged last q tile ({sq - tail} rows): LSE err {tail_err:.3e} (tol 1e-3); "
+        f"controls {controls}; kernel {ms:.3f} ms ({row['tflops']:.1f} TFLOP/s, {100 * bms / ms:.1f}% of its bound), "
+        f"device {row['device_ms']:.3f} ms, SDPA {row['library_ms']:.3f} ms (device {row['library_device_ms']:.3f}), "
+        f"bound {bms:.3f} ms, plain (chunked) {plain_ms:.1f} ms")
     if not (used32 <= 1.0 and used16 <= 1.0 and tail_err <= 1e-3 and torch.isfinite(out).all()):
         raise AssertionError(f"flash_attention_fwd disagrees with its plain version at {label}")
     if min(controls.values()) <= 1.0:
@@ -1860,9 +2010,12 @@ def check_group_norm():
     VAE encoder's two shapes that the decoder lacks (`GN_VAE_ENCODE`), and at
     every GroupNorm of an SD 1.5 UNet call at 512 px and of a 512 px decode
     (`GN_SD15_UNET_CALL`, `GN_VAE_DECODE_512`: SD 1.5's, and each tile of a
-    tiled decode), bf16: one
-    bf16 ulp at the reference's largest magnitude against the f32 plain
-    version and the bf16 one, two launches bit-identical, one launch a call.
+    tiled decode), and at the largest spans of the LTX upsampler and of
+    HunyuanVideo's and FramePack's VAEs (`GN_LTX_UPSAMPLER`, `GN_HUNYUAN_VAE`,
+    `GN_FRAMEPACK_VAE`), bf16: one bf16 ulp at the reference's largest
+    magnitude against the f32 plain version and the bf16 one (on a span over
+    2^28 elements, a few groups at a time: `group_slices`), two launches
+    bit-identical, one launch a call.
     Controls (one case of each regime): a launch that leaves one partial out
     of the statistics, on inputs whose chunk of that partial is shifted by
     20, must break the limit. For each case: the plan, its shared memory,
@@ -1892,7 +2045,8 @@ def check_group_norm():
     encode_only = tuple(row for row in GN_VAE_ENCODE if row[:2] not in decoder_shapes)
     for where, table in (("UNet", GN_UNET_CALL), ("VAE", GN_VAE_DECODE), ("VAE encode", encode_only),
                          ("SD UNet", GN_SD15_UNET_CALL), ("VAE 512", GN_VAE_DECODE_512),
-                         ("LTX upsampler", GN_LTX_UPSAMPLER)):
+                         ("LTX upsampler", GN_LTX_UPSAMPLER), ("HunyuanVideo VAE", GN_HUNYUAN_VAE),
+                         ("FramePack VAE", GN_FRAMEPACK_VAE)):
         for shape, silu, launches in table:
             c = shape[1]
             x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.5).to(torch.bfloat16)
@@ -1905,12 +2059,17 @@ def check_group_norm():
             one_launch = group_norm.launches == before + 2
             identical = torch.equal(out, again)
             del again
-            ref32 = group_norm_plain(x.float(), w.float(), bias.float(), 32, 1e-6, apply_silu=silu)
-            ref16 = group_norm_plain(x, w, bias, 32, 1e-6, apply_silu=silu)
-            tol = bf16_tol(ref32)
-            err32 = float((out.float() - ref32).abs().max())
-            err16 = float((out.float() - ref16.float()).abs().max())
-            del ref16
+            slices = group_slices(x, 32)
+            err32 = err16 = tol = 0.0
+            for part, groups in slices:
+                ref32 = group_norm_plain(x[:, part].float(), w[part].float(), bias[part].float(), groups, 1e-6,
+                                         apply_silu=silu)
+                ref16 = group_norm_plain(x[:, part], w[part], bias[part], groups, 1e-6, apply_silu=silu)
+                o = out[:, part].float()
+                tol = max(tol, bf16_tol(ref32))
+                err32 = max(err32, float((o - ref32).abs().max()))
+                err16 = max(err16, float((o - ref16.float()).abs().max()))
+                del ref32, ref16, o
             plan = plan_group_norm(tuple(shape), torch.bfloat16, sms)
             name = f"{where} {tuple(shape)}{' +SiLU' if silu else ''}"
             ok = err32 <= tol and err16 <= tol and identical and one_launch and bool(torch.isfinite(out).all())
@@ -1930,18 +2089,26 @@ def check_group_norm():
                     bf16_tol(ref_shifted)
                 del shifted, broken, ref_shifted
                 ok = ok and row["control_dropped_partial_share_of_tol"] > 1.0
-            del ref32
             call = lambda: group_norm(x, w, bias, 32, 1e-6, apply_silu=silu)  # noqa: E731
+
+            def plain():
+                if len(slices) == 1:
+                    return group_norm_plain(x, w, bias, 32, 1e-6, apply_silu=silu)
+                buf = torch.empty_like(x)
+                for part, groups in slices:
+                    buf[:, part] = group_norm_plain(x[:, part], w[part], bias[part], groups, 1e-6, apply_silu=silu)
+                return buf
+
             library = ((lambda: F.silu(F.group_norm(x, 32, w, bias, 1e-6))) if silu
                        else (lambda: F.group_norm(x, 32, w, bias, 1e-6)))
-            ms, plain_ms = time_pair(call, lambda: group_norm_plain(x, w, bias, 32, 1e-6, apply_silu=silu), iters=10)
+            ms, plain_ms = time_pair(call, plain, iters=10)
             nbytes = 2 * x.numel() * x.element_size()
             bms, by = bound_ms(nbytes, 0, PEAK_BF16_FLOPS)
             device_ms = graph_ms(call)
             row.update(ms=ms, plain_ms=plain_ms, device_ms=device_ms, host_us_per_call=host_us(call),
                        library_ms=time_ms(library, iters=10), library_device_ms=graph_ms(library), bound_ms=bms,
                        bound_by=by, device_gbps_2x_bytes=nbytes / device_ms / 1e6,
-                       device_share_of_bound=bms / device_ms)
+                       device_share_of_bound=bms / device_ms, plain=f"{len(slices)} channel slice(s) a call")
             cases.append(row)
             max_err = max(max_err, err32)
             log(f"[K4] {name}: {'split' if plan.split else 'cluster'} x{plan.parts}, chunk "
@@ -2962,6 +3129,7 @@ def _module_launches(module):
     conv (any shape: their operands are padded)."""
     from diffusers_tpu_torch.models.attention import Attention
     from diffusers_tpu_torch.models.transformers.transformer_flux import FluxAttention
+    from diffusers_tpu_torch.models.transformers.transformer_hunyuan_video import HunyuanVideoAttention
     from diffusers_tpu_torch.models.transformers.transformer_ltx import LTXAttention
     from diffusers_tpu_torch.models.transformers.transformer_qwenimage import QwenDoubleStreamAttention
     from diffusers_tpu_torch.models.transformers.transformer_sd3 import JointAttention
@@ -2975,7 +3143,7 @@ def _module_launches(module):
     per_tensor = sum(isinstance(m, Int8PerTensorLinear) for m in mods) + sum(
         m.groups for m in mods if isinstance(m, Int8Conv2d))
     attentions = (Attention, FluxAttention, JointAttention, WanAttention, WanAnimateFaceBlockCrossAttention,
-                  QwenDoubleStreamAttention, LTXAttention)
+                  QwenDoubleStreamAttention, LTXAttention, HunyuanVideoAttention)
 
     def calls(m):  # a Wan image branch or a loaded IP-Adapter (one a nonzero scale) adds calls
         if isinstance(m, WanAttention):
@@ -8077,7 +8245,64 @@ def check_small_qwenimage(device: str = "cuda"):
                      _launches())
         if set(steps.batches) != {2} or per_call["flash_attention_fwd"] != SMALL_QWEN["num_layers"]:
             raise AssertionError(f"small Qwen-Image {label}: batches {steps.batches}, per call {per_call}")
+    nets = [qwen_controlnet(p.transformer, 1) for p in (cpu, card)]
+    outs = []
+    for pipe, net in zip((cpu, card), nets):
+        reset_launches()
+        outs.append(qwen_controlnet_call(pipe.transformer, net, 16, 16, pipe.transformer.device)[0].float().cpu())
+    ref, out = outs
+    err = float((out - ref).abs().max()) / float(ref.abs().max())
+    results["controlnet"] = {"max_abs_err_of_largest": err, "tol": tol, "launches": read_launches()}
+    log(f"[ref-qwen] small Qwen-Image ControlNet (1 block, residual paths random) into the transformer, card bf16 vs "
+        f"CPU f32: max |diff| {err:.3e} of the largest value (tol {tol}); launches {results['controlnet']['launches']}")
+    if not (torch.isfinite(out).all() and err <= tol
+            and read_launches() == _launches(flash_attention_fwd=1 + SMALL_QWEN["num_layers"])):
+        raise AssertionError("small Qwen-Image ControlNet: the card disagrees with the CPU")
     RESULTS["small_qwenimage"] = results
+
+
+def qwen_controlnet(transformer, num_layers):
+    """`QwenImageControlNetModel.from_transformer(transformer, num_layers)`
+    (its embedders and first blocks copied) with random residual projections
+    and condition embedder from SEED, where an untrained net has zeros."""
+    import torch
+
+    from diffusers_tpu_torch import QwenImageControlNetModel
+
+    c = transformer.config
+    net = QwenImageControlNetModel.from_transformer(transformer, num_layers=num_layers,
+                                                    attention_head_dim=c.attention_head_dim,
+                                                    num_attention_heads=c.num_attention_heads)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    with torch.no_grad():
+        for lin in (*net.controlnet_blocks, net.controlnet_x_embedder):
+            fan_in = lin.weight.shape[1]
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=gen) / fan_in ** 0.5)
+            lin.bias.copy_(0.01 * torch.randn(lin.bias.shape, generator=gen))
+    return net.eval()
+
+
+def qwen_controlnet_call(transformer, net, side, text_len, device, spans=None):
+    """(output, residuals) of one Qwen-Image transformer call at b=2 on a
+    `side` x `side` packed latent grid, with `net`'s residuals of a random
+    condition added by the interval rule; inputs drawn from SEED on the CPU,
+    the text kept to QWEN_KEPT_TEXT tokens of `text_len`."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    dtype = next(transformer.parameters()).dtype
+    c = transformer.config
+    x, cond = (torch.randn((2, side * side, c.in_channels), generator=gen).to(device, dtype) for _ in range(2))
+    text = torch.randn((2, text_len, c.joint_attention_dim), generator=gen).to(device, dtype)
+    lengths = torch.tensor([min(k, text_len) for k in QWEN_KEPT_TEXT])
+    mask = (torch.arange(text_len)[None] < lengths[:, None]).long().to(device)
+    t = torch.tensor([0.9, 0.4], device=device, dtype=dtype)
+    shapes = [(1, side, side)]  # one image a sample
+    with torch.no_grad(), spans or contextlib.nullcontext():
+        samples = net(x, cond, conditioning_scale=0.8, encoder_hidden_states=text, encoder_hidden_states_mask=mask,
+                      timestep=t, img_shapes=shapes).controlnet_block_samples
+        out = transformer(x, text, mask, t, img_shapes=shapes, controlnet_block_samples=samples).sample
+    return out, samples
 
 
 def run_qwenimage(smi: str):
@@ -8140,6 +8365,25 @@ def run_qwenimage(smi: str):
             f"{max(ms['transformer']):.1f}), text encodes {[round(t, 1) for t in ms['text_encoder']]} ms, VAE encode "
             f"{[round(t, 1) for t in ms['vae_encode']]} ms, decode {[round(t, 1) for t in ms['vae_decode']]} ms, peak "
             f"memory {peak_gb:.1f} GB; launches {row['launches']}")
+    net = qwen_controlnet(pipe.transformer, QWEN_CONTROLNET_LAYERS)
+    reset_launches()
+    spans = CudaSpans({"controlnet": net, "transformer": pipe.transformer})
+    (out, samples), seconds, peak_gb = _request_seconds(lambda: qwen_controlnet_call(
+        pipe.transformer, net, RESOLUTION // 16, QWEN_TEXT_LEN, "cuda", spans))
+    ms = spans.ms()
+    launches = read_launches()
+    if not (launches == _launches(flash_attention_fwd=QWEN_CONTROLNET_LAYERS + 60) and len(samples) ==
+            QWEN_CONTROLNET_LAYERS and bool(torch.isfinite(out).all()) and tuple(out.shape) == (2, 4096, 64)):
+        raise AssertionError(f"qwen controlnet: launches {launches}, {len(samples)} residuals, output {out.shape}")
+    results["controlnet"] = {"layers": QWEN_CONTROLNET_LAYERS, "parameters": sum(p.numel() for p in net.parameters()),
+                             "controlnet_ms": ms["controlnet"], "transformer_ms": ms["transformer"],
+                             "seconds": seconds, "peak_memory_gb": peak_gb, "launches": launches}
+    paths["qwenimage_controlnet"] = launches
+    log(f"[qwen] {smi}: ControlNet ({QWEN_CONTROLNET_LAYERS} blocks from the transformer, "
+        f"{results['controlnet']['parameters'] / 1e9:.3f} B) at b=2 over 1,024 + 4,096 tokens "
+        f"{ms['controlnet'][0]:.1f} ms, then the transformer with its residuals {ms['transformer'][0]:.1f} ms (CUDA "
+        f"events), peak memory {peak_gb:.1f} GB; launches {launches}")
+    del net, samples, out
     RESULTS["qwenimage"] = {"card": smi, "steps": QWEN_STEPS, "edit_steps": QWEN_EDIT_STEPS, "strength": QWEN_STRENGTH,
                             "resolution": RESOLUTION, "true_cfg_scale": QWEN_TRUE_CFG, "text_tokens": QWEN_TEXT_LEN,
                             "build_seconds": build_s, "parameters": n_params, "resident_gb": resident_gb,
@@ -8449,6 +8693,397 @@ def run_ltx(smi: str):
     return paths
 
 
+class WordTokenizer:
+    """Deterministic word-level stand-in for HunyuanVideo's Llama-3
+    tokenizer (no vocabulary in the repository): BOS, one id a
+    whitespace-separated word from a CRC of it, EOS; padded with 0 to
+    `max_length` (a row longer than it kept whole with `truncation=False`),
+    with the attention mask."""
+
+    def __init__(self, vocab_size: int = HUNYUAN_LLAMA_VOCAB, bos: int = 128000, eos: int = 128009):
+        self.vocab_size, self.bos, self.eos = vocab_size, bos, eos
+
+    def ids(self, text: str):
+        return [self.bos] + [zlib.crc32(w.encode("utf-8")) % 120000 + 10 for w in text.split()] + [self.eos]
+
+    def __call__(self, texts, padding=None, max_length=256, truncation=True, return_tensors="np"):
+        import numpy as np
+
+        class Out:
+            pass
+
+        rows = [self.ids(t) for t in ([texts] if isinstance(texts, str) else texts)]
+        width = max_length if truncation else max(max_length, *map(len, rows))
+        out = Out()
+        out.input_ids = np.array([(r + [0] * width)[:width] for r in rows], dtype=np.int64)
+        out.attention_mask = (out.input_ids != 0).astype(np.int64)
+        return out
+
+
+def hunyuan_template():
+    """HunyuanVideo's Llama template with the crop the stand-in tokenizer
+    gives it: BOS and the template's words before the prompt (the real
+    tokenizer's 95)."""
+    from diffusers_tpu_torch.pipelines.hunyuan_video import DEFAULT_PROMPT_TEMPLATE
+
+    prefix = DEFAULT_PROMPT_TEMPLATE["template"].split("{}")[0]
+    return dict(DEFAULT_PROMPT_TEMPLATE, crop_start=len(WordTokenizer().ids(prefix)) - 1)
+
+
+class SiglipResize:
+    """Stand-in for SigLIP's image processor on the card's machine: NCHW
+    images in [0, 1] resized (bilinear) to `size` and mapped to [-1, 1]."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def __call__(self, images, return_tensors="np", do_rescale=False):
+        import torch
+        import torch.nn.functional as F
+
+        x = torch.as_tensor(images, dtype=torch.float32)
+        x = F.interpolate(x, size=(self.size, self.size), mode="bilinear", align_corners=False)
+        return {"pixel_values": (x * 2.0 - 1.0).numpy()}
+
+
+def _build_hunyuan_pipeline(transformer_cfg, llama_cfg, clip_cfg, vae_cfg, device, dtype):
+    """A HunyuanVideoPipeline with random weights from SEED: the Llama tower
+    and the transformer through `_wan_random_model`, CLIP-L and the VAE
+    built in float32 then cast."""
+    import torch
+
+    from diffusers_tpu_torch import (AutoencoderKLHunyuanVideo, FlowMatchEulerDiscreteScheduler, HunyuanVideoPipeline,
+                                     HunyuanVideoTransformer3DModel, LlamaModel)
+    from diffusers_tpu_torch.models.text_encoders.clip import CLIPTextModel
+
+    text_encoder = _wan_random_model(LlamaModel, llama_cfg, device, dtype, SEED)
+    transformer = _wan_random_model(HunyuanVideoTransformer3DModel, transformer_cfg, device, dtype, SEED + 1)
+    torch.manual_seed(SEED + 2)
+    with torch.device(device):
+        text_encoder_2 = CLIPTextModel(**clip_cfg).to(dtype).eval()
+        vae = AutoencoderKLHunyuanVideo(**vae_cfg).to(dtype).eval()
+    kwargs = {} if device == "cuda" else {"device": device}
+    return HunyuanVideoPipeline(text_encoder=text_encoder, tokenizer=WordTokenizer(), transformer=transformer, vae=vae,
+                                scheduler=FlowMatchEulerDiscreteScheduler(shift=HUNYUAN_SHIFT),
+                                text_encoder_2=text_encoder_2, tokenizer_2=StandInTokenizer(), **kwargs)
+
+
+def _framepack_from(base, transformer_cfg, siglip_cfg, device, dtype, image_size):
+    """A HunyuanVideoFramepackPipeline on `base`'s Llama tower, CLIP-L, VAE
+    and scheduler, with a FramePack transformer of `transformer_cfg` and a
+    SigLIP of `siglip_cfg`, random from SEED."""
+    from diffusers_tpu_torch import HunyuanVideoFramepackPipeline, HunyuanVideoFramepackTransformer3DModel
+    from diffusers_tpu_torch.models.text_encoders.siglip import SiglipVisionModel
+
+    cfg = dict(transformer_cfg, **FRAMEPACK, image_proj_dim=siglip_cfg["hidden_size"])  # 1,152: so400m's width
+    transformer = _wan_random_model(HunyuanVideoFramepackTransformer3DModel, cfg, device, dtype, SEED + 3)
+    siglip = _wan_random_model(SiglipVisionModel, siglip_cfg, device, dtype, SEED + 4)
+    parts = {k: v for k, v in base.components.items() if k != "transformer"}
+    kwargs = {} if device == "cuda" else {"device": device}
+    return HunyuanVideoFramepackPipeline(transformer=transformer, image_encoder=siglip,
+                                         feature_extractor=SiglipResize(image_size), **{**parts, **kwargs})
+
+
+def hunyuan_step_launches(config, pipe, n_steps):
+    """The launches expected at each denoise step of a HunyuanVideo request
+    (one call a step, two under true CFG): the module counts, or nothing on a
+    step TaylorSeer or MagCache predicts; under TextKV the refiner's first
+    attention runs once a request, before the first step."""
+    from diffusers_tpu_torch.hooks import MagCacheConfig, TaylorSeerCacheConfig, TextKVCacheConfig
+    from diffusers_tpu_torch.hooks import mag_cache_compute_mask, taylorseer_compute_mask
+
+    full, none = _module_launches(pipe.transformer), _launches()
+    if isinstance(config, TaylorSeerCacheConfig):
+        return [full if c else none for c in taylorseer_compute_mask(n_steps, config)]
+    if isinstance(config, MagCacheConfig):
+        return [full if c else none for c in mag_cache_compute_mask(config)]
+    if isinstance(config, TextKVCacheConfig):
+        cached = dict(full, flash_attention_fwd=full["flash_attention_fwd"] - 1)
+        return [full] + [cached] * (n_steps - 1)
+    return [full] * n_steps
+
+
+def small_hunyuan_cases():
+    """Phase 10m's text-to-video cases: (label, cache config or None, extra call arguments)."""
+    from diffusers_tpu_torch.hooks import MagCacheConfig, TaylorSeerCacheConfig, TextKVCacheConfig
+
+    n = SMALL_CACHE_STEPS
+    return (
+        ("dense", None, {}),
+        ("true_cfg", None, dict(negative_prompt="blurry, low quality", true_cfg_scale=3.0)),
+        ("taylorseer", TaylorSeerCacheConfig(cache_interval=3, disable_cache_before_step=2, max_order=2), {}),
+        ("mag_cache", MagCacheConfig(threshold=0.5, max_skip_steps=1, retention_ratio=0.25, num_inference_steps=n,
+                                     mag_ratios=(1.0,) * n), {}),
+        ("text_kv", TextKVCacheConfig(), {}),
+    )
+
+
+def check_small_hunyuan_video(device: str = "cuda"):
+    """Phases 10m and 10n: small HunyuanVideo and FramePack pipelines
+    (SMALL_HUNYUAN: head_dim 128, a 3-layer Llama, a 1-layer CLIP, a VAE of
+    widths 32; 9 frames of 64 x 64) on the card (bf16, K1, K4) against the
+    CPU (f32, plain versions; held to JAX by
+    tests/test_torch_pipeline_hunyuan_video.py and test_torch_framepack.py):
+    text-to-video dense, under true CFG and with TaylorSeer, MagCache and
+    TextKV, each step's launches held to the schedule
+    (`hunyuan_step_launches`) and the decode's to the decoder's GroupNorms;
+    then FramePack image-to-video over two sections in both sampling orders
+    (a 64 px SigLIP), each section's calls held to the module counts. Phase
+    7's tolerance on the [0, 1] frames. Both sides draw from one CPU
+    generator seeded alike."""
+    import numpy as np
+    import torch
+
+    sides = [_build_hunyuan_pipeline(SMALL_HUNYUAN, SMALL_HUNYUAN_LLAMA, SMALL_HUNYUAN_CLIP, SMALL_HUNYUAN_VAE, "cpu",
+                                     torch.float32) for _ in range(2)]
+    packs = [_framepack_from(p, SMALL_HUNYUAN, SMALL_FRAMEPACK_SIGLIP, "cpu", torch.float32, 64) for p in sides]
+    for pipe in (sides[1], packs[1]):
+        pipe.to(device=torch.device(device), dtype=torch.bfloat16)
+    tol = 0.05
+    template = hunyuan_template()
+    call = dict(height=64, width=64, num_frames=9, guidance_scale=HUNYUAN_GUIDANCE, max_sequence_length=32,
+                prompt_template=template)
+    decode = _module_launches(sides[1].vae.decoder)
+    results = {}
+
+    def compare(label, outs, shape):
+        ref, out = (np.asarray(o, np.float32) for o in outs)
+        err = float(np.abs(out - ref).max())
+        results[label] = dict(results.get(label, {}), max_abs_err=err, tol=tol, launches=read_launches())
+        log(f"[ref-hunyuan] small {label}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol {tol}); launches "
+            f"{results[label]['launches']}")
+        if not (out.shape == ref.shape == shape and np.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"small {label}: the card disagrees with the CPU ({out.shape}, {err})")
+
+    for label, config, extra in small_hunyuan_cases():
+        outs = []
+        for pipe in sides:
+            if config is not None:
+                pipe.enable_cache(config)
+            reset_launches()
+            try:
+                with StepLaunches(pipe, pipe.transformer) as steps:
+                    outs.append(pipe(HUNYUAN_PROMPT, num_inference_steps=SMALL_CACHE_STEPS,
+                                     generator=torch.Generator().manual_seed(SEED), **call, **extra).frames)
+            finally:
+                pipe.disable_cache()
+        compare(f"HunyuanVideo {label}", outs, (1, 9, 64, 64, 3))
+        expected = hunyuan_step_launches(config, pipe, SMALL_CACHE_STEPS)
+        if label == "true_cfg":
+            expected = [{k: 2 * v for k, v in e.items()} for e in expected]
+        _check_steps(f"small HunyuanVideo {label}", steps.per_step, expected, steps.after, decode)
+        results[f"HunyuanVideo {label}"]["transformer_batches"] = steps.batches
+
+    image = synthetic_video(1, 64, 64)[0]
+    per_call = _module_launches(packs[1].transformer)
+    for order in ("inverted_anti_drifting", "vanilla"):
+        outs = []
+        for pipe in packs:
+            reset_launches()
+            with StepLaunches(pipe, pipe.transformer) as steps:
+                outs.append(pipe(image=image, prompt=HUNYUAN_PROMPT, latent_window_size=2, num_inference_steps=3,
+                                 sampling_type=order, generator=torch.Generator().manual_seed(SEED),
+                                 **dict(call, num_frames=10)).frames)
+        label = f"FramePack {order}"
+        compare(label, outs, outs[0].shape)
+        if outs[0].shape[1] < 10 or steps.batches != [1] * 6:
+            raise AssertionError(f"small {label}: frames {outs[0].shape}, batches {steps.batches}")
+        # each step one call; the VAE's image encode (before the first step) and the first section's decode
+        # (before the second section's first step) add the VAE's GroupNorms
+        calls = [dict(per_call) for _ in steps.per_step]
+        for i in (0, 3):
+            calls[i]["group_norm"] = steps.per_step[i]["group_norm"]
+        _check_steps(f"small {label}", steps.per_step, calls, steps.after, decode)
+        if not (steps.per_step[0]["group_norm"] == _module_launches(pipe.vae.encoder)["group_norm"]
+                and steps.per_step[3]["group_norm"] == decode["group_norm"]):
+            raise AssertionError(f"small {label}: the VAE's launches {steps.per_step[0]}, {steps.per_step[3]}")
+    RESULTS["small_hunyuan_video"] = results
+
+
+def run_hunyuan_video(smi: str):
+    """Phase 29: HunyuanVideo at its published widths (HUNYUAN_VIDEO: the
+    13 B transformer; HUNYUAN_LLAMA: the 8 B llava-llama-3 text tower;
+    CLIP-L; HUNYUAN_VAE; random bf16 weights from SEED made on the card):
+    one 320 x 512 x 61 text-to-video request through
+    `HunyuanVideoPipeline.__call__` (guidance 6.0 distilled: one batch-1 call
+    a step over 10,240 image + 256 text tokens, HUNYUAN_STEPS steps) with
+    the decode, then one TaylorSeer request (latents) held to its schedule.
+    Recorded: each transformer call, the Llama and CLIP encodes and the
+    decode on CUDA events, seconds a request, peak memory; every step's
+    launches held to the module counts (K1 62 a call: 60 joint attentions
+    under the key-padding bias and the refiner's 2), the decode's to the
+    decoder's GroupNorms (K4; its d = 512 attention runs `native`). Returns
+    (the paths' launches, the pipeline)."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.hooks import TaylorSeerCacheConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = _build_hunyuan_pipeline(HUNYUAN_VIDEO, HUNYUAN_LLAMA, CLIP_L, HUNYUAN_VAE, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = {name: sum(p.numel() for p in getattr(pipe, name).parameters())
+                for name in ("transformer", "text_encoder", "text_encoder_2", "vae")}
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    template = hunyuan_template()
+    log(f"[hunyuan] built HunyuanVideo at full width on the card in {build_s:.1f} s: parameters "
+        f"{ {k: f'{v / 1e9:.3f} B' for k, v in n_params.items()} }, bf16, {resident_gb:.1f} GB resident; the stand-in "
+        f"tokenizer's template crop {template['crop_start']} (the real tokenizer's 95)")
+    per_call = _module_launches(pipe.transformer)
+    decode = _module_launches(pipe.vae.decoder)
+    if per_call["flash_attention_fwd"] != 62 or decode["flash_attention_fwd"] != 0:
+        raise AssertionError(f"HunyuanVideo counts {per_call} launches a call and {decode} a decode, expected K1 62")
+    _, _, mask = pipe.encode_prompt(HUNYUAN_PROMPT, prompt_template=template, max_sequence_length=HUNYUAN_TEXT_LEN)
+    if int(mask.sum()) != HUNYUAN_KEPT_TEXT[0]:
+        raise AssertionError(f"the prompt keeps {int(mask.sum())} text tokens, phase 3 checked {HUNYUAN_KEPT_TEXT}")
+    common = dict(prompt=HUNYUAN_PROMPT, height=HUNYUAN_HEIGHT, width=HUNYUAN_WIDTH, num_frames=HUNYUAN_FRAMES,
+                  num_inference_steps=HUNYUAN_STEPS, guidance_scale=HUNYUAN_GUIDANCE,
+                  max_sequence_length=HUNYUAN_TEXT_LEN, prompt_template=template)
+    requests = (("text2video", None, dict(output_type="np")),
+                ("taylorseer", TaylorSeerCacheConfig(**HUNYUAN_TAYLORSEER), dict(output_type="latent")))
+    results, paths = {}, {}
+    for label, config, kwargs in requests:
+        if config is not None:
+            pipe.enable_cache(config)
+        reset_launches()
+        spans = CudaSpans({"transformer": pipe.transformer, "text_encoder": pipe.text_encoder,
+                           "text_encoder_2": pipe.text_encoder_2}, {"vae_decode": (pipe.vae, "decode")})
+        try:
+            with StepLaunches(pipe, pipe.transformer) as steps, spans:
+                out, seconds, peak_gb = _request_seconds(lambda: pipe(
+                    generator=torch.Generator(device="cuda").manual_seed(SEED), **common, **kwargs).frames)
+        finally:
+            pipe.disable_cache()
+        ms = spans.ms()
+        expected = hunyuan_step_launches(config, pipe, HUNYUAN_STEPS)
+        _check_steps(f"hunyuan {label}", steps.per_step, expected, steps.after,
+                     decode if kwargs["output_type"] == "np" else _launches())
+        shape = ((1, HUNYUAN_FRAMES, HUNYUAN_HEIGHT, HUNYUAN_WIDTH, 3) if kwargs["output_type"] == "np"
+                 else (1, 16, 16, HUNYUAN_HEIGHT // 8, HUNYUAN_WIDTH // 8))
+        finite = bool(np.isfinite(out).all()) if isinstance(out, np.ndarray) else bool(torch.isfinite(out).all())
+        calls = sum(e["flash_attention_fwd"] > 0 for e in expected)
+        if not (tuple(out.shape) == shape and finite and steps.batches == [1] * calls):
+            raise AssertionError(f"hunyuan {label}: output {tuple(out.shape)}, batches {steps.batches}")
+        row = {"seconds_per_video": seconds, "peak_memory_gb": peak_gb, "launches": read_launches(),
+               "transformer_calls": len(ms["transformer"]), "transformer_ms_per_call": ms["transformer"],
+               "transformer_ms_mean": float(np.mean(ms["transformer"])), "llama_encode_ms": ms["text_encoder"],
+               "clip_encode_ms": ms["text_encoder_2"], "vae_decode_ms": ms["vae_decode"],
+               "tokens": HUNYUAN_JOINT_ATTENTION[1], "per_step_launches": steps.per_step}
+        results[label] = row
+        paths[f"hunyuan_video_{label}"] = row["launches"]
+        log(f"[hunyuan] {smi}: {label}: {seconds:.2f} s a request ({HUNYUAN_FRAMES} x {HUNYUAN_HEIGHT} x "
+            f"{HUNYUAN_WIDTH}, {HUNYUAN_STEPS} steps, {row['tokens']} tokens), {row['transformer_calls']} transformer "
+            f"calls of {row['transformer_ms_mean']:.1f} ms (CUDA events; min {min(ms['transformer']):.1f}, max "
+            f"{max(ms['transformer']):.1f}), Llama encode {[round(t, 1) for t in ms['text_encoder']]} ms, CLIP "
+            f"{[round(t, 1) for t in ms['text_encoder_2']]} ms, decode {[round(t, 1) for t in ms['vae_decode']]} ms, "
+            f"peak memory {peak_gb:.1f} GB; launches {row['launches']}")
+    RESULTS["hunyuan_video"] = {"card": smi, "steps": HUNYUAN_STEPS, "frames": HUNYUAN_FRAMES, "height": HUNYUAN_HEIGHT,
+                                "width": HUNYUAN_WIDTH, "guidance_scale": HUNYUAN_GUIDANCE,
+                                "text_tokens": HUNYUAN_TEXT_LEN, "build_seconds": build_s, "parameters": n_params,
+                                "resident_gb": resident_gb, "k1_per_call": per_call["flash_attention_fwd"],
+                                "k4_per_decode": decode["group_norm"], **results}
+    return paths, pipe
+
+
+def run_framepack(smi: str, base):
+    """Phase 30: FramePack at its published widths (HunyuanVideo's plus
+    FRAMEPACK's SigLIP projection and history embedders; SigLIP so400m at 384
+    px; random bf16 weights from SEED) on phase 29's Llama tower, CLIP-L and
+    VAE: one 832 x 480 image-to-video request through
+    `HunyuanVideoFramepackPipeline.__call__`, 2 sections of FRAMEPACK_WINDOW
+    latent frames and FRAMEPACK_STEPS steps, in each sampling order.
+    Recorded: each transformer call, the SigLIP, Llama and CLIP encodes, the
+    VAE encode and each section's decode on CUDA events, seconds a request,
+    peak memory; every step's K1 held to the module counts (62 a call), the
+    VAE's K4 to its encoder's and decoder's GroupNorms; the joint attention's
+    length and the VAE's largest GroupNorm spans held to the shapes phases 3
+    and 4 check K1 and K4 at. Returns the paths' launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    base.transformer = None  # the text-to-video transformer makes room for FramePack's
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = _framepack_from(base, HUNYUAN_VIDEO, SIGLIP_SO400M, "cuda", torch.bfloat16, SIGLIP_SO400M["image_size"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = {name: sum(p.numel() for p in getattr(pipe, name).parameters())
+                for name in ("transformer", "image_encoder")}
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"[framepack] built FramePack's transformer and SigLIP on the card in {build_s:.1f} s: parameters "
+        f"{ {k: f'{v / 1e9:.3f} B' for k, v in n_params.items()} }, {resident_gb:.1f} GB resident with phase 29's "
+        f"tower, CLIP-L and VAE")
+    per_call = _module_launches(pipe.transformer)
+    encode, decode = _module_launches(pipe.vae.encoder), _module_launches(pipe.vae.decoder)
+    if per_call["flash_attention_fwd"] != 62:
+        raise AssertionError(f"the FramePack transformer counts {per_call} launches a call, expected K1 62")
+    image = synthetic_video(1, FRAMEPACK_HEIGHT, FRAMEPACK_WIDTH)[0]
+    # the joint attention's length and the VAE's GroupNorm spans that phases 3 and 4 check K1 and K4 at
+    seen = {"joint": set(), "decode": set(), "encode": set()}
+    hooks = [module.register_forward_pre_hook(lambda _, args, key=key, fn=fn: seen[key].add(fn(args)))
+             for key, module, fn in (
+                 ("joint", pipe.transformer.transformer_blocks[0], lambda a: a[0].shape[1] + a[1].shape[1]),
+                 ("decode", pipe.vae.decoder.conv_norm_out, lambda a: tuple(a[0].shape)),
+                 ("encode", pipe.vae.encoder.down_blocks[0].resnets[0].norm1, lambda a: tuple(a[0].shape)))]
+    results, paths = {}, {}
+    for order in ("inverted_anti_drifting", "vanilla"):
+        reset_launches()
+        spans = CudaSpans({"transformer": pipe.transformer, "text_encoder": pipe.text_encoder,
+                           "text_encoder_2": pipe.text_encoder_2, "image_encoder": pipe.image_encoder},
+                          {"vae_decode": (pipe.vae, "decode"), "vae_encode": (pipe.vae, "encode")})
+        with StepLaunches(pipe, pipe.transformer) as steps, spans:
+            out, seconds, peak_gb = _request_seconds(lambda: pipe(
+                image=image, prompt=HUNYUAN_PROMPT, height=FRAMEPACK_HEIGHT, width=FRAMEPACK_WIDTH,
+                num_frames=FRAMEPACK_FRAMES, latent_window_size=FRAMEPACK_WINDOW,
+                num_inference_steps=FRAMEPACK_STEPS, guidance_scale=FRAMEPACK_GUIDANCE,
+                max_sequence_length=HUNYUAN_TEXT_LEN, prompt_template=hunyuan_template(), sampling_type=order,
+                generator=torch.Generator(device="cuda").manual_seed(SEED)).frames)
+        ms = spans.ms()
+        n = 2 * FRAMEPACK_STEPS
+        calls = [dict(per_call) for _ in range(n)]
+        calls[0]["group_norm"] += encode["group_norm"]  # the image's encode comes before the first step
+        calls[FRAMEPACK_STEPS]["group_norm"] += decode["group_norm"]  # the first section's decode
+        _check_steps(f"framepack {order}", steps.per_step, calls, steps.after, decode)
+        if not (out.ndim == 5 and out.shape[1] >= FRAMEPACK_FRAMES and out.shape[2:] == (FRAMEPACK_HEIGHT,
+                FRAMEPACK_WIDTH, 3) and np.isfinite(out).all() and steps.batches == [1] * n):
+            raise AssertionError(f"framepack {order}: frames {out.shape}, batches {steps.batches}")
+        row = {"seconds_per_video": seconds, "peak_memory_gb": peak_gb, "launches": read_launches(),
+               "frames": out.shape[1], "transformer_calls": len(ms["transformer"]),
+               "transformer_ms_per_call": ms["transformer"], "transformer_ms_mean": float(np.mean(ms["transformer"])),
+               "siglip_encode_ms": ms["image_encoder"], "llama_encode_ms": ms["text_encoder"],
+               "clip_encode_ms": ms["text_encoder_2"], "vae_encode_ms": ms["vae_encode"],
+               "vae_decode_ms": ms["vae_decode"]}
+        results[order] = row
+        paths[f"framepack_{order}"] = row["launches"]
+        log(f"[framepack] {smi}: {order}: {seconds:.2f} s a request ({out.shape[1]} frames of {FRAMEPACK_HEIGHT} x "
+            f"{FRAMEPACK_WIDTH}, 2 sections of {FRAMEPACK_STEPS} steps), {row['transformer_calls']} transformer calls "
+            f"of {row['transformer_ms_mean']:.1f} ms (CUDA events; {[round(t, 1) for t in ms['transformer']]}), "
+            f"SigLIP {[round(t, 1) for t in ms['image_encoder']]} ms, Llama {[round(t, 1) for t in ms['text_encoder']]}"
+            f" ms, VAE encode {[round(t, 1) for t in ms['vae_encode']]} ms, decodes "
+            f"{[round(t, 1) for t in ms['vae_decode']]} ms, peak memory {peak_gb:.1f} GB; launches {row['launches']}")
+    for hook in hooks:
+        hook.remove()
+    largest = max(seen["decode"], key=math.prod)
+    if (seen["joint"] != {FRAMEPACK_JOINT_ATTENTION[1]} or largest != GN_FRAMEPACK_VAE[1][0]
+            or seen["encode"] != {GN_FRAMEPACK_VAE[2][0]}):
+        raise AssertionError(f"framepack: joint lengths {seen['joint']}, decode spans {seen['decode']}, encode spans "
+                             f"{seen['encode']}: not the shapes phases 3 and 4 check")
+    RESULTS["framepack"] = {"card": smi, "steps": FRAMEPACK_STEPS, "window": FRAMEPACK_WINDOW,
+                            "num_frames": FRAMEPACK_FRAMES, "height": FRAMEPACK_HEIGHT, "width": FRAMEPACK_WIDTH,
+                            "build_seconds": build_s, "parameters": n_params, "resident_gb": resident_gb,
+                            "k1_per_call": per_call["flash_attention_fwd"], **results}
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
 def timed(fn, *args):
     """`fn(*args)`, its wall time logged and kept in RESULTS["phase_seconds"]
     under the function's name."""
@@ -8497,6 +9132,7 @@ def main() -> int:
     timed(check_small_guidance)
     timed(check_small_qwenimage)
     timed(check_small_ltx)
+    timed(check_small_hunyuan_video)
     sdxl, pipe, image = timed(run_pipeline, smi)
     paths = {"sdxl": sdxl, **timed(run_sdxl_cached, smi, pipe, image)}
     image_paths, controlnet = timed(run_image_pipelines, smi, pipe)
@@ -8564,6 +9200,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(timed(run_qwenimage, smi))
     paths.update(timed(run_ltx, smi))
+    hunyuan_paths, pipe = timed(run_hunyuan_video, smi)
+    paths.update(hunyuan_paths)
+    paths.update(timed(run_framepack, smi, pipe))
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
     paths["training"] = timed(run_training, smi)
     RESULTS["launches_by_path"] = paths
 

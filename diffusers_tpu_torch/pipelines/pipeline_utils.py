@@ -74,6 +74,14 @@ _CLASS_REGISTRY: Dict[str, str] = {
     "LTXVideoTransformer3DModel": "diffusers_tpu_torch.models.transformers.transformer_ltx.LTXVideoTransformer3DModel",
     "AutoencoderKLLTXVideo": "diffusers_tpu_torch.models.autoencoders.autoencoder_kl_ltx.AutoencoderKLLTXVideo",
     "LTXLatentUpsamplerModel": "diffusers_tpu_torch.pipelines.ltx.modeling_latent_upsampler.LTXLatentUpsamplerModel",
+    "HunyuanVideoTransformer3DModel":
+        "diffusers_tpu_torch.models.transformers.transformer_hunyuan_video.HunyuanVideoTransformer3DModel",
+    "HunyuanVideoFramepackTransformer3DModel": "diffusers_tpu_torch.models.transformers."
+                                               "transformer_hunyuan_video_framepack.HunyuanVideoFramepackTransformer3DModel",
+    "AutoencoderKLHunyuanVideo":
+        "diffusers_tpu_torch.models.autoencoders.autoencoder_kl_hunyuan_video.AutoencoderKLHunyuanVideo",
+    "QwenImageControlNetModel":
+        "diffusers_tpu_torch.models.controlnets.controlnet_qwenimage.QwenImageControlNetModel",
     "EulerDiscreteScheduler": "diffusers_tpu_torch.schedulers.scheduling_euler_discrete.EulerDiscreteScheduler",
     "FlowMatchEulerDiscreteScheduler":
         "diffusers_tpu_torch.schedulers.scheduling_flow_match_euler_discrete.FlowMatchEulerDiscreteScheduler",

@@ -25,7 +25,8 @@ noise, timesteps; then the pooled embeds for SDXL).
         --batch_size 1 --max_train_steps 5 --output_dir /path/to/out
 
 Not ported yet: ``--tensor_parallel`` and the device mesh (they wait for the
-parallelism slice, ROADMAP A12), ``--data_dir`` loading, several GPUs.
+parallelism slice, ROADMAP A8), ``--data_dir`` loading (ROADMAP A7), several
+GPUs.
 """
 
 from __future__ import annotations

@@ -34,6 +34,7 @@ from diffusers_tpu_torch.hooks import faster_cache, first_block_cache, mag_cache
 from diffusers_tpu_torch.hooks.generic_cache import TextKVCacheConfig
 from diffusers_tpu_torch.pipelines.flux.pipeline_flux import FluxPipeline
 from diffusers_tpu_torch.pipelines.stable_diffusion_xl.pipeline_stable_diffusion_xl import StableDiffusionXLPipeline
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

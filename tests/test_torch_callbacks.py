@@ -19,6 +19,7 @@ from diffusers_tpu.callbacks import SDXLCFGCutoffCallback as JaxSDXLCFGCutoffCal
 from diffusers_tpu_torch import hooks
 from diffusers_tpu_torch.callbacks import MultiPipelineCallbacks, SDCFGCutoffCallback, SDXLCFGCutoffCallback
 from test_torch_pipeline_cache import ATOL, STEPS, build_flux, build_sdxl
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

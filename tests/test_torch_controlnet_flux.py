@@ -19,6 +19,7 @@ from diffusers_tpu_torch.models.controlnets.controlnet_flux import FluxControlNe
 from diffusers_tpu_torch.models.transformers.transformer_flux import FluxTransformer2DModel
 from diffusers_tpu_torch.pipelines.pipeline_utils import resolve_component_class
 from test_torch_flux_family import CONTROLNET, MODULE_ATOL, TINY, _controlnet_pair, _pair
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -50,6 +50,7 @@ from diffusers_tpu_torch.schedulers import PNDMScheduler
 from test_torch_pipeline_img2img import IMAGE, MASK, SEED, draws  # noqa: F401 (draws: a fixture)
 from test_torch_pipeline_sdxl import CRCTokenizer
 from test_torch_stable_diffusion import PNDM, sd_parts
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -32,7 +32,6 @@ from diffusers_tpu.models.transformers.transformer_sd3 import SD3Transformer2DMo
 from diffusers_tpu.pipelines.controlnet_sd3.pipeline_stable_diffusion_3_controlnet import (
     StableDiffusion3ControlNetPipeline as JaxSD3ControlNetPipeline,
 )
-from diffusers_tpu.utils.jax_utils import randn_tensor as jax_randn
 from diffusers_tpu_torch import StableDiffusion3ControlNetPipeline as RootExport
 from diffusers_tpu_torch.hooks import TaylorSeerCacheConfig
 from diffusers_tpu_torch.models.controlnets import SD3ControlNetModel, SD3MultiControlNetModel
@@ -42,6 +41,8 @@ from diffusers_tpu_torch.utils import torch_utils
 from test_torch_controlnet_sd import to_jax
 from test_torch_pipeline_sd3 import PROMPT, SD35, TXT_LEN, build
 from test_torch_sd3 import SD30, seeded
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
+from test_torch_jit_reference import fast_randn as jax_randn
 
 torch.set_num_threads(1)
 

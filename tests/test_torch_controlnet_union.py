@@ -67,6 +67,7 @@ from test_torch_controlnet_sd import jit_vae, seeded_controlnet, to_jax
 from test_torch_pipeline_cache import _parts
 from test_torch_pipeline_img2img import IMAGE, MASK, SEED, draws  # noqa: F401 (draws: a fixture)
 from test_torch_pipeline_sdxl import CLIP, EULER, UNET, VAE, CRCTokenizer
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

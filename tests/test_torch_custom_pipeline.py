@@ -35,6 +35,7 @@ from diffusers_tpu_torch.schedulers import DDPMScheduler
 from diffusers_tpu_torch.utils import dynamic_modules_utils as dyn
 from test_torch_models import CLIP_TINY, SD_TINY
 from test_torch_single_file import VAE4
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

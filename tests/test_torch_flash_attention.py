@@ -20,6 +20,7 @@ import torch
 
 from diffusers_tpu.ops.pallas.flash_attention import flash_attention as jax_flash_attention
 from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_attention_full
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -35,7 +35,6 @@ import diffusers_tpu.pipelines.flux as jflux
 from diffusers_tpu.models.controlnets.controlnet_flux import FluxControlNetModel as JaxFluxControlNet
 from diffusers_tpu.models.modeling_utils import convert_torch_state_dict
 from diffusers_tpu.models.transformers.transformer_flux import FluxTransformer2DModel as JaxFlux
-from diffusers_tpu.utils.jax_utils import randn_tensor as jax_randn
 import diffusers_tpu_torch.hooks as hooks
 import diffusers_tpu_torch.pipelines.flux as tflux
 from diffusers_tpu_torch import FluxFillPipeline as RootFill
@@ -53,6 +52,8 @@ from diffusers_tpu.schedulers import FlowMatchEulerDiscreteScheduler as JaxFlowM
 from diffusers_tpu_torch.models.text_encoders.clip import CLIPTextModel
 from diffusers_tpu_torch.models.text_encoders.t5 import T5EncoderModel
 from test_torch_pipeline_flux import FLOW_MATCH, CRCTokenizer
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
+from test_torch_jit_reference import fast_randn as jax_randn
 
 torch.set_num_threads(1)
 

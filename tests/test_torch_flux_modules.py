@@ -26,6 +26,8 @@ from diffusers_tpu_torch.models import embeddings as temb
 from diffusers_tpu_torch.models import normalization as tnorm
 from diffusers_tpu_torch.models.modeling_utils import load_jax_params
 from diffusers_tpu_torch.ops import module as tmod
+from test_torch_jit_reference import numpy_params
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -33,7 +35,7 @@ ATOL = 1e-5
 
 
 def _carry(jax_module, torch_module, seed=0):
-    params = jax_module.init(jax.random.PRNGKey(seed))
+    params = numpy_params(jax_module, seed)
     rng = np.random.RandomState(seed)
     tree = jax.tree_util.tree_map(
         lambda a: np.asarray(a) + (0.1 * rng.randn(*a.shape).astype(np.float32) if a.ndim == 1 else 0), params)

@@ -30,6 +30,7 @@ from diffusers_tpu_torch.models.text_encoders.siglip import SiglipVisionModel
 from diffusers_tpu_torch.pipelines.flux import FluxPriorReduxPipeline, ReduxImageEncoder
 from test_torch_flux_family import CLIP, T5, _pair
 from test_torch_pipeline_flux import CRCTokenizer
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 from diffusers_tpu.models.text_encoders.clip import CLIPTextModel as JaxCLIPTextModel
 from diffusers_tpu.models.text_encoders.t5 import T5EncoderModel as JaxT5EncoderModel
 from diffusers_tpu_torch.models.text_encoders.clip import CLIPTextModel

@@ -30,6 +30,7 @@ from test_torch_pag import _sdxl_parts
 from test_torch_pipeline_cache import _parts
 from test_torch_pipeline_sdxl import EULER, UNET, CRCTokenizer
 from test_torch_stable_diffusion import UNET_SD
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -30,6 +30,7 @@ from diffusers_tpu_torch.pipelines.stable_diffusion_xl import StableDiffusionXLP
 from diffusers_tpu_torch.schedulers import EulerDiscreteScheduler
 from test_torch_controlnet import CN
 from test_torch_pipeline_sdxl import EULER, UNET
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

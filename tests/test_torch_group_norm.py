@@ -45,6 +45,7 @@ from diffusers_tpu_torch.ops.cuda.group_norm import (
     plan_group_norm,
     smem_bytes,
 )
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -294,3 +295,28 @@ def test_cpu_tensors_take_the_plain_version():
     torch.testing.assert_close(group_norm(x, None, None, 32, 1e-6, True),
                                group_norm_plain(x, None, None, 32, 1e-6, True), rtol=0, atol=0)
     assert group_norm.launches == 0
+
+
+@pytest.mark.parametrize("share,count", [(1, 1), (4, 4), (32 // 3, 16), (32, 32), (10**9, 32)])
+def test_chip_smoke_group_slices_cover_whole_groups(share, count):
+    """`chip_smoke.group_slices`, over which phase 4 runs K4's plain version
+    on spans too large for one f32 reference (FramePack's decode): the
+    slices cover the channels once, in order, in whole groups, each of at
+    most `limit` elements where a group allows it, and GroupNorm over each
+    slice is GroupNorm over the whole (1e-6: sums in another order). At the
+    largest span the card checks, each slice stays within the default
+    limit."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 64, 3, 5, 7, generator=gen) * 1.5 + 0.5
+    w, b = 1 + 0.1 * torch.randn(64, generator=gen), 0.1 * torch.randn(64, generator=gen)
+    slices = chip_smoke.group_slices(x, 32, max(1, x.numel() // share))
+    assert len(slices) == count
+    assert torch.equal(torch.cat([torch.arange(64)[part] for part, _ in slices]), torch.arange(64))
+    assert all((part.stop - part.start) == 2 * groups for part, groups in slices)
+    out = torch.cat([group_norm_plain(x[:, part], w[part], b[part], groups, 1e-6, apply_silu=True)
+                     for part, groups in slices], dim=1)
+    whole = group_norm_plain(x, w, b, 32, 1e-6, apply_silu=True)
+    assert float((out - whole).abs().max()) <= 1e-6
+    shape = chip_smoke.GN_FRAMEPACK_VAE[0][0]
+    big = chip_smoke.group_slices(torch.empty(shape, device="meta"), 32)
+    assert len(big) == 16 and all(shape[0] * (p.stop - p.start) * math.prod(shape[2:]) <= 2**28 for p, _ in big)

@@ -25,6 +25,7 @@ import torch
 import diffusers_tpu.guiders as jg
 import diffusers_tpu_torch.guiders as tg
 from diffusers_tpu_torch.guiders.smoothed_energy_guidance import reflect_indices, reflect_pad_2d
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

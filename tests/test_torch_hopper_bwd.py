@@ -39,6 +39,7 @@ from diffusers_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_plain,
     pick_split,
 )
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

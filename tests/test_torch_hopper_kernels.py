@@ -28,6 +28,7 @@ from chip_smoke import FLUX_W8A8_SHAPES, W8A8_TILE_CASES, attention_bounds
 from diffusers_tpu.ops.pallas.flash_attention_bwd import _flash_fwd_bhsd
 from diffusers_tpu_torch.ops.cuda.flash_attention import NEG_INF, flash_attention_plain
 from diffusers_tpu_torch.ops.cuda.w8a8_matmul import TILES, pick_tile
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

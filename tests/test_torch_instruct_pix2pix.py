@@ -33,6 +33,7 @@ from test_torch_pipeline_img2img import ATOL as SDXL_ATOL
 from test_torch_pipeline_img2img import IMAGE
 from test_torch_pipeline_img2img import _pipelines as sdxl_pipelines
 from test_torch_stable_diffusion import IMAGE_ATOL, LATENTS, sd_pipelines
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

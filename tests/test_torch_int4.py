@@ -48,6 +48,7 @@ from diffusers_tpu_torch.quantizers import (
     unpack_int4_rows,
 )
 from test_torch_models import carry_params, jax_tree
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

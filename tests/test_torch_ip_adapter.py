@@ -55,6 +55,7 @@ from diffusers_tpu_torch.schedulers import EulerDiscreteScheduler
 from test_torch_pipeline_cache import _parts
 from test_torch_pipeline_sdxl import CLIP, EULER, UNET, VAE, CRCTokenizer
 from test_torch_stable_diffusion import LATENTS, PROMPT, SCHEDULERS, UNET_SD
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

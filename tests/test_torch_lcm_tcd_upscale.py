@@ -40,7 +40,6 @@ from diffusers_tpu.schedulers import DDIMScheduler as JaxDDIM
 from diffusers_tpu.schedulers import DDPMScheduler as JaxDDPM
 from diffusers_tpu.schedulers import LCMScheduler as JaxLCMScheduler
 from diffusers_tpu.schedulers import TCDScheduler as JaxTCDScheduler
-from diffusers_tpu.utils.jax_utils import randn_tensor as jax_randn
 from diffusers_tpu_torch import (
     DiffusionPipeline,
     LatentConsistencyModelPipeline,
@@ -56,6 +55,8 @@ from diffusers_tpu_torch.utils import torch_utils
 from test_torch_pipeline_cache import _parts
 from test_torch_pipeline_sdxl import CLIP, VAE, CRCTokenizer
 from test_torch_stable_diffusion import IMAGE_ATOL, MODEL_ATOL, STEP_ATOL, UNET_SD
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
+from test_torch_jit_reference import fast_randn as jax_randn
 
 torch.set_num_threads(1)
 

@@ -48,6 +48,7 @@ from test_torch_flux import FLOAT as FLUX_FLOAT, W8A8 as FLUX_W8A8, quantize_tre
 from test_torch_models import SDXL_TINY
 from test_torch_pipeline_sdxl import CLIP, EULER, UNET as SDXL_UNET, VAE, CRCTokenizer
 from test_torch_stable_diffusion import PNDM, UNET_SD
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -40,6 +40,8 @@ from diffusers_tpu_torch.pipelines.ltx import LTXLatentUpsamplerModel
 from diffusers_tpu_torch.utils import torch_utils
 from test_torch_lora import _assert_weights, _pair
 from test_torch_qwenimage import carry, seeded
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
+from test_torch_jit_reference import fast_normal
 
 torch.set_num_threads(1)
 
@@ -184,7 +186,7 @@ def jax_decoder_noise(cfg, key, latent_hw):
     def resnet(k, hw):
         for _ in range(2):
             k, sub = jax.random.split(k)
-            draws.append(np.array(jax.random.normal(sub, hw, jnp.float32)))
+            draws.append(np.array(fast_normal(sub, hw)))
 
     channels = tuple(reversed(cfg["decoder_block_out_channels"]))
     spatio = tuple(reversed(cfg["decoder_spatio_temporal_scaling"]))

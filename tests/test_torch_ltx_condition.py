@@ -27,7 +27,6 @@ from diffusers_tpu.pipelines.ltx import LTXLatentUpsamplePipeline as JaxUpsample
 from diffusers_tpu.pipelines.ltx import LTXVideoCondition as JaxLTXVideoCondition
 from diffusers_tpu.pipelines.ltx.modeling_latent_upsampler import LTXLatentUpsamplerModel as JaxUpsampler
 from diffusers_tpu.schedulers import FlowMatchEulerDiscreteScheduler as JaxFlowMatch
-from diffusers_tpu.utils.jax_utils import randn_tensor as jax_randn
 from diffusers_tpu_torch import (
     FlowMatchEulerDiscreteScheduler,
     LTXConditionPipeline,
@@ -41,6 +40,8 @@ from test_torch_pipeline_ltx import PROMPT, TXT_LEN, ltx_parts
 from test_torch_pipeline_qwenimage import JitVAE
 from test_torch_pipeline_wan import MaskTokenizer
 from test_torch_qwenimage import carry, seeded
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
+from test_torch_jit_reference import fast_randn as jax_randn
 
 torch.set_num_threads(1)
 

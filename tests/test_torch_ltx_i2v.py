@@ -16,6 +16,7 @@ import torch
 import diffusers_tpu_torch.hooks as hooks
 from test_torch_ltx_condition import IMAGE, KEY_SEED, STEPS, VIDEO, _check, _queue, build
 from test_torch_pipeline_ltx import PROMPT, TXT_LEN
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

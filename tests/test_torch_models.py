@@ -26,6 +26,8 @@ from diffusers_tpu_torch.models.embeddings import TextTimeEmbedding
 from diffusers_tpu_torch.models.modeling_utils import load_jax_params
 from diffusers_tpu_torch.models.text_encoders.clip import CLIPTextModel, CLIPTextModelWithProjection
 from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
+from test_torch_jit_reference import JitModule
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -133,7 +135,7 @@ def test_clip_text_towers_match_jax(projection):
     rng = np.random.RandomState(5)
     ids = np.concatenate([np.full((2, 1), 998), rng.randint(2, 990, (2, 9)), np.full((2, 1), 999),
                           np.zeros((2, 66), np.int64)], axis=1)  # BOS, tokens, EOS (highest id), padding
-    ref = jm(params, jnp.asarray(ids), output_hidden_states=True)
+    ref = JitModule(jm)(params, jnp.asarray(ids), output_hidden_states=True)
     with torch.no_grad():
         out = tm(torch.from_numpy(ids), output_hidden_states=True)
     assert _max_diff(out.last_hidden_state.numpy(), ref.last_hidden_state) < ATOL
@@ -221,7 +223,7 @@ def test_resnet_block_matches_jax(kwargs, temb):
     rng = np.random.RandomState(13)
     x = rng.randn(2, 32, 8, 8).astype(np.float32)
     t = rng.randn(2, 24).astype(np.float32) if temb else None
-    ref = jm(params, jnp.asarray(x.transpose(0, 2, 3, 1)), None if t is None else jnp.asarray(t))
+    ref = JitModule(jm)(params, jnp.asarray(x.transpose(0, 2, 3, 1)), None if t is None else jnp.asarray(t))
     with torch.no_grad():
         out = tm(torch.from_numpy(x), None if t is None else torch.from_numpy(t))
     assert _max_diff(out.numpy(), np.asarray(ref).transpose(0, 3, 1, 2)) < ATOL
@@ -250,7 +252,7 @@ def test_attention_matches_jax(kwargs, cross, masked):
     ctx = rng.randn(2, 7, 24).astype(np.float32) if cross else None
     sk = 7 if cross else 12
     mask = np.where(rng.rand(2, 1, 12, sk) < 0.3, -1e4, 0.0).astype(np.float32) if masked else None
-    ref = jm(params, jnp.asarray(x), None if ctx is None else jnp.asarray(ctx),
+    ref = JitModule(jm)(params, jnp.asarray(x), None if ctx is None else jnp.asarray(ctx),
              None if mask is None else jnp.asarray(mask))
     with torch.no_grad():
         out = tm(torch.from_numpy(x), None if ctx is None else torch.from_numpy(ctx),

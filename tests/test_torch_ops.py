@@ -29,6 +29,8 @@ from diffusers_tpu_torch.ops import module as tmod
 from diffusers_tpu_torch.ops.attention import _auto_backend, dispatch_attention_fn
 from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_bwd, flash_attention_full
 from diffusers_tpu_torch.ops.cuda.group_norm import group_norm
+from test_torch_jit_reference import numpy_params
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -196,7 +198,7 @@ def test_wrappers_raise_on_devices_without_a_kernel():
 
 
 def _jax_and_torch(jax_module, torch_module, seed=0):
-    params = jax_module.init(jax.random.PRNGKey(seed))
+    params = numpy_params(jax_module, seed)
     rng = np.random.RandomState(seed)
     # jitter the 1-D leaves so norm scales/biases are not the trivial 1/0
     tree = jax.tree_util.tree_map(

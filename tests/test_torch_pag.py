@@ -50,6 +50,7 @@ from test_torch_controlnet_sd import JitVAE
 from test_torch_pipeline_cache import _parts
 from test_torch_pipeline_sd3 import SD35
 from test_torch_pipeline_sdxl import CLIP, UNET, VAE
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

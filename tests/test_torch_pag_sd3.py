@@ -21,6 +21,7 @@ from test_torch_pag import PROMPT, RNG, SD3_ATOL, _max_diff
 from test_torch_pipeline_img2img import IMAGE, draws  # noqa: F401 (draws: a fixture)
 from test_torch_pipeline_sd3 import build as sd3_build
 from test_torch_pipeline_sd3 import TXT_LEN
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

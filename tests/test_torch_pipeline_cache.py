@@ -58,6 +58,7 @@ from test_torch_flux import W8A8
 from test_torch_pipeline_flux import CLIP as FLUX_CLIP, FLOW_MATCH, T5, TXT_LEN, VAE as FLUX_VAE
 from test_torch_pipeline_flux import CRCTokenizer as FluxTokenizer
 from test_torch_pipeline_sdxl import CLIP, EULER, UNET, VAE, CRCTokenizer
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -44,6 +44,7 @@ from diffusers_tpu_torch.pipelines.stable_diffusion_xl.pipeline_stable_diffusion
 from diffusers_tpu_torch.schedulers import EulerDiscreteScheduler, FlowMatchEulerDiscreteScheduler
 from test_torch_flux import W8A8, flux_tree
 from test_torch_pipeline_sdxl import UNET, _carry
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -38,7 +38,6 @@ from diffusers_tpu.pipelines.stable_diffusion_xl.pipeline_stable_diffusion_xl_in
     StableDiffusionXLInpaintPipeline as JaxInpaint,
 )
 from diffusers_tpu.schedulers import EulerDiscreteScheduler as JaxEulerDiscreteScheduler
-from diffusers_tpu.utils.jax_utils import randn_tensor as jax_randn
 from diffusers_tpu_torch.models.autoencoders.autoencoder_kl import AutoencoderKL
 from diffusers_tpu_torch.models.text_encoders.clip import CLIPTextModel, CLIPTextModelWithProjection
 from diffusers_tpu_torch.models.unets.unet_2d_condition import UNet2DConditionModel
@@ -50,6 +49,8 @@ from diffusers_tpu_torch.schedulers import EulerDiscreteScheduler
 from diffusers_tpu_torch.utils import torch_utils
 from test_torch_pipeline_cache import _parts
 from test_torch_pipeline_sdxl import CLIP, EULER, UNET, VAE, CRCTokenizer
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
+from test_torch_jit_reference import fast_randn as jax_randn
 
 torch.set_num_threads(1)
 

@@ -53,6 +53,7 @@ from test_torch_flux import W8A8
 from test_torch_pipeline_cache import build_flux, build_sdxl
 from test_torch_pipeline_sd3 import LATENTS as SD3_LATENTS, TXT_LEN as SD3_TXT_LEN, build as build_sd3
 from test_torch_pipeline_wan import CALL as WAN_CALL, LATENTS as WAN_LATENTS, build as build_wan
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -35,7 +35,6 @@ from diffusers_tpu.models.text_encoders.t5 import T5EncoderModel as JaxT5
 from diffusers_tpu.models.transformers.transformer_ltx import LTXVideoTransformer3DModel as JaxLTX
 from diffusers_tpu.pipelines.ltx.pipeline_ltx import LTXPipeline as JaxLTXPipeline
 from diffusers_tpu.schedulers import FlowMatchEulerDiscreteScheduler as JaxFlowMatch
-from diffusers_tpu.utils.jax_utils import randn_tensor as jax_randn
 import diffusers_tpu_torch.hooks as hooks
 from diffusers_tpu_torch import AutoencoderKLLTXVideo, FlowMatchEulerDiscreteScheduler, LTXPipeline, \
     LTXVideoTransformer3DModel
@@ -44,6 +43,8 @@ from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
 from diffusers_tpu_torch.utils import torch_utils
 from test_torch_pipeline_wan import MaskTokenizer
 from test_torch_qwenimage import carry, seeded
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
+from test_torch_jit_reference import fast_randn as jax_randn
 
 torch.set_num_threads(1)
 

@@ -37,7 +37,6 @@ from diffusers_tpu.models.autoencoders.vae import DiagonalGaussianDistribution
 from diffusers_tpu.models.text_encoders.qwen2_vl import Qwen2_5_VLTextEncoder as JaxQwenTE
 from diffusers_tpu.models.transformers.transformer_qwenimage import QwenImageTransformer2DModel as JaxQwenT
 from diffusers_tpu.schedulers import FlowMatchEulerDiscreteScheduler as JaxFlowMatch
-from diffusers_tpu.utils.jax_utils import randn_tensor as jax_randn
 import diffusers_tpu_torch.pipelines.qwenimage as tqwen
 from diffusers_tpu_torch import AutoencoderKLQwenImage, Qwen2_5_VLTextEncoder, QwenImageTransformer2DModel
 from diffusers_tpu_torch.models.autoencoders.autoencoder_kl import AutoencoderKL
@@ -45,6 +44,8 @@ from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
 from diffusers_tpu_torch.schedulers import FlowMatchEulerDiscreteScheduler
 from diffusers_tpu_torch.utils import torch_utils
 from test_torch_qwenimage import TINY, carry, seeded
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
+from test_torch_jit_reference import fast_randn as jax_randn
 
 torch.set_num_threads(1)
 

@@ -58,6 +58,7 @@ from diffusers_tpu_torch.utils import torch_utils
 from test_torch_pipeline_cache import _parts
 from test_torch_pipeline_flux import CRCTokenizer
 from test_torch_pipeline_img2img import jax_draws
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -33,6 +33,7 @@ from diffusers_tpu_torch.ops.cuda.group_norm import group_norm
 from diffusers_tpu_torch.pipelines.stable_diffusion_xl.pipeline_stable_diffusion_xl import StableDiffusionXLPipeline
 from diffusers_tpu_torch.schedulers import EulerDiscreteScheduler
 from test_torch_models import carry_params
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -36,7 +36,6 @@ from diffusers_tpu.models.text_encoders.t5 import UMT5EncoderModel as JaxUMT5
 from diffusers_tpu.models.transformers.transformer_wan import WanTransformer3DModel as JaxWan
 from diffusers_tpu.pipelines.wan.pipeline_wan import WanPipeline as JaxWanPipeline
 from diffusers_tpu.schedulers import UniPCMultistepScheduler as JaxUniPC
-from diffusers_tpu.utils.jax_utils import randn_tensor as jax_randn
 import diffusers_tpu_torch.hooks as hooks
 from diffusers_tpu_torch import (
     AutoencoderKLWan,
@@ -48,6 +47,8 @@ from diffusers_tpu_torch import (
 from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
 from diffusers_tpu_torch.utils import torch_utils
 from test_torch_pipeline_cache import _parts
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
+from test_torch_jit_reference import fast_randn as jax_randn
 
 torch.set_num_threads(1)
 

@@ -54,7 +54,6 @@ from diffusers_tpu.models.transformers.transformer_wan import WanTransformer3DMo
 from diffusers_tpu.pipelines.wan.pipeline_wan_i2v import WanImageToVideoPipeline as JaxI2V
 from diffusers_tpu.pipelines.wan.pipeline_wan_video2video import WanVideoToVideoPipeline as JaxV2V
 from diffusers_tpu.schedulers import UniPCMultistepScheduler as JaxUniPC
-from diffusers_tpu.utils.jax_utils import randn_tensor as jax_randn
 from diffusers_tpu.video_processor import VideoProcessor as JaxVideoProcessor
 import diffusers_tpu_torch.hooks as hooks
 from diffusers_tpu_torch import (
@@ -72,6 +71,8 @@ from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
 from diffusers_tpu_torch.utils import torch_utils
 from test_torch_pipeline_cache import _parts
 from test_torch_pipeline_wan import jit_reference
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
+from test_torch_jit_reference import fast_randn as jax_randn
 
 torch.set_num_threads(1)
 

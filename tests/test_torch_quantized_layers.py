@@ -53,6 +53,7 @@ from diffusers_tpu_torch.quantizers import (
     quantize_model,
     quantized_module_names,
 )
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

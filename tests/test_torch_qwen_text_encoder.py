@@ -27,6 +27,7 @@ from diffusers_tpu.models.text_encoders.llama import LlamaModel as JaxLlama
 from diffusers_tpu.models.text_encoders.qwen2_vl import Qwen2_5_VLTextEncoder as JaxQwen
 from diffusers_tpu_torch import LlamaModel, Qwen2_5_VLTextEncoder
 from diffusers_tpu_torch.models.modeling_utils import save_safetensors
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

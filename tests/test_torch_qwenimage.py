@@ -26,6 +26,7 @@ from diffusers_tpu_torch import AutoencoderKLQwenImage, QwenImageTransformer2DMo
 from diffusers_tpu_torch.loaders import lora
 from diffusers_tpu_torch.models.transformers.transformer_qwenimage import QwenEmbedRope
 from test_torch_lora import _assert_weights, _pair
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -194,6 +194,7 @@ from diffusers_tpu.schedulers.scheduling_flow_match_euler_discrete import (  # n
 from diffusers_tpu.schedulers.scheduling_flow_match_euler_discrete import calculate_shift as jax_calculate_shift  # noqa: E402
 from diffusers_tpu_torch.schedulers import FlowMatchEulerDiscreteScheduler  # noqa: E402
 from diffusers_tpu_torch.schedulers.scheduling_flow_match_euler_discrete import calculate_shift  # noqa: E402
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 FLUX_FLOW_MATCH = dict(use_dynamic_shifting=True, base_shift=0.5, max_shift=1.15, shift=3.0)
 

@@ -28,6 +28,7 @@ from diffusers_tpu_torch.models.embeddings import PatchEmbed, get_2d_sincos_pos_
 from diffusers_tpu_torch.models.modeling_utils import load_jax_params, save_safetensors
 from diffusers_tpu_torch.models.transformers.transformer_sd3 import SD3Transformer2DModel
 from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -37,6 +37,7 @@ from chip_smoke import clip_tokenizer, t5_tokenizer
 from diffusers_tpu_torch.serving import server
 from diffusers_tpu_torch.utils.png import decode_png, encode_png
 from test_torch_pipeline_sd3 import JaxSD3Pipeline, StableDiffusion3Pipeline, build
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

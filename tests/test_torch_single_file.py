@@ -38,6 +38,7 @@ from test_torch_flux import FLOAT as FLUX
 from test_torch_models import CLIP_TINY, SD_TINY, SDXL_TINY
 from test_torch_sd3 import SD35
 from test_torch_wan import WAN, WAN_I2V
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

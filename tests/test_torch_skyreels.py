@@ -44,6 +44,7 @@ from diffusers_tpu_torch.models.modeling_utils import load_jax_params
 from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
 from test_torch_pipeline_cache import _parts
 from test_torch_pipeline_wan import UMT5, VAE, MaskTokenizer, jit_reference
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

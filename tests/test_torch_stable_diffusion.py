@@ -54,6 +54,7 @@ from diffusers_tpu_torch.utils import torch_utils
 from test_torch_pipeline_cache import _parts
 from test_torch_pipeline_img2img import IMAGE, MASK, SEED, draws, jax_draws  # noqa: F401 (draws: a fixture)
 from test_torch_pipeline_sdxl import CLIP, VAE, CRCTokenizer
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

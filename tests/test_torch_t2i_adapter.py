@@ -41,6 +41,7 @@ from test_torch_pipeline_cache import _parts
 from test_torch_pipeline_flux import CLIP as FLUX_CLIP, FLOW_MATCH, T5, TXT_LEN, CRCTokenizer as FluxTokenizer
 from test_torch_pipeline_sdxl import CLIP, VAE, CRCTokenizer
 from test_torch_stable_diffusion import LATENTS, PROMPT, SCHEDULERS, UNET_SD
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

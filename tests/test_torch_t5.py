@@ -19,6 +19,7 @@ from diffusers_tpu.models.text_encoders.t5 import _relative_position_bucket as j
 from diffusers_tpu_torch.models.modeling_utils import load_jax_params
 from diffusers_tpu_torch.models.text_encoders.t5 import T5EncoderModel, _relative_position_bucket
 from test_torch_models import jax_tree
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -33,6 +33,7 @@ from diffusers_tpu.models.text_encoders.t5 import UMT5EncoderModel as JaxUMT5Enc
 from diffusers_tpu_torch.models.modeling_utils import iter_safetensors, save_safetensors
 from diffusers_tpu_torch.models.text_encoders.clip import CLIPTextModel, CLIPTextModelWithProjection
 from diffusers_tpu_torch.models.text_encoders.t5 import T5EncoderModel, UMT5EncoderModel
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -24,6 +24,7 @@ from diffusers_tpu.models.text_encoders.clip import CLIPTextModel as JaxCLIPText
 from diffusers_tpu_torch.loaders import textual_inversion as ti
 from diffusers_tpu_torch.models.modeling_utils import save_safetensors
 from diffusers_tpu_torch.models.text_encoders.clip import CLIPTextModel
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

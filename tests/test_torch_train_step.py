@@ -30,6 +30,7 @@ from diffusers_tpu_torch.schedulers import DDPMScheduler
 from diffusers_tpu_torch.training.optimization import get_scheduler, lr_lambda_scheduler
 from diffusers_tpu_torch.training.train_state import make_train_step
 from diffusers_tpu_torch.training.train_text_to_image import TINY_UNET, make_loss_fn, synthetic_batch
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -41,6 +41,7 @@ from diffusers_tpu_torch.training.ema import EMAModel
 from diffusers_tpu_torch.training.optimization import get_scheduler, lr_lambda_scheduler
 from diffusers_tpu_torch.training.train_text_to_image import TINY_UNET
 from diffusers_tpu_torch.training.train_text_to_image import main as train_main
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -25,6 +25,7 @@ from diffusers_tpu_torch.models.modeling_utils import load_jax_params
 from diffusers_tpu_torch.ops import module as tmod
 from diffusers_tpu_torch.ops.cuda.w8a8_matmul import quantize_rows, w8a8_matmul, w8a8_matmul_2d
 from diffusers_tpu_torch.quantizers import quantize_kernel_int8, quantize_w8a8
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -41,6 +41,8 @@ from diffusers_tpu_torch.models.modeling_utils import load_jax_params
 from diffusers_tpu_torch.models.transformers.transformer_wan import WanRotaryPosEmbed
 from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
 from diffusers_tpu_torch.ops.module import Conv3d
+from test_torch_jit_reference import JitModule
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -195,7 +197,7 @@ def test_vae_encode_matches_jax():
     model = seeded(AutoencoderKLWan, VAE)
     jm = JaxVAE(**VAE)
     x = _video(np.random.RandomState(4))
-    ref = jm.encode(to_jax(jm, model), jnp.asarray(x))
+    ref = JitModule(jm).encode(to_jax(jm, model), jnp.asarray(x))
     with torch.no_grad():
         out = model.encode(torch.from_numpy(x))
     assert out.mean.shape == (1, 4, 3, 4, 4)  # 1 + (5 - 1) / 2 frames, 8 / 2 pixels
@@ -211,7 +213,7 @@ def test_vae_chunked_decode_matches_jax_whole_sequence(cfg):
     model = seeded(AutoencoderKLWan, cfg, seed=5)
     jm = JaxVAE(**cfg)
     z = np.random.RandomState(5).randn(1, 4, 4, 4, 4).astype(np.float32)
-    ref = np.asarray(jm.decode(to_jax(jm, model), jnp.asarray(z)).sample)
+    ref = np.asarray(JitModule(jm).decode(to_jax(jm, model), jnp.asarray(z)).sample)
     with torch.no_grad():
         out = model.decode(torch.from_numpy(z)).sample.numpy()
         whole = model.post_quant_conv(torch.from_numpy(z))

@@ -42,7 +42,6 @@ from diffusers_tpu.models.text_encoders.t5 import UMT5EncoderModel as JaxUMT5
 from diffusers_tpu.ops.module import Conv1d as JaxConv1d
 from diffusers_tpu.pipelines.wan.pipeline_wan_animate import WanAnimatePipeline as JaxAnimatePipeline
 from diffusers_tpu.schedulers import UniPCMultistepScheduler as JaxUniPC
-from diffusers_tpu.utils.jax_utils import randn_tensor as jax_randn
 from diffusers_tpu_torch import (
     AutoencoderKLWan,
     CLIPVisionModel,
@@ -59,6 +58,8 @@ from diffusers_tpu_torch.ops.module import Conv1d
 from diffusers_tpu_torch.utils import torch_utils
 from test_torch_pipeline_cache import _parts
 from test_torch_pipeline_wan import UMT5, UNIPC, MaskTokenizer, jit_reference
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
+from test_torch_jit_reference import fast_randn as jax_randn
 
 torch.set_num_threads(1)
 

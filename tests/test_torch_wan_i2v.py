@@ -32,6 +32,8 @@ from diffusers_tpu_torch.models.autoencoders.autoencoder_kl_wan import CausalCac
 from diffusers_tpu_torch.models.modeling_utils import iter_safetensors, save_safetensors
 from diffusers_tpu_torch.models.text_encoders.clip import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD, clip_image_preprocess
 from test_torch_wan import VAE, seeded, to_jax
+from test_torch_jit_reference import JitModule
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -69,7 +71,7 @@ def test_vision_tower_matches_jax(name):
     jm = jcls(**CLIP)
     params = convert_torch_state_dict(jm, {k: v.numpy() for k, v in model.state_dict().items()})
     x = _pixels()
-    ref = jm(params, jnp.asarray(x), output_hidden_states=True)
+    ref = JitModule(jm)(params, jnp.asarray(x), output_hidden_states=True)
     with torch.no_grad():
         out = model(torch.from_numpy(x), output_hidden_states=True)
     assert len(out.hidden_states) == len(ref.hidden_states) == CLIP["num_hidden_layers"] + 1
@@ -138,7 +140,7 @@ def test_chunked_encode_matches_jax_whole_sequence(frames, size):
     assert model.encode_chunk == 4
     jm = JaxVAE(**WAN_LIKE_VAE)
     x = np.random.RandomState(frames).uniform(-1, 1, (1, 3, frames, size, size)).astype(np.float32)
-    ref = jm.encode(to_jax(jm, model), jnp.asarray(x))
+    ref = JitModule(jm).encode(to_jax(jm, model), jnp.asarray(x))
     with torch.no_grad():
         out = model.encode(torch.from_numpy(x))
     assert out.mean.shape == (1, 4, 1 + (frames - 1) // 4, size // 4, size // 4)

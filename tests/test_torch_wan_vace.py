@@ -50,6 +50,7 @@ from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
 from diffusers_tpu_torch.pipelines.wan.pipeline_wan_vace import nearest_indices
 from test_torch_pipeline_cache import _parts
 from test_torch_pipeline_wan import MaskTokenizer, jit_reference
+from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
