@@ -938,6 +938,69 @@ SMALL_FRAMEPACK_SIGLIP = dict(hidden_size=64, intermediate_size=128, num_hidden_
 # the Qwen-Image ControlNet (phase 27): InstantX/Qwen-Image-ControlNet-Union's depth (5 blocks) from the
 # transformer by `from_transformer`; its residuals enter one transformer call at b=2
 QWEN_CONTROLNET_LAYERS = 5
+# HunyuanImage-2.1 (phases 10o, 31): HunyuanImageTransformer2DModel's defaults are tencent/HunyuanImage-2.1's widths
+# (20 dual + 40 single blocks of 28 heads x 128, 17 B) with its ByT5 glyph stream (1,472 wide: Glyph-SDXL-v2's
+# ByT5-small encoder, BYT5_GLYPH) and phase 27's Qwen2.5-VL-7B tower; the 32x VAE's and the refiner VAE's defaults
+# are the published ones. 2048 x 2048 (64 x 64 latents: 4,096 image tokens), 1,000 Qwen + 128 ByT5 text tokens.
+# The guided request runs HUNYUAN_IMAGE_STEPS of the published 50 under AdaptiveProjectedMixGuidance at 3.5 (its APG
+# phase from step 2, so that the cut request runs both phases) as one batch-2 call a step; the distilled request
+# (guidance embedding, meanflow) HUNYUAN_IMAGE_DISTILLED_STEPS at batch 1
+HUNYUAN_IMAGE = dict(text_embed_2_dim=1472)
+HUNYUAN_IMAGE_DISTILLED = dict(HUNYUAN_IMAGE, guidance_embeds=True, use_meanflow=True)
+BYT5_GLYPH = dict(vocab_size=384, d_model=1472, d_ff=3584, num_layers=12, num_heads=6, d_kv=64,
+                  feed_forward_proj="gated-gelu")
+HUNYUAN_IMAGE_SIZE = 2048
+HUNYUAN_IMAGE_STEPS = 4
+HUNYUAN_IMAGE_DISTILLED_STEPS = 2
+HUNYUAN_IMAGE_APG = dict(guidance_scale=3.5, adaptive_projected_guidance_scale=10.0,
+                         adaptive_projected_guidance_momentum=-0.5, adaptive_projected_guidance_start_step=2)
+HUNYUAN_IMAGE_DISTILLED_GUIDANCE = 3.25
+HUNYUAN_IMAGE_SHIFT = 5.0
+HUNYUAN_IMAGE_PROMPT = 'a wooden shop sign that reads "OPEN DAILY" above a red door, warm evening light'
+HUNYUAN_IMAGE_NEGATIVE = "blurry, low quality"
+HUNYUAN_IMAGE_TEXT_LEN = 1000
+HUNYUAN_IMAGE_TOKENS = (HUNYUAN_IMAGE_SIZE // 32) ** 2
+# K1 at its joint attention (phase 3; phase 31 holds its main path to this length): 4,096 image tokens, then the
+# merged ByT5 and Qwen stream (128 + 1,000): 5,224 = 40 x 128 + 104, a ragged last query tile; the key-padding
+# bias keeps the glyph and prompt tokens of the [cond, uncond] pair (HUNYUAN_IMAGE_KEPT: ByT5, Qwen, as the
+# stand-in tokenizers give them) and hides the rest
+HUNYUAN_IMAGE_JOINT_ATTENTION = (2, HUNYUAN_IMAGE_TOKENS + 128 + HUNYUAN_IMAGE_TEXT_LEN, 28, 128)
+HUNYUAN_IMAGE_KEPT = {"byt5": (20, 0), "qwen": (19, 5)}
+# K4 at the 2048 px decode's largest spans (the split regime): the last up block's six norms and `norm_out` over
+# 128 channels at 2048 x 2048 (512 M elements), the fifth up block's six over 256 at 1024 x 1024
+GN_HUNYUAN_IMAGE_VAE = (((1, 128, 2048, 2048), True, 7), ((1, 256, 1024, 1024), True, 6))
+# HunyuanVideo 1.5 (phases 10o, 32): HunyuanVideo15Transformer3DModel's defaults are
+# hunyuanvideo-community/HunyuanVideo-1.5-480p's widths (54 dual blocks of 16 heads x 128, 8.3 B), its VAE's
+# defaults the published ones, SigLIP so400m (SIGLIP_SO400M) for image-to-video; 480 x 848 (30 x 53 latents) at
+# HUNYUAN_VIDEO15_FRAMES (9 latent frames; 121 published) and CFG 6.0 as one batch-2 call a step, 2 of the
+# published 50 steps
+HUNYUAN_VIDEO15 = dict()
+HUNYUAN_VIDEO15_HEIGHT, HUNYUAN_VIDEO15_WIDTH, HUNYUAN_VIDEO15_FRAMES = 480, 848, 33
+HUNYUAN_VIDEO15_STEPS = 2
+HUNYUAN_VIDEO15_GUIDANCE = 6.0
+HUNYUAN_VIDEO15_SHIFT = 5.0
+HUNYUAN_VIDEO15_PROMPT = 'a red fox trots past a wooden sign that says "TRAIL", morning mist, handheld camera'
+HUNYUAN_VIDEO15_TOKENS = 9 * 30 * 53
+# K1 at its joint attention (phase 3; phase 32 holds its main path to this length): 14,310 image tokens, then the
+# merged condition stream (729 image + 256 ByT5 + 1,000 Qwen): 16,295 = 127 x 128 + 39, a ragged last query tile;
+# text-to-video masks the 729 image tokens and keeps the glyph and prompt tokens of the [cond, uncond] pair
+# (HUNYUAN_VIDEO15_KEPT: ByT5, Qwen, as the stand-in tokenizers give them on the card's machine; a CPU-only install
+# with older transformers / tokenizers counts 5 fewer Qwen tokens a row after the 108-token crop)
+HUNYUAN_VIDEO15_JOINT_ATTENTION = (2, HUNYUAN_VIDEO15_TOKENS + 729 + 256 + 1000, 16, 128)
+HUNYUAN_VIDEO15_KEPT = {"byt5": (15, 0), "qwen": (23, 6)}
+# phase 10o: small HunyuanImage and HunyuanVideo 1.5 pipelines and VAEs (head_dim 128: K1; the image VAE's
+# GroupNorms: K4), card bf16 against CPU f32
+SMALL_HUNYUAN_IMAGE = dict(in_channels=16, out_channels=16, num_attention_heads=2, attention_head_dim=128, num_layers=1,
+                           num_single_layers=1, num_refiner_layers=1, text_embed_dim=64, text_embed_2_dim=32)
+SMALL_QWEN_TOWER = dict(vocab_size=1024, hidden_size=64, intermediate_size=128, num_hidden_layers=3,
+                        num_attention_heads=4, num_key_value_heads=2)
+SMALL_BYT5 = dict(vocab_size=384, d_model=32, d_ff=64, num_layers=2, num_heads=2, d_kv=16, feed_forward_proj="gated-gelu")
+# the small VAEs 96 wide: their mid-block attention's head_dim (the width) runs `native`, as the published 1,024
+SMALL_HUNYUAN_IMAGE_VAE = dict(latent_channels=16, block_out_channels=(96,) * 6)
+SMALL_HUNYUAN_VIDEO15 = dict(in_channels=33, out_channels=16, num_attention_heads=2, attention_head_dim=128,
+                             num_layers=2, num_refiner_layers=1, text_embed_dim=64, text_embed_2_dim=32,
+                             image_embed_dim=64)
+SMALL_HUNYUAN_VIDEO15_VAE = dict(latent_channels=16, block_out_channels=(96,) * 5)
 
 RESULTS = {}
 
@@ -1825,6 +1888,17 @@ def check_kernels():
     cases.append(framepack)
     k1_errs.append(framepack["max_abs_err_vs_f32"])
     RESULTS["k1_framepack_joint"] = framepack
+    # HunyuanImage-2.1 at 2048 px under CFG: 4,096 image + 128 ByT5 + 1,000 Qwen tokens (5,224: a ragged last query
+    # tile) under the key-padding bias of the merged text streams; HunyuanVideo 1.5 at 480 x 848 x 33 under CFG:
+    # 14,310 image + 1,985 condition tokens (16,295: a ragged last query tile), text-to-video's image tokens masked
+    for key, shape, kind, name in (("k1_hunyuan_image_joint", HUNYUAN_IMAGE_JOINT_ATTENTION, "hunyuan_image",
+                                    "HunyuanImage joint"),
+                                   ("k1_hunyuan_video15_joint", HUNYUAN_VIDEO15_JOINT_ATTENTION, "hunyuan_video15",
+                                    "HunyuanVideo 1.5 joint")):
+        row = check_k1_wan_self(randn, shape, WAN_Q_CHUNK, 10, name=name, mask=key_padding_bias(kind, shape[0], dev))
+        cases.append(row)
+        k1_errs.append(row["max_abs_err_vs_f32"])
+        RESULTS[key] = row
     RESULTS["kernel_cases"] = cases
     return {"flash_attention_fwd": (max(k1_errs + [lse_err]), k1_times["Flux joint 4608 d=128"])}
 
@@ -1882,17 +1956,40 @@ def key_padding_bias(kind, batch, device):
     11,726 open image keys and 729 open SigLIP keys, then the text keys as
     HunyuanVideo's); the bool [batch, 1, 256, 256] keep-mask of
     HunyuanVideo's token refiner ("hunyuan_refiner": kept query and key, or
-    key 0)."""
+    key 0); HunyuanImage-2.1's joint attention ("hunyuan_image": 4,096 open
+    image keys, then the ByT5 and Qwen streams merged by
+    `merge_text_streams`, rows keeping HUNYUAN_IMAGE_KEPT) and HunyuanVideo
+    1.5's ("hunyuan_video15": 14,310 open image keys, then text-to-video's
+    merged condition stream, `merge_condition_streams`, the 729 image tokens
+    masked, rows keeping HUNYUAN_VIDEO15_KEPT)."""
     import torch
 
     from diffusers_tpu_torch.models.transformers.transformer_hunyuan_video import refiner_mask, validity_bias
     from diffusers_tpu_torch.models.transformers.transformer_ltx import cross_attention_bias
     from diffusers_tpu_torch.models.transformers.transformer_qwenimage import key_padding_bias as qwen_bias
 
+    def rows(kept, text):  # row i keeps its first kept[i] of `text` tokens
+        lengths = torch.tensor([kept[i % len(kept)] for i in range(batch)], device=device)
+        return (torch.arange(text, device=device)[None] < lengths[:, None]).long()
+
+    if kind in ("hunyuan_image", "hunyuan_video15"):
+        from diffusers_tpu_torch.models.transformers.transformer_hunyuan_video15 import merge_condition_streams
+        from diffusers_tpu_torch.models.transformers.transformer_hunyuanimage import joint_bias, merge_text_streams
+
+        def zeros(mask):
+            return torch.zeros((*mask.shape, 1), device=device)
+
+        if kind == "hunyuan_image":
+            qwen, byt5 = rows(HUNYUAN_IMAGE_KEPT["qwen"], HUNYUAN_IMAGE_TEXT_LEN), rows(HUNYUAN_IMAGE_KEPT["byt5"], 128)
+            _, merged = merge_text_streams(zeros(qwen), qwen, zeros(byt5), byt5)
+            return joint_bias(merged, HUNYUAN_IMAGE_TOKENS)
+        qwen, byt5 = rows(HUNYUAN_VIDEO15_KEPT["qwen"], 1000), rows(HUNYUAN_VIDEO15_KEPT["byt5"], 256)
+        image = torch.zeros((batch, 729), dtype=torch.bool, device=device)  # text-to-video: the image tokens masked
+        _, merged = merge_condition_streams(zeros(image), image, zeros(byt5), byt5, zeros(qwen), qwen)
+        return joint_bias(merged, HUNYUAN_VIDEO15_TOKENS)
     kept, text = {"qwen": (QWEN_KEPT_TEXT, QWEN_TEXT_LEN), "ltx": (LTX_KEPT_TEXT, LTX_TEXT_LEN)}.get(
         kind, (HUNYUAN_KEPT_TEXT, HUNYUAN_TEXT_LEN))
-    lengths = torch.tensor([kept[i % len(kept)] for i in range(batch)], device=device)
-    keep = (torch.arange(text, device=device)[None] < lengths[:, None]).long()
+    keep = rows(kept, text)
     if kind == "qwen":
         return qwen_bias(keep, QWEN_JOINT_ATTENTION[1] - QWEN_TEXT_LEN)
     if kind == "hunyuan":
@@ -2011,8 +2108,9 @@ def check_group_norm():
     every GroupNorm of an SD 1.5 UNet call at 512 px and of a 512 px decode
     (`GN_SD15_UNET_CALL`, `GN_VAE_DECODE_512`: SD 1.5's, and each tile of a
     tiled decode), and at the largest spans of the LTX upsampler and of
-    HunyuanVideo's and FramePack's VAEs (`GN_LTX_UPSAMPLER`, `GN_HUNYUAN_VAE`,
-    `GN_FRAMEPACK_VAE`), bf16: one bf16 ulp at the reference's largest
+    HunyuanVideo's, FramePack's and HunyuanImage-2.1's VAEs
+    (`GN_LTX_UPSAMPLER`, `GN_HUNYUAN_VAE`, `GN_FRAMEPACK_VAE`,
+    `GN_HUNYUAN_IMAGE_VAE`), bf16: one bf16 ulp at the reference's largest
     magnitude against the f32 plain version and the bf16 one (on a span over
     2^28 elements, a few groups at a time: `group_slices`), two launches
     bit-identical, one launch a call.
@@ -2046,7 +2144,7 @@ def check_group_norm():
     for where, table in (("UNet", GN_UNET_CALL), ("VAE", GN_VAE_DECODE), ("VAE encode", encode_only),
                          ("SD UNet", GN_SD15_UNET_CALL), ("VAE 512", GN_VAE_DECODE_512),
                          ("LTX upsampler", GN_LTX_UPSAMPLER), ("HunyuanVideo VAE", GN_HUNYUAN_VAE),
-                         ("FramePack VAE", GN_FRAMEPACK_VAE)):
+                         ("FramePack VAE", GN_FRAMEPACK_VAE), ("HunyuanImage VAE", GN_HUNYUAN_IMAGE_VAE)):
         for shape, silu, launches in table:
             c = shape[1]
             x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.5).to(torch.bfloat16)
@@ -8144,13 +8242,14 @@ def run_transformers_single_file(smi: str):
 
 # ------------------------------------------------------------------ Qwen-Image and LTX-Video (phases 10k, 10l, 27, 28)
 
-def qwen_tokenizer(directory):
+def qwen_tokenizer(directory, texts=()):
     """A real Qwen2 tokenizer (transformers' `Qwen2TokenizerFast`, or
     `Qwen2Tokenizer` where transformers has no separate fast class) over a
     byte-level BPE written on the spot into `directory` (no download):
-    trained to 600 tokens on the chat template around this script's prompts,
-    with Qwen's special tokens ``<|endoftext|>`` (the padding),
-    ``<|im_start|>`` and ``<|im_end|>``. Loaded with `from_pretrained`."""
+    trained to 600 tokens on the chat template around this script's prompts
+    (and on `texts`, where given), with Qwen's special tokens
+    ``<|endoftext|>`` (the padding), ``<|im_start|>`` and ``<|im_end|>``.
+    Loaded with `from_pretrained`."""
     import transformers
     from tokenizers import Tokenizer, decoders, models, pre_tokenizers, trainers
 
@@ -8163,7 +8262,8 @@ def qwen_tokenizer(directory):
     tok.decoder = decoders.ByteLevel()
     trainer = trainers.BpeTrainer(vocab_size=600, special_tokens=["<|endoftext|>", "<|im_start|>", "<|im_end|>"],
                                   initial_alphabet=pre_tokenizers.ByteLevel.alphabet(), show_progress=False)
-    tok.train_from_iterator([PROMPT_TEMPLATE.format(p) for p in (QWEN_PROMPT, " ", *PROMPTS)] * 4, trainer=trainer)
+    tok.train_from_iterator([PROMPT_TEMPLATE.format(p) for p in (QWEN_PROMPT, " ", *PROMPTS)] * 4 + list(texts) * 4,
+                            trainer=trainer)
     tok.save(str(directory / "tokenizer.json"))
     cls = getattr(transformers, "Qwen2TokenizerFast", None) or transformers.Qwen2Tokenizer
     (directory / "tokenizer_config.json").write_text(json.dumps(
@@ -8316,7 +8416,8 @@ def run_qwenimage(smi: str):
     transformer call, the text encodes, the VAE encode and decode on CUDA
     events, seconds a request, peak memory; every step's launches held to
     the module counts (K1 60 a call; the text tower's plain attention and the
-    VAE launch nothing). Returns the paths' launches."""
+    VAE launch nothing). Returns (the paths' launches, the Qwen2.5-VL tower,
+    which phases 31 and 32 share)."""
     import gc
 
     import numpy as np
@@ -8388,10 +8489,11 @@ def run_qwenimage(smi: str):
                             "resolution": RESOLUTION, "true_cfg_scale": QWEN_TRUE_CFG, "text_tokens": QWEN_TEXT_LEN,
                             "build_seconds": build_s, "parameters": n_params, "resident_gb": resident_gb,
                             "template_tokens": prefix, "k1_per_call": per_call["flash_attention_fwd"], **results}
+    tower = pipe.text_encoder
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    return paths
+    return paths, tower
 
 
 def _build_ltx_pipeline(transformer_cfg, vae_cfg, t5_cfg, device, dtype):
@@ -9084,6 +9186,471 @@ def run_framepack(smi: str, base):
     return paths
 
 
+def hunyuan_qwen_tokenizer():
+    """Phase 27's Qwen2 BPE tokenizer, trained also on HunyuanImage-2.1's
+    template and HunyuanVideo 1.5's Qwen2 template string around this
+    script's prompts (`qwen_tokenizer`), so that both templates tokenize as
+    words rather than bytes."""
+    from diffusers_tpu_torch.pipelines.hunyuan_image.pipeline_hunyuanimage import PROMPT_TEMPLATE
+    from diffusers_tpu_torch.pipelines.hunyuan_video1_5.pipeline_hunyuan_video1_5 import DEFAULT_SYSTEM_MESSAGE
+
+    prompts = (HUNYUAN_IMAGE_PROMPT, HUNYUAN_IMAGE_NEGATIVE, HUNYUAN_VIDEO15_PROMPT, " ", "")
+    texts = [PROMPT_TEMPLATE.format(p) for p in prompts] + [
+        f"<|im_start|>system\n{DEFAULT_SYSTEM_MESSAGE}<|im_end|>\n<|im_start|>user\n{p or ' '}<|im_end|>\n"
+        "<|im_start|>assistant\n" for p in prompts]
+    return qwen_tokenizer(ROOT / "build" / "hunyuan_qwen_tokenizer", texts=texts)
+
+
+def _build_hunyuan_image_pipeline(transformer_cfg, text_encoder, byt5, vae_cfg, tokenizer, device, dtype,
+                                  guided=True):
+    """A HunyuanImagePipeline with random weights from SEED: the transformer
+    through `_wan_random_model`, `text_encoder` and `byt5` (the ByT5 glyph
+    encoder) as given or built from their configs, the VAE in float32 then
+    cast; under `guided` the OCR guider and the default guider are
+    AdaptiveProjectedMixGuidance at HUNYUAN_IMAGE_APG."""
+    import torch
+    import transformers
+
+    from diffusers_tpu_torch import (AutoencoderKLHunyuanImage, FlowMatchEulerDiscreteScheduler, HunyuanImagePipeline,
+                                     HunyuanImageTransformer2DModel, Qwen2_5_VLTextEncoder)
+    from diffusers_tpu_torch.guiders import AdaptiveProjectedMixGuidance
+    from diffusers_tpu_torch.models.text_encoders.t5 import T5EncoderModel
+
+    if isinstance(text_encoder, dict):
+        text_encoder = _wan_random_model(Qwen2_5_VLTextEncoder, text_encoder, device, dtype, SEED)
+    if isinstance(byt5, dict):
+        byt5 = _wan_random_model(T5EncoderModel, byt5, device, dtype, SEED + 5)
+    transformer = _wan_random_model(HunyuanImageTransformer2DModel, transformer_cfg, device, dtype, SEED + 6)
+    torch.manual_seed(SEED + 7)
+    with torch.device(device):
+        vae = AutoencoderKLHunyuanImage(**vae_cfg).to(dtype).eval()
+    guiders = ({"guider": AdaptiveProjectedMixGuidance(**HUNYUAN_IMAGE_APG),
+                "ocr_guider": AdaptiveProjectedMixGuidance(**HUNYUAN_IMAGE_APG)} if guided else {})
+    kwargs = {} if device == "cuda" else {"device": device}
+    return HunyuanImagePipeline(transformer=transformer, vae=vae, text_encoder=text_encoder, tokenizer=tokenizer,
+                                text_encoder_2=byt5, tokenizer_2=transformers.ByT5Tokenizer(),
+                                scheduler=FlowMatchEulerDiscreteScheduler(shift=HUNYUAN_IMAGE_SHIFT), **guiders,
+                                **kwargs)
+
+
+def _build_hunyuan_video15_pipeline(transformer_cfg, text_encoder, byt5, vae_cfg, siglip, tokenizer, device, dtype,
+                                    image_size=None):
+    """A HunyuanVideo15ImageToVideoPipeline with random weights from SEED
+    (the transformer through `_wan_random_model`; `text_encoder`, `byt5` and
+    `siglip` as given or built from their configs; the VAE in float32 then
+    cast) and SigLIP's image processor stand-in at `image_size` (None: the
+    raw pixels). Its text-to-video twin is `HunyuanVideo15Pipeline.from_pipe`."""
+    import torch
+    import transformers
+
+    from diffusers_tpu_torch import (AutoencoderKLHunyuanVideo15, FlowMatchEulerDiscreteScheduler,
+                                     HunyuanVideo15ImageToVideoPipeline, HunyuanVideo15Transformer3DModel,
+                                     Qwen2_5_VLTextEncoder)
+    from diffusers_tpu_torch.models.text_encoders.siglip import SiglipVisionModel
+    from diffusers_tpu_torch.models.text_encoders.t5 import T5EncoderModel
+
+    if isinstance(text_encoder, dict):
+        text_encoder = _wan_random_model(Qwen2_5_VLTextEncoder, text_encoder, device, dtype, SEED)
+    if isinstance(byt5, dict):
+        byt5 = _wan_random_model(T5EncoderModel, byt5, device, dtype, SEED + 5)
+    if isinstance(siglip, dict):
+        siglip = _wan_random_model(SiglipVisionModel, siglip, device, dtype, SEED + 8)
+    transformer = _wan_random_model(HunyuanVideo15Transformer3DModel, transformer_cfg, device, dtype, SEED + 9)
+    torch.manual_seed(SEED + 10)
+    with torch.device(device):
+        vae = AutoencoderKLHunyuanVideo15(**vae_cfg).to(dtype).eval()
+    kwargs = {} if device == "cuda" else {"device": device}
+    return HunyuanVideo15ImageToVideoPipeline(
+        text_encoder=text_encoder, tokenizer=tokenizer, transformer=transformer, vae=vae,
+        scheduler=FlowMatchEulerDiscreteScheduler(shift=HUNYUAN_VIDEO15_SHIFT), text_encoder_2=byt5,
+        tokenizer_2=transformers.ByT5Tokenizer(), image_encoder=siglip,
+        feature_extractor=None if image_size is None else SiglipResize(image_size), **kwargs)
+
+
+def _distilled_hunyuan_image(transformer, device, dtype):
+    """HunyuanImage-2.1's distilled switches on `transformer`'s blocks: a
+    model of HUNYUAN_IMAGE_DISTILLED's config sharing every module of
+    `transformer` but its time embedding, which takes the guidance embedder
+    and meanflow's `timestep_r` embedder (random from SEED)."""
+    import torch
+
+    from diffusers_tpu_torch import HunyuanImageTransformer2DModel
+    from diffusers_tpu_torch.models.transformers.transformer_hunyuanimage import (
+        HunyuanImageCombinedTimeGuidanceEmbedding,
+    )
+
+    cfg = dict(transformer.config, guidance_embeds=True, use_meanflow=True)
+    cfg = {k: v for k, v in cfg.items() if not k.startswith("_")}
+    with torch.device("meta"):
+        distilled = HunyuanImageTransformer2DModel(**cfg)
+    for name, child in transformer.named_children():
+        if name != "time_guidance_embed":
+            setattr(distilled, name, child)
+    torch.manual_seed(SEED + 11)  # drawn on the host, so that every device gets the same weights
+    inner = cfg["num_attention_heads"] * cfg["attention_head_dim"]
+    embed = HunyuanImageCombinedTimeGuidanceEmbedding(inner, True, True)
+    distilled.time_guidance_embed = embed.to(device=device, dtype=dtype)
+    return distilled.eval()
+
+
+def _relative_err(out, ref) -> float:
+    """max |out - ref| over max |ref|, in float32."""
+    import numpy as np
+
+    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    return float(np.abs(out - ref).max() / max(float(np.abs(ref).max()), 1e-12))
+
+
+def check_small_hunyuan_image_video15(device: str = "cuda"):
+    """Phase 10o: small HunyuanImage and HunyuanVideo 1.5 pipelines
+    (SMALL_HUNYUAN_IMAGE, SMALL_HUNYUAN_VIDEO15: head_dim 128, a 3-layer Qwen
+    tower, a 2-layer ByT5, a 64 px SigLIP; 64 px images, 5 frames of 32 x
+    32) on the card (bf16, K1, K4) against the CPU (f32, plain versions;
+    held to JAX by tests/test_torch_hunyuan_image.py and
+    test_torch_hunyuan_video15.py): HunyuanImage with quoted text under the
+    APG-Mix OCR guider (batch 2) and with the distilled switches (batch 1,
+    meanflow), HunyuanVideo 1.5 text- and image-to-video under CFG, each
+    step's K1 held to the transformer's attentions and the decode's K4 to
+    the image VAE's GroupNorms; then the three VAEs' encode and decode alone.
+    Phase 7's tolerance (0.05) on the [0, 1] outputs; 5% of the reference's
+    largest value on the VAE moments and decodes."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch import (AutoencoderKLHunyuanImage, AutoencoderKLHunyuanImageRefiner,
+                                     AutoencoderKLHunyuanVideo15, HunyuanImagePipeline, HunyuanVideo15Pipeline)
+
+    tol, rel_tol = 0.05, GUIDANCE_MODEL_TOL
+    tokenizer = hunyuan_qwen_tokenizer()
+    results = {}
+
+    def on_card(pipe):
+        return pipe.to(device=torch.device(device), dtype=torch.bfloat16)
+
+    def compare(label, outs, shape, steps, per_call, batches, after):
+        err = float(np.abs(np.asarray(outs[1], np.float32) - np.asarray(outs[0], np.float32)).max())
+        results[label] = {"max_abs_err": err, "tol": tol, "launches": read_launches(), "transformer_batches": batches}
+        log(f"[ref-hunyuan15] small {label}, card bf16 vs CPU f32: max |diff| {err:.3e} (tol {tol}); launches "
+            f"{results[label]['launches']}")
+        if not (outs[1].shape == outs[0].shape == shape and np.isfinite(outs[1]).all() and err <= tol):
+            raise AssertionError(f"small {label}: the card disagrees with the CPU ({outs[1].shape}, {err})")
+        _check_steps(f"small {label}", steps.per_step, [per_call] * len(batches), steps.after, after)
+        if steps.batches != batches:
+            raise AssertionError(f"small {label}: transformer batches {steps.batches}, expected {batches}")
+
+    # HunyuanImage: the OCR-guided request and the distilled one
+    images = [_build_hunyuan_image_pipeline(SMALL_HUNYUAN_IMAGE, SMALL_QWEN_TOWER, SMALL_BYT5,
+                                            SMALL_HUNYUAN_IMAGE_VAE, tokenizer, "cpu", torch.float32)
+              for _ in range(2)]
+    on_card(images[1])
+    decode = _module_launches(images[1].vae.decoder)
+    cases = (("HunyuanImage OCR guider", images, dict(negative_prompt=HUNYUAN_IMAGE_NEGATIVE), 2),
+             ("HunyuanImage distilled meanflow",
+              [HunyuanImagePipeline.from_pipe(p, transformer=_distilled_hunyuan_image(p.transformer, p.device,
+                                                                                       p.transformer.dtype),
+                                              guider=None, ocr_guider=None) for p in images],
+              dict(distilled_guidance_scale=HUNYUAN_IMAGE_DISTILLED_GUIDANCE), 1))
+    for label, pipes, extra, batch in cases:
+        outs = []
+        for pipe in pipes:
+            reset_launches()
+            with StepLaunches(pipe, pipe.transformer) as steps:
+                outs.append(pipe(HUNYUAN_IMAGE_PROMPT, height=64, width=64, num_inference_steps=3,
+                                 max_sequence_length=32, output_type="np",
+                                 generator=torch.Generator().manual_seed(SEED), **extra).images)
+        compare(label, outs, (1, 64, 64, 3), steps, _module_launches(pipes[1].transformer), [batch] * 3, decode)
+
+    # HunyuanVideo 1.5: text- and image-to-video under CFG
+    videos = [_build_hunyuan_video15_pipeline(SMALL_HUNYUAN_VIDEO15, SMALL_QWEN_TOWER, SMALL_BYT5,
+                                              SMALL_HUNYUAN_VIDEO15_VAE, SMALL_FRAMEPACK_SIGLIP, tokenizer, "cpu",
+                                              torch.float32, SMALL_FRAMEPACK_SIGLIP["image_size"]) for _ in range(2)]
+    on_card(videos[1])
+    image = synthetic_video(1, 32, 32)[0].transpose(2, 0, 1) * 2 - 1  # [-1, 1] CHW
+    call = dict(height=32, width=32, num_frames=5, num_inference_steps=3, guidance_scale=HUNYUAN_VIDEO15_GUIDANCE)
+    for label, pipes, args in (("HunyuanVideo 1.5 t2v", [HunyuanVideo15Pipeline.from_pipe(p) for p in videos], ()),
+                               ("HunyuanVideo 1.5 i2v", videos, (image,))):
+        outs = []
+        for pipe in pipes:
+            reset_launches()
+            with StepLaunches(pipe, pipe.transformer) as steps:
+                outs.append(pipe(*args, prompt=HUNYUAN_VIDEO15_PROMPT, generator=torch.Generator().manual_seed(SEED),
+                                 **call).frames)
+        compare(label, outs, (1, 5, 32, 32, 3), steps, _module_launches(pipes[1].transformer), [2] * 3, _launches())
+
+    # the VAEs alone: encode moments and decode
+    gen = torch.Generator().manual_seed(SEED)
+    for label, cls, cfg, x in (
+            ("HunyuanImage VAE", AutoencoderKLHunyuanImage, SMALL_HUNYUAN_IMAGE_VAE, torch.rand(1, 3, 64, 64,
+                                                                                                generator=gen)),
+            ("refiner VAE", AutoencoderKLHunyuanImageRefiner, SMALL_HUNYUAN_VIDEO15_VAE,
+             torch.rand(1, 3, 5, 32, 32, generator=gen)),
+            ("HunyuanVideo 1.5 VAE", AutoencoderKLHunyuanVideo15, SMALL_HUNYUAN_VIDEO15_VAE,
+             torch.rand(1, 3, 5, 32, 32, generator=gen))):
+        torch.manual_seed(SEED)
+        ref_vae = cls(**cfg).eval()
+        card_vae = _copy_model(ref_vae).to(device=device, dtype=torch.bfloat16)
+        x = x * 2 - 1
+        with torch.no_grad():
+            ref_mom = ref_vae.encode(x).latent_dist.parameters
+            mom = card_vae.encode(x.to(device, torch.bfloat16)).latent_dist.parameters.float().cpu()
+            z = ref_mom[:, :ref_mom.shape[1] // 2]
+            reset_launches()
+            dec = card_vae.decode(z.to(device, torch.bfloat16)).sample.float().cpu()
+            launches = read_launches()
+            ref_dec = ref_vae.decode(z).sample
+        errs = {"moments": _relative_err(mom, ref_mom), "decode": _relative_err(dec, ref_dec)}
+        results[label] = {"relative_err": errs, "tol": rel_tol, "decode_launches": launches}
+        log(f"[ref-hunyuan15] small {label}, card bf16 vs CPU f32: error over the largest value {errs} (tol "
+            f"{rel_tol}); decode launches {launches}")
+        if not (max(errs.values()) <= rel_tol and launches == _module_launches(card_vae.decoder)):
+            raise AssertionError(f"small {label}: the card disagrees with the CPU ({errs}, {launches})")
+    RESULTS["small_hunyuan_image_video15"] = results
+
+
+def run_hunyuan_image(smi: str, text_encoder):
+    """Phase 31: HunyuanImage-2.1 at its published widths (HUNYUAN_IMAGE: the
+    17 B transformer; BYT5_GLYPH; the 32x VAE; random bf16 weights from SEED
+    made on the card) on phase 27's Qwen2.5-VL tower, with a Qwen2 BPE
+    tokenizer written on the spot and transformers' ByT5Tokenizer: one
+    2048 x 2048 request with quoted text (ByT5 runs, the OCR guider: APG-Mix
+    at 3.5 as one batch-2 call a step over 4,096 image + 1,128 text tokens,
+    HUNYUAN_IMAGE_STEPS steps) with the decode; one request with the
+    distilled switches (the guidance embedding and meanflow on the same
+    blocks, batch 1, HUNYUAN_IMAGE_DISTILLED_STEPS steps); one encode and
+    decode of the first image through the refiner VAE. Recorded: each
+    transformer call, the Qwen and ByT5 encodes, the VAE decode and the
+    refiner's encode and decode on CUDA events, seconds a request, peak
+    memory; every step's launches held to the module counts (K1 62 a call:
+    60 joint attentions under the key-padding bias and the refiner's 2), the
+    decode's K4 to the decoder's 42 GroupNorms; the joint attention's length
+    and bias and the decode's GroupNorm spans held to the shapes phases 3 and
+    4 check K1 and K4 at. Returns (the paths' launches, the ByT5 encoder)."""
+    import collections
+    import gc
+
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch import AutoencoderKLHunyuanImageRefiner, HunyuanImagePipeline
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokenizer = hunyuan_qwen_tokenizer()
+    pipe = _build_hunyuan_image_pipeline(HUNYUAN_IMAGE, text_encoder, BYT5_GLYPH, {}, tokenizer, "cuda",
+                                         torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = {name: sum(p.numel() for p in getattr(pipe, name).parameters())
+                for name in ("transformer", "text_encoder", "text_encoder_2", "vae")}
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"[hunyuan-image] built HunyuanImage-2.1 at full width on the card in {build_s:.1f} s (phase 27's tower "
+        f"kept): parameters { {k: f'{v / 1e9:.3f} B' for k, v in n_params.items()} }, bf16, {resident_gb:.1f} GB "
+        "resident")
+    per_call = _module_launches(pipe.transformer)
+    decode = _module_launches(pipe.vae.decoder)
+    if per_call["flash_attention_fwd"] != 62 or decode != _launches(group_norm=42):
+        raise AssertionError(f"HunyuanImage counts {per_call} a call and {decode} a decode, expected K1 62, K4 42")
+    bias = key_padding_bias("hunyuan_image", 2, torch.device("cuda"))
+    seen = {"joint": set(), "bias_as_phase_3": [], "spans": collections.Counter()}
+    def joint(_, args):  # the first dual block's (image, text, temb, bias, rope)
+        seen["joint"].add(args[0].shape[1] + args[1].shape[1])
+        seen["bias_as_phase_3"].append(args[3].shape[0] != 2 or torch.equal(args[3], bias))
+
+    def span(_, args):
+        seen["spans"].update([tuple(args[0].shape)])
+
+    hooks = [pipe.transformer.transformer_blocks[0].register_forward_pre_hook(joint)]
+    hooks += [m.register_forward_pre_hook(span) for m in pipe.vae.decoder.modules() if type(m).__name__ == "GroupNorm"]
+    distilled = HunyuanImagePipeline.from_pipe(
+        pipe, transformer=_distilled_hunyuan_image(pipe.transformer, "cuda", torch.bfloat16), guider=None,
+        ocr_guider=None)
+    requests = (("ocr_guided", pipe, HUNYUAN_IMAGE_STEPS, 2, dict(negative_prompt=HUNYUAN_IMAGE_NEGATIVE,
+                                                                  output_type="np")),
+                ("distilled_meanflow", distilled, HUNYUAN_IMAGE_DISTILLED_STEPS, 1,
+                 dict(distilled_guidance_scale=HUNYUAN_IMAGE_DISTILLED_GUIDANCE, output_type="latent")))
+    results, paths, first_image = {}, {}, None
+    for label, pipeline, steps_n, batch, kwargs in requests:
+        reset_launches()
+        spans = CudaSpans({"transformer": pipeline.transformer, "text_encoder": pipe.text_encoder,
+                           "text_encoder_2": pipe.text_encoder_2}, {"vae_decode": (pipe.vae, "decode")})
+        with StepLaunches(pipeline, pipeline.transformer) as steps, spans:
+            out, seconds, peak_gb = _request_seconds(lambda: pipeline(
+                HUNYUAN_IMAGE_PROMPT, height=HUNYUAN_IMAGE_SIZE, width=HUNYUAN_IMAGE_SIZE,
+                num_inference_steps=steps_n, max_sequence_length=HUNYUAN_IMAGE_TEXT_LEN,
+                generator=torch.Generator(device="cuda").manual_seed(SEED), **kwargs).images)
+        ms = spans.ms()
+        decoded = kwargs["output_type"] == "np"
+        _check_steps(f"hunyuan-image {label}", steps.per_step, [per_call] * steps_n, steps.after,
+                     decode if decoded else _launches())
+        shape = (1, HUNYUAN_IMAGE_SIZE, HUNYUAN_IMAGE_SIZE, 3) if decoded else (1, 64, 64, 64)
+        finite = bool(np.isfinite(out).all()) if decoded else bool(torch.isfinite(out).all())
+        if not (tuple(out.shape) == shape and finite and steps.batches == [batch] * steps_n):
+            raise AssertionError(f"hunyuan-image {label}: output {tuple(out.shape)}, batches {steps.batches}")
+        if decoded:
+            first_image = out
+        row = {"seconds_per_image": seconds, "peak_memory_gb": peak_gb, "launches": read_launches(),
+               "transformer_calls": len(ms["transformer"]), "transformer_ms_per_call": ms["transformer"],
+               "transformer_ms_mean": float(np.mean(ms["transformer"])), "qwen_encode_ms": ms["text_encoder"],
+               "byt5_encode_ms": ms["text_encoder_2"], "vae_decode_ms": ms["vae_decode"], "batch": batch}
+        results[label] = row
+        paths[f"hunyuan_image_{label}"] = row["launches"]
+        log(f"[hunyuan-image] {smi}: {label}: {seconds:.2f} s an image ({HUNYUAN_IMAGE_SIZE} px, {steps_n} steps at "
+            f"b={batch}), {row['transformer_calls']} transformer calls of {row['transformer_ms_mean']:.1f} ms (CUDA "
+            f"events; {[round(t, 1) for t in ms['transformer']]}), Qwen encodes "
+            f"{[round(t, 1) for t in ms['text_encoder']]} ms, ByT5 {[round(t, 1) for t in ms['text_encoder_2']]} ms, "
+            f"decode {[round(t, 1) for t in ms['vae_decode']]} ms, peak memory {peak_gb:.1f} GB; launches "
+            f"{row['launches']}")
+    for hook in hooks:
+        hook.remove()
+    spans_seen = {shape: seen["spans"][shape] for shape, _, _ in GN_HUNYUAN_IMAGE_VAE}
+    if (seen["joint"] != {HUNYUAN_IMAGE_JOINT_ATTENTION[1]} or not all(seen["bias_as_phase_3"])
+            or spans_seen != {shape: n for shape, _, n in GN_HUNYUAN_IMAGE_VAE}
+            or max(seen["spans"], key=math.prod) != GN_HUNYUAN_IMAGE_VAE[0][0]):
+        raise AssertionError(f"hunyuan-image: joint lengths {seen['joint']}, biases as phase 3's "
+                             f"{seen['bias_as_phase_3']}, decode spans {dict(seen['spans'])}: not the shapes phases "
+                             "3 and 4 check")
+    del distilled
+    gc.collect()
+    # the refiner VAE: the first image as one frame, encoded (the posterior's mode) and decoded
+    torch.manual_seed(SEED + 12)
+    with torch.device("cuda"):
+        refiner = AutoencoderKLHunyuanImageRefiner().to(torch.bfloat16).eval()
+    x = torch.from_numpy(first_image).to("cuda").permute(0, 3, 1, 2)[:, :, None].to(torch.bfloat16) * 2 - 1
+    reset_launches()
+    spans = CudaSpans(methods={"encode": (refiner, "encode"), "decode": (refiner, "decode")})
+    with spans, torch.no_grad():
+        (rec, z), seconds, peak_gb = _request_seconds(lambda: (lambda z: (refiner.decode(z).sample, z))(
+            refiner.encode(x).latent_dist.mode()))
+    ms = spans.ms()
+    launches = read_launches()
+    if not (tuple(rec.shape) == tuple(x.shape) and tuple(z.shape) == (1, 32, 1, 128, 128)
+            and bool(torch.isfinite(rec).all()) and launches == _launches()):
+        raise AssertionError(f"hunyuan-image refiner VAE: latents {tuple(z.shape)}, output {tuple(rec.shape)}, "
+                             f"launches {launches}")
+    results["refiner_vae"] = {"encode_ms": ms["encode"], "decode_ms": ms["decode"], "seconds": seconds,
+                              "peak_memory_gb": peak_gb, "latents": list(z.shape),
+                              "parameters": sum(p.numel() for p in refiner.parameters())}
+    log(f"[hunyuan-image] {smi}: refiner VAE ({results['refiner_vae']['parameters'] / 1e6:.1f} M) on the "
+        f"{HUNYUAN_IMAGE_SIZE} px image: encode {ms['encode'][0]:.1f} ms to {list(z.shape)}, decode "
+        f"{ms['decode'][0]:.1f} ms (CUDA events), peak memory {peak_gb:.1f} GB; no kernel (L2-RMS norms, d=1,024 "
+        "attention native)")
+    RESULTS["hunyuan_image"] = {"card": smi, "steps": HUNYUAN_IMAGE_STEPS,
+                                "distilled_steps": HUNYUAN_IMAGE_DISTILLED_STEPS, "size": HUNYUAN_IMAGE_SIZE,
+                                "apg": HUNYUAN_IMAGE_APG, "text_tokens": HUNYUAN_IMAGE_TEXT_LEN,
+                                "build_seconds": build_s, "parameters": n_params, "resident_gb": resident_gb,
+                                "k1_per_call": per_call["flash_attention_fwd"], "k4_per_decode": decode["group_norm"],
+                                "decode_spans": {str(k): v for k, v in seen["spans"].items()}, **results}
+    byt5 = pipe.text_encoder_2
+    del pipe, refiner, x, rec, z
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, byt5
+
+
+def run_hunyuan_video15(smi: str, text_encoder, byt5):
+    """Phase 32: HunyuanVideo 1.5 at its published widths (HUNYUAN_VIDEO15:
+    the 8.3 B transformer; its VAE; SigLIP so400m at 384 px; random bf16
+    weights from SEED made on the card) on phase 27's Qwen2.5-VL tower and
+    phase 31's ByT5: one 480 x 848 x 33 text-to-video request of
+    HUNYUAN_VIDEO15_STEPS steps (CFG 6.0 as one batch-2 call a step over
+    14,310 image + 1,985 condition tokens) with the decode, then one
+    image-to-video request (SigLIP's encode, the first frame's VAE encode)
+    without it. Recorded: each transformer call, the Qwen, ByT5 and SigLIP
+    encodes, the VAE encode and decode on CUDA events, seconds a request,
+    peak memory; every step's launches held to the module counts (K1 56 a
+    call: 54 joint attentions under the key-padding bias and the refiner's
+    2; the VAE and the towers launch nothing); the joint attention's length
+    and bias held to phase 3's. Returns the paths' launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch import HunyuanVideo15Pipeline
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    i2v = _build_hunyuan_video15_pipeline(HUNYUAN_VIDEO15, text_encoder, byt5, {}, SIGLIP_SO400M,
+                                          hunyuan_qwen_tokenizer(), "cuda", torch.bfloat16,
+                                          SIGLIP_SO400M["image_size"])
+    t2v = HunyuanVideo15Pipeline.from_pipe(i2v)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = {name: sum(p.numel() for p in getattr(i2v, name).parameters())
+                for name in ("transformer", "vae", "image_encoder")}
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"[hunyuan-video15] built HunyuanVideo 1.5 at full width on the card in {build_s:.1f} s (phase 27's tower and "
+        f"phase 31's ByT5 kept): parameters { {k: f'{v / 1e9:.3f} B' for k, v in n_params.items()} }, bf16, "
+        f"{resident_gb:.1f} GB resident")
+    per_call = _module_launches(i2v.transformer)
+    if per_call["flash_attention_fwd"] != 56 or _module_launches(i2v.vae) != _launches():
+        raise AssertionError(f"HunyuanVideo 1.5 counts {per_call} launches a call, expected K1 56 and none in the VAE")
+    bias = key_padding_bias("hunyuan_video15", 2, torch.device("cuda"))
+    seen = {"joint": set(), "bias_as_phase_3": [], "kept": []}
+
+    def joint(_, args):  # the first dual block's (image, text, temb, bias, rope)
+        seen["joint"].add(args[0].shape[1] + args[1].shape[1])
+        seen["bias_as_phase_3"].append(torch.equal(args[3], bias))
+        seen["kept"].append((args[3][:, 0, 0] == 0).sum(-1).tolist())
+
+    hook = i2v.transformer.transformer_blocks[0].register_forward_pre_hook(joint)
+    image = synthetic_video(1, HUNYUAN_VIDEO15_HEIGHT, HUNYUAN_VIDEO15_WIDTH)[0].transpose(2, 0, 1) * 2 - 1
+    common = dict(prompt=HUNYUAN_VIDEO15_PROMPT, height=HUNYUAN_VIDEO15_HEIGHT, width=HUNYUAN_VIDEO15_WIDTH,
+                  num_frames=HUNYUAN_VIDEO15_FRAMES, num_inference_steps=HUNYUAN_VIDEO15_STEPS,
+                  guidance_scale=HUNYUAN_VIDEO15_GUIDANCE)
+    results, paths = {}, {}
+    for label, pipe, args, kwargs in (("text2video", t2v, (), dict(output_type="np")),
+                                      ("image2video", i2v, (image,), dict(output_type="latent"))):
+        reset_launches()
+        spans = CudaSpans({"transformer": pipe.transformer, "text_encoder": pipe.text_encoder,
+                           "text_encoder_2": pipe.text_encoder_2, "image_encoder": i2v.image_encoder},
+                          {"vae_decode": (pipe.vae, "decode"), "vae_encode": (pipe.vae, "encode")})
+        with StepLaunches(pipe, pipe.transformer) as steps, spans:
+            out, seconds, peak_gb = _request_seconds(lambda: pipe(
+                *args, generator=torch.Generator(device="cuda").manual_seed(SEED), **common, **kwargs).frames)
+        ms = spans.ms()
+        _check_steps(f"hunyuan-video15 {label}", steps.per_step, [per_call] * HUNYUAN_VIDEO15_STEPS, steps.after,
+                     _launches())
+        decoded = kwargs["output_type"] == "np"
+        shape = ((1, HUNYUAN_VIDEO15_FRAMES, HUNYUAN_VIDEO15_HEIGHT, HUNYUAN_VIDEO15_WIDTH, 3) if decoded
+                 else (1, 32, 9, 30, 53))
+        finite = bool(np.isfinite(out).all()) if decoded else bool(torch.isfinite(out).all())
+        if not (tuple(out.shape) == shape and finite and steps.batches == [2] * HUNYUAN_VIDEO15_STEPS):
+            raise AssertionError(f"hunyuan-video15 {label}: output {tuple(out.shape)}, batches {steps.batches}")
+        row = {"seconds_per_video": seconds, "peak_memory_gb": peak_gb, "launches": read_launches(),
+               "transformer_calls": len(ms["transformer"]), "transformer_ms_per_call": ms["transformer"],
+               "transformer_ms_mean": float(np.mean(ms["transformer"])), "qwen_encode_ms": ms["text_encoder"],
+               "byt5_encode_ms": ms["text_encoder_2"], "siglip_encode_ms": ms["image_encoder"],
+               "vae_encode_ms": ms["vae_encode"], "vae_decode_ms": ms["vae_decode"]}
+        results[label] = row
+        paths[f"hunyuan_video15_{label}"] = row["launches"]
+        log(f"[hunyuan-video15] {smi}: {label}: {seconds:.2f} s a request ({HUNYUAN_VIDEO15_FRAMES} x "
+            f"{HUNYUAN_VIDEO15_HEIGHT} x {HUNYUAN_VIDEO15_WIDTH}, {HUNYUAN_VIDEO15_STEPS} steps at b=2), "
+            f"{row['transformer_calls']} transformer calls of {row['transformer_ms_mean']:.1f} ms (CUDA events; "
+            f"{[round(t, 1) for t in ms['transformer']]}), Qwen encodes {[round(t, 1) for t in ms['text_encoder']]} "
+            f"ms, ByT5 {[round(t, 1) for t in ms['text_encoder_2']]} ms, SigLIP "
+            f"{[round(t, 1) for t in ms['image_encoder']]} ms, VAE encode {[round(t, 1) for t in ms['vae_encode']]} "
+            f"ms, decode {[round(t, 1) for t in ms['vae_decode']]} ms, peak memory {peak_gb:.1f} GB; launches "
+            f"{row['launches']}")
+    hook.remove()
+    if seen["joint"] != {HUNYUAN_VIDEO15_JOINT_ATTENTION[1]} or not all(seen["bias_as_phase_3"][
+            :HUNYUAN_VIDEO15_STEPS]):
+        raise AssertionError(f"hunyuan-video15: joint lengths {seen['joint']}, biases as phase 3's "
+                             f"{seen['bias_as_phase_3']} (kept keys a row {seen['kept']}, phase 3's "
+                             f"{(bias[:, 0, 0] == 0).sum(-1).tolist()}): not the shape and bias phase 3 checks")
+    RESULTS["hunyuan_video15"] = {"card": smi, "steps": HUNYUAN_VIDEO15_STEPS, "frames": HUNYUAN_VIDEO15_FRAMES,
+                                  "height": HUNYUAN_VIDEO15_HEIGHT, "width": HUNYUAN_VIDEO15_WIDTH,
+                                  "guidance_scale": HUNYUAN_VIDEO15_GUIDANCE, "build_seconds": build_s,
+                                  "parameters": n_params, "resident_gb": resident_gb,
+                                  "k1_per_call": per_call["flash_attention_fwd"],
+                                  "image_to_video_bias_as_phase_3": seen["bias_as_phase_3"][HUNYUAN_VIDEO15_STEPS:],
+                                  **results}
+    del i2v, t2v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
 def timed(fn, *args):
     """`fn(*args)`, its wall time logged and kept in RESULTS["phase_seconds"]
     under the function's name."""
@@ -9133,6 +9700,7 @@ def main() -> int:
     timed(check_small_qwenimage)
     timed(check_small_ltx)
     timed(check_small_hunyuan_video)
+    timed(check_small_hunyuan_image_video15)
     sdxl, pipe, image = timed(run_pipeline, smi)
     paths = {"sdxl": sdxl, **timed(run_sdxl_cached, smi, pipe, image)}
     image_paths, controlnet = timed(run_image_pipelines, smi, pipe)
@@ -9198,7 +9766,14 @@ def main() -> int:
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(timed(run_qwenimage, smi))
+    qwen_paths, qwen_tower = timed(run_qwenimage, smi)
+    paths.update(qwen_paths)
+    image_paths, byt5 = timed(run_hunyuan_image, smi, qwen_tower)
+    paths.update(image_paths)
+    paths.update(timed(run_hunyuan_video15, smi, qwen_tower, byt5))
+    del qwen_tower, byt5
+    gc.collect()
+    torch.cuda.empty_cache()
     paths.update(timed(run_ltx, smi))
     hunyuan_paths, pipe = timed(run_hunyuan_video, smi)
     paths.update(hunyuan_paths)

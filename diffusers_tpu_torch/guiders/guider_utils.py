@@ -52,6 +52,10 @@ class BaseGuidance(ConfigMixin):
     def num_conditions(self) -> int:
         return 2
 
+    def save_pretrained(self, save_directory, **kwargs):
+        """A pipeline's guider component: its config in `save_directory`."""
+        self.save_config(save_directory=save_directory, **kwargs)
+
     def _enabled(self, step, num_steps: int, device=None) -> torch.Tensor:
         """The start / stop gate: a bool tensor."""
         frac = step_fraction(step, num_steps, device)

@@ -30,7 +30,7 @@ output frames at a time, so that no padded copy of the whole video is made.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,6 +105,19 @@ class HYResnetBlockCausal3D(nn.Module):
         return self.conv2(self.norm2(x, apply_silu=True)) + residual
 
 
+def frame_causal_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tokens_per_frame: int,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over [B, T * HW, heads, d] tokens, frame-major, in which a
+    query of frame f sees the keys of frames 0..f: one call a query frame
+    over the keys it may see, so no ``[N, N]`` mask or logit tensor is made.
+    A masked key adds exactly zero after the softmax, so this is the dense
+    frame-causal mask's result."""
+    hw = tokens_per_frame
+    return torch.cat([
+        dispatch_attention_fn(q[:, f * hw:(f + 1) * hw], k[:, :(f + 1) * hw], v[:, :(f + 1) * hw], scale=scale)
+        for f in range(q.shape[1] // hw)], dim=1)
+
+
 def frame_causal_attention(attn: Attention, x: torch.Tensor) -> torch.Tensor:
     """`attn` (GroupNorm, projections, residual) over the tokens of
     ``x`` [B, C, T, H, W], each query frame attending to the keys of frames
@@ -118,9 +131,7 @@ def frame_causal_attention(attn: Attention, x: torch.Tensor) -> torch.Tensor:
         return p.reshape(b, t * hw, attn.heads, attn.dim_head)
 
     q, k, v = heads(attn.to_q(tokens)), heads(attn.to_k(tokens)), heads(attn.to_v(tokens))
-    out = torch.cat([
-        dispatch_attention_fn(q[:, f * hw:(f + 1) * hw], k[:, :(f + 1) * hw], v[:, :(f + 1) * hw], scale=attn.scale)
-        for f in range(t)], dim=1)
+    out = frame_causal_sdpa(q, k, v, hw, scale=attn.scale)
     out = attn.to_out[0](out.reshape(b, t * hw, attn.heads * attn.dim_head))
     out = out.transpose(1, 2).reshape(b, c, t, h, w)
     return (out + x) / attn.rescale_output_factor

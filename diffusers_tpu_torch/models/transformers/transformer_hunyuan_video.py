@@ -384,13 +384,18 @@ def validity_bias(mask: torch.Tensor, img_len: int) -> torch.Tensor:
     return torch.where(keep, zero, -math.inf)[:, None, None, :]
 
 
+def grid_rope_tables(axes_dim, theta: float, coords) -> Tuple[np.ndarray, np.ndarray]:
+    """f32 (cos, sin) [prod(len(c)), sum(axes_dim)] over the row-major grid
+    of the per-axis positions `coords`, axis i's table `axes_dim[i]` wide."""
+    grid = np.stack(np.meshgrid(*[np.asarray(c, np.float32) for c in coords], indexing="ij"), axis=0)
+    tables = [get_1d_rotary_pos_embed_np(axes_dim[i], grid[i].reshape(-1), theta=theta) for i in range(len(coords))]
+    return np.concatenate([c for c, _ in tables], axis=-1), np.concatenate([s for _, s in tables], axis=-1)
+
+
 def rope_tables(axes_dim, theta: float, frame_indices, height: int, width: int) -> Tuple[np.ndarray, np.ndarray]:
     """f32 (cos, sin) [F H W, sum(axes_dim)] over the (frame, row, column)
     grid, frames at `frame_indices` (JAX `rope` `:464`)."""
-    grid = np.stack(np.meshgrid(np.asarray(frame_indices, np.float32), np.arange(height, dtype=np.float32),
-                                np.arange(width, dtype=np.float32), indexing="ij"), axis=0)
-    tables = [get_1d_rotary_pos_embed_np(axes_dim[i], grid[i].reshape(-1), theta=theta) for i in range(3)]
-    return np.concatenate([c for c, _ in tables], axis=-1), np.concatenate([s for _, s in tables], axis=-1)
+    return grid_rope_tables(axes_dim, theta, (frame_indices, np.arange(height), np.arange(width)))
 
 
 class HunyuanVideoTransformer3DModel(ModelMixin, ConfigMixin):

@@ -35,6 +35,20 @@ from ...video_processor import VideoProcessor
 from .pipeline_hunyuan_video import DEFAULT_PROMPT_TEMPLATE, HunyuanVideoPipeline, HunyuanVideoPipelineOutput
 
 
+@torch.no_grad()
+def siglip_image_embeds(image_encoder, feature_extractor, image: np.ndarray) -> torch.Tensor:
+    """SigLIP's last hidden state of a [-1, 1] NCHW image (JAX `:60-69`):
+    the image mapped to [0, 1] through the feature extractor (no rescale)
+    where there is one, else the raw pixels."""
+    img01 = np.asarray(image) * 0.5 + 0.5
+    if feature_extractor is not None:
+        pixel_values = np.asarray(feature_extractor(images=img01, return_tensors="np", do_rescale=False)["pixel_values"])
+    else:
+        pixel_values = img01 * 2.0 - 1.0
+    pixels = torch.as_tensor(pixel_values, dtype=image_encoder.dtype, device=image_encoder.device)
+    return image_encoder(pixels).last_hidden_state
+
+
 class FramepackSamplingType:
     VANILLA = "vanilla"
     INVERTED_ANTI_DRIFTING = "inverted_anti_drifting"
@@ -54,18 +68,7 @@ class HunyuanVideoFramepackPipeline(HunyuanVideoPipeline):
     # --------------------------------------------------------------- image
     @torch.no_grad()
     def encode_image(self, image: np.ndarray) -> torch.Tensor:
-        """SigLIP's last hidden state of a [-1, 1] NCHW image (JAX `:60-69`):
-        through the feature extractor where there is one, else the raw
-        pixels."""
-        img01 = np.asarray(image) * 0.5 + 0.5
-        if self.feature_extractor is not None:
-            pixel_values = np.asarray(self.feature_extractor(images=img01, return_tensors="np",
-                                                             do_rescale=False)["pixel_values"])
-        else:
-            pixel_values = img01 * 2.0 - 1.0
-        encoder = self.image_encoder
-        pixels = torch.as_tensor(pixel_values, dtype=encoder.dtype, device=encoder.device)
-        return encoder(pixels).last_hidden_state
+        return siglip_image_embeds(self.image_encoder, self.feature_extractor, image)
 
     @torch.no_grad()
     def _encode_image_latents(self, image: np.ndarray, generator) -> torch.Tensor:

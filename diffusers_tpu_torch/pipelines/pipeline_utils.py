@@ -82,6 +82,19 @@ _CLASS_REGISTRY: Dict[str, str] = {
         "diffusers_tpu_torch.models.autoencoders.autoencoder_kl_hunyuan_video.AutoencoderKLHunyuanVideo",
     "QwenImageControlNetModel":
         "diffusers_tpu_torch.models.controlnets.controlnet_qwenimage.QwenImageControlNetModel",
+    "HunyuanImageTransformer2DModel":
+        "diffusers_tpu_torch.models.transformers.transformer_hunyuanimage.HunyuanImageTransformer2DModel",
+    "AutoencoderKLHunyuanImage":
+        "diffusers_tpu_torch.models.autoencoders.autoencoder_kl_hunyuanimage.AutoencoderKLHunyuanImage",
+    "AutoencoderKLHunyuanImageRefiner": "diffusers_tpu_torch.models.autoencoders."
+                                        "autoencoder_kl_hunyuanimage_refiner.AutoencoderKLHunyuanImageRefiner",
+    "HunyuanVideo15Transformer3DModel":
+        "diffusers_tpu_torch.models.transformers.transformer_hunyuan_video15.HunyuanVideo15Transformer3DModel",
+    "AutoencoderKLHunyuanVideo15":
+        "diffusers_tpu_torch.models.autoencoders.autoencoder_kl_hunyuanvideo15.AutoencoderKLHunyuanVideo15",
+    "ClassifierFreeGuidance": "diffusers_tpu_torch.guiders.classifier_free_guidance.ClassifierFreeGuidance",
+    "AdaptiveProjectedMixGuidance":
+        "diffusers_tpu_torch.guiders.adaptive_projected_guidance_mix.AdaptiveProjectedMixGuidance",
     "EulerDiscreteScheduler": "diffusers_tpu_torch.schedulers.scheduling_euler_discrete.EulerDiscreteScheduler",
     "FlowMatchEulerDiscreteScheduler":
         "diffusers_tpu_torch.schedulers.scheduling_flow_match_euler_discrete.FlowMatchEulerDiscreteScheduler",

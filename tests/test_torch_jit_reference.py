@@ -27,7 +27,16 @@ turns on JAX's persistent compilation cache in a directory under the
 system's temporary directory that the test workers share: most of a port
 test's time is the XLA compile of its JAX reference, and workers compile
 many of the same programs. A loaded executable is the one the compile would
-give. Both are turned off again after the test.
+give. It also compiles the JAX reference with most of XLA's optimizations
+off (`reference_jit`, REDUCED_OPTIMIZATION: LLVM at -O0, no expensive
+passes) for the top-level jits that the port's tests and the JAX pipelines
+make, which compile in about 60% of the time (a tiny SDXL UNet: 1.2 s
+against 2.0): the reference computes the same function, its floating-point
+rounding can differ in the last bits (1e-6 on the tiny models, far inside
+every tolerance), and a test that holds two JAX programs to each other bit
+for bit runs them under `full_jax_optimization()`. The compiler options
+are part of JAX's cache keys, so the JAX package's own tests never run a
+program compiled this way. All of it is undone after the test.
 
 The tests hold the wrapper's plumbing (traced and static arguments, the
 posterior rebuilt from its moments) to a plain `jax.jit` of each method on a
@@ -35,6 +44,7 @@ tiny CLIP text tower and a tiny AutoencoderKL, and `fast_randn` to
 `randn_tensor`, all bit-equal.
 """
 
+import contextlib
 import functools
 import os
 import sys
@@ -147,7 +157,7 @@ def _normal_from_bits(n: int):
                     + lax.convert_element_type(lo, jnp.float32))
         return lax.mul(np.array(np.sqrt(2), np.float32), lax.erf_inv(u))
 
-    return jax.jit(fn)
+    return jax.jit(fn, compiler_options={})  # at XLA's default level, as JAX compiles its own draws
 
 
 def fast_normal(key, shape):
@@ -171,12 +181,67 @@ def fast_randn(shape, key=None, dtype=jnp.float32, per_sample=False):
     return fast_normal(key, shape).astype(dtype)
 
 
+# transformers imports TensorFlow and Keras (and with them matplotlib) when it finds them installed, about 10 s a
+# process; no test uses them. Collection imports this module before any test module imports transformers.
+os.environ.setdefault("USE_TF", "0")
+
 SHARED_CACHE_DIR = os.path.join(tempfile.gettempdir(), "diffusers_tpu_torch-tests-jax-cache")
 # no size limit: with one, every read and write takes a file lock and rescans the directory; an entry
 # read while another worker writes it fails to decompress, which JAX reports and compiles instead
 _CACHE_OPTIONS = {"jax_compilation_cache_dir": SHARED_CACHE_DIR,
                   "jax_persistent_cache_min_compile_time_secs": 0.1,
                   "jax_persistent_cache_min_entry_size_bytes": 0}
+
+
+# XLA's CPU backend with most optimizations off (LLVM at -O0, no expensive passes): the JAX reference's programs
+# compile in about half the time; the floating-point rounding can differ in the last bits
+REDUCED_OPTIMIZATION = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+# the reference's jits: those the port's tests make, and the JAX pipelines' own (`DiffusionPipeline._jit`)
+_REFERENCE_CALLERS = (os.path.join("tests", "test_torch_"), os.path.join("diffusers_tpu", "pipelines", "pipeline_utils.py"))
+_jax_jit = jax.jit
+_reduced = {"on": True}
+
+
+class _ReferenceJit:
+    """A jitted function compiled at REDUCED_OPTIMIZATION where it is called
+    at the top level, and at the default level where a trace calls it (JAX
+    takes compiler options on a top-level jit only) or inside
+    `full_jax_optimization()`. The options key JAX's caches."""
+
+    def __init__(self, fun, kwargs):
+        self._plain = _jax_jit(fun, **kwargs)
+        self._reduced = _jax_jit(fun, compiler_options=REDUCED_OPTIMIZATION, **kwargs)
+
+    def __call__(self, *args, **kwargs):
+        traced = any(isinstance(leaf, jax.core.Tracer) for leaf in jax.tree.leaves((args, kwargs)))
+        return (self._reduced if _reduced["on"] and not traced else self._plain)(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._plain, name)
+
+
+def reference_jit(fun, /, **kwargs):
+    """`jax.jit` for the reference: a jit made by a port test or by a JAX
+    pipeline (`DiffusionPipeline._jit`) runs at REDUCED_OPTIMIZATION at the
+    top level (`_ReferenceJit`), unless it passes its own options; any other
+    (the JAX package's own) is JAX's."""
+    caller = sys._getframe(1).f_code.co_filename
+    if "compiler_options" in kwargs or not any(c in caller for c in _REFERENCE_CALLERS):
+        return _jax_jit(fun, **kwargs)
+    return _ReferenceJit(fun, kwargs)
+
+
+@contextlib.contextmanager
+def full_jax_optimization():
+    """XLA's default optimization for the reference's programs run in the
+    block, for a test that holds two JAX programs to each other bit for bit:
+    XLA's optimizing passes make equal computations traced in different
+    forms compile to the same code, which the reduced level need not."""
+    _reduced["on"] = False
+    try:
+        yield
+    finally:
+        _reduced["on"] = True
 
 
 @pytest.fixture(autouse=True)
@@ -196,6 +261,7 @@ def jax_reference_speedups(monkeypatch):
     for name, value in _CACHE_OPTIONS.items():
         jax.config.update(name, value)
     compilation_cache.reset_cache()  # JAX decides once whether to use the cache: decide anew
+    monkeypatch.setattr(jax, "jit", reference_jit)
     try:
         yield
     finally:

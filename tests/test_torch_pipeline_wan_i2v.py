@@ -71,6 +71,7 @@ from diffusers_tpu_torch.ops.cuda.flash_attention import flash_attention_full
 from diffusers_tpu_torch.utils import torch_utils
 from test_torch_pipeline_cache import _parts
 from test_torch_pipeline_wan import jit_reference
+from test_torch_jit_reference import full_jax_optimization
 from test_torch_jit_reference import jax_reference_speedups  # noqa: F401 (autouse)
 from test_torch_jit_reference import fast_randn as jax_randn
 
@@ -430,11 +431,13 @@ def _v2v_composed(jpipe, noise, steps=V2V_STEPS, strength=STRENGTH, text_len=TXT
 @pytest.fixture(scope="module")
 def jax_v2v_request(v2v):
     """JAX's own V2V request (strength 0.6, 5 steps, key 0), made once for
-    the tests that read it."""
+    the tests that read it, at XLA's default optimization (one test holds a
+    cached request to it bit for bit)."""
     jpipe, _ = v2v
-    return np.asarray(jpipe(PROMPT, video=VIDEO, strength=STRENGTH, num_inference_steps=V2V_STEPS,
-                            max_sequence_length=TXT_LEN, output_type="latent", key=jax.random.PRNGKey(0),
-                            **V2V_CALL).frames)
+    with full_jax_optimization():
+        return np.asarray(jpipe(PROMPT, video=VIDEO, strength=STRENGTH, num_inference_steps=V2V_STEPS,
+                                max_sequence_length=TXT_LEN, output_type="latent", key=jax.random.PRNGKey(0),
+                                **V2V_CALL).frames)
 
 
 @pytest.fixture(scope="module")
@@ -541,7 +544,8 @@ def test_v2v_refuses_what_jax_v2v_does_not_honour(v2v, v2v_noise, monkeypatch, j
     jpipe.enable_cache(jhooks.FasterCacheConfig(unconditional_batch_skip_range=2,
                                                 unconditional_batch_timestep_skip_range=(-1, 1000)))
     try:
-        np.testing.assert_array_equal(np.asarray(jpipe(PROMPT, **kwargs).frames), dense)
+        with full_jax_optimization():  # as `jax_v2v_request`
+            np.testing.assert_array_equal(np.asarray(jpipe(PROMPT, **kwargs).frames), dense)
     finally:
         jpipe.disable_cache()
     from diffusers_tpu.hooks.pyramid_attention_broadcast import PyramidAttentionBroadcastConfig as JaxPAB
