@@ -177,6 +177,12 @@ made from a seed on the card:
     of 2 sections in each sampling order, at the joint attention length and
     VAE spans that phases 3 and 4 check K1 and K4 at; phases 10m and 10n run both small,
     card against CPU, with every HunyuanVideo cache and true CFG;
+  * the sampler layer: phase 11's SDXL pipeline with DPM-Solver++ 2M Karras
+    (20 steps), Heun (10 steps, 19 UNet calls) and EDM DPM-Solver++ (20
+    steps) swapped in by `from_config` (phase 12f), and phase 16's SD3.5
+    Medium with flow-match Heun (8 steps, 15 calls; phase 16b), each step's
+    K1 and K4 launches held to the module counts; phase 10p runs every
+    sampler's loop on a CUDA and a CPU sample alike;
   * training: `train_text_to_image.main` on the SDXL UNet at its published
     widths, 1024 px, batch 1, TRAIN_STEPS steps (f32 weights and AdamW, bf16
     autocast; kernels K1 forward, K2 and K3 backward, K4), then a sharded
@@ -432,6 +438,54 @@ SMALL_FBC_THRESHOLD = 0.5
 # each), then one VAE decode (30 K4)
 SDXL_HEADLINE_LAUNCHES = dict(flash_attention_fwd=140 * 5, flash_attention_bwd_dkdv=0, flash_attention_bwd_dq=0,
                               group_norm=46 * 5 + 30, w8a8_matmul=0, w8a8_quantize_rows=0)
+
+# phase 12f: the samplers a user swaps into SDXL (`from_config(pipe.scheduler.config, ...)`), each at 1024 px and
+# CFG 5.0 on phase 11's pipeline: (label, class name, overrides, steps). Heun calls the UNet 2N - 1 times; the EDM
+# pair's ladder is its own (the Euler config's sigma_min / sigma_max are None).
+SDXL_SAMPLER_REQUESTS = (
+    ("dpmpp_2m_karras", "DPMSolverMultistepScheduler", dict(use_karras_sigmas=True), 20),
+    ("heun", "HeunDiscreteScheduler", {}, 10),
+    ("edm_dpmpp_2m", "EDMDPMSolverMultistepScheduler", dict(sigma_min=0.002, sigma_max=80.0), 20),
+)
+SD3_HEUN_STEPS = 8  # phase 16b: SD3.5 Medium with FlowMatchHeunDiscreteScheduler (15 transformer calls)
+SAMPLER_IMAGE_COSINE = 0.5  # a sampler's image against the Euler image of the same seed (random weights)
+
+# phase 10p: every sampler of the port's scheduler layer and the UniPC and flow-match Euler options, over a whole loop
+# on a CUDA sample and a CPU sample with the same numpy model outputs (and injected noise for the stochastic
+# ones), at tests/test_torch_schedulers.py's tolerance: max |card - CPU| <= rel * max |CPU| (rel 1e-6; 5e-6
+# for the order-3 and log-rho cases). (class name, config, steps)
+_SD15_BETAS = dict(beta_start=0.00085, beta_end=0.012, beta_schedule="scaled_linear")
+SMALL_SAMPLER_CASES = (
+    ("DPMSolverMultistepScheduler", dict(_SD15_BETAS, use_karras_sigmas=True), 12),
+    ("DPMSolverMultistepScheduler", dict(_SD15_BETAS, solver_order=3), 20),
+    ("DPMSolverMultistepScheduler", dict(_SD15_BETAS, algorithm_type="sde-dpmsolver++", use_karras_sigmas=True), 10),
+    ("DPMSolverMultistepScheduler", dict(prediction_type="flow_prediction", use_flow_sigmas=True, flow_shift=5.0), 10),
+    ("EulerAncestralDiscreteScheduler", _SD15_BETAS, 10),
+    ("HeunDiscreteScheduler", _SD15_BETAS, 8),
+    ("DPMSolverSinglestepScheduler", _SD15_BETAS, 11),
+    ("LMSDiscreteScheduler", _SD15_BETAS, 10),
+    ("KDPM2DiscreteScheduler", _SD15_BETAS, 8),
+    ("KDPM2AncestralDiscreteScheduler", _SD15_BETAS, 8),
+    ("DEISMultistepScheduler", _SD15_BETAS, 10),
+    ("DPMSolverSDEScheduler", _SD15_BETAS, 8),
+    ("EDMEulerScheduler", {}, 10),
+    ("EDMDPMSolverMultistepScheduler", {}, 12),
+    ("SASolverScheduler", _SD15_BETAS, 12),
+    ("IPNDMScheduler", {}, 10),
+    ("FlowMatchHeunDiscreteScheduler", dict(shift=3.0), 6),
+    ("FlowMatchLCMScheduler", dict(shift=3.0), 6),
+    ("UniPCMultistepScheduler", dict(_SD15_BETAS, solver_order=3, use_karras_sigmas=True), 10),
+    ("UniPCMultistepScheduler", dict(_SD15_BETAS, prediction_type="sample", thresholding=True,
+                                     sample_max_value=1.5), 8),
+    ("UniPCMultistepScheduler", dict(_SD15_BETAS, rescale_betas_zero_snr=True, prediction_type="v_prediction",
+                                     timestep_spacing="trailing", disable_corrector=[0, 4]), 10),
+    ("UniPCMultistepScheduler", dict(_SD15_BETAS, timestep_spacing="leading", steps_offset=1), 10),
+    ("FlowMatchEulerDiscreteScheduler", dict(shift=3.0, use_karras_sigmas=True), 8),
+    ("FlowMatchEulerDiscreteScheduler", dict(shift=3.0, use_exponential_sigmas=True), 8),
+    ("FlowMatchEulerDiscreteScheduler", dict(shift=3.0, use_beta_sigmas=True), 8),
+    ("FlowMatchEulerDiscreteScheduler", dict(shift=3.0, stochastic_sampling=True), 8),
+)
+SMALL_SAMPLER_SHAPE = (2, 4, 32, 32)
 
 # stabilityai/stable-diffusion-3.5-medium: transformer/config.json (24 layers, the first 13 dual-attention,
 # 24 x 64 heads, qk RMSNorm, pos_embed_max_size 384), the text encoders chip_smoke builds for SDXL and Flux
@@ -3368,6 +3422,58 @@ def run_sdxl_cached(smi: str, pipe, dense_image):
     return paths
 
 
+def run_sdxl_schedulers(smi: str, pipe, euler_image):
+    """Phase 12f: the samplers of SDXL_SAMPLER_REQUESTS swapped into phase
+    11's pipeline with `from_config(pipe.scheduler.config, ...)`, one
+    1024 px CFG 5.0 request each from phase 11's seed and prompt. Each step
+    (one UNet call: Heun's schedule interleaves 2N - 1) is held to 140 K1 and
+    46 K4 launches, the decode to 30 K4; the latents must be finite, the image
+    not constant and its cosine to the Euler image at least
+    SAMPLER_IMAGE_COSINE. The Euler scheduler is put back afterwards."""
+    import numpy as np
+    import torch
+
+    import diffusers_tpu_torch.schedulers as schedulers
+
+    per_call, decode = _module_launches(pipe.unet), _module_launches(pipe.vae.decoder)
+    euler, out, paths = pipe.scheduler, {}, {}
+    latents_seen = []
+    hook = pipe.vae.post_quant_conv.register_forward_pre_hook(lambda mod, args: latents_seen.append(args[0]))
+    try:
+        for label, name, overrides, steps in SDXL_SAMPLER_REQUESTS:
+            pipe.scheduler = getattr(schedulers, name).from_config(euler.config, **overrides)
+            calls = len(pipe.scheduler.set_timesteps(steps).timesteps)
+            reset_launches()
+            with StepLaunches(pipe, pipe.unet) as record:
+                images, seconds, peak_gb = _request_seconds(lambda: pipe(
+                    PROMPTS[0], height=RESOLUTION, width=RESOLUTION, num_inference_steps=steps,
+                    guidance_scale=GUIDANCE, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                    output_type="pil").images)
+            launches = read_launches()
+            image = np.asarray(images[0])
+            _check_steps(f"sdxl {label}", record.per_step, [per_call] * calls, record.after, decode)
+            if record.batches != [2] * calls:
+                raise AssertionError(f"sdxl {label}: UNet batches {record.batches}, expected {[2] * calls}")
+            cosine, spread = _image_cosine(image, euler_image), float(image.std())
+            finite = bool(torch.isfinite(latents_seen[-1]).all())
+            log(f"[sdxl-samplers] {smi}: {label} ({name}, {steps} steps, {calls} UNet calls): {seconds:.3f} s/image, "
+                f"peak memory {peak_gb:.1f} GB, launches {launches}, image std {spread:.1f} levels, cosine to the "
+                f"Euler image {cosine:.4f} (limit {SAMPLER_IMAGE_COSINE}; random weights)")
+            if (image.shape != (RESOLUTION, RESOLUTION, 3) or not finite or spread < 1.0
+                    or cosine < SAMPLER_IMAGE_COSINE):
+                raise AssertionError(f"sdxl {label}: image {image.shape}, finite latents {finite}, std {spread}, "
+                                     f"cosine {cosine}")
+            out[label] = {"card": smi, "scheduler": name, "steps": steps, "unet_calls": calls,
+                          "seconds_per_request": seconds, "peak_memory_gb": peak_gb, "launches": launches,
+                          "image_std": spread, "cosine_to_euler": cosine}
+            paths[f"sdxl_{label}"] = launches
+    finally:
+        pipe.scheduler = euler
+        hook.remove()
+    RESULTS["sdxl_samplers"] = out
+    return paths
+
+
 def _load_controlnet_from_pretrained(smi: str):
     """The full-width ControlNet (SDXL_CONTROLNET, random weights from SEED,
     bf16) written with the port's `save_pretrained` in 1 GB shards to a
@@ -3988,7 +4094,52 @@ def run_sd3_served(smi: str):
         "served_vs_direct_max_diff": diff, "k1_per_call": k1_call, "cached": cached,
     }
     return {"sd3_served": served_launches, "sd3_direct": direct_launches,
-            **{f"sd3_{label}": row["launches"] for label, row in cached.items()}}, pipe
+            **{f"sd3_{label}": row["launches"] for label, row in cached.items()}}, pipe, direct_image
+
+
+def run_sd3_heun(smi: str, pipe, euler_image):
+    """Phase 16b: phase 16's SD3.5 Medium pipeline with
+    `FlowMatchHeunDiscreteScheduler.from_config(pipe.scheduler.config)` (its
+    shift 3.0), one 1024 px CFG 7.0 request of SD3_HEUN_STEPS steps from
+    phase 16's seed and prompt: 2N - 1 transformer calls at b=2, each held to
+    its K1 launches, the decode to its K4; the image finite, not constant and
+    within SAMPLER_IMAGE_COSINE of the flow-match Euler image."""
+    import numpy as np
+    import torch
+
+    from diffusers_tpu_torch.schedulers import FlowMatchHeunDiscreteScheduler
+    from diffusers_tpu_torch.serving import server
+
+    tr = pipe.transformer
+    per_call, decode = _module_launches(tr), _module_launches(pipe.vae.decoder)
+    euler = pipe.scheduler
+    pipe.scheduler = FlowMatchHeunDiscreteScheduler.from_config(euler.config)
+    calls = len(pipe.scheduler.set_timesteps(SD3_HEUN_STEPS).timesteps)
+    reset_launches()
+    try:
+        with StepLaunches(pipe, tr) as record:
+            images, seconds, peak_gb = _request_seconds(lambda: pipe(
+                SD3_PROMPTS[0], height=RESOLUTION, width=RESOLUTION, num_inference_steps=SD3_HEUN_STEPS,
+                guidance_scale=SD3_GUIDANCE, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                output_type="np").images)
+    finally:
+        pipe.scheduler = euler
+    launches = read_launches()
+    _check_steps("sd3 heun", record.per_step, [per_call] * calls, record.after, decode)
+    if record.batches != [2] * calls:
+        raise AssertionError(f"sd3 heun: transformer batches {record.batches}, expected {[2] * calls}")
+    finite = bool(np.isfinite(images).all())
+    image = server.to_uint8(images[0])
+    cosine, spread = _image_cosine(image, euler_image), float(image.std())
+    log(f"[sd3-heun] {smi}: FlowMatchHeunDiscreteScheduler, {SD3_HEUN_STEPS} steps, {calls} transformer calls: "
+        f"{seconds:.3f} s/image, peak memory {peak_gb:.1f} GB, launches {launches}, image std {spread:.1f} levels, "
+        f"cosine to the flow-match Euler image {cosine:.4f} (limit {SAMPLER_IMAGE_COSINE}; random weights)")
+    if image.shape != (RESOLUTION, RESOLUTION, 3) or not finite or spread < 1.0 or cosine < SAMPLER_IMAGE_COSINE:
+        raise AssertionError(f"sd3 heun: image {image.shape}, finite {finite}, std {spread}, cosine {cosine}")
+    RESULTS["sd3_heun"] = {"card": smi, "steps": SD3_HEUN_STEPS, "transformer_calls": calls,
+                           "seconds_per_request": seconds, "peak_memory_gb": peak_gb, "launches": launches,
+                           "image_std": spread, "cosine_to_euler": cosine}
+    return {"sd3_heun": launches}
 
 
 def _build_wan_pipeline(transformer_cfg, vae_cfg, umt5_cfg, device, dtype):
@@ -9651,6 +9802,57 @@ def run_hunyuan_video15(smi: str, text_encoder, byt5):
     return paths
 
 
+def check_small_schedulers(device: str = "cuda"):
+    """Phase 10p: each sampler of SMALL_SAMPLER_CASES over its whole loop on a
+    CUDA sample and on a CPU sample, both given the same numpy sample, model
+    outputs and (for the stochastic samplers) noise: the ladders must be the
+    same host tensors, and every step's card sample within the CPU tests'
+    tolerance of the CPU's (held to JAX by tests/test_torch_schedulers.py)."""
+    import numpy as np
+    import torch
+
+    import diffusers_tpu_torch.schedulers as schedulers
+
+    noisy = {"EulerAncestralDiscreteScheduler", "KDPM2AncestralDiscreteScheduler", "DPMSolverSDEScheduler",
+             "SASolverScheduler", "FlowMatchLCMScheduler"}
+    results, t0 = {}, time.perf_counter()
+    for name, config, steps in SMALL_SAMPLER_CASES:
+        label = f"{name} {config}"
+        sched = getattr(schedulers, name)(**config)
+        states = [sched.set_timesteps(steps) for _ in range(2)]
+        if not torch.equal(states[0].timesteps, states[1].timesteps):
+            raise AssertionError(f"{label}: the ladders differ")
+        n = int(states[0].timesteps.shape[0])
+        rng = np.random.RandomState(SEED)
+        sample0 = rng.randn(*SMALL_SAMPLER_SHAPE).astype(np.float32)
+        outputs = rng.randn(n, *SMALL_SAMPLER_SHAPE).astype(np.float32)
+        noises = rng.randn(n, *SMALL_SAMPLER_SHAPE).astype(np.float32)
+        takes_noise = name in noisy or config.get("algorithm_type") == "sde-dpmsolver++" or config.get(
+            "stochastic_sampling", False)
+        rel = 5e-6 if config.get("solver_order") == 3 or name == "DEISMultistepScheduler" else 1e-6
+        samples = [torch.from_numpy(sample0).to(dev) * states[0].init_noise_sigma for dev in ("cpu", device)]
+        worst = 0.0
+        for i in range(n):
+            for side, dev in enumerate(("cpu", device)):
+                kw = {"variance_noise": torch.from_numpy(noises[i]).to(dev)} if takes_noise else {}
+                samples[side] = sched.step(states[side], torch.from_numpy(outputs[i]).to(dev),
+                                           states[side].timesteps[i], samples[side], **kw).prev_sample
+            if samples[1].device.type != torch.device(device).type:
+                raise AssertionError(f"{label}: the card loop left the card")
+            ref, out = samples[0], samples[1].cpu()
+            err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+            worst = max(worst, err / scale)
+            if not (bool(torch.isfinite(out).all()) and err <= rel * scale):
+                raise AssertionError(f"{label}: step {i} on the card differs from the CPU by {err:.3e} "
+                                     f"(limit {rel} x {scale:.3e})")
+        results[label] = {"steps": n, "max_rel_err": worst, "rel": rel}
+    seconds = time.perf_counter() - t0
+    log(f"[ref-samplers] {len(results)} sampler loops, card vs CPU at {SMALL_SAMPLER_SHAPE}: worst max |diff| / "
+        f"max |x| {max(r['max_rel_err'] for r in results.values()):.3e} (limits 1e-6, 5e-6 for the order-3 and "
+        f"log-rho cases), {seconds:.1f} s")
+    RESULTS["small_samplers"] = results
+
+
 def timed(fn, *args):
     """`fn(*args)`, its wall time logged and kept in RESULTS["phase_seconds"]
     under the function's name."""
@@ -9701,8 +9903,10 @@ def main() -> int:
     timed(check_small_ltx)
     timed(check_small_hunyuan_video)
     timed(check_small_hunyuan_image_video15)
+    timed(check_small_schedulers)
     sdxl, pipe, image = timed(run_pipeline, smi)
     paths = {"sdxl": sdxl, **timed(run_sdxl_cached, smi, pipe, image)}
+    paths.update(timed(run_sdxl_schedulers, smi, pipe, image))
     image_paths, controlnet = timed(run_image_pipelines, smi, pipe)
     paths.update(image_paths)
     paths.update(timed(run_sdxl_guidance, smi, pipe, controlnet, image))
@@ -9741,8 +9945,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(timed(run_transformers_single_file, smi))
     paths.update(timed(run_small_round_trips, smi))
-    sd3_paths, pipe = timed(run_sd3_served, smi)
+    sd3_paths, pipe, sd3_image = timed(run_sd3_served, smi)
     paths.update(sd3_paths)
+    paths.update(timed(run_sd3_heun, smi, pipe, sd3_image))
     paths.update(timed(run_sd3_from_disk, smi, pipe))
     paths.update(timed(run_sd3_controlnet, smi, pipe))
     paths.update(timed(run_sd3_guidance, smi, pipe))

@@ -221,8 +221,13 @@ class ConfigMixin:
             logger.info(f"{expected_keys - passed_keys} was not found in config. Values will be initialized to default values.")
         # every config-file key the constructor does not take (the underscore
         # keys, and other writers' metadata such as a transformers config's
-        # `architectures` or `torch_dtype`) is kept in the config, never passed
+        # `architectures` or `torch_dtype`) is kept in the config, never passed;
+        # a scheduler keeps only the underscore keys, so a swap (`from_config`
+        # of another sampler's config) drops the other sampler's options, as
+        # JAX's does
         hidden_config_dict = dict(config_dict)
+        if getattr(cls, "has_compatibles", False):
+            hidden_config_dict = {k: v for k, v in config_dict.items() if k.startswith("_")}
         return init_dict, unused_kwargs, hidden_config_dict
 
     @staticmethod

@@ -104,6 +104,27 @@ _CLASS_REGISTRY: Dict[str, str] = {
     "DDIMScheduler": "diffusers_tpu_torch.schedulers.scheduling_ddim.DDIMScheduler",
     "LCMScheduler": "diffusers_tpu_torch.schedulers.scheduling_lcm.LCMScheduler",
     "TCDScheduler": "diffusers_tpu_torch.schedulers.scheduling_tcd.TCDScheduler",
+    "EulerAncestralDiscreteScheduler":
+        "diffusers_tpu_torch.schedulers.scheduling_euler_ancestral_discrete.EulerAncestralDiscreteScheduler",
+    "LMSDiscreteScheduler": "diffusers_tpu_torch.schedulers.scheduling_lms_discrete.LMSDiscreteScheduler",
+    "DPMSolverMultistepScheduler":
+        "diffusers_tpu_torch.schedulers.scheduling_dpmsolver_multistep.DPMSolverMultistepScheduler",
+    "HeunDiscreteScheduler": "diffusers_tpu_torch.schedulers.scheduling_heun_discrete.HeunDiscreteScheduler",
+    "DEISMultistepScheduler": "diffusers_tpu_torch.schedulers.scheduling_deis_multistep.DEISMultistepScheduler",
+    "KDPM2DiscreteScheduler": "diffusers_tpu_torch.schedulers.scheduling_k_dpm_2_discrete.KDPM2DiscreteScheduler",
+    "DPMSolverSinglestepScheduler":
+        "diffusers_tpu_torch.schedulers.scheduling_dpmsolver_singlestep.DPMSolverSinglestepScheduler",
+    "KDPM2AncestralDiscreteScheduler":
+        "diffusers_tpu_torch.schedulers.scheduling_k_dpm_2_ancestral_discrete.KDPM2AncestralDiscreteScheduler",
+    "IPNDMScheduler": "diffusers_tpu_torch.schedulers.scheduling_ipndm.IPNDMScheduler",
+    "EDMDPMSolverMultistepScheduler":
+        "diffusers_tpu_torch.schedulers.scheduling_edm_dpmsolver_multistep.EDMDPMSolverMultistepScheduler",
+    "SASolverScheduler": "diffusers_tpu_torch.schedulers.scheduling_sasolver.SASolverScheduler",
+    "EDMEulerScheduler": "diffusers_tpu_torch.schedulers.scheduling_edm_euler.EDMEulerScheduler",
+    "DPMSolverSDEScheduler": "diffusers_tpu_torch.schedulers.scheduling_dpmsolver_sde.DPMSolverSDEScheduler",
+    "FlowMatchHeunDiscreteScheduler":
+        "diffusers_tpu_torch.schedulers.scheduling_flow_match_heun_discrete.FlowMatchHeunDiscreteScheduler",
+    "FlowMatchLCMScheduler": "diffusers_tpu_torch.schedulers.scheduling_flow_match_lcm.FlowMatchLCMScheduler",
     "T2IAdapter": "diffusers_tpu_torch.models.adapter.T2IAdapter",
     "CLIPTextModel": "diffusers_tpu_torch.models.text_encoders.clip.CLIPTextModel",
     "CLIPTextModelWithProjection": "diffusers_tpu_torch.models.text_encoders.clip.CLIPTextModelWithProjection",

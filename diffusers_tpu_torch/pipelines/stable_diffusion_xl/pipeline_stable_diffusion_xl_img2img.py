@@ -23,11 +23,16 @@ from .pipeline_stable_diffusion_xl import StableDiffusionXLPipeline
 
 
 def strength_timesteps(scheduler, state, num_inference_steps: int, strength: float) -> torch.Tensor:
-    """The tail of the schedule that `strength` keeps (JAX `:89-92`)."""
+    """The tail of the schedule that `strength` keeps (JAX `:89-92`). A
+    scheduler that steps by index (its state has `step_index`) begins at the
+    tail's first index, as upstream's `set_begin_index` makes it; JAX's
+    begins at 0 and so steps the head of its ladders (ROADMAP C4)."""
     init_timestep = min(int(num_inference_steps * strength), num_inference_steps)
     t_start = max(num_inference_steps - init_timestep, 0)
     timesteps = state.timesteps[t_start * scheduler.order:]
     check_strength_and_schedule(strength, timesteps)
+    if hasattr(state, "step_index"):
+        state.step_index = t_start * scheduler.order
     return timesteps
 
 

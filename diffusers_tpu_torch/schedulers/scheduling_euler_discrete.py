@@ -25,8 +25,10 @@ from ..utils import BaseOutput
 from .scheduling_utils import (
     KarrasDiffusionSchedulers,
     SchedulerMixin,
-    broadcast_to_left,
+    add_sigma_noise,
     index_for_timestep,
+    k_init_noise_sigma,
+    k_spaced_timesteps,
     make_beta_schedule,
     rescale_zero_terminal_snr,
 )
@@ -99,20 +101,9 @@ class EulerDiscreteScheduler(SchedulerMixin, ConfigMixin):
 
         if timesteps is not None:
             timesteps = np.array(timesteps).astype(np.float32)
-        elif self.config.timestep_spacing == "linspace":
-            timesteps = np.linspace(
-                0, self.config.num_train_timesteps - 1, num_inference_steps, dtype=np.float32
-            )[::-1].copy()
-        elif self.config.timestep_spacing == "leading":
-            step_ratio = self.config.num_train_timesteps // num_inference_steps
-            timesteps = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1].copy().astype(np.float32)
-            timesteps += self.config.steps_offset
-        elif self.config.timestep_spacing == "trailing":
-            step_ratio = self.config.num_train_timesteps / num_inference_steps
-            timesteps = (np.arange(self.config.num_train_timesteps, 0, -step_ratio)).round().copy().astype(np.float32)
-            timesteps -= 1
         else:
-            raise ValueError(f"unsupported timestep_spacing {self.config.timestep_spacing}")
+            timesteps = k_spaced_timesteps(self.config.timestep_spacing, num_inference_steps,
+                                           self.config.num_train_timesteps, self.config.steps_offset)
 
         sigmas_full = np.array(((1 - self.alphas_cumprod) / self.alphas_cumprod) ** 0.5)
         log_sigmas = np.log(sigmas_full)
@@ -141,15 +132,10 @@ class EulerDiscreteScheduler(SchedulerMixin, ConfigMixin):
         if self.config.timestep_type == "continuous" and self.config.prediction_type == "v_prediction":
             timesteps = np.array([0.25 * np.log(s) for s in sigmas[:-1]], dtype=np.float32)
 
-        if self.config.timestep_spacing in ("linspace", "trailing"):
-            init_noise_sigma = float(sigmas.max())
-        else:
-            init_noise_sigma = float((sigmas.max() ** 2 + 1) ** 0.5)
-
         return EulerDiscreteSchedulerState(
             timesteps=torch.from_numpy(np.asarray(timesteps, dtype=np.float32)),
             sigmas=torch.from_numpy(sigmas),
-            init_noise_sigma=init_noise_sigma,
+            init_noise_sigma=k_init_noise_sigma(sigmas, self.config.timestep_spacing),
             num_inference_steps=num_inference_steps,
         )
 
@@ -211,15 +197,7 @@ class EulerDiscreteScheduler(SchedulerMixin, ConfigMixin):
             state=state,
         )
 
-    def add_noise(self, state: EulerDiscreteSchedulerState, original_samples: torch.Tensor, noise: torch.Tensor,
-                  timesteps) -> torch.Tensor:
-        """`original_samples + noise * sigma(t)`, one t per batch row (or one
-        for all); each t is a value of the schedule, found by equality."""
-        ts = torch.as_tensor(timesteps, dtype=state.timesteps.dtype).reshape(-1)
-        sigma = state.sigmas[[index_for_timestep(state.timesteps, t) for t in ts]]
-        sigma = broadcast_to_left(sigma.to(device=original_samples.device, dtype=original_samples.dtype),
-                                  original_samples.ndim)
-        return original_samples + noise * sigma
+    add_noise = staticmethod(add_sigma_noise)
 
     def __len__(self):
         return self.config.num_train_timesteps

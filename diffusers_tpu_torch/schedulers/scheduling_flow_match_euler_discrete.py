@@ -7,9 +7,11 @@ are built in numpy on the host exactly as in JAX (float32 with float64
 inputs) and kept as float32 host tensors; only `step` runs in torch, in
 float32, casting `prev_sample` to the model output's dtype; `scale_noise`, the forward
 process of the image-conditioned SD3 pipelines, likewise. `step`
-also takes per-token timesteps (the LTX condition pipeline's). The Karras /
-exponential / beta ladders and stochastic sampling wait for the pipelines
-that use them.
+also takes per-token timesteps (the LTX condition pipeline's). The Karras,
+exponential and beta ladders convert the shifted sigmas, as in JAX. With
+`stochastic_sampling` a step re-noises the x0 prediction to the next sigma
+with `variance_noise`, or a draw from `generator`, and raises with neither,
+as JAX's does without a PRNG key.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 
 from ..configuration_utils import ConfigMixin, register_to_config
 from ..utils import BaseOutput
-from .scheduling_utils import SchedulerMixin, broadcast_to_left, index_for_timestep
+from .scheduling_utils import SchedulerMixin, broadcast_to_left, index_for_timestep, step_noise
+from .sigma_utils import convert_to_beta, convert_to_exponential, convert_to_karras
 
 
 @dataclass
@@ -64,10 +67,6 @@ class FlowMatchEulerDiscreteScheduler(SchedulerMixin, ConfigMixin):
         time_shift_type: str = "exponential",
         stochastic_sampling: bool = False,
     ):
-        if use_karras_sigmas or use_exponential_sigmas or use_beta_sigmas:
-            raise NotImplementedError("Karras/exponential/beta sigma ladders are not ported yet")
-        if stochastic_sampling:
-            raise NotImplementedError("stochastic sampling is not ported yet")
         if time_shift_type not in ("exponential", "linear"):
             raise ValueError("`time_shift_type` must be 'exponential' or 'linear'.")
         timesteps = np.linspace(1, num_train_timesteps, num_train_timesteps, dtype=np.float32)[::-1].copy()
@@ -118,6 +117,10 @@ class FlowMatchEulerDiscreteScheduler(SchedulerMixin, ConfigMixin):
             sigmas = self.config.shift * sigmas / (1 + (self.config.shift - 1) * sigmas)
         if self.config.shift_terminal:
             sigmas = self.stretch_shift_to_terminal(sigmas)
+        ladder = (convert_to_karras if self.config.use_karras_sigmas else convert_to_exponential
+                  if self.config.use_exponential_sigmas else convert_to_beta if self.config.use_beta_sigmas else None)
+        if ladder is not None:
+            sigmas = ladder(sigmas, num_inference_steps)
 
         sigmas = np.asarray(sigmas, dtype=np.float32)
         timesteps = sigmas * self.config.num_train_timesteps
@@ -155,23 +158,35 @@ class FlowMatchEulerDiscreteScheduler(SchedulerMixin, ConfigMixin):
         timestep,
         sample: torch.Tensor,
         per_token_timesteps: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        variance_noise: Optional[torch.Tensor] = None,
         return_dict: bool = True,
     ):
         """``x + (sigma_next - sigma) v`` in float32, cast to the model
-        output's dtype. With `per_token_timesteps` ([B, S], train-timestep
-        units; the LTX condition pipeline's), each token of ``[B, S, C]``
-        steps from its own sigma to the largest sigma of the schedule
-        strictly below it, or 0 (JAX `:164-191`)."""
+        output's dtype; with `stochastic_sampling`, ``(1 - sigma_next) x0 +
+        sigma_next noise`` with ``x0 = x - sigma v``. With
+        `per_token_timesteps` ([B, S], train-timestep units; the LTX
+        condition pipeline's), each token of ``[B, S, C]`` steps from its own
+        sigma to the largest sigma of the schedule strictly below it, or 0
+        (JAX `:164-191`)."""
         if per_token_timesteps is not None:
             sigma = per_token_timesteps.float() / self.config.num_train_timesteps  # [B, S]
             grid = state.sigmas.to(device=sigma.device, dtype=torch.float32)[:, None, None]
             zero = torch.zeros((), dtype=torch.float32, device=sigma.device)
-            lower = torch.where(grid < sigma[None] - 1e-6, grid, zero).amax(dim=0)
-            dt = (lower - sigma)[..., None]
+            sigma_next = torch.where(grid < sigma[None] - 1e-6, grid, zero).amax(dim=0)[..., None]
+            sigma = sigma[..., None]
+            dt = sigma_next - sigma
         else:
             idx = index_for_timestep(state.timesteps, timestep)
-            dt = float(state.sigmas[idx + 1] - state.sigmas[idx])  # f32 difference, as in JAX
-        prev_sample = (sample.float() + dt * model_output.float()).to(model_output.dtype)
+            sigma, sigma_next = state.sigmas[idx], state.sigmas[idx + 1]
+            dt = float(sigma_next - sigma)  # f32 difference, as in JAX
+            sigma, sigma_next = float(sigma), float(sigma_next)
+        if self.config.stochastic_sampling:
+            x0 = sample.float() - sigma * model_output.float()
+            noise = step_noise(variance_noise, generator, sample, "stochastic_sampling")
+            prev_sample = ((1.0 - sigma_next) * x0 + sigma_next * noise).to(model_output.dtype)
+        else:
+            prev_sample = (sample.float() + dt * model_output.float()).to(model_output.dtype)
         if not return_dict:
             return (prev_sample,)
         return FlowMatchEulerDiscreteSchedulerOutput(prev_sample=prev_sample, state=state)

@@ -52,6 +52,10 @@ class SchedulerMixin(ConfigMixin):
     def save_pretrained(self, save_directory, **kwargs):
         self.save_config(save_directory=save_directory, **kwargs)
 
+    @property
+    def compatibles(self):
+        return [self.__class__]
+
 
 def betas_for_alpha_bar(
     num_diffusion_timesteps: int,
@@ -167,7 +171,97 @@ def sqrt_alpha_terms(alphas_cumprod, sample: torch.Tensor, timesteps):
     return broadcast_to_left(acp**0.5, sample.ndim), broadcast_to_left((1 - acp) ** 0.5, sample.ndim)
 
 
+def threshold_sample(sample: torch.Tensor, ratio: float, max_value: float) -> torch.Tensor:
+    """Dynamic thresholding (Imagen): each row clipped to its `ratio`
+    quantile of |x| (at least 1, at most `max_value`) and divided by it."""
+    flat = sample.float().reshape(sample.shape[0], -1)
+    s = torch.quantile(flat.abs(), ratio, dim=1).clamp(1, max_value)[:, None]
+    return (torch.maximum(torch.minimum(flat, s), -s) / s).reshape(sample.shape).to(sample.dtype)
+
+
+def step_noise(variance_noise, generator, like: torch.Tensor, what: str) -> torch.Tensor:
+    """A step's standard-normal noise in float32 on `like`'s device: the
+    injected `variance_noise`, else a draw from `generator`; with neither the
+    step raises, as JAX's does without a PRNG key."""
+    if variance_noise is not None:
+        return variance_noise.to(device=like.device, dtype=torch.float32)
+    if generator is None:
+        raise ValueError(f"{what} requires a generator or variance_noise")
+    return torch.randn(tuple(like.shape), generator=generator, device=generator.device,
+                       dtype=torch.float32).to(like.device)
+
+
+def vp_alpha_sigma(sigma: torch.Tensor):
+    """(alpha_t, sigma_t) of a variance-preserving sigma, on the host in float32."""
+    alpha_t = 1 / ((sigma**2 + 1) ** 0.5)
+    return alpha_t, sigma * alpha_t
+
+
+def log_snr(alpha_t: torch.Tensor, sigma_t: torch.Tensor) -> torch.Tensor:
+    """lambda = log(alpha_t) - log(sigma_t), sigma_t floored at 1e-20."""
+    return torch.log(alpha_t) - torch.log(torch.clamp_min(sigma_t, 1e-20))
+
+
+def add_vp_noise(state, original_samples: torch.Tensor, noise: torch.Tensor, timesteps,
+                 alpha_sigma=vp_alpha_sigma) -> torch.Tensor:
+    """``alpha_t x + sigma_t noise`` at each row's timestep, found in the
+    schedule by equality (the first entry when absent, as JAX's argmax); the
+    coefficients are cast to the sample's dtype first, as in JAX (the
+    `add_noise` of the DPM-Solver family)."""
+    ts = torch.as_tensor(timesteps).reshape(-1)
+    alpha_t, sigma_t = alpha_sigma(state.sigmas[[index_for_timestep(state.timesteps, t) for t in ts]])
+    dtype, ndim, device = original_samples.dtype, original_samples.ndim, original_samples.device
+    alpha_t = broadcast_to_left(alpha_t.to(device=device, dtype=dtype), ndim)
+    sigma_t = broadcast_to_left(sigma_t.to(device=device, dtype=dtype), ndim)
+    return alpha_t * original_samples + sigma_t * noise
+
+
 def index_for_timestep(timesteps: torch.Tensor, timestep) -> int:
     """Position of `timestep` in the (descending) inference schedule. The
     schedule lives on the host, so this never waits for the device."""
     return int(torch.argmax((timesteps == float(timestep)).int()))
+
+
+# ------------------------------------------- the k-diffusion samplers
+
+
+def k_spaced_timesteps(spacing: str, num_inference_steps: int, num_train_timesteps: int,
+                       steps_offset: int) -> np.ndarray:
+    """The k-diffusion samplers' float32 timesteps: linspace, leading or trailing."""
+    if spacing == "linspace":
+        return np.linspace(0, num_train_timesteps - 1, num_inference_steps, dtype=np.float32)[::-1].copy()
+    if spacing == "leading":
+        step_ratio = num_train_timesteps // num_inference_steps
+        ts = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1].copy().astype(np.float32)
+        return ts + steps_offset
+    if spacing == "trailing":
+        step_ratio = num_train_timesteps / num_inference_steps
+        return (np.arange(num_train_timesteps, 0, -step_ratio)).round().copy().astype(np.float32) - 1
+    raise ValueError(f"unsupported timestep_spacing {spacing}")
+
+
+def k_init_noise_sigma(sigmas: np.ndarray, spacing: str) -> float:
+    return float(sigmas.max()) if spacing in ("linspace", "trailing") else float((sigmas.max() ** 2 + 1) ** 0.5)
+
+
+def k_pred_original(kind: str, model_output: torch.Tensor, sample: torch.Tensor, sigma: torch.Tensor,
+                    allow_sample: bool = True) -> torch.Tensor:
+    """x0 of a k-diffusion model output at `sigma` (a float32 host scalar)."""
+    if kind == "epsilon":
+        return sample - float(sigma) * model_output
+    if kind == "v_prediction":
+        return model_output * float(-sigma / (sigma**2 + 1) ** 0.5) + sample / float(sigma**2 + 1)
+    if kind == "sample" and allow_sample:
+        return model_output
+    raise ValueError(f"unsupported prediction_type {kind}")
+
+
+def add_sigma_noise(state, original_samples: torch.Tensor, noise: torch.Tensor, timesteps) -> torch.Tensor:
+    """``x + noise * sigma(t)``, one t per batch row (or one for all), each a
+    value of the schedule found by equality (JAX's `add_noise` of the
+    k-diffusion samplers)."""
+    ts = torch.as_tensor(timesteps, dtype=state.timesteps.dtype).reshape(-1)
+    sigma = state.sigmas[[index_for_timestep(state.timesteps, t) for t in ts]]
+    sigma = broadcast_to_left(sigma.to(device=original_samples.device, dtype=original_samples.dtype),
+                              original_samples.ndim)
+    return original_samples + noise * sigma
